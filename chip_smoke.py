@@ -3,16 +3,19 @@
 
     python3 chip_smoke.py [--rows N]
 
-Builds every CUDA kernel of the port from the sources in this checkout,
-holds each kernel against its plain PyTorch version on the card, then runs
-TPC-H Q1 end to end through ``spark_rapids_tpu_torch.entry.run_q1`` (Arrow
-upload, filter, partial aggregate, hash exchange, final aggregate, sort,
-collect) at the SF10 lineitem row count, checks the result against an
-independent pyarrow oracle, and shows through the kernels' launch counts
-that the run went through them.
+Builds every CUDA kernel of the port from the sources in this checkout (one
+``nvcc`` per source, all at once), holds each kernel against its plain
+PyTorch version on the card, then runs the port's two paths end to end
+through ``spark_rapids_tpu_torch.entry`` (Arrow upload, filter, partial
+aggregate, hash exchange, final aggregate, sort, collect): TPC-H Q1 at the
+SF10 lineitem row count (``--rows``), and the part stage of TPC-H Q16 at
+the SF100 part row count. Each result is checked against
+an independent pyarrow oracle, and each path's kernel launch counts, set to
+0 just before its first run and read just after, show that it went through
+its kernels.
 
 Prints, in order: the card's name and power limit, the build time, each
-kernel check with its times and bound, the Q1 check with its times, a
+kernel check with its times and bound, each path's check with its times, a
 ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device": ...}``.
 Any failed phase raises, so the exit code is not 0 and no result line is
 printed. Without CUDA it exits 1 at once.
@@ -29,6 +32,17 @@ import time
 
 #: TPC-H SF10 lineitem rows
 SF10_LINEITEM_ROWS = 59_986_052
+#: TPC-H SF100 part rows (spec: SF x 200,000)
+SF100_PART_ROWS = 20_000_000
+#: the Q16 part stage's input slices (2,500,000 rows, capacity 2^22, each)
+#: and shuffle partitions
+Q16_SLICES = 8
+Q16_SHUFFLE_PARTITIONS = 8
+#: groups of the Q16 part stage once every combination is present:
+#: 24 brands x 145 types x 8 sizes
+Q16_GROUPS = 27_840
+#: numpy seed of the part data
+PART_SEED = 16
 #: Q1's input slices (capacity 2^23 each at SF10) and shuffle partitions
 Q1_SLICES = 8
 Q1_SHUFFLE_PARTITIONS = 8
@@ -89,22 +103,33 @@ MURMUR3_BYTES_PER_ROW = 13      # 4 data + 1 validity + 4 seed in, 4 out
 MURMUR3_OPS_PER_ROW = 22        # mixes, rotates, xors, fmix, select
 
 
-def check_murmur3(dev) -> dict:
+def check_murmur3(dev, part) -> dict:
     """The kernel against its plain version, bit for bit, with random
-    validity and chained seeds over two key columns."""
+    validity and chained seeds over two key columns. At the Q16 part
+    stage's capacity the first column is p_size of ``part`` (one scanned
+    slice) and its seeds are the running hash of p_brand and p_type, as in
+    that stage's exchange."""
     import numpy as np
     import torch
+    from spark_rapids_tpu_torch.expressions.hashing import (DEFAULT_SEED,
+                                                            hash_column)
     from spark_rapids_tpu_torch.kernels.murmur3 import (murmur3_int32,
                                                         murmur3_int32_plain)
     rng = np.random.default_rng(11)
     max_err = 0
     timing = None
-    for n in (MURMUR3_PATH_ROWS, 1_000_003, 1):
+    for n in (MURMUR3_PATH_ROWS, part.capacity, 1_000_003, 1):
         cols = [torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64)
                                  .astype(np.int32)).to(dev) for _ in range(2)]
         valid = [torch.from_numpy(rng.random(n) > 0.1).to(dev)
                  for _ in range(2)]
-        seed = torch.full((n,), 42, dtype=torch.int32, device=dev)
+        seed = torch.full((n,), DEFAULT_SEED, dtype=torch.int32, device=dev)
+        what = "two chained columns"
+        if n == part.capacity:
+            brand, ptype, size = part.columns
+            seed = hash_column(ptype, hash_column(brand, DEFAULT_SEED))
+            cols[0], valid[0] = size.data, size.validity
+            what = "p_size seeded by the p_brand, p_type hash, then a column"
         k1 = murmur3_int32(cols[0], valid[0], seed)
         k2 = murmur3_int32(cols[1], valid[1], k1)
         p1 = murmur3_int32_plain(cols[0], valid[0], seed)
@@ -112,7 +137,7 @@ def check_murmur3(dev) -> dict:
         torch.cuda.synchronize()
         err = max(int((k1.long() - p1.long()).abs().max()),
                   int((k2.long() - p2.long()).abs().max()))
-        print(f"murmur3_int32 n={n}: kernel vs plain, two chained columns, "
+        print(f"murmur3_int32 n={n}: kernel vs plain, {what}, "
               f"max_abs_err={err}")
         if err != 0:
             raise AssertionError(f"murmur3_int32 disagrees with its plain "
@@ -138,6 +163,142 @@ def check_murmur3(dev) -> dict:
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# window_match substring-search kernel
+# ---------------------------------------------------------------------------
+
+#: the Q16 part stage searches each slice's p_type column, at its capacity
+#: (2^22 rows) and the scan width (64 bytes), for 'MEDIUM POLISHED'
+SEARCH_PATH_ROWS = 1 << 22
+SEARCH_PATH_MAX_LEN = 64
+SEARCH_PATH_PATTERN = b"MEDIUM POLISHED"
+
+
+def search_bound_ms(n: int, max_len: int, k: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of one match matrix: each row
+    reads max_len bytes and a 4-byte length and writes max_len bytes; the
+    work is n * max_len windows of k byte compares."""
+    bytes_ms = n * (2 * max_len + 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * max_len * k / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def search_rows(n: int, max_len: int, rng):
+    """(data, lengths) on the host for the mismatch check: a third real
+    p_type values cut to max_len bytes, a third drawn from {'A', 0xC3} (a
+    byte >= 0x80) at random lengths, a third 0xC3 repeated, zero past each
+    length."""
+    import numpy as np
+    from spark_rapids_tpu_torch import entry
+    types = np.zeros((len(entry.P_TYPES), max_len), np.uint8)
+    type_len = np.zeros(len(entry.P_TYPES), np.int32)
+    for i, v in enumerate(entry.P_TYPES):
+        b = v.encode()[:max_len]
+        types[i, :len(b)] = np.frombuffer(b, np.uint8)
+        type_len[i] = len(b)
+    group = rng.integers(0, 3, n)
+    codes = rng.integers(0, len(entry.P_TYPES), n)
+    alphabet = np.array([0x41, 0xC3], np.uint8)
+    drawn = alphabet[rng.integers(0, 2, (n, max_len), dtype=np.uint8)]
+    data = np.where((group == 0)[:, None], types[codes],
+                    np.where((group == 1)[:, None], drawn, np.uint8(0xC3)))
+    lengths = np.where(group == 0, type_len[codes],
+                       rng.integers(0, max_len + 1, n)).astype(np.int32)
+    data[np.arange(max_len)[None, :] >= lengths[:, None]] = 0
+    return data, lengths
+
+
+def part_slice(dev):
+    """One slice of the Q16 part stage's input as its scan uploads it: an
+    eighth of the SF100 part rows at capacity 2^22, strings at the scan
+    width. The kernel checks run on it at the shapes the path gives."""
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.batch import from_arrow
+    rows = -(-SF100_PART_ROWS // Q16_SLICES)
+    batch, _ = from_arrow(entry.part_table(rows, PART_SEED),
+                          string_max_len=entry.STRING_MAX_LEN, device=dev)
+    if batch.capacity != SEARCH_PATH_ROWS:
+        raise AssertionError(f"a part slice of {rows} rows has capacity "
+                             f"{batch.capacity}, not {SEARCH_PATH_ROWS}")
+    return batch
+
+
+def search_pattern(k: int) -> bytes:
+    return (SEARCH_PATH_PATTERN if k <= len(SEARCH_PATH_PATTERN)
+            else b"\xc3" * k)[:k]
+
+
+def check_window_match(dev, part) -> dict:
+    """The kernel against its plain version at every (n, max_len, k), on a
+    view that is not 16-byte aligned, and on the real p_type column of
+    ``part`` (one scanned slice of the Q16 part stage); then both timed on
+    that column, at the path's pattern length and at k = 5."""
+    import numpy as np
+    import torch
+    from spark_rapids_tpu_torch.kernels.string_search import (
+        window_match, window_match_plain)
+    rng = np.random.default_rng(12)
+    ptype = part.columns[1]
+
+    def cases():
+        """(label, data, lengths) on the device, made one at a time."""
+        for n in (SEARCH_PATH_ROWS, 1_000_003, 1):
+            for ml in (SEARCH_PATH_MAX_LEN, 25, 10):
+                host, host_len = search_rows(n, ml, rng)
+                yield (f"n={n} max_len={ml}", torch.from_numpy(host).to(dev),
+                       torch.from_numpy(host_len).to(dev))
+        # a contiguous view one 25-byte row in, not 16-byte aligned: the
+        # wrapper copies it before the launch
+        host, host_len = search_rows(1_000_004, 25, rng)
+        yield ("n=1000003 max_len=25 view one row in",
+               torch.from_numpy(host).to(dev)[1:],
+               torch.from_numpy(host_len).to(dev)[1:])
+        yield (f"n={ptype.capacity} max_len={ptype.data.shape[1]} p_type "
+               f"slice", ptype.data, ptype.lengths)
+
+    worst = 0
+    for label, data, lengths in cases():
+        ml = data.shape[1]
+        for k in sorted({1, 5, 15, ml}):
+            if k > ml:
+                continue
+            pat = search_pattern(k)
+            got = window_match(data, lengths, pat)
+            ref = window_match_plain(data, lengths, pat)
+            torch.cuda.synchronize()
+            bad = int((got != ref).sum())
+            print(f"window_match {label} k={k}: {int(ref.sum())} matches, "
+                  f"{bad} mismatches")
+            if bad:
+                raise AssertionError(f"window_match disagrees with its "
+                                     f"plain version at {label} k={k}")
+            worst = max(worst, bad)
+    # timed at the path's shape on the rows the path gives the kernel
+    data, lengths = ptype.data, ptype.lengths
+    timed = {}
+    for k in (5, len(SEARCH_PATH_PATTERN)):
+        pat = search_pattern(k)
+        timed[k] = (
+            time_cuda_ms(lambda: window_match(data, lengths, pat), 50),
+            time_cuda_ms(lambda: window_match_plain(data, lengths, pat), 5))
+    n, ml = data.shape
+    for k, (ms, plain_ms) in sorted(timed.items()):
+        bound_ms, by = search_bound_ms(n, ml, k)
+        print(f"window_match p_type slice n={n} max_len={ml} k={k}: "
+              f"kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; "
+              f"{bound_ms / ms:.1%} of it)")
+    k = len(SEARCH_PATH_PATTERN)
+    ms, plain_ms = timed[k]
+    bound_ms, by = search_bound_ms(n, ml, k)
+    return {"name": "window_match", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/string_search.cu",
+            "replaces": "spark_rapids_tpu/kernels/string_search.py:51",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -168,55 +329,101 @@ def check_q1_result(got, expected) -> float:
     return worst
 
 
-def run_q1_phase(args, dev, counted) -> dict:
+def check_q16_part_result(got, expected) -> None:
+    """Every group, count and row position exact."""
+    if got.num_rows != Q16_GROUPS:
+        raise AssertionError(f"{got.num_rows} groups, not {Q16_GROUPS}")
+    if not got.equals(expected):
+        raise AssertionError("the Q16 part stage differs from the pyarrow "
+                             "oracle")
+
+
+def run_path(name: str, rows: int, make_table, reference, run, check, dev,
+             counted) -> dict:
+    """One path end to end: make its data and its oracle's answer, run it
+    cold with every kernel's launch count set to 0 just before, check it and
+    read the counts, then three warm runs. Returns the launches per kernel
+    of the cold run; fails if a kernel of the path was not launched."""
     import torch
-    from spark_rapids_tpu_torch import entry
     t0 = time.perf_counter()
-    table = entry.lineitem_table(args.rows, DATA_SEED)
+    table = make_table(rows)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    expected = entry.q1_reference(table)
+    expected = reference(table)
     oracle_s = time.perf_counter() - t0
-    print(f"q1: {args.rows} rows made in {gen_s:.2f} s; pyarrow oracle "
+    print(f"{name}: {rows} rows made in {gen_s:.2f} s; pyarrow oracle "
           f"{oracle_s:.2f} s")
 
     torch.cuda.reset_peak_memory_stats(dev)
     for wrapper in counted:
         wrapper.launches = 0
     t0 = time.perf_counter()
-    got = entry.run_q1(table, Q1_SLICES, Q1_SHUFFLE_PARTITIONS, device=dev)
+    got = run(table)
     torch.cuda.synchronize(dev)
     cold_s = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in counted}
-    worst = check_q1_result(got, expected)
-    print(f"q1: matches the pyarrow oracle ({got.num_rows} groups; keys, "
-          f"counts and int sums exact; float max rel err {worst:.3g} <= "
-          f"{FLOAT_REL_TOL})")
-    print(f"q1: kernel launches in the run: {launches}")
-    for name, n in launches.items():
+    detail = check(got, expected)
+    print(f"{name}: matches the pyarrow oracle ({got.num_rows} groups"
+          f"{detail or ''})")
+    print(f"{name}: kernel launches in the run: {launches}")
+    for kernel, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"{name} was not launched by the Q1 run")
+            raise AssertionError(f"{kernel} was not launched by the {name} "
+                                 f"run")
 
     warm = []
     for _ in range(3):
         t0 = time.perf_counter()
-        again = entry.run_q1(table, Q1_SLICES, Q1_SHUFFLE_PARTITIONS,
-                             device=dev)
+        again = run(table)
         torch.cuda.synchronize(dev)
         warm.append(time.perf_counter() - t0)
-        check_q1_result(again, expected)
+        check(again, expected)
     warm_s = statistics.median(warm)
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"q1: {Q1_SLICES} slices, {Q1_SHUFFLE_PARTITIONS} shuffle "
-          f"partitions; cold {cold_s:.3f} s, warm median {warm_s:.3f} s of "
-          f"{[round(w, 4) for w in warm]}, {args.rows / warm_s:,.0f} rows/s;"
+    print(f"{name}: cold {cold_s:.3f} s, warm median {warm_s:.3f} s of "
+          f"{[round(w, 4) for w in warm]}, {rows / warm_s:,.0f} rows/s;"
           f" device memory peak {peak / 2**30:.2f} GiB")
+    return launches
+
+
+def run_q1_phase(args, dev, counted) -> dict:
+    from spark_rapids_tpu_torch import entry
+
+    def check(got, expected):
+        worst = check_q1_result(got, expected)
+        return (f"; keys, counts and int sums exact; float max rel err "
+                f"{worst:.3g} <= {FLOAT_REL_TOL}")
+
+    print(f"q1: {Q1_SLICES} slices, {Q1_SHUFFLE_PARTITIONS} shuffle "
+          f"partitions")
+    return run_path(
+        "q1", args.rows, lambda n: entry.lineitem_table(n, DATA_SEED),
+        entry.q1_reference,
+        lambda t: entry.run_q1(t, Q1_SLICES, Q1_SHUFFLE_PARTITIONS,
+                               device=dev), check, dev, counted)
+
+
+def run_q16_part_phase(dev, counted) -> dict:
+    from spark_rapids_tpu_torch import entry
+    print(f"q16 part stage: {Q16_SLICES} slices, {Q16_SHUFFLE_PARTITIONS} "
+          f"shuffle partitions, strings at {entry.STRING_MAX_LEN} bytes")
+    launches = run_path(
+        "q16_part", SF100_PART_ROWS,
+        lambda n: entry.part_table(n, PART_SEED), entry.q16_part_reference,
+        lambda t: entry.run_q16_part(t, Q16_SLICES, Q16_SHUFFLE_PARTITIONS,
+                                     device=dev),
+        check_q16_part_result, dev, counted)
+    if launches["window_match"] != Q16_SLICES:
+        raise AssertionError(f"window_match launched "
+                             f"{launches['window_match']} times, not once "
+                             f"per slice ({Q16_SLICES})")
     return launches
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", type=int, default=SF10_LINEITEM_ROWS)
+    ap.add_argument("--rows", type=int, default=SF10_LINEITEM_ROWS,
+                    help="Q1's lineitem rows (default: SF10)")
     args = ap.parse_args(argv)
 
     import torch
@@ -225,6 +432,7 @@ def main(argv=None) -> int:
         return 1
     from spark_rapids_tpu_torch.kernels import build
     from spark_rapids_tpu_torch.kernels.murmur3 import murmur3_int32
+    from spark_rapids_tpu_torch.kernels.string_search import window_match
     dev = torch.device("cuda", 0)
     print(card_line())
 
@@ -237,10 +445,14 @@ def main(argv=None) -> int:
                           if "registers" in line or "spill" in line)
         print(f"build {name}: {secs:.2f} s; {info}")
 
-    kernels = [check_murmur3(dev)]
-    launches = run_q1_phase(args, dev, [murmur3_int32])
+    part = part_slice(dev)
+    kernels = [check_murmur3(dev, part), check_window_match(dev, part)]
+    del part
+    # each path's own kernels, counted from 0 over its first run
+    runs = [run_q1_phase(args, dev, [murmur3_int32]),
+            run_q16_part_phase(dev, [murmur3_int32, window_match])]
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = sum(r.get(k["name"], 0) for r in runs)
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]

@@ -1,10 +1,14 @@
 """Columnar data plane: device columns and batches.
 
-Port of ``spark_rapids_tpu/batch.py`` for fixed-width columns. The batch
-contract is unchanged, so intermediates compare array for array with the JAX
-package: every column is a tensor of a power-of-two ``capacity`` plus a bool
-validity mask, ``num_rows`` is an int32 scalar tensor on the batch's device,
-and every row in ``[num_rows, capacity)`` is dead (invalid, zero payload).
+Port of ``spark_rapids_tpu/batch.py`` for fixed-width and string columns.
+The batch contract is unchanged, so intermediates compare array for array
+with the JAX package: every column is a tensor of a power-of-two
+``capacity`` rows plus a bool validity mask, ``num_rows`` is an int32
+scalar tensor on the batch's device, and every row in
+``[num_rows, capacity)`` is dead (invalid, zero payload). A string column's
+payload is ``uint8[capacity, max_len]``, zero past each value's end, with
+its byte lengths in ``int32[capacity]``; a null row has length 0 and no
+bytes.
 
 Host interchange is Arrow. ``from_arrow`` is the H2D boundary, ``to_arrow``
 the D2H one; ``batch_from_numpy`` rebuilds a batch from arrays taken out of
@@ -27,6 +31,10 @@ from .types import SqlType, TypeKind
 MIN_CAPACITY = 128
 
 DeviceLike = Union[str, torch.device, None]
+
+
+class StringOverflowError(ValueError):
+    """A string exceeded its column's device ``max_len`` byte budget."""
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -87,19 +95,24 @@ class Schema:
 
 @dataclass(frozen=True)
 class DeviceColumn:
-    """One column on the device: payload + validity, both [capacity]."""
+    """One column on the device: payload + validity, both [capacity] rows
+    (+ byte lengths for strings, whose payload is [capacity, max_len])."""
 
     data: torch.Tensor
     validity: torch.Tensor          # bool; False beyond num_rows
     dtype: SqlType = T.INT32
+    lengths: Optional[torch.Tensor] = None      # int32[capacity], strings
 
     @property
     def capacity(self) -> int:
         return self.validity.shape[0]
 
     def size_bytes(self) -> int:
-        return (self.data.numel() * self.data.element_size()
-                + self.validity.numel())
+        n = (self.data.numel() * self.data.element_size()
+             + self.validity.numel())
+        if self.lengths is not None:
+            n += self.lengths.numel() * 4
+        return n
 
 
 @dataclass(frozen=True)
@@ -167,36 +180,108 @@ def _scalar_storage(arr: pa.Array, dtype: SqlType) -> np.ndarray:
                       dtype=T.numpy_dtype(dtype))
 
 
+def _validity(arr: pa.Array, capacity: int,
+              device: torch.device) -> torch.Tensor:
+    if arr.null_count:
+        return _padded(np.asarray(arr.is_valid()), torch.bool, capacity,
+                       device)
+    return torch.arange(capacity, device=device) < len(arr)
+
+
+def _string_offsets(arr: pa.Array, max_len: int
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(starts int32[n], lengths int32[n], chars uint8[]) of a string array:
+    the Arrow offsets and character buffer as they are, with null rows at
+    length 0. Raises ``StringOverflowError`` for a value over ``max_len``
+    bytes, checked here on the host from the offsets alone."""
+    if arr.type == pa.large_string():
+        arr = arr.cast(pa.string())
+    n = len(arr)
+    if n == 0:
+        return (np.zeros(0, np.int32), np.zeros(0, np.int32),
+                np.zeros(0, np.uint8))
+    bufs = arr.buffers()
+    offsets = np.frombuffer(bufs[1], dtype=np.int32, count=n + 1,
+                            offset=arr.offset * 4)
+    lengths = np.diff(offsets)
+    if arr.null_count:
+        lengths = np.where(np.asarray(arr.is_valid()), lengths, 0)
+    if int(lengths.max()) > max_len:
+        raise StringOverflowError(
+            f"string of {int(lengths.max())} bytes exceeds device max_len "
+            f"{max_len}; re-bucket the column")
+    first, last = int(offsets[0]), int(offsets[-1])
+    chars = (np.frombuffer(bufs[2], dtype=np.uint8)[first:last]
+             if bufs[2] is not None else np.zeros(0, np.uint8))
+    return offsets[:-1] - np.int32(first), lengths.astype(np.int32), chars
+
+
+def _matrix_from_offsets(starts: torch.Tensor, lengths: torch.Tensor,
+                         chars: torch.Tensor, max_len: int) -> torch.Tensor:
+    """The padded ``uint8[n, max_len]`` matrix of strings given by their
+    start offsets into ``chars`` and their byte lengths, built on the
+    tensors' device: byte j of row i is ``chars[starts[i] + j]`` below
+    ``lengths[i]`` and 0 from there."""
+    cols = torch.arange(max_len, device=chars.device)
+    mask = cols[None, :] < lengths[:, None]
+    if chars.numel() == 0:
+        return torch.zeros(mask.shape, dtype=torch.uint8, device=chars.device)
+    index = (starts.to(torch.int64)[:, None] + cols[None, :]).clamp_(
+        max=chars.numel() - 1)
+    return torch.where(mask, chars[index], 0)
+
+
+def _string_column(arr: pa.Array, dtype: SqlType, capacity: int,
+                   device: torch.device) -> DeviceColumn:
+    """Upload a string array as the offsets and characters Arrow holds
+    (about the strings' own bytes, not ``max_len`` a row) and build the
+    padded matrix on the device."""
+    n = len(arr)
+    if n > capacity:
+        raise ValueError(f"{n} rows exceed capacity {capacity}")
+    starts, lengths, chars = _string_offsets(arr, dtype.max_len)
+    data = torch.zeros((capacity, dtype.max_len), dtype=torch.uint8,
+                       device=device)
+    plen = _padded(lengths, torch.int32, capacity, device)
+    if n:
+        data[:n] = _matrix_from_offsets(
+            _host_tensor(starts).to(device), plen[:n],
+            _host_tensor(chars).to(device), dtype.max_len)
+    return DeviceColumn(data, _validity(arr, capacity, device), dtype, plen)
+
+
 def column_from_arrow(arr, dtype: SqlType, capacity: int,
                       device: torch.device) -> DeviceColumn:
     arr = arr.combine_chunks() if isinstance(arr, pa.ChunkedArray) else arr
-    n = len(arr)
+    if pa.types.is_dictionary(arr.type):
+        raise NotImplementedError(
+            "dictionary-encoded arrays come with the dictionary-encoding "
+            "slice (dictenc); decode them first")
+    if dtype.kind is TypeKind.STRING:
+        return _string_column(arr, dtype, capacity, device)
     data = _padded(_scalar_storage(arr, dtype), dtype.storage_dtype,
                    capacity, device)
-    if arr.null_count:
-        validity = _padded(np.asarray(arr.is_valid()), torch.bool, capacity,
-                           device)
-    else:
-        validity = torch.arange(capacity, device=device) < n
-    return DeviceColumn(data, validity, dtype)
+    return DeviceColumn(data, _validity(arr, capacity, device), dtype)
 
 
-def schema_from_arrow(schema: pa.Schema) -> Schema:
-    return Schema([Field(f.name, T.from_arrow(f.type), f.nullable)
+def schema_from_arrow(schema: pa.Schema, string_max_len: int = 64) -> Schema:
+    return Schema([Field(f.name, T.from_arrow(f.type, string_max_len),
+                         f.nullable)
                    for f in schema])
 
 
 def from_arrow(table: pa.Table, capacity: Optional[int] = None,
-               schema: Optional[Schema] = None,
+               schema: Optional[Schema] = None, string_max_len: int = 64,
                device: DeviceLike = None) -> Tuple[ColumnarBatch, Schema]:
     """Build a device batch from an Arrow table.
 
-    Without a schema, nullability is tightened from the data: a null-free
-    column becomes non-nullable, as in the JAX package, which lets the
-    aggregate skip its validity payload lane."""
+    Without a schema, string columns get ``string_max_len`` bytes and
+    nullability is tightened from the data: a null-free column becomes
+    non-nullable, as in the JAX package, which lets the aggregate skip its
+    validity payload lane."""
     dev = resolve_device(device)
     if schema is None:
-        schema = schema_from_arrow(table.schema)
+        schema = schema_from_arrow(table.schema, string_max_len)
         schema = Schema([Field(f.name, f.dtype,
                                f.nullable and table.column(i).null_count > 0)
                          for i, f in enumerate(schema)])
@@ -207,26 +292,41 @@ def from_arrow(table: pa.Table, capacity: Optional[int] = None,
     return ColumnarBatch(cols, rows_scalar(n, dev)), schema
 
 
-def batch_from_numpy(columns: Sequence[Tuple[np.ndarray, np.ndarray]],
+def batch_from_numpy(columns: Sequence[Tuple[np.ndarray, ...]],
                      num_rows: int, schema: Schema,
                      device: DeviceLike = None) -> ColumnarBatch:
-    """Rebuild a batch from ``(data, validity)`` numpy pairs at full
-    capacity, e.g. the arrays of a JAX package batch."""
+    """Rebuild a batch from numpy arrays at full capacity, e.g. the arrays
+    of a JAX package batch: ``(data, validity)`` per column, and
+    ``(data, validity, lengths)`` for a string column."""
     dev = resolve_device(device)
     cols = []
-    for (data, validity), f in zip(columns, schema):
+    for arrays, f in zip(columns, schema):
+        data, validity = arrays[0], arrays[1]
         d = torch.from_numpy(np.asarray(data, dtype=T.numpy_dtype(f.dtype)))
         v = torch.from_numpy(np.asarray(validity, dtype=np.bool_))
-        cols.append(DeviceColumn(d.to(dev), v.to(dev), f.dtype))
+        lengths = None
+        if f.dtype.kind is TypeKind.STRING:
+            lengths = torch.from_numpy(
+                np.asarray(arrays[2], dtype=np.int32)).to(dev)
+        cols.append(DeviceColumn(d.to(dev), v.to(dev), f.dtype, lengths))
     return ColumnarBatch(tuple(cols), rows_scalar(num_rows, dev))
+
+
+def empty_column(dtype: SqlType, device: torch.device,
+                 capacity: int = MIN_CAPACITY) -> DeviceColumn:
+    validity = torch.zeros(capacity, dtype=torch.bool, device=device)
+    if dtype.kind is TypeKind.STRING:
+        return DeviceColumn(
+            torch.zeros((capacity, dtype.max_len), dtype=torch.uint8,
+                        device=device), validity, dtype,
+            torch.zeros(capacity, dtype=torch.int32, device=device))
+    return DeviceColumn(torch.zeros(capacity, dtype=dtype.storage_dtype,
+                                    device=device), validity, dtype)
 
 
 def empty_batch(schema: Schema, device: torch.device,
                 capacity: int = MIN_CAPACITY) -> ColumnarBatch:
-    cols = tuple(DeviceColumn(
-        torch.zeros(capacity, dtype=f.dtype.storage_dtype, device=device),
-        torch.zeros(capacity, dtype=torch.bool, device=device), f.dtype)
-        for f in schema)
+    cols = tuple(empty_column(f.dtype, device, capacity) for f in schema)
     return ColumnarBatch(cols, rows_scalar(0, device))
 
 
@@ -234,12 +334,31 @@ def empty_batch(schema: Schema, device: torch.device,
 # Device -> host (the collect boundary)
 # ---------------------------------------------------------------------------
 
+def _string_to_arrow(col: DeviceColumn, n: int,
+                     validity: np.ndarray) -> pa.Array:
+    """The live rows of a string column as an Arrow string array: offsets
+    from the lengths, and the row-major bytes under each length, which are
+    Arrow's character buffer as they stand."""
+    lens = np.where(validity, col.lengths[:n].cpu().numpy(), 0)
+    mat = col.data[:n].cpu().numpy()
+    chars = mat[np.arange(mat.shape[1])[None, :] < lens[:, None]]
+    offsets = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    return pa.StringArray.from_buffers(
+        n, pa.py_buffer(offsets.tobytes()), pa.py_buffer(chars.tobytes()),
+        None if validity.all() else
+        pa.py_buffer(np.packbits(validity, bitorder="little").tobytes()))
+
+
 def to_arrow(batch: ColumnarBatch, schema: Schema) -> pa.Table:
     n = int(batch.num_rows)
     arrays = []
     for col, f in zip(batch.columns, schema):
-        data = col.data[:n].cpu().numpy()
         validity = col.validity[:n].cpu().numpy()
+        if f.dtype.kind is TypeKind.STRING:
+            arrays.append(_string_to_arrow(col, n, validity))
+            continue
+        data = col.data[:n].cpu().numpy()
         if f.dtype.kind is TypeKind.DATE:
             data = data.astype("datetime64[D]")
         arrays.append(pa.array(data, type=T.to_arrow(f.dtype),

@@ -1,23 +1,43 @@
-"""TPC-H Q1 through the port, end to end.
+"""TPC-H Q1 and the part stage of TPC-H Q16 through the port, end to end.
 
-``q1_plan`` builds the physical tree the JAX package's planner gives Q1
-(``plan/overrides.py`` ``_convert_aggregate``)::
+``q1_plan`` and ``q16_part_plan`` build the physical tree the JAX
+package's planner gives each query (``plan/overrides.py``
+``_convert_aggregate``)::
 
     InMemoryScanExec -> FilterExec -> CoalesceBatchesExec
       -> HashAggregateExec(PARTIAL)
-      -> ShuffleExchangeExec(HashPartitioning(l_returnflag, l_linestatus))
+      -> ShuffleExchangeExec(HashPartitioning(group keys))
       -> HashAggregateExec(FINAL) -> SortExec
 
-and ``run_q1`` collects it to a ``pyarrow.Table``. The select list is the
-full TPC-H Q1 (TPC-H spec 2.4.1) with its eight aggregates. Flags are int32
-and money float64, the repo's stand-ins for CHAR(1) and DECIMAL(15,2).
+and ``run_q1`` and ``run_q16_part`` collect it to a ``pyarrow.Table``.
 
-``lineitem_table`` makes the input from a numpy seed (the columns of
-``bench.lineitem_table`` plus ``l_tax``), and ``q1_reference`` computes the
-same query with pyarrow alone, as an independent oracle.
+Q1's select list is the full TPC-H Q1 (TPC-H spec 2.4.1) with its eight
+aggregates. Flags are int32 and money float64, the repo's stand-ins for
+CHAR(1) and DECIMAL(15,2). ``lineitem_table`` makes the input from a numpy
+seed (the columns of ``bench.lineitem_table`` plus ``l_tax``).
+
+The Q16 part stage is TPC-H Q16 (spec 2.4.16) up to its join::
+
+    SELECT p_brand, p_type, p_size, count(*) AS part_cnt FROM part
+    WHERE p_brand <> 'Brand#45' AND p_type NOT LIKE 'MEDIUM POLISHED%'
+      AND p_size IN (49, 14, 23, 45, 19, 3, 36, 9)
+    GROUP BY p_brand, p_type, p_size
+    ORDER BY part_cnt DESC, p_brand, p_type, p_size
+
+with the LIKE as Spark's LikeSimplification leaves it, ``NOT
+StartsWith(p_type, 'MEDIUM POLISHED')``, and strings at the JAX Session's
+scan width of 64 bytes. It counts parts per group where Q16 counts distinct
+suppliers over ``partsupp`` less the complained-of ones: the join slice is
+not ported yet. ``part_table`` makes dbgen-shaped ``part`` columns (spec
+4.2.3) from a numpy seed.
+
+``q1_reference`` and ``q16_part_reference`` compute the same with pyarrow
+alone, as independent oracles.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import pyarrow as pa
@@ -26,8 +46,10 @@ import pyarrow.compute as pc
 from .batch import DeviceLike, Field, Schema, resolve_device, schema_from_arrow
 from .exec import (AggregateMode, CoalesceBatchesExec, Exec, FilterExec,
                    HashAggregateExec, InMemoryScanExec, SortExec, asc,
-                   collect)
-from .expressions import col, lit
+                   collect, desc)
+from .exec.sort import SortOrder
+from .expressions import (And, EqualTo, Expression, In, Not, col, lit,
+                          startswith)
 from .expressions.aggregates import Average, Count, Sum
 from .shuffle import HashPartitioning, ShuffleExchangeExec
 
@@ -35,6 +57,9 @@ from .shuffle import HashPartitioning, ShuffleExchangeExec
 Q1_SHIPDATE_MAX = 10471
 
 Q1_KEYS = ("l_returnflag", "l_linestatus")
+
+#: the JAX Session's scan width for string columns (config.STRING_MAX_BYTES)
+STRING_MAX_LEN = 64
 
 
 def q1_aggregates():
@@ -51,29 +76,46 @@ def q1_aggregates():
     ]
 
 
-def q1_plan(table: pa.Table, num_slices: int = 8,
-            shuffle_partitions: int = 8, device: DeviceLike = None) -> Exec:
-    """Q1's physical tree over ``table``, cut into ``num_slices`` input
-    partitions of one batch each. Column nullability is read from the data
-    (null counts), as ``batch.from_arrow`` does."""
+def _scan(table: pa.Table, num_slices: int,
+          device: DeviceLike) -> InMemoryScanExec:
+    """The scan of ``table`` in ``num_slices`` input partitions of one batch
+    each. Column nullability is read from the data (null counts), as
+    ``batch.from_arrow`` does."""
     dev = resolve_device(device)
     schema = Schema([Field(f.name, f.dtype,
                            f.nullable and table.column(i).null_count > 0)
-                     for i, f in enumerate(schema_from_arrow(table.schema))])
+                     for i, f in enumerate(schema_from_arrow(
+                         table.schema, STRING_MAX_LEN))])
     batch_rows = max(1, -(-table.num_rows // num_slices))
-    scan = InMemoryScanExec(table, schema, batch_rows=batch_rows,
+    return InMemoryScanExec(table, schema, batch_rows=batch_rows,
                             num_slices=num_slices, device=dev)
-    filtered = FilterExec(col("l_shipdate") <= lit(Q1_SHIPDATE_MAX), scan)
-    keys = [col(k) for k in Q1_KEYS]
-    partial = HashAggregateExec(keys, q1_aggregates(),
+
+
+def _grouped_stage(scan: Exec, condition: Expression, keys: Sequence[str],
+                   aggregates, shuffle_partitions: int,
+                   orders: Sequence[SortOrder]) -> Exec:
+    """Filter, partial aggregate, hash exchange on the keys, final
+    aggregate and sort: the JAX planner's tree for a grouped query."""
+    filtered = FilterExec(condition, scan)
+    key_cols = [col(k) for k in keys]
+    partial = HashAggregateExec(key_cols, aggregates(),
                                 CoalesceBatchesExec(filtered),
                                 AggregateMode.PARTIAL)
     exchange = ShuffleExchangeExec(
         HashPartitioning([col(f.name) for f in partial.key_fields],
                          shuffle_partitions), partial)
-    final = HashAggregateExec(keys, q1_aggregates(), exchange,
+    final = HashAggregateExec(key_cols, aggregates(), exchange,
                               AggregateMode.FINAL)
-    return SortExec([asc(col(k)) for k in Q1_KEYS], final)
+    return SortExec(orders, final)
+
+
+def q1_plan(table: pa.Table, num_slices: int = 8,
+            shuffle_partitions: int = 8, device: DeviceLike = None) -> Exec:
+    """Q1's physical tree over ``table``."""
+    return _grouped_stage(
+        _scan(table, num_slices, device),
+        col("l_shipdate") <= lit(Q1_SHIPDATE_MAX), Q1_KEYS, q1_aggregates,
+        shuffle_partitions, [asc(col(k)) for k in Q1_KEYS])
 
 
 def run_q1(table: pa.Table, num_slices: int = 8,
@@ -115,3 +157,84 @@ def q1_reference(table: pa.Table) -> pa.Table:
     columns = list(Q1_KEYS) + [f"{c}_{fn}" for c, fn in aggs]
     names = list(Q1_KEYS) + [a.name for a in q1_aggregates()]
     return pa.table([g.column(c) for c in columns], names=names)
+
+
+# ---------------------------------------------------------------------------
+# TPC-H Q16, the part stage
+# ---------------------------------------------------------------------------
+
+Q16_KEYS = ("p_brand", "p_type", "p_size")
+Q16_BRAND = "Brand#45"
+Q16_TYPE_PREFIX = "MEDIUM POLISHED"
+Q16_SIZES = (49, 14, 23, 45, 19, 3, 36, 9)
+
+#: TPC-H spec 4.2.2.13: the three syllables of P_TYPE
+P_TYPE_SYLLABLES = (
+    ("STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"),
+    ("ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"),
+    ("TIN", "NICKEL", "BRASS", "STEEL", "COPPER"))
+P_TYPES = tuple(f"{a} {b} {c}" for a in P_TYPE_SYLLABLES[0]
+                for b in P_TYPE_SYLLABLES[1] for c in P_TYPE_SYLLABLES[2])
+P_BRANDS = tuple(f"Brand#{m}{n}" for m in range(1, 6) for n in range(1, 6))
+
+
+def q16_part_condition() -> Expression:
+    return And(And(Not(EqualTo(col("p_brand"), lit(Q16_BRAND))),
+                   Not(startswith(col("p_type"), Q16_TYPE_PREFIX))),
+               In(col("p_size"), Q16_SIZES))
+
+
+def q16_part_aggregates():
+    return [Count().alias("part_cnt")]
+
+
+def q16_part_plan(table: pa.Table, num_slices: int = 8,
+                  shuffle_partitions: int = 8,
+                  device: DeviceLike = None) -> Exec:
+    """The physical tree of Q16's part stage over ``table``."""
+    return _grouped_stage(
+        _scan(table, num_slices, device), q16_part_condition(), Q16_KEYS,
+        q16_part_aggregates, shuffle_partitions,
+        [desc(col("part_cnt"))] + [asc(col(k)) for k in Q16_KEYS])
+
+
+def run_q16_part(table: pa.Table, num_slices: int = 8,
+                 shuffle_partitions: int = 8, device: DeviceLike = None
+                 ) -> pa.Table:
+    """Q16's part stage over ``table``, collected to the host."""
+    return collect(q16_part_plan(table, num_slices, shuffle_partitions,
+                                 device))
+
+
+def part_table(n: int, seed: int = 16) -> pa.Table:
+    """The ``part`` columns Q16 reads, as dbgen draws them (TPC-H spec
+    4.2.3): P_BRAND 'Brand#MN' with M and N uniform in 1..5, P_TYPE uniform
+    over the 150 syllable triples, P_SIZE uniform in 1..50. Strings are
+    taken from the distinct values by code, with no Python loop per row."""
+    rng = np.random.default_rng(seed)
+    brand = rng.integers(0, len(P_BRANDS), n)
+    ptype = rng.integers(0, len(P_TYPES), n)
+    size = rng.integers(1, 51, n).astype(np.int32)
+    return pa.table({
+        "p_brand": pa.array(P_BRANDS).take(pa.array(brand)),
+        "p_type": pa.array(P_TYPES).take(pa.array(ptype)),
+        "p_size": size,
+    })
+
+
+def q16_part_reference(table: pa.Table) -> pa.Table:
+    """Q16's part stage computed by pyarrow alone, in ``run_q16_part``'s
+    column order."""
+    keep = pc.and_kleene(
+        pc.and_kleene(
+            pc.not_equal(table.column("p_brand"), Q16_BRAND),
+            pc.invert(pc.starts_with(table.column("p_type"),
+                                     Q16_TYPE_PREFIX))),
+        pc.is_in(table.column("p_size"),
+                 value_set=pa.array(Q16_SIZES, pa.int32())))
+    g = table.filter(keep).group_by(list(Q16_KEYS)).aggregate(
+        [([], "count_all")])
+    g = g.sort_by([("count_all", "descending")]
+                  + [(k, "ascending") for k in Q16_KEYS])
+    return pa.table([g.column(k) for k in Q16_KEYS] + [g.column("count_all")],
+                    names=list(Q16_KEYS) + ["part_cnt"])

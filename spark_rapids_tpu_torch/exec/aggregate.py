@@ -49,13 +49,17 @@ def _unalias(e: Expression) -> Tuple[AggregateFunction, str]:
 
 
 def _pad_column(c: DeviceColumn, cap: int) -> DeviceColumn:
-    """Zero/False-pad a column up to ``cap`` rows."""
+    """Zero/False-pad a column up to ``cap`` rows (a string column's byte
+    matrix by whole rows, and its lengths)."""
     pad = cap - c.capacity
     if pad == 0:
         return c
-    return DeviceColumn(torch.cat([c.data, c.data.new_zeros(pad)]),
-                        torch.cat([c.validity, c.validity.new_zeros(pad)]),
-                        c.dtype)
+
+    def pz(a):
+        return None if a is None else torch.cat(
+            [a, a.new_zeros((pad,) + a.shape[1:])])
+
+    return DeviceColumn(pz(c.data), pz(c.validity), c.dtype, pz(c.lengths))
 
 
 class HashAggregateExec(UnaryExec):
@@ -166,7 +170,8 @@ class HashAggregateExec(UnaryExec):
         # which also shares their non-null-count lane downstream
         svals = [DeviceColumn(c.data[perm],
                               c.validity[perm] if nl else sorted_live,
-                              c.dtype)
+                              c.dtype,
+                              None if c.lengths is None else c.lengths[perm])
                  for c, nl in zip(flat_vals, val_nullable)]
         # the dead-row operand is not needed once live rows come first;
         # without keys every live row joins group 0

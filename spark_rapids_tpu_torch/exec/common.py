@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..batch import ColumnarBatch, DeviceColumn, rows_scalar
 from ..types import TypeKind
@@ -32,7 +33,8 @@ def gather_column(col: DeviceColumn, indices: torch.Tensor,
     validity = col.validity[idx]
     if row_valid is not None:
         validity = validity & row_valid
-    return DeviceColumn(col.data[idx], validity, col.dtype)
+    lengths = None if col.lengths is None else col.lengths[idx]
+    return DeviceColumn(col.data[idx], validity, col.dtype, lengths)
 
 
 def gather_columns(cols: Sequence[DeviceColumn], indices: torch.Tensor,
@@ -70,14 +72,19 @@ def concat_batches(batches: Sequence[ColumnarBatch],
         raise ValueError(f"{total} rows exceed capacity {capacity}")
     cols = []
     for i, first in enumerate(batches[0].columns):
-        data = first.data.new_zeros(capacity)
+        data = first.data.new_zeros((capacity,) + first.data.shape[1:])
         validity = first.validity.new_zeros(capacity)
+        lengths = (None if first.lengths is None
+                   else first.lengths.new_zeros(capacity))
         off = 0
         for b, n in zip(batches, counts):
-            data[off:off + n] = b.columns[i].data[:n]
-            validity[off:off + n] = b.columns[i].validity[:n]
+            c = b.columns[i]
+            data[off:off + n] = c.data[:n]
+            validity[off:off + n] = c.validity[:n]
+            if lengths is not None:
+                lengths[off:off + n] = c.lengths[:n]
             off += n
-        cols.append(DeviceColumn(data, validity, first.dtype))
+        cols.append(DeviceColumn(data, validity, first.dtype, lengths))
     return ColumnarBatch(tuple(cols), rows_scalar(total, batches[0].device))
 
 
@@ -85,11 +92,30 @@ def concat_batches(batches: Sequence[ColumnarBatch],
 # Sort-key normalization
 # ---------------------------------------------------------------------------
 
+_SIGN_BIT = -(1 << 63)
+
+
+def _string_words(data: torch.Tensor) -> torch.Tensor:
+    """int64[n, ceil(max_len / 8)]: each 8 bytes of a padded string matrix
+    as one big-endian word with its sign bit flipped, so signed order is the
+    bytes' unsigned lexicographic order (torch sorts no uint64)."""
+    n, ml = data.shape
+    w = -(-ml // 8)
+    padded = F.pad(data, (0, 8 * w - ml)) if ml % 8 else data
+    big_endian = padded.reshape(n, w, 8).flip(-1).contiguous()
+    return big_endian.view(torch.int64).reshape(n, w) ^ _SIGN_BIT
+
+
 def orderable_words(col: DeviceColumn) -> List[torch.Tensor]:
     """Tensors whose lexicographic order under torch's own comparison is
     the column's SQL ascending order. Doubles give a NaN-flag word first,
-    so NaN ranks greatest (Spark), and compare as floats, so -0.0 == 0.0."""
+    so NaN ranks greatest (Spark), and compare as floats, so -0.0 == 0.0.
+    Strings give their 8-byte words, whose zero padding orders "a" before
+    "ab", then their length, which orders "a" before "a\x00"."""
     k = col.dtype.kind
+    if k is TypeKind.STRING:
+        words = _string_words(col.data)
+        return [words[:, i] for i in range(words.shape[1])] + [col.lengths]
     if k is TypeKind.BOOLEAN:
         return [col.data.to(torch.uint8)]
     if k is TypeKind.FLOAT64:

@@ -1,6 +1,9 @@
-"""Expressions of the port (fixed-width subset of the JAX package's)."""
+"""Expressions of the port (a subset of the JAX package's)."""
 
 from .arithmetic import Add, Multiply, Subtract  # noqa: F401
 from .base import (Alias, BoundReference, EvalContext, Expression,  # noqa: F401
                    Literal, col, lit)
-from .comparison import LessThanOrEqual  # noqa: F401
+from .boolean import And, Or  # noqa: F401
+from .comparison import EqualTo, In, LessThanOrEqual, Not  # noqa: F401
+from .strings import (StringPredicate, contains, endswith,  # noqa: F401
+                      startswith)

@@ -15,10 +15,12 @@ from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import types as T
-from ..batch import ColumnarBatch, DeviceColumn, Schema
-from ..types import SqlType
+from ..batch import (ColumnarBatch, DeviceColumn, Schema, StringOverflowError,
+                     empty_column)
+from ..types import SqlType, TypeKind
 
 
 @dataclass(frozen=True)
@@ -111,7 +113,7 @@ def raw_eval(expr: Expression, batch: ColumnarBatch,
     """A (possibly aliased) bare column reference yields the stored column
     as it is; anything else evaluates. The JAX package keeps dictionary
     codes this way; here every stored column is plain, so the seam matters
-    again with the string slice."""
+    again with the dictionary-encoding slice."""
     e = expr
     while isinstance(e, Alias):
         e = e.child
@@ -200,9 +202,18 @@ class Literal(Expression):
         cap, dev = batch.capacity, batch.device
         d = self._dtype
         if self.value is None:
-            return DeviceColumn(
-                torch.zeros(cap, dtype=d.storage_dtype, device=dev),
-                torch.zeros(cap, dtype=torch.bool, device=dev), d)
+            return empty_column(d, dev, cap)
+        if d.kind is TypeKind.STRING:
+            b = str(self.value).encode("utf-8")
+            if len(b) > d.max_len:
+                raise StringOverflowError(f"literal longer than {d.max_len}")
+            row = torch.zeros(d.max_len, dtype=torch.uint8)
+            row[:len(b)] = torch.tensor(list(b), dtype=torch.uint8)
+            # one row on the device, broadcast (a view) to every row
+            data = row.to(dev).expand(cap, d.max_len)
+            return DeviceColumn(data, batch.row_mask(), d,
+                                torch.full((cap,), len(b), dtype=torch.int32,
+                                           device=dev))
         data = torch.full((cap,), self.value, dtype=d.storage_dtype,
                           device=dev)
         return DeviceColumn(data, batch.row_mask(), d)
@@ -220,6 +231,8 @@ def _infer_literal_type(v: Any) -> SqlType:
         return T.INT32 if -(2**31) <= v < 2**31 else T.INT64
     if isinstance(v, (float, np.floating)):
         return T.FLOAT64
+    if isinstance(v, str):
+        return T.string(max(8, len(v.encode("utf-8"))))
     raise NotImplementedError(f"no literal type for {v!r} in the port yet")
 
 
@@ -271,3 +284,32 @@ def numeric_column(data: torch.Tensor, validity: torch.Tensor,
     and NaN never leaks into reductions."""
     zero = torch.zeros((), dtype=data.dtype, device=data.device)
     return DeviceColumn(torch.where(validity, data, zero), validity, dtype)
+
+
+def _align_string_widths(a: DeviceColumn, b: DeviceColumn
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero-pad the narrower byte matrix so two string columns of
+    different max_len compare elementwise (padding bytes are 0x00, which
+    sorts below any content byte)."""
+    wa, wb = a.data.shape[1], b.data.shape[1]
+    w = max(wa, wb)
+    da = F.pad(a.data, (0, w - wa)) if wa < w else a.data
+    db = F.pad(b.data, (0, w - wb)) if wb < w else b.data
+    return da, db
+
+
+def string_equal(a: DeviceColumn, b: DeviceColumn) -> torch.Tensor:
+    da, db = _align_string_widths(a, b)
+    return (da == db).all(dim=1) & (a.lengths == b.lengths)
+
+
+def string_compare_lt(a: DeviceColumn, b: DeviceColumn) -> torch.Tensor:
+    """UTF-8 byte-wise lexicographic a < b over padded matrices: the first
+    differing byte decides, unsigned; equal bytes leave it to the lengths
+    (a value may end in 0x00 bytes, which the padding cannot show)."""
+    da, db = _align_string_widths(a, b)
+    diff = da != db
+    first = diff.to(torch.uint8).argmax(dim=1, keepdim=True)
+    ab = da.gather(1, first)[:, 0]
+    bb = db.gather(1, first)[:, 0]
+    return torch.where(diff.any(dim=1), ab < bb, a.lengths < b.lengths)

@@ -1,23 +1,45 @@
 """Comparison expressions.
 
-Port of ``BinaryComparison`` and ``LessThanOrEqual`` from
-``spark_rapids_tpu/expressions/comparison.py`` for fixed-width operands
-(Q1's ``l_shipdate <= date '1998-09-02'``). A null on either side makes the
-result null; the payload of null rows is False.
+Port of ``BinaryComparison`` (``EqualTo``, ``LessThanOrEqual``), ``Not``
+and ``In`` from ``spark_rapids_tpu/expressions/comparison.py``, for the
+fixed-width kinds and strings. A null on either side makes the result null;
+the payload of null rows is False. The JAX package's ``_dict_pushdown``
+(predicates over the distinct entries of a dictionary-encoded column) comes
+with the dictionary-encoding slice.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
 from .. import types as T
 from ..batch import DeviceColumn
-from .base import EvalContext, Expression, and_validity
+from ..types import TypeKind
+from .base import (EvalContext, Expression, Literal, and_validity,
+                   string_compare_lt, string_equal)
 
 _OPS = {"eq": torch.eq, "lt": torch.lt, "le": torch.le,
         "gt": torch.gt, "ge": torch.ge}
+
+
+def _bool_col(data: torch.Tensor, validity: torch.Tensor) -> DeviceColumn:
+    return DeviceColumn(data & validity, validity, T.BOOLEAN)
+
+
+def _compare_data(lc: DeviceColumn, rc: DeviceColumn, op: str
+                  ) -> torch.Tensor:
+    """Raw comparison payload, ignoring validity."""
+    if lc.dtype.kind is TypeKind.STRING:
+        eq = string_equal(lc, rc)
+        if op == "eq":
+            return eq
+        lt = string_compare_lt(lc, rc)
+        return {"lt": lt, "le": lt | eq, "gt": ~(lt | eq), "ge": ~lt}[op]
+    # torch promotes mixed widths (int32 date vs int64 literal) itself
+    return _OPS[op](lc.data, rc.data)
 
 
 @dataclass(frozen=True, eq=False)
@@ -40,14 +62,74 @@ class BinaryComparison(Expression):
     def eval(self, batch, ctx=EvalContext()):
         lc = self.left.eval(batch, ctx)
         rc = self.right.eval(batch, ctx)
-        # torch promotes mixed widths (int32 date vs int64 literal) itself
-        data = _OPS[self.OP](lc.data, rc.data)
-        validity = and_validity([lc, rc])
-        return DeviceColumn(data & validity, validity, T.BOOLEAN)
+        return _bool_col(_compare_data(lc, rc, self.OP),
+                         and_validity([lc, rc]))
 
     def __repr__(self):
         return f"({self.left!r} {self.OP} {self.right!r})"
 
 
+class EqualTo(BinaryComparison):
+    OP = "eq"
+
+
 class LessThanOrEqual(BinaryComparison):
     OP = "le"
+
+
+@dataclass(frozen=True, eq=False)
+class Not(Expression):
+    child: Expression
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return Not(c[0])
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        return _bool_col(~c.data, c.validity)
+
+    def __repr__(self):
+        return f"NOT {self.child!r}"
+
+
+@dataclass(frozen=True, eq=False)
+class In(Expression):
+    """value IN (literals...). Spark's three-valued logic: null if the value
+    is null, or if nothing matches and the list holds a null."""
+
+    child: Expression
+    values: Tuple = ()
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return In(c[0], self.values)
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    def eval(self, batch, ctx=EvalContext()):
+        non_null = [v for v in self.values if v is not None]
+        c = self.child.eval(batch, ctx)
+        found = torch.zeros(batch.capacity, dtype=torch.bool,
+                            device=batch.device)
+        for v in non_null:
+            litc = Literal.of(v, self.child.dtype).eval(batch, ctx)
+            found = found | _compare_data(c, litc, "eq")
+        validity = (c.validity & found if len(non_null) != len(self.values)
+                    else c.validity)
+        return _bool_col(found, validity)
+
+    def __repr__(self):
+        return f"{self.child!r} IN {self.values!r}"

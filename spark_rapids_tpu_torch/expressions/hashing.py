@@ -1,11 +1,13 @@
 """Spark-compatible Murmur3 x86_32 row hashing.
 
 Port of ``spark_rapids_tpu/expressions/hashing.py`` for the fixed-width
-kinds. HashPartitioning is only compatible with Spark if this is bit-exact
-with ``org.apache.spark.unsafe.hash.Murmur3_x86_32``:
+kinds and strings. HashPartitioning is only compatible with Spark if this is
+bit-exact with ``org.apache.spark.unsafe.hash.Murmur3_x86_32``:
 
 - int/boolean/date -> hashInt(v)
 - long             -> hashLong(v): low word, then high word
+- string           -> Spark's hashUnsafeBytes: 4-byte little-endian words,
+  then each tail byte mixed as a signed int, then fmix with the byte length
 - several columns fold left: hash = hash(col_i, seed=hash_so_far), from 42
 - a null value leaves the running hash unchanged
 
@@ -52,6 +54,28 @@ def hash_long(v: torch.Tensor, seed: Seed) -> torch.Tensor:
     return to_int32(fmix(h, 8))
 
 
+def _hash_string(col: DeviceColumn, seed: torch.Tensor) -> torch.Tensor:
+    """Spark hashUnsafeBytes over a padded byte matrix and its lengths, in
+    torch ops (the JAX package has no kernel for it either). A value of L
+    bytes mixes its L // 4 whole words and then its L % 4 < 4 tail bytes,
+    so three gathered tail positions cover every row."""
+    data, lengths = col.data, col.lengths.to(torch.int64)
+    ml = data.shape[1]
+    h = u32(seed)
+    words = data[:, :ml // 4 * 4].to(torch.int64).reshape(-1, ml // 4, 4)
+    words = (words[..., 0] | (words[..., 1] << 8) | (words[..., 2] << 16)
+             | (words[..., 3] << 24))
+    for w in range(ml // 4):
+        h = torch.where(lengths >= 4 * (w + 1), mix_h1(h, words[:, w]), h)
+    tail0 = lengths // 4 * 4
+    for t in range(3):
+        pos = tail0 + t
+        byte = data.gather(1, pos.clamp(max=ml - 1)[:, None])[:, 0]
+        signed = u32(byte.view(torch.int8))      # sign-extended, as Java
+        h = torch.where(pos < lengths, mix_h1(h, signed), h)
+    return to_int32(fmix(h, lengths))
+
+
 def hash_column(col: DeviceColumn, seed: Seed) -> torch.Tensor:
     """Hash one column with the running per-row seed; nulls keep the seed."""
     k = col.dtype.kind
@@ -61,9 +85,11 @@ def hash_column(col: DeviceColumn, seed: Seed) -> torch.Tensor:
                              col.validity.contiguous(), seed)
     if k is TypeKind.INT64:
         return torch.where(col.validity, hash_long(col.data, seed), seed)
+    if k is TypeKind.STRING:
+        return torch.where(col.validity, _hash_string(col, seed), seed)
     raise NotImplementedError(
         f"hashing {col.dtype} columns is not ported yet: doubles come with "
-        f"the expression-breadth slice, strings and decimals with theirs")
+        f"the expression-breadth slice, decimals with theirs")
 
 
 def murmur3_batch(cols: Sequence[DeviceColumn],

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: library name -> its source under csrc/
-SOURCES = {"murmur3": "murmur3.cu"}
+SOURCES = {"murmur3": "murmur3.cu", "string_search": "string_search.cu"}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -15,6 +15,7 @@ overflows.
 from __future__ import annotations
 
 import ctypes
+from typing import Union
 
 import torch
 
@@ -53,7 +54,10 @@ def mix_h1(h1: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
     return (h1 * 5 + N) & M32
 
 
-def fmix(h1: torch.Tensor, length: int) -> torch.Tensor:
+def fmix(h1: torch.Tensor,
+         length: Union[int, torch.Tensor]) -> torch.Tensor:
+    """Murmur3's finalizer; ``length`` is the hashed byte count, one int or
+    a per-row tensor of counts (int64 in [0, 2^32))."""
     h1 = h1 ^ length
     h1 = mul32(h1 ^ (h1 >> 16), 0x85EBCA6B)
     h1 = mul32(h1 ^ (h1 >> 13), 0xC2B2AE35)

@@ -81,6 +81,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_types_raise():
-    t = pa.table({"s": pa.array(["a", "b"])})
-    with pytest.raises(NotImplementedError, match="string slice"):
+    import decimal
+    t = pa.table({"d": pa.array([decimal.Decimal("1.25")],
+                                pa.decimal128(10, 2))})
+    with pytest.raises(NotImplementedError, match="decimal slice"):
+        tb.from_arrow(t, device="cpu")
+    t = pa.table({"s": pa.array(["a", "b"]).dictionary_encode()})
+    with pytest.raises(NotImplementedError, match="dictionary-encoding"):
         tb.from_arrow(t, device="cpu")

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Where the time of one warm TPC-H Q1 run of the PyTorch port goes, on one
-NVIDIA GPU.
+"""Where the time of one warm run of a path of the PyTorch port goes, on
+one NVIDIA GPU.
 
-    python3 tools/torch_q1_profile.py [--rows N] [--trace PATH]
+    python3 tools/torch_q1_profile.py [--query q1|q16_part] [--rows N]
+                                      [--trace PATH]
 
-Runs TPC-H Q1 through ``spark_rapids_tpu_torch.entry`` over the SF10-sized
-lineitem table of ``chip_smoke.py``, in its slices and shuffle partitions:
-once to warm up, three times on the host clock, then once under
-``torch.profiler`` (CPU and CUDA activities). Prints the card, the warm
-wall time, the time the Arrow upload alone takes, each operator's metrics
-(rows, batches, ``opTime``), the device busy time of the profiled run (the
-union of its kernel and copy intervals) and the idle share, the device time
-per operator (the profiler range of the innermost operator around each
-launch), the device time by kernel or copy (the murmur3 kernel always
-listed), and the device time by kind (sorts, gathers, group sums, other).
+Runs TPC-H Q1 (the default) or the part stage of TPC-H Q16 through
+``spark_rapids_tpu_torch.entry`` over the input ``chip_smoke.py`` gives it
+(the SF10 lineitem table, or the SF100 part table), in its slices and
+shuffle partitions: once to warm up, three times on the host clock, then
+once under ``torch.profiler`` (CPU and CUDA activities). Prints the card,
+the warm wall time, the time the Arrow upload alone takes, each operator's
+metrics (rows, batches, ``opTime``), the device busy time of the profiled
+run (the union of its kernel and copy intervals) and the idle share, the
+device time per operator (the profiler range of the innermost operator
+around each launch), the device time by kernel or copy (the port's own
+kernels always listed), and the device time by kind (sorts, gathers, group
+sums, other).
 
 Then it takes the PARTIAL aggregate of the first slice apart: the update
 over the filtered slice, the re-merge of its output at the slice's
@@ -169,8 +172,10 @@ def partial_pieces(plan, dev, run_kinds, run_peak) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--query", choices=("q1", "q16_part"), default="q1")
     ap.add_argument("--rows", type=int, default=None,
-                    help="lineitem rows (default: chip_smoke's SF10 count)")
+                    help="input rows (default: chip_smoke's SF10 lineitem "
+                         "or SF100 part count)")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
 
@@ -185,20 +190,31 @@ def main(argv=None) -> int:
     from spark_rapids_tpu_torch.exec import collect
     dev = torch.device("cuda", 0)
     print(chip_smoke.card_line())
-    rows = args.rows or chip_smoke.SF10_LINEITEM_ROWS
-    slices = chip_smoke.Q1_SLICES
+    if args.query == "q1":
+        rows = args.rows or chip_smoke.SF10_LINEITEM_ROWS
+        slices, parts = chip_smoke.Q1_SLICES, chip_smoke.Q1_SHUFFLE_PARTITIONS
+        table = entry.lineitem_table(rows, chip_smoke.DATA_SEED)
+        expected = entry.q1_reference(table)
+        make_plan, check = entry.q1_plan, chip_smoke.check_q1_result
+    else:
+        rows = args.rows or chip_smoke.SF100_PART_ROWS
+        slices = chip_smoke.Q16_SLICES
+        parts = chip_smoke.Q16_SHUFFLE_PARTITIONS
+        table = entry.part_table(rows, chip_smoke.PART_SEED)
+        expected = entry.q16_part_reference(table)
+        make_plan = entry.q16_part_plan
 
-    table = entry.lineitem_table(rows, chip_smoke.DATA_SEED)
-    expected = entry.q1_reference(table)
+        def check(got, exp):
+            if not got.equals(exp):
+                raise AssertionError("q16_part differs from its oracle")
 
     def run():
-        plan = entry.q1_plan(table, slices, chip_smoke.Q1_SHUFFLE_PARTITIONS,
-                             device=dev)
+        plan = make_plan(table, slices, parts, device=dev)
         out = collect(plan)
         torch.cuda.synchronize(dev)
         return plan, out
 
-    chip_smoke.check_q1_result(run()[1], expected)
+    check(run()[1], expected)
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -213,7 +229,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize(dev)
         ups.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
-    print(f"q1 warm wall {wall:.4f} s (median of "
+    print(f"{args.query} warm wall {wall:.4f} s (median of "
           f"{[round(w, 4) for w in walls]}), {rows / wall:,.0f} rows/s;"
           f" Arrow upload alone {statistics.median(ups):.4f} s")
     node = plan
@@ -254,8 +270,8 @@ def main(argv=None) -> int:
         per_kernel[e.name] += e.time_range.elapsed_us()
         counts[e.name] += 1
     top = [name for name, _ in per_kernel.most_common(14)]
-    top += [name for name in per_kernel if "murmur3" in name
-            and name not in top]
+    top += [name for name in per_kernel if name not in top and
+            ("murmur3" in name or "window_match" in name)]
     for name in top:
         print(f"  {per_kernel[name] / 1e3:9.3f} ms  x{counts[name]:<5d} "
               f"{name[:100]}")
