@@ -4,21 +4,25 @@
     python3 chip_smoke.py [--rows N]
 
 Builds every CUDA kernel of the port from the sources in this checkout (one
-``nvcc`` per source, all at once), holds each kernel against its plain
-PyTorch version on the card, then runs the port's two paths end to end
-through ``spark_rapids_tpu_torch.entry`` (Arrow upload, filter, partial
-aggregate, hash exchange, final aggregate, sort, collect): TPC-H Q1 at the
-SF10 lineitem row count (``--rows``), and the part stage of TPC-H Q16 at
-the SF100 part row count. Each result is checked against
-an independent pyarrow oracle, and each path's kernel launch counts, set to
-0 just before its first run and read just after, show that it went through
-its kernels.
+``nvcc`` per source, all at once) and holds each kernel against its plain
+PyTorch version on the card. Then it holds the hash join on the card
+against the same join on the CPU, for every join type over about 1M stream
+rows, on an exact int64 key, a dense primary-key build and a hashed (int32,
+string) key, broadcast and co-partitioned. Last it runs the port's three
+paths end to end through ``spark_rapids_tpu_torch.entry``: TPC-H Q1 at the
+SF10 lineitem row count (``--rows``; Arrow upload, filter, partial
+aggregate, hash exchange, final aggregate, sort, collect), the part stage of
+TPC-H Q16 at the SF100 part row count, and TPC-H Q3 at SF10 (three scans
+and filters, two shuffled hash joins, the aggregate's exchange, sort and
+limit). Each result is checked against an independent pyarrow oracle, and
+each path's kernel launch counts, set to 0 just before its first run and
+read just after, show that it went through its kernels.
 
 Prints, in order: the card's name and power limit, the build time, each
-kernel check with its times and bound, each path's check with its times, a
-``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device": ...}``.
-Any failed phase raises, so the exit code is not 0 and no result line is
-printed. Without CUDA it exits 1 at once.
+kernel check with its times and bound, the join check, each path's check
+with its times, a ``{"kernels": [...]}`` JSON line, and last
+``{"ok": true, "device": ...}``. Any failed phase raises, so the exit code
+is not 0 and no result line is printed. Without CUDA it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -48,6 +52,13 @@ Q1_SLICES = 8
 Q1_SHUFFLE_PARTITIONS = 8
 #: numpy seed of the lineitem data
 DATA_SEED = 3
+#: TPC-H scale factor of the Q3 run (1,500,000 customers, 15,000,000 orders,
+#: about 60,000,000 lineitem rows), its input slices, shuffle partitions
+#: and data seed
+Q3_SF = 10
+Q3_SLICES = 8
+Q3_SHUFFLE_PARTITIONS = 8
+Q3_SEED = 3
 #: H100 SXM device memory rate, bytes/s (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM float32 rate outside the tensor cores, operations/s; 32-bit
@@ -302,6 +313,151 @@ def check_window_match(dev, part) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Hash join: the card against the CPU
+# ---------------------------------------------------------------------------
+
+#: stream and build rows of the join check
+JOIN_STREAM_ROWS = 1 << 20
+JOIN_BUILD_ROWS = 1 << 18
+JOIN_SLICES = 4
+JOIN_PARTITIONS = 8
+
+
+def join_tables(keys: str):
+    """(stream, build, stream keys, build keys) of the join check, from a
+    numpy seed, with about a twentieth of the keys null:
+
+    - ``exact``: an int64 key with duplicates on both sides, half the
+      stream keys missing from the build, and the int64 minimum and maximum
+      on both sides;
+    - ``dense``: a unique contiguous int64 build key starting at -2^40
+      (the dense probe) and, past it, build rows with a null key; stream
+      keys in and around it;
+    - ``hashed``: an (int32, string) key pair, the strings p_type values at
+      the scan width."""
+    import numpy as np
+    import pyarrow as pa
+    from spark_rapids_tpu_torch import entry
+    rng = np.random.default_rng(13)
+    ns, nb = JOIN_STREAM_ROWS, JOIN_BUILD_ROWS
+
+    def nulls(values, typ):
+        return pa.array(values, typ, mask=rng.random(len(values)) < 0.05)
+
+    payload = {"v": rng.integers(-10**6, 10**6, ns),
+               "x": rng.uniform(-1e3, 1e3, ns)}
+    if keys == "hashed":
+        ptypes = pa.array(entry.P_TYPES)
+        stream = pa.table({
+            "a": nulls(rng.integers(0, 1200, ns).astype(np.int32),
+                       pa.int32()),
+            "s": ptypes.take(pa.array(rng.integers(0, len(entry.P_TYPES),
+                                                   ns))), **payload})
+        build = pa.table({
+            "ba": nulls(rng.integers(0, 1000, nb).astype(np.int32),
+                        pa.int32()),
+            "bs": ptypes.take(pa.array(rng.integers(0, len(entry.P_TYPES),
+                                                    nb))),
+            "w": rng.uniform(0, 1, nb)})
+        return stream, build, ["a", "s"], ["ba", "bs"]
+    if keys == "dense":
+        first = -(1 << 40)
+        n_null = nb // 20
+        bk = np.concatenate([first + rng.permutation(nb).astype(np.int64),
+                             np.zeros(n_null, np.int64)])
+        build = pa.table({"bk": pa.array(bk, pa.int64(),
+                                         mask=np.arange(nb + n_null) >= nb),
+                          "w": rng.uniform(0, 1, nb + n_null)})
+        sk = first + rng.integers(-nb // 4, nb + nb // 4, ns)
+        stream = pa.table({"k": nulls(sk, pa.int64()), **payload})
+        return stream, build, ["k"], ["bk"]
+    else:
+        bk = rng.integers(0, nb, nb).astype(np.int64)
+        sk = rng.integers(0, 2 * nb, ns).astype(np.int64)
+        lo, hi = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+        bk[:4], sk[:6] = [lo, hi, hi, lo], [lo, hi, lo, hi, 0, hi - 1]
+    stream = pa.table({"k": nulls(sk, pa.int64()), **payload})
+    build = pa.table({"bk": nulls(bk, pa.int64()),
+                      "w": rng.uniform(0, 1, nb)})
+    return stream, build, ["k"], ["bk"]
+
+
+def join_plan(stream, build, lk, rk, how, broadcast, dev):
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.exec import HashJoinExec
+    from spark_rapids_tpu_torch.expressions import col
+    from spark_rapids_tpu_torch.shuffle import (BroadcastExchangeExec,
+                                                HashPartitioning,
+                                                ShuffleExchangeExec)
+    ls = entry._scan(stream, JOIN_SLICES, dev)
+    rs = entry._scan(build, JOIN_SLICES, dev)
+    lkeys, rkeys = [col(k) for k in lk], [col(k) for k in rk]
+    if broadcast:
+        return HashJoinExec(lkeys, rkeys, how, ls, BroadcastExchangeExec(rs))
+    return HashJoinExec(
+        lkeys, rkeys, how,
+        ShuffleExchangeExec(HashPartitioning(lkeys, JOIN_PARTITIONS), ls),
+        ShuffleExchangeExec(HashPartitioning(rkeys, JOIN_PARTITIONS), rs),
+        broadcast_build=False)
+
+
+def differing_rows(got, want) -> int:
+    """Rows that differ between two tables once both are sorted on every
+    column (nulls equal to nulls); a row-count difference counts whole."""
+    import pyarrow.compute as pc
+    if got.num_rows != want.num_rows:
+        return abs(got.num_rows - want.num_rows) + min(got.num_rows,
+                                                       want.num_rows)
+    order = [(c, "ascending") for c in got.column_names]
+    a, b = got.sort_by(order), want.sort_by(order)
+    differ = None
+    for x, y in zip(a.columns, b.columns):
+        same = pc.or_kleene(pc.fill_null(pc.equal(x, y), False),
+                            pc.and_(pc.is_null(x), pc.is_null(y)))
+        d = pc.invert(same)
+        differ = d if differ is None else pc.or_(differ, d)
+    return int(pc.sum(differ).as_py() or 0)
+
+
+def check_joins(dev) -> None:
+    """Every join type, each key shape, broadcast and co-partitioned: the
+    join on the card against the same join on the CPU, 0 rows apart. The
+    broadcast build must be dense for the dense key shape only."""
+    import torch
+    from spark_rapids_tpu_torch.exec import JoinType, collect
+    from spark_rapids_tpu_torch.exec.common import concat_all
+    t0 = time.perf_counter()
+    for keys in ("exact", "dense", "hashed"):
+        stream, build, lk, rk = join_tables(keys)
+        plan = join_plan(stream, build, lk, rk, JoinType.INNER, True, dev)
+        table, _ = plan._build_kernel(concat_all(
+            list(plan.right.execute_partition(0)),
+            plan.right.output_schema, dev))
+        print(f"join {keys}: broadcast build dense {table.dense}")
+        if table.dense != (keys == "dense"):
+            raise AssertionError(f"the {keys} build's dense flag is "
+                                 f"{table.dense}")
+        for how in JoinType:
+            if how is JoinType.CROSS:
+                continue
+            for broadcast in (True, False):
+                got = collect(join_plan(stream, build, lk, rk, how,
+                                        broadcast, dev))
+                torch.cuda.synchronize(dev)
+                want = collect(join_plan(stream, build, lk, rk, how,
+                                         broadcast, "cpu"))
+                bad = differing_rows(got, want)
+                mode = "broadcast" if broadcast else "co-partitioned"
+                print(f"join {keys} {how.name} {mode}: {got.num_rows} rows "
+                      f"on the card, {bad} differing from the CPU")
+                if bad:
+                    raise AssertionError(
+                        f"the {keys} {how.name} {mode} join differs between "
+                        f"the card and the CPU in {bad} rows")
+    print(f"join check: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # Q1 end to end
 # ---------------------------------------------------------------------------
 
@@ -338,15 +494,17 @@ def check_q16_part_result(got, expected) -> None:
                              "oracle")
 
 
-def run_path(name: str, rows: int, make_table, reference, run, check, dev,
-             counted) -> dict:
+def run_path(name: str, make_table, reference, run, check, dev, counted,
+             rows_of=lambda table: table.num_rows) -> dict:
     """One path end to end: make its data and its oracle's answer, run it
     cold with every kernel's launch count set to 0 just before, check it and
-    read the counts, then three warm runs. Returns the launches per kernel
-    of the cold run; fails if a kernel of the path was not launched."""
+    read the counts, then three warm runs. ``rows_of`` gives the input rows
+    that rows/s counts. Returns the launches per kernel of the cold run;
+    fails if a kernel of the path was not launched."""
     import torch
     t0 = time.perf_counter()
-    table = make_table(rows)
+    table = make_table()
+    rows = rows_of(table)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     expected = reference(table)
@@ -363,7 +521,7 @@ def run_path(name: str, rows: int, make_table, reference, run, check, dev,
     cold_s = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in counted}
     detail = check(got, expected)
-    print(f"{name}: matches the pyarrow oracle ({got.num_rows} groups"
+    print(f"{name}: matches the pyarrow oracle ({got.num_rows} rows"
           f"{detail or ''})")
     print(f"{name}: kernel launches in the run: {launches}")
     for kernel, n in launches.items():
@@ -397,7 +555,7 @@ def run_q1_phase(args, dev, counted) -> dict:
     print(f"q1: {Q1_SLICES} slices, {Q1_SHUFFLE_PARTITIONS} shuffle "
           f"partitions")
     return run_path(
-        "q1", args.rows, lambda n: entry.lineitem_table(n, DATA_SEED),
+        "q1", lambda: entry.lineitem_table(args.rows, DATA_SEED),
         entry.q1_reference,
         lambda t: entry.run_q1(t, Q1_SLICES, Q1_SHUFFLE_PARTITIONS,
                                device=dev), check, dev, counted)
@@ -408,8 +566,8 @@ def run_q16_part_phase(dev, counted) -> dict:
     print(f"q16 part stage: {Q16_SLICES} slices, {Q16_SHUFFLE_PARTITIONS} "
           f"shuffle partitions, strings at {entry.STRING_MAX_LEN} bytes")
     launches = run_path(
-        "q16_part", SF100_PART_ROWS,
-        lambda n: entry.part_table(n, PART_SEED), entry.q16_part_reference,
+        "q16_part", lambda: entry.part_table(SF100_PART_ROWS, PART_SEED),
+        entry.q16_part_reference,
         lambda t: entry.run_q16_part(t, Q16_SLICES, Q16_SHUFFLE_PARTITIONS,
                                      device=dev),
         check_q16_part_result, dev, counted)
@@ -418,6 +576,75 @@ def run_q16_part_phase(dev, counted) -> dict:
                              f"{launches['window_match']} times, not once "
                              f"per slice ({Q16_SLICES})")
     return launches
+
+
+def check_q3_result(got, expected) -> float:
+    """Keys exact and in order, revenue within FLOAT_REL_TOL. Returns the
+    largest relative revenue error."""
+    import numpy as np
+    if got.column_names != expected.column_names:
+        raise AssertionError(f"columns {got.column_names} != "
+                             f"{expected.column_names}")
+    if got.num_rows != expected.num_rows:
+        raise AssertionError(f"{got.num_rows} rows != {expected.num_rows}")
+    for name in ("l_orderkey", "o_orderdate", "o_shippriority"):
+        if got.column(name).to_pylist() != expected.column(name).to_pylist():
+            raise AssertionError(f"{name}: {got.column(name)} != "
+                                 f"{expected.column(name)}")
+    a = got.column("revenue").to_numpy()
+    e = expected.column("revenue").to_numpy()
+    rel = np.abs(a - e) / np.abs(e)
+    if not np.all(rel <= FLOAT_REL_TOL):
+        raise AssertionError(f"revenue: {a} !~ {e}")
+    return float(rel.max(initial=0.0))
+
+
+def _execs(plan, name: str) -> list:
+    found = [plan] if plan.name == name else []
+    for c in plan.children:
+        found += _execs(c, name)
+    return found
+
+
+def run_q3_phase(dev, counted) -> dict:
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.exec import collect
+    state = {}
+
+    def reference(tables):
+        groups = entry.q3_groups_reference(*tables)
+        state["groups"] = groups.num_rows
+        return entry.q3_top(groups)
+
+    def run(tables):
+        state["plan"] = entry.q3_plan(*tables, Q3_SLICES,
+                                      Q3_SHUFFLE_PARTITIONS, device=dev)
+        return collect(state["plan"])
+
+    def check(got, expected):
+        worst = check_q3_result(got, expected)
+        plan = state["plan"]
+        # depth first: the lineitem, orders and customer filters
+        rows = [f.metrics["numOutputRows"].total()
+                for f in _execs(plan, "FilterExec")]
+        outer, inner = [j.metrics["numOutputRows"].total()
+                        for j in _execs(plan, "HashJoinExec")]
+        groups = _execs(plan, "HashAggregateExec")[0].metrics[
+            "numOutputRows"].total()
+        if groups != state["groups"]:
+            raise AssertionError(f"{groups} groups, pyarrow has "
+                                 f"{state['groups']}")
+        return (f"; keys exact, revenue max rel err {worst:.3g} <= "
+                f"{FLOAT_REL_TOL}; rows passing the lineitem, orders and "
+                f"customer filters {rows[0]}, {rows[1]}, {rows[2]}; orders "
+                f"joined to customers {inner}; lineitem rows joined {outer};"
+                f" groups {groups}, as pyarrow")
+
+    print(f"q3: SF{Q3_SF}, {Q3_SLICES} slices, {Q3_SHUFFLE_PARTITIONS} "
+          f"shuffle partitions, both joins shuffled")
+    return run_path(
+        "q3", lambda: entry.tpch_q3_tables(Q3_SF, Q3_SEED), reference, run,
+        check, dev, counted, rows_of=lambda tables: tables[2].num_rows)
 
 
 def main(argv=None) -> int:
@@ -448,9 +675,11 @@ def main(argv=None) -> int:
     part = part_slice(dev)
     kernels = [check_murmur3(dev, part), check_window_match(dev, part)]
     del part
+    check_joins(dev)
     # each path's own kernels, counted from 0 over its first run
     runs = [run_q1_phase(args, dev, [murmur3_int32]),
-            run_q16_part_phase(dev, [murmur3_int32, window_match])]
+            run_q16_part_phase(dev, [murmur3_int32, window_match]),
+            run_q3_phase(dev, [murmur3_int32])]
     for k in kernels:
         k["launches"] = sum(r.get(k["name"], 0) for r in runs)
     order = ["name", "route", "source", "replaces", "launches",

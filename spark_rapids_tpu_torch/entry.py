@@ -1,4 +1,5 @@
-"""TPC-H Q1 and the part stage of TPC-H Q16 through the port, end to end.
+"""TPC-H Q1, the part stage of TPC-H Q16 and TPC-H Q3 through the port, end
+to end.
 
 ``q1_plan`` and ``q16_part_plan`` build the physical tree the JAX
 package's planner gives each query (``plan/overrides.py``
@@ -27,17 +28,37 @@ The Q16 part stage is TPC-H Q16 (spec 2.4.16) up to its join::
 with the LIKE as Spark's LikeSimplification leaves it, ``NOT
 StartsWith(p_type, 'MEDIUM POLISHED')``, and strings at the JAX Session's
 scan width of 64 bytes. It counts parts per group where Q16 counts distinct
-suppliers over ``partsupp`` less the complained-of ones: the join slice is
-not ported yet. ``part_table`` makes dbgen-shaped ``part`` columns (spec
+suppliers over ``partsupp`` less the complained-of ones: full Q16 waits for
+``Like`` and ``count(DISTINCT)``. ``part_table`` makes dbgen-shaped ``part``
+columns (spec 4.2.3) from a numpy seed.
+
+Q3 is TPC-H Q3 (spec 2.4.3) with its validation parameters::
+
+    SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount)) AS revenue,
+           o_orderdate, o_shippriority
+    FROM customer, orders, lineitem
+    WHERE c_mktsegment = 'BUILDING' AND c_custkey = o_custkey
+      AND l_orderkey = o_orderkey AND o_orderdate < date '1995-03-15'
+      AND l_shipdate > date '1995-03-15'
+    GROUP BY l_orderkey, o_orderdate, o_shippriority
+    ORDER BY revenue DESC, o_orderdate LIMIT 10
+
+``q3_plan`` builds the tree the JAX planner gives it with AQE off: two
+inner hash joins, each with its build side swapped to the smaller input and
+a projection restoring the column order, over co-partitioned inputs
+(``broadcast=False``, the planner's choice once every build side is over its
+broadcast threshold, as at SF10) or over broadcast builds. ``tpch_q3_tables``
+makes dbgen-shaped ``customer``, ``orders`` and ``lineitem`` columns (spec
 4.2.3) from a numpy seed.
 
-``q1_reference`` and ``q16_part_reference`` compute the same with pyarrow
-alone, as independent oracles.
+``q1_reference``, ``q16_part_reference`` and ``q3_reference`` compute the
+same with pyarrow alone, as independent oracles.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import datetime
+from typing import Sequence, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -45,13 +66,16 @@ import pyarrow.compute as pc
 
 from .batch import DeviceLike, Field, Schema, resolve_device, schema_from_arrow
 from .exec import (AggregateMode, CoalesceBatchesExec, Exec, FilterExec,
-                   HashAggregateExec, InMemoryScanExec, SortExec, asc,
-                   collect, desc)
+                   GlobalLimitExec, HashAggregateExec, HashJoinExec,
+                   InMemoryScanExec, JoinType, ProjectExec, SortExec,
+                   TargetSize, asc, collect, desc)
 from .exec.sort import SortOrder
-from .expressions import (And, EqualTo, Expression, In, Not, col, lit,
-                          startswith)
+from .expressions import (And, BoundReference, EqualTo, Expression, In, Not,
+                          col, lit, startswith)
 from .expressions.aggregates import Average, Count, Sum
-from .shuffle import HashPartitioning, ShuffleExchangeExec
+from .expressions.base import epoch_days
+from .shuffle import (BroadcastExchangeExec, HashPartitioning,
+                      ShuffleExchangeExec)
 
 #: l_shipdate <= date '1998-12-01' - interval '90' day, in epoch days
 Q1_SHIPDATE_MAX = 10471
@@ -238,3 +262,180 @@ def q16_part_reference(table: pa.Table) -> pa.Table:
                   + [(k, "ascending") for k in Q16_KEYS])
     return pa.table([g.column(k) for k in Q16_KEYS] + [g.column("count_all")],
                     names=list(Q16_KEYS) + ["part_cnt"])
+
+
+# ---------------------------------------------------------------------------
+# TPC-H Q3
+# ---------------------------------------------------------------------------
+
+Q3_SEGMENT = "BUILDING"
+Q3_DATE = datetime.date(1995, 3, 15)
+Q3_KEYS = ("l_orderkey", "o_orderdate", "o_shippriority")
+Q3_SELECT = ("l_orderkey", "revenue", "o_orderdate", "o_shippriority")
+Q3_LIMIT = 10
+
+#: TPC-H spec 4.2.2.13: C_MKTSEGMENT
+SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY")
+#: O_ORDERDATE is uniform in [STARTDATE, ENDDATE - 151 days]
+ORDERDATE_MIN = epoch_days(datetime.date(1992, 1, 1))
+ORDERDATE_MAX = epoch_days(datetime.date(1998, 8, 2))
+
+
+def _date_column(days: np.ndarray) -> pa.Array:
+    return pa.array(days.astype(np.int32), pa.int32()).view(pa.date32())
+
+
+def tpch_q3_tables(sf: float, seed: int = 3
+                   ) -> Tuple[pa.Table, pa.Table, pa.Table]:
+    """``(customer, orders, lineitem)``: the columns Q3 reads at scale
+    factor ``sf``, drawn as dbgen draws them (TPC-H spec 4.2.3):
+
+    - ``customer``: SF x 150,000 rows, C_CUSTKEY 1..n, C_MKTSEGMENT uniform
+      over the five segments;
+    - ``orders``: SF x 1,500,000 rows, O_ORDERKEY sparse (the first 8 keys
+      of every 32), O_CUSTKEY uniform over the customers whose key is not
+      divisible by 3, O_ORDERDATE uniform in [1992-01-01, 1998-08-02],
+      O_SHIPPRIORITY 0;
+    - ``lineitem``: 1 to 7 rows per order, L_EXTENDEDPRICE a quantity
+      (1..50) times a price in [900.00, 2099.99], L_DISCOUNT in 0.00..0.10
+      by 0.01, L_SHIPDATE the order date plus 1 to 121 days.
+
+    Money is float64, the repo's stand-in for DECIMAL(15,2)."""
+    rng = np.random.default_rng(seed)
+    n_cust = int(round(150_000 * sf))
+    n_ord = int(round(1_500_000 * sf))
+    segment = rng.integers(0, len(SEGMENTS), n_cust)
+    customer = pa.table({
+        "c_custkey": np.arange(1, n_cust + 1, dtype=np.int64),
+        "c_mktsegment": pa.array(SEGMENTS).take(pa.array(segment)),
+    })
+    i = np.arange(n_ord, dtype=np.int64)
+    orderkey = (i // 8) * 32 + i % 8 + 1
+    # the r-th customer key not divisible by 3 is 3 * (r // 2) + r % 2 + 1
+    r = rng.integers(0, n_cust - n_cust // 3, n_ord)
+    custkey = 3 * (r // 2) + r % 2 + 1
+    orderdate = rng.integers(ORDERDATE_MIN, ORDERDATE_MAX + 1, n_ord)
+    orders = pa.table({
+        "o_orderkey": orderkey,
+        "o_custkey": custkey.astype(np.int64),
+        "o_orderdate": _date_column(orderdate),
+        "o_shippriority": np.zeros(n_ord, np.int32),
+    })
+    lines = rng.integers(1, 8, n_ord)
+    n_line = int(lines.sum())
+    price = rng.integers(90_000, 210_000, n_line)
+    quantity = rng.integers(1, 51, n_line)
+    lineitem = pa.table({
+        "l_orderkey": np.repeat(orderkey, lines),
+        "l_extendedprice": (quantity * price) / 100.0,
+        "l_discount": rng.integers(0, 11, n_line) / 100.0,
+        "l_shipdate": _date_column(np.repeat(orderdate, lines)
+                                   + rng.integers(1, 122, n_line)),
+    })
+    return customer, orders, lineitem
+
+
+def q3_aggregates():
+    return [Sum(col("l_extendedprice") * (lit(1.0) - col("l_discount")))
+            .alias("revenue")]
+
+
+def _inner_join(stream: Exec, build: Exec, stream_key: str, build_key: str,
+                shuffle_partitions: int, broadcast: bool) -> Exec:
+    """An inner hash join of ``stream`` (probe) and ``build``: over a
+    broadcast build with a coalesced stream, or over both sides
+    hash-partitioned on their keys."""
+    lk, rk = [col(stream_key)], [col(build_key)]
+    if broadcast:
+        return HashJoinExec(lk, rk, JoinType.INNER,
+                            CoalesceBatchesExec(stream, TargetSize()),
+                            BroadcastExchangeExec(build))
+    return HashJoinExec(
+        lk, rk, JoinType.INNER,
+        ShuffleExchangeExec(HashPartitioning(lk, shuffle_partitions), stream),
+        ShuffleExchangeExec(HashPartitioning(rk, shuffle_partitions), build),
+        broadcast_build=False)
+
+
+def _swap_back(join: Exec, first: Exec, second: Exec) -> Exec:
+    """The projection that restores the query's column order (``first``'s
+    columns, then ``second``'s) over a join whose build side was swapped:
+    ``join`` streams ``second`` and builds ``first``."""
+    n_second = len(second.output_schema)
+    refs = [BoundReference(n_second + i, f.dtype, f.nullable, f.name)
+            for i, f in enumerate(first.output_schema)]
+    refs += [BoundReference(i, f.dtype, f.nullable, f.name)
+             for i, f in enumerate(second.output_schema)]
+    return ProjectExec(refs, join)
+
+
+def q3_plan(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
+            num_slices: int = 8, shuffle_partitions: int = 8,
+            broadcast: bool = False, device: DeviceLike = None) -> Exec:
+    """Q3's physical tree over the three tables. The JAX planner joins
+    customer with orders and that with lineitem, and swaps each join's
+    sides to build on the smaller one."""
+    c = FilterExec(EqualTo(col("c_mktsegment"), lit(Q3_SEGMENT)),
+                   _scan(customer, num_slices, device))
+    o = FilterExec(col("o_orderdate") < lit(Q3_DATE),
+                   _scan(orders, num_slices, device))
+    li = FilterExec(col("l_shipdate") > lit(Q3_DATE),
+                    _scan(lineitem, num_slices, device))
+    co = _swap_back(_inner_join(o, c, "o_custkey", "c_custkey",
+                                shuffle_partitions, broadcast), c, o)
+    joined = _swap_back(_inner_join(li, co, "l_orderkey", "o_orderkey",
+                                    shuffle_partitions, broadcast), co, li)
+    keys = [col(k) for k in Q3_KEYS]
+    partial = HashAggregateExec(keys, q3_aggregates(), joined,
+                                AggregateMode.PARTIAL)
+    exchange = ShuffleExchangeExec(
+        HashPartitioning([col(f.name) for f in partial.key_fields],
+                         shuffle_partitions), partial)
+    final = HashAggregateExec(keys, q3_aggregates(), exchange,
+                              AggregateMode.FINAL)
+    top = GlobalLimitExec(Q3_LIMIT, SortExec(
+        [desc(col("revenue")), asc(col("o_orderdate"))], final))
+    return ProjectExec([col(k) for k in Q3_SELECT], top)
+
+
+def run_q3(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
+           num_slices: int = 8, shuffle_partitions: int = 8,
+           broadcast: bool = False, device: DeviceLike = None) -> pa.Table:
+    """Q3 over the three tables, collected to the host."""
+    return collect(q3_plan(customer, orders, lineitem, num_slices,
+                           shuffle_partitions, broadcast, device))
+
+
+def q3_groups_reference(customer: pa.Table, orders: pa.Table,
+                        lineitem: pa.Table) -> pa.Table:
+    """Every group of Q3 before its ORDER BY and LIMIT, by pyarrow alone:
+    the group keys and revenue, in ``run_q3``'s column order."""
+    day = pa.scalar(Q3_DATE, pa.date32())
+    c = customer.filter(pc.equal(customer.column("c_mktsegment"),
+                                 Q3_SEGMENT))
+    o = orders.filter(pc.less(orders.column("o_orderdate"), day))
+    li = lineitem.filter(pc.greater(lineitem.column("l_shipdate"), day))
+    co = o.join(c.select(["c_custkey"]), keys="o_custkey",
+                right_keys="c_custkey", join_type="inner")
+    j = li.join(co.select(["o_orderkey", "o_orderdate", "o_shippriority"]),
+                keys="l_orderkey", right_keys="o_orderkey",
+                join_type="inner")
+    rev = pc.multiply(j.column("l_extendedprice"),
+                      pc.subtract(1.0, j.column("l_discount")))
+    g = j.append_column("rev", rev).group_by(list(Q3_KEYS)).aggregate(
+        [("rev", "sum")])
+    return pa.table([g.column("l_orderkey"), g.column("rev_sum"),
+                     g.column("o_orderdate"), g.column("o_shippriority")],
+                    names=list(Q3_SELECT))
+
+
+def q3_top(groups: pa.Table) -> pa.Table:
+    """Q3's ORDER BY revenue DESC, o_orderdate and LIMIT over its groups."""
+    return groups.sort_by([("revenue", "descending"),
+                           ("o_orderdate", "ascending")]).slice(0, Q3_LIMIT)
+
+
+def q3_reference(customer: pa.Table, orders: pa.Table,
+                 lineitem: pa.Table) -> pa.Table:
+    """Q3 computed by pyarrow alone, in ``run_q3``'s column order."""
+    return q3_top(q3_groups_reference(customer, orders, lineitem))

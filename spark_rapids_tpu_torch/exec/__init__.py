@@ -1,7 +1,10 @@
 """Physical operators of the port."""
 
 from .aggregate import AggregateMode, HashAggregateExec  # noqa: F401
-from .base import Exec, collect  # noqa: F401
-from .basic import FilterExec, InMemoryScanExec, ProjectExec  # noqa: F401
-from .coalesce import CoalesceBatchesExec, TargetSize  # noqa: F401
+from .base import BinaryExec, Exec, collect  # noqa: F401
+from .basic import (FilterExec, GlobalLimitExec, InMemoryScanExec,  # noqa: F401
+                    LocalLimitExec, ProjectExec)
+from .coalesce import (CoalesceBatchesExec, RequireSingleBatch,  # noqa: F401
+                       TargetSize)
+from .join import HashJoinExec, JoinType  # noqa: F401
 from .sort import SortExec, SortOrder, asc, desc  # noqa: F401

@@ -21,14 +21,13 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..batch import (ColumnarBatch, DeviceColumn, Field, Schema,
-                     bucket_capacity, empty_batch, rows_scalar)
+from ..batch import ColumnarBatch, DeviceColumn, Field, Schema, rows_scalar
 from ..expressions.aggregates import AggregateFunction, FastLanes, LaneResults
 from ..expressions.base import (Alias, BoundReference, EvalContext,
                                 Expression, raw_eval)
 from .base import Exec, UnaryExec
 from .basic import bind_all, output_name
-from .common import (adjacent_equal_ops, concat_batches, gather_columns,
+from .common import (adjacent_equal_ops, concat_all, gather_columns,
                      lexsort, may_skip_null_lane, sort_operands)
 
 
@@ -219,14 +218,11 @@ class HashAggregateExec(UnaryExec):
         partials = [self._update_kernel(b)
                     if self.mode is not AggregateMode.FINAL else b
                     for b in self.child.execute_partition(p)]
-        finalize = self.mode is not AggregateMode.PARTIAL
-        if not partials:
-            if not self.key_fields and p == 0:
-                # a global aggregate over no input still yields one row
-                yield self._merge_kernel(
-                    empty_batch(Schema(self.key_fields + self.buffer_fields),
-                                self.device), final=finalize)
+        # a global aggregate over no input still yields one row
+        if not partials and (self.key_fields or p != 0):
             return
-        merged = partials[0] if len(partials) == 1 else concat_batches(
-            partials, bucket_capacity(sum(b.capacity for b in partials)))
-        yield self._merge_kernel(merged, final=finalize)
+        merged = concat_all(partials,
+                            Schema(self.key_fields + self.buffer_fields),
+                            self.device)
+        yield self._merge_kernel(
+            merged, final=self.mode is not AggregateMode.PARTIAL)

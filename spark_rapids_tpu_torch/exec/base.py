@@ -123,6 +123,20 @@ class UnaryExec(Exec):
         return self.children[0]
 
 
+class BinaryExec(Exec):
+    def __init__(self, left: Exec, right: Exec,
+                 ctx: Optional[EvalContext] = None):
+        super().__init__((left, right), ctx or left.ctx)
+
+    @property
+    def left(self) -> Exec:
+        return self.children[0]
+
+    @property
+    def right(self) -> Exec:
+        return self.children[1]
+
+
 def assemble_result(tables, schema: Schema) -> pa.Table:
     """Concatenate per-batch tables (empty input keeps the schema)."""
     tables = list(tables)

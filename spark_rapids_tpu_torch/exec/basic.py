@@ -1,6 +1,7 @@
-"""Basic operators: in-memory scan, project and filter.
+"""Basic operators: in-memory scan, project, filter and the limits.
 
-Port of ``InMemoryScanExec``, ``ProjectExec`` and ``FilterExec`` from
+Port of ``InMemoryScanExec``, ``ProjectExec``, ``FilterExec``,
+``LocalLimitExec`` and ``GlobalLimitExec`` from
 ``spark_rapids_tpu/exec/basic.py``. The scan is the H2D boundary: an Arrow
 table is cut into ``batch_rows`` chunks dealt round-robin to ``num_slices``
 partitions, and a partition uploads only its own chunks, when it runs.
@@ -18,7 +19,7 @@ from ..batch import (ColumnarBatch, DeviceLike, Field, Schema, from_arrow,
 from ..expressions.base import Alias, EvalContext, Expression, raw_eval
 from ..types import TypeKind
 from .base import Exec, LeafExec, UnaryExec
-from .common import compact
+from .common import compact, slice_batch
 
 
 def output_name(e: Expression, i: int) -> str:
@@ -124,3 +125,42 @@ class FilterExec(UnaryExec):
         for batch in self.child.execute_partition(p):
             c = self.condition.eval(batch, self.ctx)
             yield compact(batch, c.data & c.validity)
+
+
+class LocalLimitExec(UnaryExec):
+    """At most ``limit`` rows per partition. A limit is control flow: the
+    rows each batch gave are read back to the host, one sync a batch."""
+
+    def __init__(self, limit: int, child: Exec):
+        super().__init__(child)
+        self.limit = limit
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.child.output_schema
+
+    def _take(self, batches: Iterator[ColumnarBatch]
+              ) -> Iterator[ColumnarBatch]:
+        remaining = self.limit
+        for batch in batches:
+            if remaining <= 0:
+                return
+            out = slice_batch(batch, 0, remaining)
+            remaining -= int(out.num_rows)
+            yield out
+
+    def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        yield from self._take(self.child.execute_partition(p))
+
+
+class GlobalLimitExec(LocalLimitExec):
+    """At most ``limit`` rows in all: drains the child's partitions in
+    order into one."""
+
+    @property
+    def num_partitions(self) -> int:
+        return 1
+
+    def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        yield from self._take(b for cp in range(self.child.num_partitions)
+                              for b in self.child.execute_partition(cp))

@@ -1,8 +1,11 @@
 """Batch coalescing.
 
-Port of ``CoalesceBatchesExec`` with its ``TargetSize`` goal from
-``spark_rapids_tpu/exec/coalesce.py``: batches of one partition concatenate
-until the next would pass the byte target or the row limit.
+Port of ``CoalesceBatchesExec`` with its goals ``TargetSize`` and
+``RequireSingleBatch`` from ``spark_rapids_tpu/exec/coalesce.py``: under
+``TargetSize`` batches of one partition concatenate until the next would
+pass the byte target or the row limit; under ``RequireSingleBatch`` (a join's
+build side) the whole partition becomes one batch. The planner's
+goal-verification pass comes with the planner slice.
 """
 
 from __future__ import annotations
@@ -10,20 +13,30 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Iterator, List
 
-from ..batch import ColumnarBatch, Schema, bucket_capacity
+from ..batch import ColumnarBatch, Schema
 from .base import Exec, UnaryExec
-from .common import concat_batches
+from .common import concat_all
 
 
 @dataclass(frozen=True)
-class TargetSize:
+class CoalesceGoal:
+    pass
+
+
+@dataclass(frozen=True)
+class TargetSize(CoalesceGoal):
     """Accumulate up to this many bytes per output batch."""
 
     bytes: int = 512 << 20
 
 
+@dataclass(frozen=True)
+class RequireSingleBatch(CoalesceGoal):
+    """The consumer needs all rows of a partition in one batch."""
+
+
 class CoalesceBatchesExec(UnaryExec):
-    def __init__(self, child: Exec, goal: TargetSize = TargetSize(),
+    def __init__(self, child: Exec, goal: CoalesceGoal = TargetSize(),
                  max_rows: int = 1 << 22):
         super().__init__(child)
         self.goal = goal
@@ -33,25 +46,21 @@ class CoalesceBatchesExec(UnaryExec):
     def output_schema(self) -> Schema:
         return self.child.output_schema
 
-    @staticmethod
-    def _flush(pending: List[ColumnarBatch]) -> ColumnarBatch:
-        if len(pending) == 1:
-            return pending[0]
-        return concat_batches(pending, bucket_capacity(
-            sum(b.capacity for b in pending)))
-
     def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         pending: List[ColumnarBatch] = []
         pending_bytes = 0
+        target = (self.goal.bytes if isinstance(self.goal, TargetSize)
+                  else None)
         for batch in self.child.execute_partition(p):
             b = batch.size_bytes()
-            if pending and (
-                    pending_bytes + b > self.goal.bytes
+            # RequireSingleBatch (no target) never flushes mid-partition
+            if target is not None and pending and (
+                    pending_bytes + b > target
                     or sum(q.capacity for q in pending) + batch.capacity
                     > self.max_rows):
-                yield self._flush(pending)
+                yield concat_all(pending, self.output_schema, self.device)
                 pending, pending_bytes = [], 0
             pending.append(batch)
             pending_bytes += b
         if pending:
-            yield self._flush(pending)
+            yield concat_all(pending, self.output_schema, self.device)

@@ -1,8 +1,8 @@
 """Shared device primitives used by every operator.
 
 Port of ``spark_rapids_tpu/exec/common.py``: row gathers, stable
-compaction, concatenation, slicing, and the sort-key normalization with its
-multi-operand sort.
+compaction, concatenation (``concat_all``), slicing (``slice_batch``), and
+the sort-key normalization with its multi-operand sort.
 
 The JAX package orders rows with one lexicographic multi-operand
 ``jax.lax.sort``. ``torch.sort`` takes one key, so ``lexsort`` packs
@@ -18,7 +18,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..batch import ColumnarBatch, DeviceColumn, rows_scalar
+from ..batch import (ColumnarBatch, DeviceColumn, Schema, bucket_capacity,
+                     empty_batch, rows_scalar)
 from ..types import TypeKind
 
 
@@ -86,6 +87,32 @@ def concat_batches(batches: Sequence[ColumnarBatch],
             off += n
         cols.append(DeviceColumn(data, validity, first.dtype, lengths))
     return ColumnarBatch(tuple(cols), rows_scalar(total, batches[0].device))
+
+
+def concat_all(batches: Sequence[ColumnarBatch], schema: Schema,
+               device: torch.device) -> ColumnarBatch:
+    """The batches as one: an empty batch of ``schema`` for none, the batch
+    itself for one, else their concatenation."""
+    if not batches:
+        return empty_batch(schema, device)
+    if len(batches) == 1:
+        return batches[0]
+    return concat_batches(batches, bucket_capacity(
+        sum(b.capacity for b in batches)))
+
+
+def slice_batch(batch: ColumnarBatch, start, count,
+                capacity: Optional[int] = None) -> ColumnarBatch:
+    """Rows ``[start, start + count)`` as a new batch of ``capacity`` rows
+    (default: the input's). ``start`` and ``count`` are ints or scalar
+    tensors; nothing is read back to the host."""
+    cap = capacity or batch.capacity
+    dev = batch.device
+    start = torch.as_tensor(start, dtype=torch.int64, device=dev)
+    iota = torch.arange(cap, device=dev)
+    n = torch.minimum(torch.as_tensor(count, dtype=torch.int64, device=dev),
+                      (batch.num_rows.to(torch.int64) - start).clamp(min=0))
+    return gather(batch, iota + start, n, iota < n)
 
 
 # ---------------------------------------------------------------------------

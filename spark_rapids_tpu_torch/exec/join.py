@@ -1,0 +1,557 @@
+"""Equi-joins: the sort-based hash join.
+
+Port of ``JoinType``, ``_hash64``, ``_keys_equal``, ``_null_gather`` and
+``HashJoinExec`` from ``spark_rapids_tpu/exec/join.py``, every join type but
+CROSS, over a planned broadcast or over co-partitioned inputs:
+
+1. BUILD: each build row gets a search word, the build side is sorted by it
+   and materialized in that order; the sorted words are the hash table. A
+   run-length table gives each word's duplicate count, and a build whose
+   words are unique and contiguous (a primary key such as 1..n) is marked
+   dense.
+2. COUNT: each probe row finds its candidates: a binary search of the
+   sorted words (``torch.searchsorted``), or on a dense build an offset and
+   a range test. One transfer per probe batch brings the candidate total
+   and the largest count to the host, to size the output.
+3. EXPAND: output slot j finds its probe row by a search over the running
+   candidate counts, gathers both sides and keeps verified pairs. A probe
+   batch whose rows have at most one candidate each maps rows 1:1 instead.
+
+The search word of a single int32, int64, date or boolean key is the key
+itself, so candidates are exact matches. Other keys take a 31-bit murmur3
+row hash and every candidate is verified on the keys, so a hash collision
+costs a candidate, never a wrong row.
+
+Words are int64 here, where the JAX package sorts unsigned words: torch
+sorts no uint64 and has no uint32 arithmetic. Dead and null-keyed build rows
+take ``INT64_MAX`` and sort after the live rows with the same word, and
+every search is clamped to the valid prefix, so a live key of ``INT64_MAX``
+is still found. Hashes are uint32 values held in int64 with the JAX
+package's sentinels (0xFFFFFFFF build, 0xFFFFFFFE probe). The dense path's
+offset ``key - first`` can wrap in int64 when keys span more than 2^63; a
+wrapped (negative) offset is out of range.
+
+Not ported here: grace-hash sub-partitioning of an oversized build
+(``_grace_join``: such a build raises ``NotImplementedError``), the AQE
+hooks (``_maybe_coordinate``, the runtime broadcast switch and the skew
+split), the spill and retry wrappers of ``_probe``, ``_expand_masked``
+(whole-stage fusion) and ``BroadcastNestedLoopJoinExec``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import torch
+
+from .. import types as T
+from ..batch import (ColumnarBatch, DeviceColumn, Field, Schema,
+                     bucket_capacity, empty_batch, rows_scalar)
+from ..expressions.base import (BoundReference, EvalContext, Expression,
+                                string_equal)
+from ..expressions.hashing import murmur3_batch
+from ..kernels.murmur3 import u32
+from ..types import TypeKind
+from .aggregate import _pad_column
+from .base import BinaryExec, Exec
+from .basic import bind_all
+from .common import (compact, concat_all, gather_column, gather_columns,
+                     lexsort, orderable_words)
+
+
+class JoinType(enum.Enum):
+    INNER = "Inner"
+    LEFT_OUTER = "LeftOuter"
+    RIGHT_OUTER = "RightOuter"
+    FULL_OUTER = "FullOuter"
+    LEFT_SEMI = "LeftSemi"
+    LEFT_ANTI = "LeftAnti"
+    EXISTENCE = "Existence"   # left cols + exists flag (IN-subquery rewrite)
+    CROSS = "Cross"
+
+
+_SEMI_TYPES = (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI, JoinType.EXISTENCE)
+_BUILD_TAIL_TYPES = (JoinType.RIGHT_OUTER, JoinType.FULL_OUTER)
+_STREAM_TAIL_TYPES = (JoinType.LEFT_OUTER, JoinType.FULL_OUTER)
+
+#: key kinds probed on their own value, not on a hash
+_EXACT_KINDS = (TypeKind.INT32, TypeKind.INT64, TypeKind.DATE,
+                TypeKind.BOOLEAN)
+
+_WORD_MAX = torch.iinfo(torch.int64).max
+#: hash sentinels: build rows with a null key, probe rows with a null key;
+#: both above the 31-bit range of a real row hash
+_HASH_BUILD_NULL = 0xFFFFFFFF
+_HASH_PROBE_NULL = 0xFFFFFFFE
+
+#: the largest candidate total of one probe batch, the JAX package's int32
+#: offset range
+_MAX_CANDIDATES = (1 << 31) - 1
+
+
+def _hash64(cols: Sequence[DeviceColumn], valid: torch.Tensor) -> torch.Tensor:
+    """The 31-bit murmur3 row hash (uint32 >> 1) in int64, and the build
+    sentinel where ``valid`` is False. A 32-bit hash only adds candidates,
+    which are verified on the keys."""
+    h = u32(murmur3_batch(cols, 42)) >> 1
+    return torch.where(valid, h, _HASH_BUILD_NULL)
+
+
+def _keys_equal(a: Sequence[DeviceColumn],
+                b: Sequence[DeviceColumn]) -> torch.Tensor:
+    """Row-wise equality of two key lists; a null key equals nothing."""
+    eq = None
+    for x, y in zip(a, b):
+        e = string_equal(x, y) if x.lengths is not None else x.data == y.data
+        e = e & x.validity & y.validity
+        eq = e if eq is None else eq & e
+    return eq
+
+
+def _null_gather(batch: ColumnarBatch, out_cap: int) -> List[DeviceColumn]:
+    """All-null columns shaped like ``batch``'s at ``out_cap`` rows (the
+    null side of an outer row)."""
+    zero_idx = torch.zeros(out_cap, dtype=torch.int64, device=batch.device)
+    none = torch.zeros(out_cap, dtype=torch.bool, device=batch.device)
+    return [gather_column(c, zero_idx, none) for c in batch.columns]
+
+
+def _pad_batch(batch: ColumnarBatch, cap: int) -> ColumnarBatch:
+    if batch.capacity == cap:
+        return batch
+    return ColumnarBatch(tuple(_pad_column(c, cap) for c in batch.columns),
+                         batch.num_rows)
+
+
+def _append_rows(a: ColumnarBatch, b: ColumnarBatch,
+                 cap: int) -> ColumnarBatch:
+    """``a``'s live rows, then ``b``'s, in ``cap`` rows, placed on the
+    device from the row-count scalars (no host read)."""
+    iota = torch.arange(cap, device=a.device)
+    na = a.num_rows.to(torch.int64)
+    total = na + b.num_rows.to(torch.int64)
+    from_a = iota < na
+    live = iota < total
+    ia = iota.clamp(max=a.capacity - 1)
+    ib = (iota - na).clamp(0, b.capacity - 1)
+    cols = []
+    for ca, cb in zip(a.columns, b.columns):
+        ga, gb = gather_column(ca, ia), gather_column(cb, ib)
+        row = from_a.view((-1,) + (1,) * (ga.data.dim() - 1))
+        keep = live.view(row.shape)
+        data = torch.where(keep, torch.where(row, ga.data, gb.data),
+                           torch.zeros((), dtype=ga.data.dtype,
+                                       device=a.device))
+        validity = torch.where(from_a, ga.validity, gb.validity) & live
+        lengths = None
+        if ga.lengths is not None:
+            lengths = torch.where(live, torch.where(
+                from_a, ga.lengths, gb.lengths), 0)
+        cols.append(DeviceColumn(data, validity, ca.dtype, lengths))
+    return ColumnarBatch(tuple(cols), total.to(torch.int32))
+
+
+@dataclasses.dataclass
+class _BuildTable:
+    """The build kernel's output: sorted words, the count of valid rows,
+    per-position run lengths, the first word and the dense flag (read once
+    to the host)."""
+
+    words: torch.Tensor
+    n_valid: torch.Tensor
+    runlen: torch.Tensor
+    first: torch.Tensor
+    dense: bool
+
+
+class HashJoinExec(BinaryExec):
+    """Equi-join; the left child streams, the right child builds."""
+
+    def __init__(self, left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression], join_type: JoinType,
+                 left: Exec, right: Exec,
+                 condition: Optional[Expression] = None,
+                 broadcast_build: bool = True,
+                 ctx: Optional[EvalContext] = None,
+                 max_build_rows: int = 1 << 22):
+        super().__init__(left, right, ctx)
+        if join_type is JoinType.CROSS:
+            raise ValueError("use BroadcastNestedLoopJoinExec for cross joins")
+        # broadcast_build: the build side is replicated to every stream
+        # partition. False: both children are hash-partitioned on the join
+        # keys and partition p probes partition p.
+        self.broadcast_build = broadcast_build
+        self.max_build_rows = max_build_rows
+        self.join_type = join_type
+        self.left_keys = bind_all(left_keys, left.output_schema)
+        self.right_keys = bind_all(right_keys, right.output_schema)
+        for lk, rk in zip(self.left_keys, self.right_keys):
+            if lk.dtype != rk.dtype:
+                raise TypeError(f"join key type mismatch {lk.dtype} vs "
+                                f"{rk.dtype}; planner must insert casts")
+
+        lf, rf = left.output_schema.fields, right.output_schema.fields
+        l_nullable = join_type in _BUILD_TAIL_TYPES
+        r_nullable = join_type in _STREAM_TAIL_TYPES
+        if join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
+            self._schema = left.output_schema
+        elif join_type is JoinType.EXISTENCE:
+            self._schema = Schema(list(lf) + [Field("exists", T.BOOLEAN,
+                                                    False)])
+        else:
+            self._schema = Schema(
+                [Field(f.name, f.dtype, f.nullable or l_nullable) for f in lf]
+                + [Field(f.name, f.dtype, f.nullable or r_nullable)
+                   for f in rf])
+        self.condition = (condition.bind(self._pair_schema())
+                          if condition is not None else None)
+        # a single fixed-width key is probed on its own value: sorted keys
+        # are the table and every candidate is a match
+        self._exact_probe = (len(self.right_keys) == 1
+                             and self.right_keys[0].dtype.kind
+                             in _EXACT_KINDS)
+
+    def _pair_schema(self) -> Schema:
+        return Schema(list(self.left.output_schema.fields)
+                      + list(self.right.output_schema.fields))
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    # ------------------------------------------------------------------
+    # Kernels
+    # ------------------------------------------------------------------
+
+    def _probe_words(self, keys: Sequence[DeviceColumn], valid: torch.Tensor,
+                     build_side: bool) -> torch.Tensor:
+        """int64 search words: the key's orderable word (exact probe) or
+        the verified 31-bit hash. Build rows that are not valid take the
+        largest word so they sort last."""
+        if self._exact_probe:
+            w = orderable_words(keys[0])[0].to(torch.int64)
+            return torch.where(valid, w, _WORD_MAX) if build_side else w
+        h = _hash64(keys, valid)
+        return h if build_side else torch.where(valid, h, _HASH_PROBE_NULL)
+
+    def _key_cols(self, batch: ColumnarBatch, keys: Sequence[Expression]
+                  ) -> Tuple[List[DeviceColumn], torch.Tensor]:
+        cols = [e.eval(batch, self.ctx) for e in keys]
+        valid = batch.row_mask()
+        for c in cols:
+            valid = valid & c.validity
+        return cols, valid
+
+    def _build_kernel(self, build: ColumnarBatch
+                      ) -> Tuple[_BuildTable, ColumnarBatch]:
+        """Sort the build side by search word and materialize it in that
+        order, so expansion gathers build columns at sorted positions."""
+        keys, valid = self._key_cols(build, self.right_keys)
+        live = build.row_mask()
+        cap, dev = build.capacity, build.device
+        h = self._probe_words(keys, valid, build_side=True)
+        iota = torch.arange(cap, device=dev)
+        # valid-keyed rows by word, then live null-keyed rows (outer tails
+        # need them), then dead padding: live rows stay a prefix
+        rank = torch.where(valid, 0, torch.where(live, 1, 2)).to(torch.uint8)
+        perm = lexsort([h, rank])
+        sorted_h = h[perm].contiguous()
+        n_valid = valid.sum()
+        sorted_live = iota < build.num_rows
+        sbuild = ColumnarBatch(
+            tuple(gather_columns(build.columns, perm, sorted_live)),
+            build.num_rows)
+        # run length of the word at each position: the candidate count of
+        # a probe that lands on a run start
+        prev_ne = torch.ones(cap, dtype=torch.bool, device=dev)
+        prev_ne[1:] = sorted_h[1:] != sorted_h[:-1]
+        gid = torch.cumsum(prev_ne, 0) - 1
+        run_start = torch.full((cap,), cap, dtype=torch.int64, device=dev)
+        run_start.scatter_reduce_(0, gid, iota, "amin")
+        nxt = torch.cat([run_start[1:], run_start.new_zeros(1)])
+        n_runs = gid[-1] + 1
+        run_len_g = torch.where(iota < n_runs - 1, nxt - run_start,
+                                cap - run_start)
+        # clamp runs that reach into the invalid tail [n_valid, cap)
+        runlen = torch.minimum(run_len_g[gid], (n_valid - iota).clamp(min=0))
+        # dense: unique words forming one contiguous range. Uniqueness is
+        # part of it: {0, 2, 2} spans n - 1 too. The int64 difference may
+        # wrap, which keeps equality with n - 1 exact mod 2^64.
+        first = sorted_h[0]
+        dense = False
+        if self._exact_probe:
+            last_i = (n_valid - 1).clamp(min=0)
+            dense = bool((n_valid > 0) & (gid[last_i] + 1 == n_valid)
+                         & (sorted_h[last_i] - first == n_valid - 1))
+        return _BuildTable(sorted_h, n_valid, runlen, first, dense), sbuild
+
+    def _count_kernel(self, stream: ColumnarBatch, table: _BuildTable
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(lo, counts, offsets): each probe row's first candidate in the
+        sorted build, its candidate count and the running count."""
+        keys, valid = self._key_cols(stream, self.left_keys)
+        h = self._probe_words(keys, valid, build_side=False)
+        if table.dense:
+            # a unique contiguous build: position is key - first, presence
+            # a range test. A key more than 2^63 above first wraps to a
+            # negative offset, which the range test rejects.
+            off = h - table.first
+            in_r = (h >= table.first) & (off >= 0) & (off < table.n_valid)
+            lo = torch.where(in_r, off, 0)
+            counts = (valid & in_r).to(torch.int64)
+        else:
+            lo = torch.minimum(torch.searchsorted(table.words, h),
+                               table.n_valid)
+            last = table.words.shape[0] - 1
+            at = lo.clamp(max=last)
+            hit = (table.words[at] == h) & (lo < table.n_valid)
+            counts = torch.where(valid & hit, table.runlen[at], 0)
+        return lo, counts, torch.cumsum(counts, 0)
+
+    def _side_gather(self, batch: ColumnarBatch, keys: Sequence[Expression],
+                     idx: torch.Tensor, ok: torch.Tensor, need_keys: bool,
+                     subst: Optional[Dict[int, DeviceColumn]] = None
+                     ) -> Tuple[List[DeviceColumn], List[DeviceColumn]]:
+        """One side's columns at ``idx`` (null outside ``ok``), and its key
+        columns when ``need_keys``: a key that is a plain reference reuses
+        its gathered column. ``subst`` gives columns already known by
+        ordinal, which are not gathered."""
+        subst = subst or {}
+        cols = list(batch.columns)
+        gathered_idx = [i for i in range(len(cols)) if i not in subst]
+        extra, key_src = [], []
+        if need_keys:
+            for e in keys:
+                if isinstance(e, BoundReference) and e.ordinal not in subst:
+                    key_src.append(("col", e.ordinal))
+                else:
+                    key_src.append(("extra", len(extra)))
+                    extra.append(e.eval(batch, self.ctx))
+        g = gather_columns([cols[i] for i in gathered_idx] + extra, idx, ok)
+        out_cols: List[Optional[DeviceColumn]] = [None] * len(cols)
+        for j, i in enumerate(gathered_idx):
+            out_cols[i] = g[j]
+        for i, c in subst.items():
+            out_cols[i] = c
+        key_cols = [out_cols[i] if kind == "col"
+                    else g[len(gathered_idx) + i] for kind, i in key_src]
+        return out_cols, key_cols
+
+    def _exact_subst(self, key_col_at_pairs: Optional[DeviceColumn],
+                     pair_ok: torch.Tensor) -> Dict[int, DeviceColumn]:
+        """Exact probe: the build key equals the probe key on every kept
+        slot, so the build key column is the probe's, not a gather."""
+        rk = self.right_keys[0] if self._exact_probe else None
+        if not isinstance(rk, BoundReference) or key_col_at_pairs is None:
+            return {}
+        return {rk.ordinal: dataclasses.replace(
+            key_col_at_pairs, validity=key_col_at_pairs.validity & pair_ok)}
+
+    def _gather_pairs(self, stream: ColumnarBatch, build: ColumnarBatch,
+                      lo: torch.Tensor, counts: torch.Tensor,
+                      offsets: torch.Tensor, total: int, out_cap: int):
+        """Candidate pairs at ``out_cap`` slots: both sides gathered, keys
+        verified on the hash path, the condition applied."""
+        j = torch.arange(out_cap, device=stream.device)
+        probe_row = torch.searchsorted(offsets, j, right=True).clamp(
+            0, stream.capacity - 1)
+        start = offsets[probe_row] - counts[probe_row]
+        build_row = (lo[probe_row] + (j - start)).clamp(0, build.capacity - 1)
+        in_range = j < total
+        need_keys = not self._exact_probe
+        s_cols, s_keys = self._side_gather(stream, self.left_keys,
+                                           probe_row, in_range, need_keys)
+        lk = self.left_keys[0]
+        key_at_pairs = (s_cols[lk.ordinal] if self._exact_probe
+                        and isinstance(lk, BoundReference) else None)
+        b_cols, b_keys = self._side_gather(
+            build, self.right_keys, build_row, in_range, need_keys,
+            self._exact_subst(key_at_pairs, in_range))
+        pair_ok = (in_range if self._exact_probe
+                   else in_range & _keys_equal(s_keys, b_keys))
+        if self.condition is not None:
+            pairs = ColumnarBatch(tuple(s_cols + b_cols),
+                                  rows_scalar(total, stream.device))
+            c = self.condition.eval(pairs, self.ctx)
+            pair_ok = pair_ok & c.data & c.validity
+        return s_cols, b_cols, pair_ok, probe_row, build_row
+
+    @staticmethod
+    def _stream_matches(pair_ok: torch.Tensor, probe_row: torch.Tensor,
+                        cap: int) -> torch.Tensor:
+        """Verified pairs per stream row."""
+        seg = torch.where(pair_ok, probe_row, cap)
+        counts = torch.zeros(cap + 1, dtype=torch.int64,
+                             device=pair_ok.device)
+        return counts.index_add_(0, seg, pair_ok.to(torch.int64))[:cap]
+
+    def _expand_kernel(self, stream, build, lo, counts, offsets, total: int,
+                       unique: bool, matched_build: torch.Tensor,
+                       out_cap: int):
+        # at most one candidate per probe row: a 1:1 row mapping, no
+        # search over the running counts and no pair compaction
+        if (unique and self.condition is None
+                and self.join_type in (JoinType.INNER, JoinType.LEFT_OUTER)
+                and out_cap >= stream.capacity):
+            return self._expand_unique(stream, build, lo, counts,
+                                       matched_build, out_cap)
+        return self._expand_general(stream, build, lo, counts, offsets,
+                                    total, matched_build, out_cap)
+
+    def _unique_probe_cols(self, stream, build, lo, counts):
+        """Build columns gathered 1:1 at stream layout, and the verified
+        pair mask."""
+        matched = counts > 0
+        build_row = lo.clamp(0, build.capacity - 1)
+        if self._exact_probe:
+            pair_ok = matched & stream.row_mask()
+            key_col = (self.left_keys[0].eval(stream, self.ctx)
+                       if isinstance(self.right_keys[0], BoundReference)
+                       else None)
+            b_cols, _ = self._side_gather(
+                build, self.right_keys, build_row, matched, False,
+                self._exact_subst(key_col, pair_ok))
+        else:
+            b_cols, b_keys = self._side_gather(build, self.right_keys,
+                                               build_row, matched, True)
+            s_keys = [e.eval(stream, self.ctx) for e in self.left_keys]
+            pair_ok = (matched & stream.row_mask()
+                       & _keys_equal(s_keys, b_keys))
+        return b_cols, pair_ok
+
+    def _expand_unique(self, stream, build, lo, counts, matched_build,
+                       out_cap: int):
+        b_cols, pair_ok = self._unique_probe_cols(stream, build, lo, counts)
+        if self.join_type is JoinType.LEFT_OUTER:
+            # every stream row stays; unmatched rows take a null build
+            b_cols = [dataclasses.replace(c, validity=c.validity & pair_ok)
+                      for c in b_cols]
+            out = ColumnarBatch(stream.columns + tuple(b_cols),
+                                stream.num_rows)
+            target = bucket_capacity(out_cap + stream.capacity)
+        else:
+            out = compact(ColumnarBatch(stream.columns + tuple(b_cols),
+                                        stream.num_rows), pair_ok)
+            target = out_cap
+        return _pad_batch(out, target), matched_build
+
+    def _expand_general(self, stream, build, lo, counts, offsets, total: int,
+                        matched_build_in: torch.Tensor, out_cap: int):
+        s_cols, b_cols, pair_ok, probe_row, build_row = self._gather_pairs(
+            stream, build, lo, counts, offsets, total, out_cap)
+        pairs = compact(ColumnarBatch(tuple(s_cols + b_cols),
+                                      rows_scalar(out_cap, stream.device)),
+                        pair_ok)
+        matched_build = matched_build_in
+        if self.join_type in _BUILD_TAIL_TYPES:
+            cap = build.capacity
+            mark = torch.cat([matched_build_in,
+                              matched_build_in.new_zeros(1)])
+            mark.index_fill_(0, torch.where(pair_ok, build_row, cap), True)
+            matched_build = mark[:cap]
+        if self.join_type not in _STREAM_TAIL_TYPES:
+            return pairs, matched_build
+        matches = self._stream_matches(pair_ok, probe_row, stream.capacity)
+        unmatched = stream.row_mask() & (matches == 0)
+        u_batch = compact(ColumnarBatch(
+            stream.columns + tuple(_null_gather(build, stream.capacity)),
+            stream.num_rows), unmatched)
+        out = _append_rows(pairs, u_batch,
+                           bucket_capacity(out_cap + stream.capacity))
+        return out, matched_build
+
+    def _semi_kernel(self, stream, build, lo, counts, offsets, total: int,
+                     out_cap: int) -> ColumnarBatch:
+        if self._exact_probe and self.condition is None:
+            # candidate counts are verified match counts on the exact path
+            matches = counts
+        else:
+            _, _, pair_ok, probe_row, _ = self._gather_pairs(
+                stream, build, lo, counts, offsets, total, out_cap)
+            matches = self._stream_matches(pair_ok, probe_row,
+                                           stream.capacity)
+        if self.join_type is JoinType.LEFT_SEMI:
+            return compact(stream, matches > 0)
+        if self.join_type is JoinType.LEFT_ANTI:
+            return compact(stream, stream.row_mask() & (matches == 0))
+        exists = DeviceColumn(matches > 0, stream.row_mask(), T.BOOLEAN)
+        return ColumnarBatch(stream.columns + (exists,), stream.num_rows)
+
+    # ------------------------------------------------------------------
+    # Iterator
+    # ------------------------------------------------------------------
+
+    @property
+    def num_partitions(self) -> int:
+        # with a replicated build, RIGHT/FULL outer need one matched-build
+        # state over every stream row, so every stream partition folds
+        # into one and the build tail is emitted once
+        if self.broadcast_build and self.join_type in _BUILD_TAIL_TYPES:
+            return 1
+        return self.left.num_partitions
+
+    def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        if self.broadcast_build:
+            build_batches = [b for cp in range(self.right.num_partitions)
+                             for b in self.right.execute_partition(cp)]
+        else:
+            build_batches = list(self.right.execute_partition(p))
+        if self.num_partitions == 1 and self.left.num_partitions > 1:
+            stream_parts: Sequence[int] = range(self.left.num_partitions)
+        else:
+            stream_parts = (p,)
+        stream_iter = (b for sp in stream_parts
+                       for b in self.left.execute_partition(sp))
+        build_rows = (int(torch.stack([b.num_rows for b in build_batches])
+                          .sum()) if build_batches else 0)
+        if build_rows > self.max_build_rows:
+            raise NotImplementedError(
+                f"build side of {build_rows} rows > max_build_rows="
+                f"{self.max_build_rows}: grace-hash sub-partitioning "
+                f"(_grace_join) comes with the out-of-core join slice")
+        yield from self._probe(build_batches, stream_iter)
+
+    def _probe(self, build_batches: List[ColumnarBatch],
+               stream_iter: Iterator[ColumnarBatch]
+               ) -> Iterator[ColumnarBatch]:
+        """The probe loop against one in-memory build table. Each step
+        runs in a profiler range of its own."""
+        with torch.profiler.record_function("HashJoinExec.build"):
+            table, sbuild = self._build_kernel(concat_all(
+                build_batches, self.right.output_schema, self.device))
+        matched_build = torch.zeros(sbuild.capacity, dtype=torch.bool,
+                                    device=sbuild.device)
+        semi = self.join_type in _SEMI_TYPES
+        for stream in stream_iter:
+            with torch.profiler.record_function("HashJoinExec.count"):
+                lo, counts, offsets = self._count_kernel(stream, table)
+                # one transfer: the candidate total sizes the output, the
+                # largest count picks the 1:1 path
+                total, most = torch.stack([offsets[-1], counts.max()]
+                                          ).tolist()
+            if total > _MAX_CANDIDATES:
+                raise RuntimeError(
+                    f"join candidate explosion: {total} pairs in one probe "
+                    f"batch exceeds the int32 offset range; reduce the "
+                    f"batch size or pre-aggregate the build side")
+            out_cap = bucket_capacity(max(total, 1))
+            with torch.profiler.record_function("HashJoinExec.expand"):
+                if semi:
+                    out = self._semi_kernel(stream, sbuild, lo, counts,
+                                            offsets, total, out_cap)
+                else:
+                    out, matched_build = self._expand_kernel(
+                        stream, sbuild, lo, counts, offsets, total,
+                        most <= 1, matched_build, out_cap)
+            yield out
+        if self.join_type in _BUILD_TAIL_TYPES:
+            # build rows no probe matched, with a null stream side; the
+            # matched state is in sorted build order, as is the tail
+            unmatched = sbuild.row_mask() & ~matched_build
+            null_left = _null_gather(
+                empty_batch(self.left.output_schema, self.device, 1),
+                sbuild.capacity)
+            yield compact(ColumnarBatch(tuple(null_left) + sbuild.columns,
+                                        sbuild.num_rows), unmatched)

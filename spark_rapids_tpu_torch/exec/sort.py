@@ -13,10 +13,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence
 
-from ..batch import ColumnarBatch, Schema, bucket_capacity
+from ..batch import ColumnarBatch, Schema
 from ..expressions.base import EvalContext, Expression
 from .base import Exec, UnaryExec
-from .common import concat_batches, gather, lexsort, sort_operands
+from .common import concat_all, gather, lexsort, sort_operands
 
 
 @dataclass(frozen=True)
@@ -77,6 +77,5 @@ class SortExec(UnaryExec):
             for b in self.child.execute_partition(cp)]
         if not batches:
             return
-        merged = batches[0] if len(batches) == 1 else concat_batches(
-            batches, bucket_capacity(sum(b.capacity for b in batches)))
-        yield sort_batch(merged, self.orders, self.ctx)
+        yield sort_batch(concat_all(batches, self.output_schema, self.device),
+                         self.orders, self.ctx)

@@ -10,6 +10,7 @@ against a schema with ``bind``.
 
 from __future__ import annotations
 
+import datetime
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence, Tuple
 
@@ -93,9 +94,21 @@ class Expression:
         from .arithmetic import Multiply
         return Multiply(lit_if_needed(other), self)
 
+    def __lt__(self, other):
+        from .comparison import LessThan
+        return LessThan(self, lit_if_needed(other))
+
     def __le__(self, other):
         from .comparison import LessThanOrEqual
         return LessThanOrEqual(self, lit_if_needed(other))
+
+    def __gt__(self, other):
+        from .comparison import GreaterThan
+        return GreaterThan(self, lit_if_needed(other))
+
+    def __ge__(self, other):
+        from .comparison import GreaterThanOrEqual
+        return GreaterThanOrEqual(self, lit_if_needed(other))
 
     def __hash__(self):
         return object.__hash__(self)
@@ -214,8 +227,10 @@ class Literal(Expression):
             return DeviceColumn(data, batch.row_mask(), d,
                                 torch.full((cap,), len(b), dtype=torch.int32,
                                            device=dev))
-        data = torch.full((cap,), self.value, dtype=d.storage_dtype,
-                          device=dev)
+        v = self.value
+        if d.kind is TypeKind.DATE and isinstance(v, datetime.date):
+            v = epoch_days(v)
+        data = torch.full((cap,), v, dtype=d.storage_dtype, device=dev)
         return DeviceColumn(data, batch.row_mask(), d)
 
     def __repr__(self):
@@ -233,7 +248,17 @@ def _infer_literal_type(v: Any) -> SqlType:
         return T.FLOAT64
     if isinstance(v, str):
         return T.string(max(8, len(v.encode("utf-8"))))
+    if isinstance(v, datetime.date) and not isinstance(v, datetime.datetime):
+        return T.DATE
     raise NotImplementedError(f"no literal type for {v!r} in the port yet")
+
+
+def epoch_days(d: datetime.date) -> int:
+    """A date as the days since 1970-01-01 that a DATE column stores."""
+    return d.toordinal() - _EPOCH_ORDINAL
+
+
+_EPOCH_ORDINAL = datetime.date(1970, 1, 1).toordinal()
 
 
 def lit(v: Any, dtype: Optional[SqlType] = None) -> Literal:

@@ -1,11 +1,17 @@
-"""Comparison expressions.
+"""Comparison and null-test expressions.
 
-Port of ``BinaryComparison`` (``EqualTo``, ``LessThanOrEqual``), ``Not``
-and ``In`` from ``spark_rapids_tpu/expressions/comparison.py``, for the
-fixed-width kinds and strings. A null on either side makes the result null;
-the payload of null rows is False. The JAX package's ``_dict_pushdown``
-(predicates over the distinct entries of a dictionary-encoded column) comes
-with the dictionary-encoding slice.
+Port of ``BinaryComparison`` (``EqualTo``, ``LessThan``,
+``LessThanOrEqual``, ``GreaterThan``, ``GreaterThanOrEqual``),
+``EqualNullSafe``, ``Not``, ``IsNull``, ``IsNotNull`` and ``In`` from
+``spark_rapids_tpu/expressions/comparison.py``, for the fixed-width kinds
+and strings. A null on either side makes a comparison null (``<=>`` is never
+null); the payload of null rows is False.
+
+Doubles compare in Spark's order: NaN equals NaN and is greater than every
+other value, and -0.0 equals 0.0. The JAX package compares them as IEEE
+floats (NaN unequal to everything), so the two differ on NaN rows only.
+The JAX package's ``_dict_pushdown`` (predicates over the distinct entries
+of a dictionary-encoded column) comes with the dictionary-encoding slice.
 """
 
 from __future__ import annotations
@@ -38,8 +44,24 @@ def _compare_data(lc: DeviceColumn, rc: DeviceColumn, op: str
             return eq
         lt = string_compare_lt(lc, rc)
         return {"lt": lt, "le": lt | eq, "gt": ~(lt | eq), "ge": ~lt}[op]
+    if lc.dtype.kind is TypeKind.FLOAT64 or rc.dtype.kind is TypeKind.FLOAT64:
+        return _float_compare(lc.data.to(torch.float64),
+                              rc.data.to(torch.float64), op)
     # torch promotes mixed widths (int32 date vs int64 literal) itself
     return _OPS[op](lc.data, rc.data)
+
+
+def _float_compare(l: torch.Tensor, r: torch.Tensor, op: str
+                   ) -> torch.Tensor:
+    """Spark's double order: NaN == NaN, NaN above everything else; IEEE
+    comparison already makes -0.0 == 0.0."""
+    ln, rn = torch.isnan(l), torch.isnan(r)
+    eq = (l == r) | (ln & rn)
+    if op == "eq":
+        return eq
+    lt = (l < r) | (~ln & rn)
+    gt = (l > r) | (ln & ~rn)
+    return {"lt": lt, "le": lt | eq, "gt": gt, "ge": gt | eq}[op]
 
 
 @dataclass(frozen=True, eq=False)
@@ -73,8 +95,39 @@ class EqualTo(BinaryComparison):
     OP = "eq"
 
 
+class LessThan(BinaryComparison):
+    OP = "lt"
+
+
 class LessThanOrEqual(BinaryComparison):
     OP = "le"
+
+
+class GreaterThan(BinaryComparison):
+    OP = "gt"
+
+
+class GreaterThanOrEqual(BinaryComparison):
+    OP = "ge"
+
+
+class EqualNullSafe(BinaryComparison):
+    """``<=>``: null <=> null is true, null <=> value false; never null."""
+
+    OP = "eq"
+
+    @property
+    def nullable(self):
+        return False
+
+    def eval(self, batch, ctx=EvalContext()):
+        lc = self.left.eval(batch, ctx)
+        rc = self.right.eval(batch, ctx)
+        eq = _compare_data(lc, rc, "eq")
+        both_null = ~lc.validity & ~rc.validity
+        data = (lc.validity & rc.validity & eq) | both_null
+        live = batch.row_mask()
+        return DeviceColumn(data & live, live, T.BOOLEAN)
 
 
 @dataclass(frozen=True, eq=False)
@@ -98,6 +151,45 @@ class Not(Expression):
 
     def __repr__(self):
         return f"NOT {self.child!r}"
+
+
+@dataclass(frozen=True, eq=False)
+class IsNull(Expression):
+    child: Expression
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return type(self)(c[0])
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    @property
+    def nullable(self):
+        return False
+
+    def _test(self, validity: torch.Tensor) -> torch.Tensor:
+        return ~validity
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        live = batch.row_mask()
+        return DeviceColumn(self._test(c.validity) & live, live, T.BOOLEAN)
+
+    def __repr__(self):
+        return f"isnull({self.child!r})"
+
+
+class IsNotNull(IsNull):
+    def _test(self, validity: torch.Tensor) -> torch.Tensor:
+        return validity
+
+    def __repr__(self):
+        return f"isnotnull({self.child!r})"
 
 
 @dataclass(frozen=True, eq=False)

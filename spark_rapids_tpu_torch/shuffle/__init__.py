@@ -1,4 +1,5 @@
 """Shuffle: partitionings and the in-process exchange."""
 
-from .exchange import ShuffleExchangeExec  # noqa: F401
+from .exchange import (BroadcastExchangeExec,  # noqa: F401
+                       BroadcastTooLargeError, ShuffleExchangeExec)
 from .partitioning import HashPartitioning, SinglePartitioning  # noqa: F401

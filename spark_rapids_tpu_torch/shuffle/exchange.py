@@ -1,8 +1,8 @@
-"""The in-process shuffle exchange.
+"""The in-process shuffle and broadcast exchanges.
 
-Port of ``ShuffleExchangeExec`` from ``spark_rapids_tpu/shuffle/exchange.py``
-without its spill catalog, retry loop and serializer (the memory-runtime
-slice). The write side streams the child one batch at a time: it computes
+Port of ``ShuffleExchangeExec`` and ``BroadcastExchangeExec`` from
+``spark_rapids_tpu/shuffle/exchange.py`` without their spill catalog, retry
+loop and serializer (the memory-runtime slice). The write side streams the child one batch at a time: it computes
 every row's target partition, cuts one piece per target partition with its
 rows in input order, and shrinks each piece to its row-count bucket. The
 read side concatenates a reducer's pieces into one batch.
@@ -20,7 +20,7 @@ import torch
 
 from ..batch import ColumnarBatch, Schema, bucket_capacity
 from ..exec.base import Exec, UnaryExec
-from ..exec.common import concat_batches, gather
+from ..exec.common import concat_all, concat_batches, gather
 from ..expressions.base import EvalContext
 from .partitioning import Partitioning
 
@@ -40,6 +40,50 @@ def partition_pieces(batch: ColumnarBatch, pids: torch.Tensor,
             idx = perm[(iota + off).clamp(max=last)]
             yield p, rows, gather(batch, idx, rows, iota < rows)
         off += rows
+
+
+#: default ceiling of one broadcast relation, the JAX package's
+#: ``spark.rapids.tpu.broadcast.maxBytes``
+BROADCAST_MAX_BYTES = 1 << 30
+
+
+class BroadcastTooLargeError(MemoryError):
+    """A broadcast relation exceeded its byte ceiling: the build side must
+    be shuffled instead. Not retryable."""
+
+
+class BroadcastExchangeExec(UnaryExec):
+    """The child's whole output as one batch, made once and served to every
+    read (a broadcast join's build side). Raises ``BroadcastTooLargeError``
+    when that batch passes ``max_bytes``."""
+
+    def __init__(self, child: Exec, ctx: Optional[EvalContext] = None,
+                 max_bytes: int = BROADCAST_MAX_BYTES):
+        super().__init__(child, ctx)
+        self.max_bytes = max_bytes
+        self._cached: Optional[ColumnarBatch] = None
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.child.output_schema
+
+    @property
+    def num_partitions(self) -> int:
+        return 1
+
+    def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        if self._cached is None:
+            cached = concat_all(
+                [b for cp in range(self.child.num_partitions)
+                 for b in self.child.execute_partition(cp)],
+                self.output_schema, self.device)
+            if cached.size_bytes() > self.max_bytes:
+                raise BroadcastTooLargeError(
+                    f"broadcast relation is {cached.size_bytes()} bytes > "
+                    f"max_bytes={self.max_bytes}; shuffle this build side "
+                    f"instead")
+            self._cached = cached
+        yield self._cached
 
 
 class ShuffleExchangeExec(UnaryExec):

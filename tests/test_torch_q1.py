@@ -164,7 +164,11 @@ def test_operator_metrics_count_rows_and_batches():
 
 
 def _port_sources():
-    return sorted((ROOT / "spark_rapids_tpu_torch").rglob("*.py")) + [
+    """Every Python source of the port, less ``_build/`` (gitignored build
+    output, which may hold an unpacked checkout of the whole repo)."""
+    pkg = ROOT / "spark_rapids_tpu_torch"
+    return sorted(p for p in pkg.rglob("*.py")
+                  if "_build" not in p.relative_to(pkg).parts) + [
         ROOT / "chip_smoke.py"]
 
 

@@ -2,29 +2,34 @@
 """Where the time of one warm run of a path of the PyTorch port goes, on
 one NVIDIA GPU.
 
-    python3 tools/torch_q1_profile.py [--query q1|q16_part] [--rows N]
+    python3 tools/torch_q1_profile.py [--query q1|q16_part|q3] [--rows N]
                                       [--trace PATH]
 
-Runs TPC-H Q1 (the default) or the part stage of TPC-H Q16 through
-``spark_rapids_tpu_torch.entry`` over the input ``chip_smoke.py`` gives it
-(the SF10 lineitem table, or the SF100 part table), in its slices and
-shuffle partitions: once to warm up, three times on the host clock, then
-once under ``torch.profiler`` (CPU and CUDA activities). Prints the card,
-the warm wall time, the time the Arrow upload alone takes, each operator's
-metrics (rows, batches, ``opTime``), the device busy time of the profiled
-run (the union of its kernel and copy intervals) and the idle share, the
-device time per operator (the profiler range of the innermost operator
-around each launch), the device time by kernel or copy (the port's own
-kernels always listed), and the device time by kind (sorts, gathers, group
-sums, other).
+Runs TPC-H Q1 (the default), the part stage of TPC-H Q16 or TPC-H Q3
+through ``spark_rapids_tpu_torch.entry`` over the input ``chip_smoke.py``
+gives it (the SF10 lineitem table, the SF100 part table, or the SF10
+customer, orders and lineitem tables), in its slices and shuffle
+partitions: once to warm up, three times on the host clock, then once under
+``torch.profiler`` (CPU and CUDA activities). Prints the card, the warm
+wall time, the time the Arrow upload alone takes, each operator's metrics
+(rows, batches, ``opTime``; the whole tree, children indented), the device
+busy time of the profiled run (the union of its kernel and copy intervals)
+and the idle share (against the profiled run's wall, which the profiler
+lengthens, and against the unprofiled warm wall), the device time per
+operator (the profiler range of the
+innermost operator, or of the join's build, count or expand step, around
+each launch), the device time by kernel or copy (the port's own kernels
+always listed), and the device time by kind (sorts, gathers, group sums,
+other).
 
-Then it takes the PARTIAL aggregate of the first slice apart: the update
-over the filtered slice, the re-merge of its output at the slice's
-capacity (as the exec runs it), the same re-merge over that output cut to
-its row-count bucket, and the exchange's write over each of the two. For
-each piece: device time by kind from the profiler, its time on CUDA
-events, and the device memory it allocates at its peak beyond what was
-allocated before it.
+For Q1 and Q16 it then takes the PARTIAL aggregate of the first slice
+apart: the update over the filtered slice, the re-merge of its output at
+the slice's capacity (as the exec runs it), the same re-merge over that
+output cut to its row-count bucket, and the exchange's write over each of
+the two. For each piece: device time by kind from the profiler, its time on
+CUDA events, and the device memory it allocates at its peak beyond what was
+allocated before it. For Q3 it times each join's build, count and expand
+steps on CUDA events over partition 0's inputs.
 ``--trace`` also writes the Chrome trace. Exits 1 without CUDA.
 """
 
@@ -41,7 +46,13 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 EXEC_NAMES = ("SortExec", "HashAggregateExec", "ShuffleExchangeExec",
-              "CoalesceBatchesExec", "FilterExec", "InMemoryScanExec")
+              "CoalesceBatchesExec", "FilterExec", "InMemoryScanExec",
+              "HashJoinExec", "ProjectExec", "GlobalLimitExec",
+              "BroadcastExchangeExec")
+#: the profiler ranges of the join's steps
+JOIN_STEPS = ("HashJoinExec.build", "HashJoinExec.count",
+              "HashJoinExec.expand")
+RANGES = EXEC_NAMES + JOIN_STEPS
 
 
 def _busy_us(intervals) -> float:
@@ -60,10 +71,10 @@ def _busy_us(intervals) -> float:
 
 
 def _owner(evt) -> str:
-    """The innermost operator range around a CPU event."""
+    """The innermost operator or join-step range around a CPU event."""
     e = evt
     while e is not None:
-        if e.name in EXEC_NAMES:
+        if e.name in RANGES:
             return e.name
         e = e.cpu_parent
     return "(outside operators: collect)"
@@ -87,7 +98,7 @@ def _device_events(prof):
     import torch
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name not in EXEC_NAMES]
+            and e.name not in RANGES]
 
 
 def _by_kind(device) -> collections.Counter:
@@ -170,12 +181,55 @@ def partial_pieces(plan, dev, run_kinds, run_peak) -> None:
                   f"peak {wr_peak / run_peak:.1%} of the run's peak")
 
 
+def join_steps(plan, dev) -> None:
+    """Each join's build, count and expand over partition 0's inputs, on
+    CUDA events (median of 5 warm calls; the build's time includes its one
+    host read, the dense flag)."""
+    import torch
+    import chip_smoke
+    from spark_rapids_tpu_torch.batch import bucket_capacity
+    from spark_rapids_tpu_torch.exec.common import concat_all
+    for join in chip_smoke._execs(plan, "HashJoinExec"):
+        build = concat_all(list(join.right.execute_partition(0)),
+                           join.right.output_schema, dev)
+        [stream] = list(join.left.execute_partition(0))
+        table, sbuild = join._build_kernel(build)
+        lo, counts, offsets = join._count_kernel(stream, table)
+        total, most = [int(v) for v in (offsets[-1], counts.max())]
+        out_cap = bucket_capacity(max(total, 1))
+        matched = torch.zeros(sbuild.capacity, dtype=torch.bool,
+                              device=dev)
+        ms = [chip_smoke.time_cuda_ms(fn, reps=5) for fn in (
+            lambda: join._build_kernel(build),
+            lambda: join._count_kernel(stream, table),
+            lambda: join._expand_kernel(stream, sbuild, lo, counts, offsets,
+                                        total, most <= 1, matched, out_cap))]
+        keys = ", ".join(k.name for k in join.left_keys)
+        print(f"join on {keys}, partition 0: build {int(build.num_rows)} "
+              f"rows at capacity {build.capacity} (dense {table.dense}) "
+              f"{ms[0]:.3f} ms; count over {int(stream.num_rows)} probe "
+              f"rows at capacity {stream.capacity} {ms[1]:.3f} ms; expand "
+              f"to {total} pairs at capacity {out_cap} (1:1 path "
+              f"{most <= 1 and out_cap >= stream.capacity}) {ms[2]:.3f} ms")
+
+
+def _tree_metrics(node, depth=0) -> None:
+    """Each operator's metrics, children indented (opTime includes the
+    operator's children)."""
+    m = {k: v.total() for k, v in node.metrics.items()}
+    print(f"  {'  ' * depth}{node.name}: rows {m['numOutputRows']}, batches "
+          f"{m['numOutputBatches']}, opTime {m['opTime'] / 1e6:.2f} ms")
+    for c in node.children:
+        _tree_metrics(c, depth + 1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--query", choices=("q1", "q16_part"), default="q1")
+    ap.add_argument("--query", choices=("q1", "q16_part", "q3"),
+                    default="q1")
     ap.add_argument("--rows", type=int, default=None,
-                    help="input rows (default: chip_smoke's SF10 lineitem "
-                         "or SF100 part count)")
+                    help="input rows of Q1 or Q16 (default: chip_smoke's "
+                         "SF10 lineitem or SF100 part count)")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
 
@@ -196,6 +250,18 @@ def main(argv=None) -> int:
         table = entry.lineitem_table(rows, chip_smoke.DATA_SEED)
         expected = entry.q1_reference(table)
         make_plan, check = entry.q1_plan, chip_smoke.check_q1_result
+        tables = [table]
+    elif args.query == "q3":
+        slices = chip_smoke.Q3_SLICES
+        parts = chip_smoke.Q3_SHUFFLE_PARTITIONS
+        tables = entry.tpch_q3_tables(chip_smoke.Q3_SF, chip_smoke.Q3_SEED)
+        rows = tables[2].num_rows
+        expected = entry.q3_reference(*tables)
+        check = chip_smoke.check_q3_result
+
+        def make_plan(_, slices, parts, device):
+            return entry.q3_plan(*tables, slices, parts, device=device)
+        table = None
     else:
         rows = args.rows or chip_smoke.SF100_PART_ROWS
         slices = chip_smoke.Q16_SLICES
@@ -203,6 +269,7 @@ def main(argv=None) -> int:
         table = entry.part_table(rows, chip_smoke.PART_SEED)
         expected = entry.q16_part_reference(table)
         make_plan = entry.q16_part_plan
+        tables = [table]
 
         def check(got, exp):
             if not got.equals(exp):
@@ -220,25 +287,24 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         plan, _ = run()
         walls.append(time.perf_counter() - t0)
-    step = -(-rows // slices)
     ups = []
     for _ in range(3):
         t0 = time.perf_counter()
-        for off in range(0, rows, step):
-            from_arrow(table.slice(off, step), device=dev)
+        for t in tables:
+            step = max(1, -(-t.num_rows // slices))
+            for off in range(0, t.num_rows, step):
+                from_arrow(t.slice(off, step), device=dev)
         torch.cuda.synchronize(dev)
         ups.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
     print(f"{args.query} warm wall {wall:.4f} s (median of "
           f"{[round(w, 4) for w in walls]}), {rows / wall:,.0f} rows/s;"
           f" Arrow upload alone {statistics.median(ups):.4f} s")
-    node = plan
-    while node is not None:     # opTime includes the operator's children
-        m = {k: v.total() for k, v in node.metrics.items()}
-        print(f"  {node.name}: rows {m['numOutputRows']}, batches "
-              f"{m['numOutputBatches']}, opTime {m['opTime'] / 1e6:.2f} ms")
-        node = node.children[0] if node.children else None
+    _tree_metrics(plan)
 
+    # the last warm run's plan holds its exchanges' pieces: drop it, so the
+    # peak below is the profiled run's own
+    plan = None
     torch.cuda.reset_peak_memory_stats(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -252,8 +318,10 @@ def main(argv=None) -> int:
     busy = _busy_us([(e.time_range.start, e.time_range.end)
                      for e in device])
     print(f"profiled run: wall {prof_wall_us / 1e3:.2f} ms, device busy "
-          f"{busy / 1e3:.2f} ms, idle share {1 - busy / prof_wall_us:.1%}, "
-          f"device memory peak {run_peak / 2**30:.3f} GiB")
+          f"{busy / 1e3:.2f} ms, idle share {1 - busy / prof_wall_us:.1%} "
+          f"(against the unprofiled warm wall "
+          f"{1 - busy / (wall * 1e6):.1%}), device memory peak "
+          f"{run_peak / 2**30:.3f} GiB")
 
     per_op = collections.Counter()
     for e in prof.events():
@@ -282,7 +350,10 @@ def main(argv=None) -> int:
         prof.export_chrome_trace(args.trace)
         print(f"trace written to {args.trace}")
 
-    partial_pieces(plan, dev, run_kinds, run_peak)
+    if args.query == "q3":
+        join_steps(plan, dev)
+    else:
+        partial_pieces(plan, dev, run_kinds, run_peak)
     return 0
 
 
