@@ -14,13 +14,24 @@ SF10 lineitem row count (``--rows``; Arrow upload, filter, partial
 aggregate, hash exchange, final aggregate, sort, collect), the part stage of
 TPC-H Q16 at the SF100 part row count, and TPC-H Q3 at SF10 (three scans
 and filters, two shuffled hash joins, the aggregate's exchange, sort and
-limit). Each result is checked against an independent pyarrow oracle, and
-each path's kernel launch counts, set to 0 just before its first run and
-read just after, show that it went through its kernels.
+limit) and TPC-H Q18 at SF10 (the IN subquery's aggregate and semi join,
+the customer join, the grace join that builds on lineitem, the grouped
+aggregate, sort and limit) under a 1 GiB device budget, so exchange pieces
+spill to pinned host memory. Each result is checked against an independent
+pyarrow oracle, and each path's kernel launch counts, set to 0 just before
+its first run and read just after, show that it went through its kernels.
+Then the out-of-core operators (the windowed and the sort-based aggregate
+merge, the out-of-core global sort, the grace join) run on the card and on
+the CPU at about 4M rows, 0 rows apart, and Q18 at SF1 runs under injected
+OOMs (every third allocation check fails) and must equal its clean run bit
+for bit.
 
 Prints, in order: the card's name and power limit, the build time, each
-kernel check with its times and bound, the join check, each path's check
-with its times, a ``{"kernels": [...]}`` JSON line, and last
+kernel check with its times and bound, the join check, the checks of Q1,
+the Q16 part stage and Q3 with their times, the spill copy rate, Q18's
+check with its times, the catalog's tiers, spilled bytes, retry metrics,
+grace buckets and the allocator's peak, the out-of-core check, the
+injection run, a ``{"kernels": [...]}`` JSON line, and last
 ``{"ok": true, "device": ...}``. Any failed phase raises, so the exit code
 is not 0 and no result line is printed. Without CUDA it exits 1 at once.
 """
@@ -59,6 +70,21 @@ Q3_SF = 10
 Q3_SLICES = 8
 Q3_SHUFFLE_PARTITIONS = 8
 Q3_SEED = 3
+#: TPC-H Q18: scale factor, input slices, shuffle partitions (each holds
+#: about 30M lineitem rows, as SF1000 over Spark's 200 do), device budget
+#: (spark.rapids.tpu.memory: the JAX package's 8 GiB cut to 1 GiB so that
+#: SF10 spills about as SF100 would under 8 GiB) and data seed
+Q18_SF = 10
+Q18_SLICES = 8
+Q18_SHUFFLE_PARTITIONS = 2
+Q18_BUDGET = 1 << 30
+Q18_SEED = 3
+#: scale factor and injection schedule of the OOM-injection run
+Q18_INJECT_SF = 1
+Q18_INJECT_MODE = "every-3"
+#: PCIe Gen5 x16 rate in each direction, bytes/s (32 GT/s x 16 lanes,
+#: 128b/130b encoding)
+PCIE_BYTES_PER_S = 63.0e9
 #: H100 SXM device memory rate, bytes/s (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM float32 rate outside the tensor cores, operations/s; 32-bit
@@ -119,7 +145,8 @@ def check_murmur3(dev, part) -> dict:
     validity and chained seeds over two key columns. At the Q16 part
     stage's capacity the first column is p_size of ``part`` (one scanned
     slice) and its seeds are the running hash of p_brand and p_type, as in
-    that stage's exchange."""
+    that stage's exchange. Q18's shape is checked in its own phase
+    (``check_murmur3_at_q18``), on that query's data."""
     import numpy as np
     import torch
     from spark_rapids_tpu_torch.expressions.hashing import (DEFAULT_SEED,
@@ -430,9 +457,12 @@ def check_joins(dev) -> None:
     for keys in ("exact", "dense", "hashed"):
         stream, build, lk, rk = join_tables(keys)
         plan = join_plan(stream, build, lk, rk, JoinType.INNER, True, dev)
-        table, _ = plan._build_kernel(concat_all(
-            list(plan.right.execute_partition(0)),
-            plan.right.output_schema, dev))
+        try:
+            table, _ = plan._build_kernel(concat_all(
+                list(plan.right.execute_partition(0)),
+                plan.right.output_schema, dev))
+        finally:
+            plan.close()        # the broadcast relation leaves the catalog
         print(f"join {keys}: broadcast build dense {table.dense}")
         if table.dense != (keys == "dense"):
             raise AssertionError(f"the {keys} build's dense flag is "
@@ -647,6 +677,337 @@ def run_q3_phase(dev, counted) -> dict:
         check, dev, counted, rows_of=lambda tables: tables[2].num_rows)
 
 
+# ---------------------------------------------------------------------------
+# Q18 end to end, through the memory runtime
+# ---------------------------------------------------------------------------
+
+def measure_spill_rates(dev) -> None:
+    """Device-to-host and host-to-device rates of the catalog's spill copy
+    (``HostTable.pack`` into pinned memory, ``to_device`` back) over eight
+    lineitem exchange pieces of the Q18 shape (int64 and float64 at 2^22
+    rows, 75.5 MB each), against the PCIe Gen5 x16 bound. The first pack
+    allocates its pinned buffers; the second reuses them from torch's
+    caching host allocator."""
+    import torch
+    from spark_rapids_tpu_torch import batch as tb
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.shuffle.serializer import HostTable
+    cap = 1 << 22
+    schema = tb.Schema([tb.Field("l_orderkey", T.INT64),
+                        tb.Field("l_quantity", T.FLOAT64)])
+    pieces = [tb.ColumnarBatch(
+        (tb.DeviceColumn(torch.arange(cap, device=dev), torch.ones(
+            cap, dtype=torch.bool, device=dev), T.INT64),
+         tb.DeviceColumn(torch.rand(cap, dtype=torch.float64, device=dev),
+                         torch.ones(cap, dtype=torch.bool, device=dev),
+                         T.FLOAT64)), tb.rows_scalar(cap, dev))
+        for _ in range(8)]
+    nbytes = sum(p.size_bytes() for p in pieces)
+    for label in ("first (fresh pinned buffers)", "second (cached)"):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        tables = [HostTable.pack(p) for p in pieces]
+        for t in tables:
+            t.wait()
+        d2h = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = [t.to_device(schema, dev) for t in tables]
+        torch.cuda.synchronize(dev)
+        h2d = time.perf_counter() - t0
+        same = all(bool((a.columns[1].data == b.columns[1].data).all())
+                   for a, b in zip(pieces, back))
+        if not same:
+            raise AssertionError("a spilled batch came back changed")
+        print(f"spill copy, {label}: {nbytes / 2**20:.1f} MiB device to "
+              f"host {d2h * 1e3:.2f} ms ({nbytes / d2h / 1e9:.2f} GB/s), "
+              f"host to device {h2d * 1e3:.2f} ms ({nbytes / h2d / 1e9:.2f}"
+              f" GB/s); PCIe Gen5 x16 bound {PCIE_BYTES_PER_S / 1e9:.0f} "
+              f"GB/s each way")
+        del tables, back
+
+
+def check_q18_result(got, expected) -> None:
+    """Every row and column exact: keys, names, dates, o_totalprice (read,
+    not computed) and sum_qty (a sum of whole numbers)."""
+    if got.column_names != expected.column_names:
+        raise AssertionError(f"columns {got.column_names} != "
+                             f"{expected.column_names}")
+    if not got.equals(expected):
+        raise AssertionError(f"Q18 differs from the pyarrow oracle:\n"
+                             f"{got.slice(0, 5)}\n{expected.slice(0, 5)}")
+
+
+def q18_memory_report(plan, dev, retry0) -> dict:
+    """What the memory runtime did in one Q18 run: the catalog's tiers,
+    spilled bytes, retry metrics, grace buckets and the allocator's peak.
+    Raises on a leak."""
+    import torch
+    from spark_rapids_tpu_torch.memory.retry import metrics
+    cat = plan.catalog
+    retry = {k: v - retry0[k] for k, v in metrics().snapshot().items()}
+    buckets = sum(j.metrics["graceBuckets"].total()
+                  for j in _execs(plan, "HashJoinExec"))
+    spill = sum(x.metrics["spillBytes"].total()
+                for x in _execs(plan, "ShuffleExchangeExec"))
+    leaks = cat.leak_check()
+    print("q18: catalog after the run:\n" + cat.tier_summary())
+    print(f"q18: spilled_to_host {cat.spilled_to_host} B, spilled_to_disk "
+          f"{cat.spilled_to_disk} B, brought back {cat.unspilled} B; "
+          f"exchanges' spillBytes {spill} B; retry metrics {retry}; grace "
+          f"buckets {buckets}; device budget {cat.device_limit} B; "
+          f"allocator peak {torch.cuda.max_memory_allocated(dev)} B, now "
+          f"{torch.cuda.memory_allocated(dev)} B")
+    if leaks or cat.total_pinned():
+        raise AssertionError(f"the catalog leaks after Q18: {leaks}")
+    return {"spilled": cat.spilled_to_host + cat.spilled_to_disk,
+            "buckets": buckets, "retry": retry}
+
+
+def check_murmur3_at_q18(tables, dev) -> None:
+    """murmur3 against its plain version, bit for bit, at the shape Q18
+    gives it: the final exchange hashes o_orderdate in each PARTIAL output
+    at that output's capacity, seeded by the running hash of the keys
+    before it. Runs the PARTIAL aggregate of a fresh Q18 tree over every
+    partition and compares the kernel on each of its outputs."""
+    import torch
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.expressions.base import raw_eval
+    from spark_rapids_tpu_torch.expressions.hashing import (DEFAULT_SEED,
+                                                            hash_column)
+    from spark_rapids_tpu_torch.kernels.murmur3 import (murmur3_int32,
+                                                        murmur3_int32_plain)
+    from spark_rapids_tpu_torch.types import TypeKind
+    plan = entry.q18_plan(*tables, Q18_SLICES, Q18_SHUFFLE_PARTITIONS,
+                          device_limit=Q18_BUDGET, device=dev)
+    exchange = _execs(plan, "ShuffleExchangeExec")[0]   # the final one
+    partial = exchange.child
+    compared = []
+    try:
+        for p in range(partial.num_partitions):
+            for batch in partial.execute_partition(p):
+                seed = torch.full((batch.capacity,), DEFAULT_SEED,
+                                  dtype=torch.int32, device=dev)
+                for e in exchange.partitioning.exprs:
+                    c = raw_eval(e, batch)
+                    if c.dtype.kind is TypeKind.DATE:
+                        args = (c.data.to(torch.int32).contiguous(),
+                                c.validity.contiguous(), seed)
+                        err = int((murmur3_int32(*args).long()
+                                   - murmur3_int32_plain(*args).long())
+                                  .abs().max())
+                        compared.append((batch.capacity, err))
+                    seed = hash_column(c, seed)
+    finally:
+        plan.close()
+    print(f"murmur3_int32 at Q18's final exchange: o_orderdate seeded by "
+          f"the c_name, c_custkey, o_orderkey hash, (capacity, "
+          f"max_abs_err) per PARTIAL output {compared}")
+    if not compared:
+        raise AssertionError("Q18's final exchange hashed no date column")
+    if any(err for _, err in compared):
+        raise AssertionError("murmur3_int32 disagrees with its plain version "
+                             "at Q18's final exchange")
+
+
+def run_q18_phase(dev, counted) -> dict:
+    """Q18 at SF10 over 2 partitions under a 1 GiB budget: equal to the
+    pyarrow oracle, and it must spill, run the grace join in at least 2
+    buckets, launch murmur3 and leave the catalog empty. Then murmur3
+    against its plain version at the final exchange's shape."""
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.exec import collect
+    from spark_rapids_tpu_torch.memory.retry import metrics
+    state = {}
+
+    def reference(tables):
+        groups = entry.q18_groups_reference(*tables)
+        state["groups"] = groups.num_rows
+        return entry.q18_top(groups)
+
+    def run(tables):
+        state.pop("plan", None)
+        state["retry0"] = metrics().snapshot()
+        state["plan"] = entry.q18_plan(*tables, Q18_SLICES,
+                                       Q18_SHUFFLE_PARTITIONS,
+                                       device_limit=Q18_BUDGET, device=dev)
+        return collect(state["plan"])
+
+    def check(got, expected):
+        check_q18_result(got, expected)
+        plan = state["plan"]
+        groups = _execs(plan, "HashAggregateExec")[0].metrics[
+            "numOutputRows"].total()
+        if groups != state["groups"]:
+            raise AssertionError(f"{groups} qualifying orders, pyarrow has "
+                                 f"{state['groups']}")
+        report = q18_memory_report(plan, dev, state["retry0"])
+        if report["spilled"] <= 0:
+            raise AssertionError("Q18 under a 1 GiB budget spilled nothing")
+        if report["buckets"] < 2:
+            raise AssertionError(f"the grace join ran {report['buckets']} "
+                                 f"buckets, not at least 2")
+        return (f"; every column exact; {groups} qualifying orders, as "
+                f"pyarrow; spilled {report['spilled']} B; grace buckets "
+                f"{report['buckets']}")
+
+    print(f"q18: SF{Q18_SF}, {Q18_SLICES} slices, {Q18_SHUFFLE_PARTITIONS} "
+          f"shuffle partitions, every join shuffled, device budget "
+          f"{Q18_BUDGET} B")
+    def make_tables():
+        state["tables"] = entry.tpch_q18_tables(Q18_SF, Q18_SEED)
+        return state["tables"]
+
+    launches = run_path("q18", make_tables, reference, run, check, dev,
+                        counted, rows_of=lambda tables: tables[2].num_rows)
+    state.pop("plan", None)
+    check_murmur3_at_q18(state["tables"], dev)
+    state.clear()
+    return launches
+
+
+def run_q18_injection_phase(dev) -> None:
+    """Q18 at SF1 clean, then with every third allocation check failing:
+    bit for bit the same, with retries recorded and no leak."""
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.exec import collect
+    from spark_rapids_tpu_torch.memory.retry import metrics, oom_injection
+    tables = entry.tpch_q18_tables(Q18_INJECT_SF, Q18_SEED)
+    t0 = time.perf_counter()
+    clean = collect(entry.q18_plan(*tables, Q18_SLICES,
+                                   Q18_SHUFFLE_PARTITIONS,
+                                   device_limit=Q18_BUDGET, device=dev))
+    clean_s = time.perf_counter() - t0
+    check_q18_result(clean, entry.q18_reference(*tables))
+    retry0 = metrics().snapshot()
+    t0 = time.perf_counter()
+    with oom_injection(Q18_INJECT_MODE) as inj:
+        plan = entry.q18_plan(*tables, Q18_SLICES, Q18_SHUFFLE_PARTITIONS,
+                              device_limit=Q18_BUDGET, device=dev)
+        injected = collect(plan)
+        fired = inj.injected
+    inj_s = time.perf_counter() - t0
+    retry = {k: v - retry0[k] for k, v in metrics().snapshot().items()}
+    print(f"q18 injection: SF{Q18_INJECT_SF} under {Q18_INJECT_MODE}: "
+          f"{fired} injected OOMs, retry metrics {retry}; clean "
+          f"{clean_s:.3f} s, injected {inj_s:.3f} s; {clean.num_rows} rows")
+    if not injected.equals(clean):
+        raise AssertionError("Q18 under injected OOMs differs from its "
+                             "clean run")
+    if retry["retryCount"] <= 0 or fired <= 0:
+        raise AssertionError("no retry ran under injection")
+    if plan.catalog.leak_check() or plan.catalog.total_pinned():
+        raise AssertionError(f"the catalog leaks after the injected run: "
+                             f"{plan.catalog.leak_check()}")
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core operators: the card against the CPU
+# ---------------------------------------------------------------------------
+
+#: rows of the out-of-core check, its scan batches and budgets: every batch
+#: of 2^18 rows is a partial, and a merge pins at most 2^20 rows
+OOC_ROWS = 1 << 22
+OOC_BATCH_ROWS = 1 << 18
+OOC_MAX_RESULT_ROWS = 1 << 20
+OOC_SORT_MAX_ROWS = 1 << 20
+OOC_BUILD_ROWS = 1 << 20
+OOC_MAX_BUILD_ROWS = 1 << 18
+
+
+def ooc_plans(dev):
+    """(name, plan maker, metric name, operator name) of each out-of-core
+    check, over integer data from a numpy seed, so the card and the CPU
+    must agree exactly: the aggregate over 16 scan batches with 1,000
+    groups (windowed merge passes) and with ~2M groups (the sort-based
+    merge), the global sort over 2^20 rows (the out-of-core sorter), and
+    the grace join of 4M stream rows with a 1M-row build in 4 buckets."""
+    import numpy as np
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.exec import (AggregateMode, HashAggregateExec,
+                                             HashJoinExec, InMemoryScanExec,
+                                             JoinType, SortExec, asc, desc)
+    from spark_rapids_tpu_torch.expressions import col
+    from spark_rapids_tpu_torch.expressions.aggregates import Count, Sum
+    from spark_rapids_tpu_torch.shuffle import (HashPartitioning,
+                                                ShuffleExchangeExec)
+    rng = np.random.default_rng(21)
+    n = OOC_ROWS
+    v = pa.array(rng.integers(-10**6, 10**6, n),
+                 mask=rng.random(n) < 0.02)
+    few = pa.table({"k": rng.integers(0, 1000, n), "v": v})
+    many = pa.table({"k": rng.integers(0, n // 2, n), "v": v})
+    sortable = pa.table({"a": pa.array(rng.integers(0, 1000, n).astype(
+        np.int32), mask=rng.random(n) < 0.01), "b": rng.integers(0, 2**40, n),
+        "v": v})
+    build = pa.table({"bk": rng.integers(0, OOC_BUILD_ROWS, OOC_BUILD_ROWS),
+                      "w": rng.integers(0, 100, OOC_BUILD_ROWS)})
+    stream = pa.table({"k": rng.integers(0, 2 * OOC_BUILD_ROWS, n), "v": v})
+
+    def scan(t, d, slices=1):
+        return InMemoryScanExec(t, batch_rows=OOC_BATCH_ROWS,
+                                num_slices=slices, device=d)
+
+    def agg(t):
+        return lambda d: HashAggregateExec(
+            [col("k")], [Sum(col("v")).alias("s"), Count().alias("c")],
+            scan(t, d), AggregateMode.COMPLETE,
+            max_result_rows=OOC_MAX_RESULT_ROWS)
+
+    def sort(d):
+        return SortExec([asc(col("a")), desc(col("b"))],
+                        scan(sortable, d, 2), max_rows=OOC_SORT_MAX_ROWS)
+
+    def join(d):
+        return HashJoinExec(
+            [col("k")], [col("bk")], JoinType.INNER,
+            ShuffleExchangeExec(HashPartitioning([col("k")], 1),
+                                scan(stream, d)),
+            ShuffleExchangeExec(HashPartitioning([col("bk")], 1),
+                                scan(build, d)),
+            broadcast_build=False, max_build_rows=OOC_MAX_BUILD_ROWS)
+
+    return [("aggregate, windowed merge", agg(few), "windowedMergePasses",
+             "HashAggregateExec"),
+            ("aggregate, out-of-core merge", agg(many), "oocMerges",
+             "HashAggregateExec"),
+            ("global sort, out of core", sort, "oocSorts", "SortExec"),
+            ("grace join", join, "graceBuckets", "HashJoinExec")]
+
+
+def check_out_of_core(dev) -> None:
+    """Each out-of-core path on the card and on the CPU, 0 rows apart, and
+    its counter above 0 on the card."""
+    import torch
+    from spark_rapids_tpu_torch.exec import collect
+    t_all = time.perf_counter()
+    for name, make, metric, op in ooc_plans(dev):
+        plan = make(dev)
+        t0 = time.perf_counter()
+        got = collect(plan)
+        torch.cuda.synchronize(dev)
+        card_s = time.perf_counter() - t0
+        fired = sum(x.metrics[metric].total() for x in _execs(plan, op))
+        t0 = time.perf_counter()
+        cpu_plan = make("cpu")
+        want = collect(cpu_plan)
+        cpu_s = time.perf_counter() - t0
+        cpu_fired = sum(x.metrics[metric].total()
+                        for x in _execs(cpu_plan, op))
+        if name.startswith("global sort"):
+            bad = 0 if got.equals(want) else differing_rows(got, want) or 1
+        else:
+            bad = differing_rows(got, want)
+        print(f"out of core, {name}: {got.num_rows} rows, {bad} differing "
+              f"from the CPU; {metric} {fired} on the card, {cpu_fired} on "
+              f"the CPU; card {card_s:.3f} s, CPU {cpu_s:.3f} s")
+        if bad:
+            raise AssertionError(f"{name} differs between the card and the "
+                                 f"CPU in {bad} rows")
+        if fired <= 0:
+            raise AssertionError(f"{name}: {metric} is 0 on the card")
+    print(f"out-of-core check: {time.perf_counter() - t_all:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=SF10_LINEITEM_ROWS,
@@ -680,6 +1041,11 @@ def main(argv=None) -> int:
     runs = [run_q1_phase(args, dev, [murmur3_int32]),
             run_q16_part_phase(dev, [murmur3_int32, window_match]),
             run_q3_phase(dev, [murmur3_int32])]
+    # before Q18, whose spills would leave pinned buffers in the cache
+    measure_spill_rates(dev)
+    runs.append(run_q18_phase(dev, [murmur3_int32]))
+    check_out_of_core(dev)
+    run_q18_injection_phase(dev)
     for k in kernels:
         k["launches"] = sum(r.get(k["name"], 0) for r in runs)
     order = ["name", "route", "source", "replaces", "launches",

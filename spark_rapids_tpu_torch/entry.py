@@ -1,5 +1,5 @@
-"""TPC-H Q1, the part stage of TPC-H Q16 and TPC-H Q3 through the port, end
-to end.
+"""TPC-H Q1, the part stage of TPC-H Q16, TPC-H Q3 and TPC-H Q18 through the
+port, end to end.
 
 ``q1_plan`` and ``q16_part_plan`` build the physical tree the JAX
 package's planner gives each query (``plan/overrides.py``
@@ -51,20 +51,43 @@ broadcast threshold, as at SF10) or over broadcast builds. ``tpch_q3_tables``
 makes dbgen-shaped ``customer``, ``orders`` and ``lineitem`` columns (spec
 4.2.3) from a numpy seed.
 
-``q1_reference``, ``q16_part_reference`` and ``q3_reference`` compute the
-same with pyarrow alone, as independent oracles.
+Q18 is TPC-H Q18 (spec 2.4.18, "Large Volume Customer") with its
+validation parameter (QUANTITY 300; ``quantity`` sets another)::
+
+    SELECT c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice,
+           sum(l_quantity)
+    FROM customer, orders, lineitem
+    WHERE o_orderkey IN (SELECT l_orderkey FROM lineitem GROUP BY l_orderkey
+                         HAVING sum(l_quantity) > 300)
+      AND c_custkey = o_custkey AND o_orderkey = l_orderkey
+    GROUP BY c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+    ORDER BY o_totalprice DESC, o_orderdate LIMIT 100
+
+``q18_plan`` builds the tree the JAX planner gives it with AQE off and
+every join shuffled: the IN subquery as a LEFT SEMI join of orders with the
+filtered lineitem aggregate, the customer join with its build side swapped
+to customer, and the last join building on lineitem, which at SF10 over 2
+partitions is past ``max_build_rows`` and takes the grace join. Its
+``device_limit`` gives the tree a buffer catalog of its own with that
+budget (else the device's process-wide one). ``tpch_q18_tables`` makes the
+columns Q18 reads from the same draws as ``tpch_q3_tables``.
+
+``q1_reference``, ``q16_part_reference``, ``q3_reference`` and
+``q18_reference`` compute the same with pyarrow alone, as independent
+oracles.
 """
 
 from __future__ import annotations
 
 import datetime
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 
 from .batch import DeviceLike, Field, Schema, resolve_device, schema_from_arrow
+from .config import JOIN_MAX_BUILD_ROWS
 from .exec import (AggregateMode, CoalesceBatchesExec, Exec, FilterExec,
                    GlobalLimitExec, HashAggregateExec, HashJoinExec,
                    InMemoryScanExec, JoinType, ProjectExec, SortExec,
@@ -74,6 +97,7 @@ from .expressions import (And, BoundReference, EqualTo, Expression, In, Not,
                           col, lit, startswith)
 from .expressions.aggregates import Average, Count, Sum
 from .expressions.base import epoch_days
+from .memory.catalog import BufferCatalog
 from .shuffle import (BroadcastExchangeExec, HashPartitioning,
                       ShuffleExchangeExec)
 
@@ -100,11 +124,12 @@ def q1_aggregates():
     ]
 
 
-def _scan(table: pa.Table, num_slices: int,
-          device: DeviceLike) -> InMemoryScanExec:
+def _scan(table: pa.Table, num_slices: int, device: DeviceLike,
+          catalog: Optional[BufferCatalog] = None) -> InMemoryScanExec:
     """The scan of ``table`` in ``num_slices`` input partitions of one batch
     each. Column nullability is read from the data (null counts), as
-    ``batch.from_arrow`` does."""
+    ``batch.from_arrow`` does. ``catalog`` is the tree's buffer catalog
+    (default: the device's process-wide one)."""
     dev = resolve_device(device)
     schema = Schema([Field(f.name, f.dtype,
                            f.nullable and table.column(i).null_count > 0)
@@ -112,7 +137,8 @@ def _scan(table: pa.Table, num_slices: int,
                          table.schema, STRING_MAX_LEN))])
     batch_rows = max(1, -(-table.num_rows // num_slices))
     return InMemoryScanExec(table, schema, batch_rows=batch_rows,
-                            num_slices=num_slices, device=dev)
+                            num_slices=num_slices, device=dev,
+                            catalog=catalog)
 
 
 def _grouped_stage(scan: Exec, condition: Expression, keys: Sequence[str],
@@ -285,54 +311,88 @@ def _date_column(days: np.ndarray) -> pa.Array:
     return pa.array(days.astype(np.int32), pa.int32()).view(pa.date32())
 
 
-def tpch_q3_tables(sf: float, seed: int = 3
-                   ) -> Tuple[pa.Table, pa.Table, pa.Table]:
-    """``(customer, orders, lineitem)``: the columns Q3 reads at scale
-    factor ``sf``, drawn as dbgen draws them (TPC-H spec 4.2.3):
+def _tpch_columns(sf: float, seed: int) -> Dict[str, object]:
+    """Every column Q3 and Q18 read at scale factor ``sf``, drawn as dbgen
+    draws them (TPC-H spec 4.2.3), in one fixed order of draws from one
+    numpy generator; columns only Q18 reads are drawn after those of Q3,
+    so Q3's input does not depend on them.
 
-    - ``customer``: SF x 150,000 rows, C_CUSTKEY 1..n, C_MKTSEGMENT uniform
-      over the five segments;
-    - ``orders``: SF x 1,500,000 rows, O_ORDERKEY sparse (the first 8 keys
-      of every 32), O_CUSTKEY uniform over the customers whose key is not
+    - customer: SF x 150,000 rows, C_CUSTKEY 1..n, C_MKTSEGMENT uniform
+      over the five segments, C_NAME 'Customer#' and the key in 9 digits;
+    - orders: SF x 1,500,000 rows, O_ORDERKEY sparse (the first 8 keys of
+      every 32), O_CUSTKEY uniform over the customers whose key is not
       divisible by 3, O_ORDERDATE uniform in [1992-01-01, 1998-08-02],
-      O_SHIPPRIORITY 0;
-    - ``lineitem``: 1 to 7 rows per order, L_EXTENDEDPRICE a quantity
-      (1..50) times a price in [900.00, 2099.99], L_DISCOUNT in 0.00..0.10
-      by 0.01, L_SHIPDATE the order date plus 1 to 121 days.
+      O_SHIPPRIORITY 0, O_TOTALPRICE the sum over the order's lines of
+      L_EXTENDEDPRICE * (1 + L_TAX) * (1 - L_DISCOUNT);
+    - lineitem: 1 to 7 rows per order, L_QUANTITY 1..50, L_EXTENDEDPRICE
+      the quantity times a price in [900.00, 2099.99], L_DISCOUNT in
+      0.00..0.10 and L_TAX in 0.00..0.08 by 0.01, L_SHIPDATE the order date
+      plus 1 to 121 days.
 
-    Money is float64, the repo's stand-in for DECIMAL(15,2)."""
+    Money and L_QUANTITY are float64, the repo's stand-in for
+    DECIMAL(15,2)."""
     rng = np.random.default_rng(seed)
     n_cust = int(round(150_000 * sf))
     n_ord = int(round(1_500_000 * sf))
+    out: Dict[str, object] = {}
+    out["c_custkey"] = np.arange(1, n_cust + 1, dtype=np.int64)
     segment = rng.integers(0, len(SEGMENTS), n_cust)
-    customer = pa.table({
-        "c_custkey": np.arange(1, n_cust + 1, dtype=np.int64),
-        "c_mktsegment": pa.array(SEGMENTS).take(pa.array(segment)),
-    })
+    out["c_mktsegment"] = pa.array(SEGMENTS).take(pa.array(segment))
     i = np.arange(n_ord, dtype=np.int64)
     orderkey = (i // 8) * 32 + i % 8 + 1
     # the r-th customer key not divisible by 3 is 3 * (r // 2) + r % 2 + 1
     r = rng.integers(0, n_cust - n_cust // 3, n_ord)
-    custkey = 3 * (r // 2) + r % 2 + 1
     orderdate = rng.integers(ORDERDATE_MIN, ORDERDATE_MAX + 1, n_ord)
-    orders = pa.table({
-        "o_orderkey": orderkey,
-        "o_custkey": custkey.astype(np.int64),
-        "o_orderdate": _date_column(orderdate),
-        "o_shippriority": np.zeros(n_ord, np.int32),
-    })
+    out["o_orderkey"] = orderkey
+    out["o_custkey"] = (3 * (r // 2) + r % 2 + 1).astype(np.int64)
+    out["o_orderdate"] = _date_column(orderdate)
+    out["o_shippriority"] = np.zeros(n_ord, np.int32)
     lines = rng.integers(1, 8, n_ord)
     n_line = int(lines.sum())
     price = rng.integers(90_000, 210_000, n_line)
     quantity = rng.integers(1, 51, n_line)
-    lineitem = pa.table({
-        "l_orderkey": np.repeat(orderkey, lines),
-        "l_extendedprice": (quantity * price) / 100.0,
-        "l_discount": rng.integers(0, 11, n_line) / 100.0,
-        "l_shipdate": _date_column(np.repeat(orderdate, lines)
-                                   + rng.integers(1, 122, n_line)),
-    })
-    return customer, orders, lineitem
+    out["l_orderkey"] = np.repeat(orderkey, lines)
+    out["l_extendedprice"] = (quantity * price) / 100.0
+    out["l_discount"] = rng.integers(0, 11, n_line) / 100.0
+    out["l_shipdate"] = _date_column(np.repeat(orderdate, lines)
+                                     + rng.integers(1, 122, n_line))
+    # Q18's own columns, drawn after Q3's
+    out["l_quantity"] = quantity.astype(np.float64)
+    tax = rng.integers(0, 9, n_line) / 100.0
+    charge = out["l_extendedprice"] * (1.0 + tax) * (1.0 - out["l_discount"])
+    out["o_totalprice"] = np.bincount(np.repeat(i, lines), weights=charge,
+                                      minlength=n_ord)
+    out["c_name"] = _customer_names(out["c_custkey"])
+    return out
+
+
+def _customer_names(keys: np.ndarray) -> pa.Array:
+    """'Customer#%09d' of each key, built as one fixed-width byte matrix."""
+    prefix = np.frombuffer(b"Customer#", np.uint8)
+    digits = (keys[:, None] // 10 ** np.arange(8, -1, -1)) % 10
+    mat = np.concatenate([np.broadcast_to(prefix, (len(keys), 9)),
+                          (digits + ord("0")).astype(np.uint8)], axis=1)
+    offsets = np.arange(len(keys) + 1, dtype=np.int32) * 18
+    return pa.StringArray.from_buffers(
+        len(keys), pa.py_buffer(offsets.tobytes()),
+        pa.py_buffer(np.ascontiguousarray(mat).tobytes()))
+
+
+def _tpch_table(columns: Dict[str, object], names: Sequence[str]
+                ) -> pa.Table:
+    return pa.table({n: columns[n] for n in names})
+
+
+def tpch_q3_tables(sf: float, seed: int = 3
+                   ) -> Tuple[pa.Table, pa.Table, pa.Table]:
+    """``(customer, orders, lineitem)``: the columns Q3 reads at scale
+    factor ``sf`` (``_tpch_columns``)."""
+    c = _tpch_columns(sf, seed)
+    return (_tpch_table(c, ("c_custkey", "c_mktsegment")),
+            _tpch_table(c, ("o_orderkey", "o_custkey", "o_orderdate",
+                            "o_shippriority")),
+            _tpch_table(c, ("l_orderkey", "l_extendedprice", "l_discount",
+                            "l_shipdate")))
 
 
 def q3_aggregates():
@@ -439,3 +499,136 @@ def q3_reference(customer: pa.Table, orders: pa.Table,
                  lineitem: pa.Table) -> pa.Table:
     """Q3 computed by pyarrow alone, in ``run_q3``'s column order."""
     return q3_top(q3_groups_reference(customer, orders, lineitem))
+
+
+# ---------------------------------------------------------------------------
+# TPC-H Q18
+# ---------------------------------------------------------------------------
+
+Q18_QUANTITY = 300.0
+Q18_KEYS = ("c_name", "c_custkey", "o_orderkey", "o_orderdate",
+            "o_totalprice")
+Q18_LIMIT = 100
+
+
+def tpch_q18_tables(sf: float, seed: int = 3
+                    ) -> Tuple[pa.Table, pa.Table, pa.Table]:
+    """``(customer, orders, lineitem)``: the columns Q18 reads at scale
+    factor ``sf``, from the same draws as ``tpch_q3_tables``
+    (``_tpch_columns``)."""
+    c = _tpch_columns(sf, seed)
+    return (_tpch_table(c, ("c_custkey", "c_name")),
+            _tpch_table(c, ("o_orderkey", "o_custkey", "o_totalprice",
+                            "o_orderdate")),
+            _tpch_table(c, ("l_orderkey", "l_quantity")))
+
+
+def q18_aggregates(name: str = "sum_qty"):
+    return [Sum(col("l_quantity")).alias(name)]
+
+
+def _hash_exchange(child: Exec, key: str,
+                   shuffle_partitions: int) -> ShuffleExchangeExec:
+    return ShuffleExchangeExec(HashPartitioning([col(key)],
+                                                shuffle_partitions), child)
+
+
+def _grouped(child: Exec, keys: Sequence[str], aggregates,
+             shuffle_partitions: int) -> Exec:
+    """Partial aggregate, hash exchange on the keys, final aggregate."""
+    key_cols = [col(k) for k in keys]
+    partial = HashAggregateExec(key_cols, aggregates(), child,
+                                AggregateMode.PARTIAL)
+    exchange = ShuffleExchangeExec(
+        HashPartitioning([col(f.name) for f in partial.key_fields],
+                         shuffle_partitions), partial)
+    return HashAggregateExec(key_cols, aggregates(), exchange,
+                             AggregateMode.FINAL)
+
+
+def q18_plan(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
+             num_slices: int = 8, shuffle_partitions: int = 2,
+             device_limit: Optional[int] = None,
+             max_build_rows: int = JOIN_MAX_BUILD_ROWS,
+             device: DeviceLike = None,
+             quantity: float = Q18_QUANTITY) -> Exec:
+    """Q18's physical tree over the three tables, every join shuffled. With
+    ``device_limit`` the tree gets a buffer catalog of its own with that
+    device budget (``plan.catalog``)."""
+    cat = BufferCatalog(device_limit) if device_limit else None
+
+    def scan(t: pa.Table) -> Exec:
+        return _scan(t, num_slices, device, cat)
+
+    def shuffled_join(stream: Exec, build: Exec, stream_key: str,
+                      build_key: str, how: JoinType) -> Exec:
+        return HashJoinExec(
+            [col(stream_key)], [col(build_key)], how,
+            _hash_exchange(stream, stream_key, shuffle_partitions),
+            _hash_exchange(build, build_key, shuffle_partitions),
+            broadcast_build=False, max_build_rows=max_build_rows)
+
+    big_orders = FilterExec(
+        col("sq") > lit(float(quantity)),
+        _grouped(scan(lineitem), ["l_orderkey"],
+                 lambda: q18_aggregates("sq"), shuffle_partitions))
+    semi = shuffled_join(scan(orders), big_orders, "o_orderkey",
+                         "l_orderkey", JoinType.LEFT_SEMI)
+    cust = scan(customer)
+    co = _swap_back(shuffled_join(semi, cust, "o_custkey", "c_custkey",
+                                  JoinType.INNER), cust, semi)
+    joined = shuffled_join(co, scan(lineitem), "o_orderkey", "l_orderkey",
+                           JoinType.INNER)
+    final = _grouped(CoalesceBatchesExec(joined, TargetSize()), Q18_KEYS,
+                     q18_aggregates, shuffle_partitions)
+    return GlobalLimitExec(Q18_LIMIT, SortExec(
+        [desc(col("o_totalprice")), asc(col("o_orderdate"))], final))
+
+
+def run_q18(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
+            num_slices: int = 8, shuffle_partitions: int = 2,
+            device_limit: Optional[int] = None,
+            max_build_rows: int = JOIN_MAX_BUILD_ROWS,
+            device: DeviceLike = None,
+            quantity: float = Q18_QUANTITY) -> pa.Table:
+    """Q18 over the three tables, collected to the host."""
+    return collect(q18_plan(customer, orders, lineitem, num_slices,
+                            shuffle_partitions, device_limit,
+                            max_build_rows, device, quantity))
+
+
+def q18_groups_reference(customer: pa.Table, orders: pa.Table,
+                         lineitem: pa.Table,
+                         quantity: float = Q18_QUANTITY) -> pa.Table:
+    """Every group of Q18 before its ORDER BY and LIMIT, by pyarrow alone,
+    in ``run_q18``'s column order."""
+    sq = lineitem.group_by("l_orderkey").aggregate([("l_quantity", "sum")])
+    big = sq.filter(pc.greater(sq.column("l_quantity_sum"), quantity))
+    keys = big.column("l_orderkey")
+    o = orders.filter(pc.is_in(orders.column("o_orderkey"), value_set=keys))
+    li = lineitem.filter(pc.is_in(lineitem.column("l_orderkey"),
+                                  value_set=keys))
+    co = o.join(customer, keys="o_custkey", right_keys="c_custkey",
+                join_type="inner")
+    j = li.join(co, keys="l_orderkey", right_keys="o_orderkey",
+                join_type="inner")
+    g = j.group_by(["c_name", "o_custkey", "l_orderkey", "o_orderdate",
+                    "o_totalprice"]).aggregate([("l_quantity", "sum")])
+    return pa.table([g.column("c_name"), g.column("o_custkey"),
+                     g.column("l_orderkey"), g.column("o_orderdate"),
+                     g.column("o_totalprice"), g.column("l_quantity_sum")],
+                    names=list(Q18_KEYS) + ["sum_qty"])
+
+
+def q18_top(groups: pa.Table) -> pa.Table:
+    """Q18's ORDER BY o_totalprice DESC, o_orderdate and LIMIT."""
+    return groups.sort_by([("o_totalprice", "descending"),
+                           ("o_orderdate", "ascending")]).slice(0, Q18_LIMIT)
+
+
+def q18_reference(customer: pa.Table, orders: pa.Table,
+                  lineitem: pa.Table,
+                  quantity: float = Q18_QUANTITY) -> pa.Table:
+    """Q18 computed by pyarrow alone, in ``run_q18``'s column order."""
+    return q18_top(q18_groups_reference(customer, orders, lineitem,
+                                        quantity))

@@ -12,6 +12,16 @@ holds ``[group keys..., buffer columns...]`` in declaration order. Every
 output batch keeps its input's capacity, as in the JAX package; where that
 package chose among capacity tiers with ``lax.cond``, the group layout here
 is sized from the observed group count.
+
+The partials of a partition wait in the spill catalog, and no merge pins
+more than ``max_result_rows`` of their capacity at once
+(``_merge_and_emit``): partials over that budget merge in windows, pass by
+pass, until they fit; a pass that shrinks them by less than a tenth (high
+cardinality) hands them to the sort-based out-of-core merge, which streams
+them in global key order through ``OutOfCoreSorter`` and merges chunk by
+chunk, carrying the boundary group into the next chunk. The metrics
+``windowedMergePasses`` and ``oocMerges`` count both. Merges add partial
+sums in the same grouping as the JAX package's.
 """
 
 from __future__ import annotations
@@ -21,14 +31,19 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..batch import ColumnarBatch, DeviceColumn, Field, Schema, rows_scalar
+from ..batch import (MIN_CAPACITY, ColumnarBatch, DeviceColumn, Field,
+                     Schema, bucket_capacity, empty_batch, rows_scalar)
+from ..config import AGG_MAX_RESULT_ROWS
 from ..expressions.aggregates import AggregateFunction, FastLanes, LaneResults
 from ..expressions.base import (Alias, BoundReference, EvalContext,
                                 Expression, raw_eval)
-from .base import Exec, UnaryExec
+from ..memory.catalog import SpillableBatch
+from ..memory.retry import (acquire_with_retry, register_with_retry,
+                            with_retry_no_split)
+from .base import Exec, Metric, UnaryExec
 from .basic import bind_all, output_name
-from .common import (adjacent_equal_ops, concat_all, gather_columns,
-                     lexsort, may_skip_null_lane, sort_operands)
+from .common import (adjacent_equal_ops, concat_batches, gather_columns,
+                     lexsort, may_skip_null_lane, slice_batch, sort_operands)
 
 
 class AggregateMode(enum.Enum):
@@ -65,9 +80,14 @@ class HashAggregateExec(UnaryExec):
     def __init__(self, group_exprs: Sequence[Expression],
                  agg_exprs: Sequence[Expression], child: Exec,
                  mode: AggregateMode = AggregateMode.COMPLETE,
-                 ctx: Optional[EvalContext] = None):
+                 ctx: Optional[EvalContext] = None,
+                 max_result_rows: int = AGG_MAX_RESULT_ROWS):
         super().__init__(child, ctx)
         self.mode = mode
+        self.max_result_rows = max_result_rows
+        #: windowed merge passes, and hand-offs to the out-of-core merge
+        for name in ("windowedMergePasses", "oocMerges"):
+            self.metrics[name] = Metric(name)
         named = [_unalias(e) for e in agg_exprs]
         self.agg_names = [n for _, n in named]
         child_schema = child.output_schema
@@ -210,19 +230,166 @@ class HashAggregateExec(UnaryExec):
         """buffer-layout rows -> merged buffer rows (or final results)."""
         return self._group_kernel(batch, merge=True, final=final)
 
+    def _eval_buffers_kernel(self, batch: ColumnarBatch) -> ColumnarBatch:
+        """Buffer-layout rows whose groups are already unique -> final
+        results, without a merge pass."""
+        nk = len(self.key_fields)
+        group_live = batch.row_mask()
+        out_cols = list(batch.columns[:nk])
+        for agg, idxs in zip(self.aggs, self._buf_per_agg):
+            out_cols.append(agg.evaluate([batch.columns[nk + i]
+                                          for i in idxs], group_live))
+        return ColumnarBatch(tuple(out_cols), batch.num_rows)
+
     # ------------------------------------------------------------------
     # Iterator
     # ------------------------------------------------------------------
 
     def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
-        partials = [self._update_kernel(b)
-                    if self.mode is not AggregateMode.FINAL else b
-                    for b in self.child.execute_partition(p)]
-        # a global aggregate over no input still yields one row
-        if not partials and (self.key_fields or p != 0):
-            return
-        merged = concat_all(partials,
-                            Schema(self.key_fields + self.buffer_fields),
-                            self.device)
-        yield self._merge_kernel(
-            merged, final=self.mode is not AggregateMode.PARTIAL)
+        cat = self.catalog
+        buf_schema = Schema(self.key_fields + self.buffer_fields)
+        finalize = self.mode is not AggregateMode.PARTIAL
+        entries: List[Tuple[SpillableBatch, int]] = []
+        try:
+            for batch in self.child.execute_partition(p):
+                part = (batch if self.mode is AggregateMode.FINAL
+                        else self._update_kernel(batch))
+                # a registered handle starts unpinned (spillable); the
+                # catalog holds the only reference to it from here
+                entries.append((register_with_retry(
+                    part, buf_schema, catalog=cat, name=self.name),
+                    part.capacity))
+                del batch, part
+            if not entries:
+                # a global aggregate over no input still yields one row
+                if not self.key_fields and p == 0:
+                    yield self._merge_kernel(
+                        empty_batch(buf_schema, self.device), finalize)
+                return
+            yield from self._merge_and_emit(entries, finalize, buf_schema)
+        finally:
+            for sb, _ in entries:
+                sb.close()
+
+    def _merge_and_emit(self, entries: List[Tuple[SpillableBatch, int]],
+                        finalize: bool, buf_schema: Schema
+                        ) -> Iterator[ColumnarBatch]:
+        """Merge the partials without ever pinning more than
+        ``max_result_rows`` of their capacity at once: windowed merge
+        passes while they shrink, the sort-based out-of-core merge once a
+        pass shrinks them by less than a tenth. ``entries`` is updated in
+        place, so the caller closes the handles that are live."""
+        cat = self.catalog
+
+        def acquire_group(grp) -> List[ColumnarBatch]:
+            """Pin a group transactionally: an OOM mid-loop unpins what
+            this attempt pinned, so the retry starts from a spillable
+            state."""
+            got = []
+            try:
+                for sb, _ in grp:
+                    got.append(sb.get())
+            except BaseException:
+                for j in range(len(got)):
+                    grp[j][0].done_with()
+                raise
+            return got
+
+        window = self.max_result_rows
+        while True:
+            total = sum(c for _, c in entries)
+            if len(entries) == 1 or total <= window:
+                def final_merge():
+                    batches = acquire_group(entries)
+                    merged = (batches[0] if len(batches) == 1 else
+                              concat_batches(batches, bucket_capacity(total)))
+                    for sb, _ in entries:
+                        sb.done_with()
+                    return merged
+                merged = with_retry_no_split(final_merge, catalog=cat,
+                                             name=self.name)
+                yield self._merge_kernel(merged, finalize)
+                return
+            # one windowed merge pass
+            self.metrics["windowedMergePasses"].add(1)
+            new_entries: List[Tuple[SpillableBatch, int]] = []
+            shrunk, i = 0, 0
+            while i < len(entries):
+                grp, cap_sum = [], 0
+                while i < len(entries) and (
+                        not grp or cap_sum + entries[i][1] <= window):
+                    grp.append(entries[i])
+                    cap_sum += entries[i][1]
+                    i += 1
+                if len(grp) == 1:
+                    new_entries.append(grp[0])
+                    continue
+
+                def window_merge(grp=grp, cap_sum=cap_sum):
+                    batches = acquire_group(grp)
+                    merged = self._merge_kernel(
+                        concat_batches(batches, bucket_capacity(cap_sum)),
+                        False)
+                    out_cap = bucket_capacity(max(int(merged.num_rows), 1))
+                    if out_cap < merged.capacity:
+                        merged = slice_batch(merged, 0, out_cap, out_cap)
+                    for sb, _ in grp:
+                        sb.done_with()
+                    return merged
+
+                merged = with_retry_no_split(window_merge, catalog=cat,
+                                             name=self.name)
+                for sb, _ in grp:
+                    sb.close()
+                nsb = register_with_retry(merged, buf_schema, catalog=cat,
+                                          name=self.name)
+                new_entries.append((nsb, merged.capacity))
+                shrunk += cap_sum - merged.capacity
+            entries[:] = new_entries
+            if shrunk * 10 < total:
+                # high cardinality: merging barely shrinks
+                self.metrics["oocMerges"].add(1)
+                yield from self._ooc_sorted_merge(entries, finalize,
+                                                  buf_schema)
+                return
+
+    def _ooc_sorted_merge(self, entries: List[Tuple[SpillableBatch, int]],
+                          finalize: bool, buf_schema: Schema
+                          ) -> Iterator[ColumnarBatch]:
+        """Sort-based out-of-core merge: the partials in global key order
+        through the spilled chunked merge tree, then one bounded merge per
+        chunk. Only the last group of a chunk can continue into the next,
+        so it is carried; every other group is emitted."""
+        from .ooc_sort import OutOfCoreSorter
+        from .sort import SortOrder
+
+        orders = [SortOrder(BoundReference(i, f.dtype, f.nullable, f.name))
+                  for i, f in enumerate(self.key_fields)]
+        chunk_rows = max(min(self.max_result_rows // 4, 1 << 16),
+                         MIN_CAPACITY)
+        sorter = OutOfCoreSorter(orders, buf_schema, self.catalog,
+                                 chunk_rows=chunk_rows)
+
+        def batches():
+            for sb, _ in entries:
+                b = acquire_with_retry(sb, name=self.name)
+                sb.done_with()
+                yield b
+
+        carry: Optional[ColumnarBatch] = None
+        for chunk in sorter.sort(batches()):
+            if carry is not None:
+                chunk = concat_batches([carry, chunk], bucket_capacity(
+                    carry.capacity + chunk.capacity))
+            merged = self._merge_kernel(chunk, False)
+            n = int(merged.num_rows)
+            if n == 0:
+                carry = None
+                continue
+            carry = slice_batch(merged, n - 1, 1, MIN_CAPACITY)
+            if n == 1:
+                continue
+            emit = slice_batch(merged, 0, n - 1, bucket_capacity(n - 1))
+            yield self._eval_buffers_kernel(emit) if finalize else emit
+        if carry is not None:
+            yield self._eval_buffers_kernel(carry) if finalize else carry

@@ -6,6 +6,12 @@ rows and batches, and ``opTime``, the host time spent inside the operator's
 iterator including its children) and a profiler range per step. Operators
 run eagerly: each torch op is enqueued on the device's current stream as
 the iterator advances.
+
+Every operator that holds batches between uses registers them in a buffer
+catalog (``memory/catalog.py``): the one it was given, else its first
+child's, and at a leaf the process-wide catalog of its device. ``close``
+releases what the tree still holds once a query is over; ``collect``
+calls it.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 from .. import types as T
 from ..batch import ColumnarBatch, Schema, to_arrow
 from ..expressions.base import EvalContext
+from ..memory.catalog import BufferCatalog, device_budget
 
 
 class Metric:
@@ -54,6 +61,7 @@ class Exec:
         self.metrics: Dict[str, Metric] = {
             n: Metric(n) for n in ("numOutputRows", "numOutputBatches",
                                    "opTime")}
+        self._catalog: Optional[BufferCatalog] = None
 
     @property
     def output_schema(self) -> Schema:
@@ -69,10 +77,34 @@ class Exec:
         """The device the operator's batches live on (its leaf's)."""
         return self.children[0].device
 
+    @property
+    def catalog(self) -> BufferCatalog:
+        """The buffer catalog this operator registers its held batches in:
+        the one it was given, else its first child's, and at a leaf the
+        process-wide catalog of its device."""
+        if self._catalog is None:
+            self._catalog = (self.children[0].catalog if self.children
+                             else device_budget(self.device))
+        return self._catalog
+
     def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         raise NotImplementedError(type(self).__name__)
 
+    def close(self) -> None:
+        """Release the catalog handles the tree still holds once the query
+        is over (children first); subclasses override ``do_close``."""
+        for c in self.children:
+            c.close()
+        self.do_close()
+
+    def do_close(self) -> None:
+        pass
+
     def execute(self) -> Iterator[ColumnarBatch]:
+        """Every partition's batches in order. Exchanges keep what they
+        registered in the catalog until ``close``: ``collect`` closes the
+        plan, and a caller who iterates ``execute`` or ``execute_partition``
+        itself must call ``close`` when done."""
         for p in range(self.num_partitions):
             yield from self.execute_partition(p)
 
@@ -147,7 +179,11 @@ def assemble_result(tables, schema: Schema) -> pa.Table:
 
 
 def collect(plan: Exec) -> pa.Table:
-    """Run a plan and pull the result to the host as one Arrow table."""
+    """Run a plan and pull the result to the host as one Arrow table, then
+    close the plan, so the query leaves no handle in any catalog."""
     schema = plan.output_schema
-    return assemble_result((to_arrow(b, schema) for b in plan.execute()),
-                           schema)
+    try:
+        return assemble_result((to_arrow(b, schema)
+                                for b in plan.execute()), schema)
+    finally:
+        plan.close()

@@ -4,7 +4,9 @@ Port of ``InMemoryScanExec``, ``ProjectExec``, ``FilterExec``,
 ``LocalLimitExec`` and ``GlobalLimitExec`` from
 ``spark_rapids_tpu/exec/basic.py``. The scan is the H2D boundary: an Arrow
 table is cut into ``batch_rows`` chunks dealt round-robin to ``num_slices``
-partitions, and a partition uploads only its own chunks, when it runs.
+partitions, and a partition uploads only its own chunks, when it runs. Each
+chunk's upload runs under the OOM retry loop (no split: the chunk count
+fixes the round-robin), with the ``scan.h2d`` injection site.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import torch
 from ..batch import (ColumnarBatch, DeviceLike, Field, Schema, from_arrow,
                      resolve_device, schema_from_arrow)
 from ..expressions.base import Alias, EvalContext, Expression, raw_eval
+from ..memory.catalog import BufferCatalog
+from ..memory.retry import maybe_inject, with_retry_no_split
 from ..types import TypeKind
 from .base import Exec, LeafExec, UnaryExec
 from .common import compact, slice_batch
@@ -39,13 +43,17 @@ def schema_of(exprs: Sequence[Expression]) -> Schema:
 
 class InMemoryScanExec(LeafExec):
     """Leaf over an Arrow table (uploaded chunk by chunk as partitions run)
-    or over batches already on a device (``schema`` then required)."""
+    or over batches already on a device (``schema`` then required).
+    ``catalog`` is the buffer catalog of the tree above it (default: the
+    device's process-wide one)."""
 
     def __init__(self, data, schema: Optional[Schema] = None,
                  batch_rows: Optional[int] = None, num_slices: int = 1,
                  device: DeviceLike = None,
-                 ctx: EvalContext = EvalContext()):
+                 ctx: EvalContext = EvalContext(),
+                 catalog: Optional[BufferCatalog] = None):
         super().__init__(ctx)
+        self._catalog = catalog
         self._num_slices = num_slices
         self._batch_rows = batch_rows
         if isinstance(data, pa.Table):
@@ -83,9 +91,15 @@ class InMemoryScanExec(LeafExec):
         # chunk i belongs to partition i % num_slices; an empty table is
         # one empty chunk, in partition 0
         for off in range(p * step, max(n, 1), step * self._num_slices):
-            batch, _ = from_arrow(self._table.slice(off, step),
-                                  schema=self._schema, device=self._device)
-            yield batch
+            chunk = self._table.slice(off, step)
+            yield with_retry_no_split(lambda c=chunk: self._h2d(c),
+                                      catalog=self.catalog, name=self.name)
+
+    def _h2d(self, chunk: pa.Table) -> ColumnarBatch:
+        maybe_inject("scan.h2d")
+        batch, _ = from_arrow(chunk, schema=self._schema,
+                              device=self._device)
+        return batch
 
 
 class ProjectExec(UnaryExec):

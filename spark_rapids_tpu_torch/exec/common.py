@@ -2,7 +2,9 @@
 
 Port of ``spark_rapids_tpu/exec/common.py``: row gathers, stable
 compaction, concatenation (``concat_all``), slicing (``slice_batch``), and
-the sort-key normalization with its multi-operand sort.
+the sort-key normalization with its multi-operand sort. Also
+``partition_pieces``, the port's one-sort cut of a batch into per-target
+pieces, which the exchange and the grace join share.
 
 The JAX package orders rows with one lexicographic multi-operand
 ``jax.lax.sort``. ``torch.sort`` takes one key, so ``lexsort`` packs
@@ -113,6 +115,23 @@ def slice_batch(batch: ColumnarBatch, start, count,
     n = torch.minimum(torch.as_tensor(count, dtype=torch.int64, device=dev),
                       (batch.num_rows.to(torch.int64) - start).clamp(min=0))
     return gather(batch, iota + start, n, iota < n)
+
+
+def partition_pieces(batch: ColumnarBatch, pids: torch.Tensor,
+                     n: int) -> Iterator[Tuple[int, int, ColumnarBatch]]:
+    """(partition, rows, piece) for each partition that gets rows; each
+    piece holds its rows in input order at capacity bucket_capacity(rows)."""
+    key = torch.where(batch.row_mask(), pids.to(torch.int64), n)
+    perm = torch.sort(key, stable=True).indices      # dead rows last
+    counts = torch.bincount(key, minlength=n + 1)[:n].tolist()
+    last = perm.shape[0] - 1
+    off = 0
+    for p, rows in enumerate(counts):
+        if rows:
+            iota = torch.arange(bucket_capacity(rows), device=batch.device)
+            idx = perm[(iota + off).clamp(max=last)]
+            yield p, rows, gather(batch, idx, rows, iota < rows)
+        off += rows
 
 
 # ---------------------------------------------------------------------------

@@ -31,11 +31,23 @@ package's sentinels (0xFFFFFFFF build, 0xFFFFFFFE probe). The dense path's
 offset ``key - first`` can wrap in int64 when keys span more than 2^63; a
 wrapped (negative) offset is out of range.
 
-Not ported here: grace-hash sub-partitioning of an oversized build
-(``_grace_join``: such a build raises ``NotImplementedError``), the AQE
-hooks (``_maybe_coordinate``, the runtime broadcast switch and the skew
-split), the spill and retry wrappers of ``_probe``, ``_expand_masked``
-(whole-stage fusion) and ``BroadcastNestedLoopJoinExec``.
+Memory discipline, as in the JAX package: the build side is admitted to
+the spill catalog and built under the retry loop without a split; each
+probe batch is admitted too and probed under the retry loop, halved on a
+repeated OOM (a half-stream probes to the same pairs in the same stream
+order). A build of more than ``max_build_rows`` rows in one partition takes
+the grace join: both sides are cut into ``ceil(rows / max_build_rows)``
+buckets by a murmur3 row hash with seed 77 (independent of the search
+hash), the stream buckets wait in the catalog, and each bucket pair joins
+through the probe loop above. The build buckets stay plain device batches,
+outside the budget, as in the JAX package; here each is cut at its
+row-count bucket by one sort (``partition_pieces``) where the JAX package
+compacts at full capacity once per bucket. ``graceBuckets`` counts the
+buckets.
+
+Not ported here: the AQE hooks (``_maybe_coordinate``, the runtime
+broadcast switch and the skew split), ``_expand_masked`` (whole-stage
+fusion) and ``BroadcastNestedLoopJoinExec``.
 """
 
 from __future__ import annotations
@@ -49,16 +61,21 @@ import torch
 from .. import types as T
 from ..batch import (ColumnarBatch, DeviceColumn, Field, Schema,
                      bucket_capacity, empty_batch, rows_scalar)
+from ..config import JOIN_MAX_BUILD_ROWS
 from ..expressions.base import (BoundReference, EvalContext, Expression,
                                 string_equal)
 from ..expressions.hashing import murmur3_batch
 from ..kernels.murmur3 import u32
+from ..memory.catalog import SpillableBatch
+from ..memory.retry import (SpillableInput, acquire_with_retry, admit_all,
+                            register_with_retry, split_input_halves,
+                            with_retry, with_retry_no_split)
 from ..types import TypeKind
 from .aggregate import _pad_column
-from .base import BinaryExec, Exec
+from .base import BinaryExec, Exec, Metric
 from .basic import bind_all
 from .common import (compact, concat_all, gather_column, gather_columns,
-                     lexsort, orderable_words)
+                     lexsort, orderable_words, partition_pieces)
 
 
 class JoinType(enum.Enum):
@@ -89,6 +106,8 @@ _HASH_PROBE_NULL = 0xFFFFFFFE
 #: the largest candidate total of one probe batch, the JAX package's int32
 #: offset range
 _MAX_CANDIDATES = (1 << 31) - 1
+#: murmur3 seed of the grace join's bucket hash (independent of ``_hash64``)
+_GRACE_SEED = 77
 
 
 def _hash64(cols: Sequence[DeviceColumn], valid: torch.Tensor) -> torch.Tensor:
@@ -175,7 +194,7 @@ class HashJoinExec(BinaryExec):
                  condition: Optional[Expression] = None,
                  broadcast_build: bool = True,
                  ctx: Optional[EvalContext] = None,
-                 max_build_rows: int = 1 << 22):
+                 max_build_rows: int = JOIN_MAX_BUILD_ROWS):
         super().__init__(left, right, ctx)
         if join_type is JoinType.CROSS:
             raise ValueError("use BroadcastNestedLoopJoinExec for cross joins")
@@ -184,6 +203,8 @@ class HashJoinExec(BinaryExec):
         # keys and partition p probes partition p.
         self.broadcast_build = broadcast_build
         self.max_build_rows = max_build_rows
+        #: grace-join buckets over all partitions (0: no grace join ran)
+        self.metrics["graceBuckets"] = Metric("graceBuckets")
         self.join_type = join_type
         self.left_keys = bind_all(left_keys, left.output_schema)
         self.right_keys = bind_all(right_keys, right.output_schema)
@@ -507,45 +528,82 @@ class HashJoinExec(BinaryExec):
         build_rows = (int(torch.stack([b.num_rows for b in build_batches])
                           .sum()) if build_batches else 0)
         if build_rows > self.max_build_rows:
-            raise NotImplementedError(
-                f"build side of {build_rows} rows > max_build_rows="
-                f"{self.max_build_rows}: grace-hash sub-partitioning "
-                f"(_grace_join) comes with the out-of-core join slice")
-        yield from self._probe(build_batches, stream_iter)
+            yield from self._grace_join(build_batches, build_rows,
+                                        stream_iter)
+        else:
+            yield from self._probe(build_batches, stream_iter)
 
     def _probe(self, build_batches: List[ColumnarBatch],
                stream_iter: Iterator[ColumnarBatch]
                ) -> Iterator[ColumnarBatch]:
-        """The probe loop against one in-memory build table. Each step
-        runs in a profiler range of its own."""
-        with torch.profiler.record_function("HashJoinExec.build"):
-            table, sbuild = self._build_kernel(concat_all(
-                build_batches, self.right.output_schema, self.device))
+        """The probe loop against one in-memory build table, under the
+        retry discipline; ``build_batches`` is emptied once the catalog
+        holds them. Each step runs in a profiler range of its own."""
+        cat = self.catalog
+        build_schema = self.right.output_schema
+        build_inputs = admit_all(build_batches, build_schema, cat,
+                                 name=f"{self.name}.build")
+        build_batches.clear()       # the catalog holds them from here
+
+        def build_body():
+            got: List[ColumnarBatch] = []
+            try:
+                for binp in build_inputs:
+                    got.append(binp.acquire())
+                return self._build_kernel(concat_all(got, build_schema,
+                                                     self.device))
+            finally:
+                for j in range(len(got)):
+                    build_inputs[j].release()
+
+        try:
+            with torch.profiler.record_function("HashJoinExec.build"):
+                table, sbuild = with_retry_no_split(
+                    build_body, catalog=cat, name=f"{self.name}.build")
+        finally:
+            for binp in build_inputs:
+                binp.close()
         matched_build = torch.zeros(sbuild.capacity, dtype=torch.bool,
                                     device=sbuild.device)
         semi = self.join_type in _SEMI_TYPES
-        for stream in stream_iter:
-            with torch.profiler.record_function("HashJoinExec.count"):
-                lo, counts, offsets = self._count_kernel(stream, table)
-                # one transfer: the candidate total sizes the output, the
-                # largest count picks the 1:1 path
-                total, most = torch.stack([offsets[-1], counts.max()]
-                                          ).tolist()
-            if total > _MAX_CANDIDATES:
-                raise RuntimeError(
-                    f"join candidate explosion: {total} pairs in one probe "
-                    f"batch exceeds the int32 offset range; reduce the "
-                    f"batch size or pre-aggregate the build side")
-            out_cap = bucket_capacity(max(total, 1))
-            with torch.profiler.record_function("HashJoinExec.expand"):
-                if semi:
-                    out = self._semi_kernel(stream, sbuild, lo, counts,
-                                            offsets, total, out_cap)
-                else:
-                    out, matched_build = self._expand_kernel(
+
+        def probe_body(item: SpillableInput):
+            stream = item.acquire()
+            try:
+                with torch.profiler.record_function("HashJoinExec.count"):
+                    lo, counts, offsets = self._count_kernel(stream, table)
+                    # one transfer: the candidate total sizes the output,
+                    # the largest count picks the 1:1 path
+                    total, most = torch.stack([offsets[-1], counts.max()]
+                                              ).tolist()
+                if total > _MAX_CANDIDATES:
+                    raise RuntimeError(
+                        f"join candidate explosion: {total} pairs in one "
+                        f"probe batch exceeds the int32 offset range; reduce "
+                        f"the batch size or pre-aggregate the build side")
+                out_cap = bucket_capacity(max(total, 1))
+                with torch.profiler.record_function("HashJoinExec.expand"):
+                    if semi:
+                        return self._semi_kernel(stream, sbuild, lo, counts,
+                                                 offsets, total,
+                                                 out_cap), None
+                    return self._expand_kernel(
                         stream, sbuild, lo, counts, offsets, total,
                         most <= 1, matched_build, out_cap)
-            yield out
+            finally:
+                item.release()
+
+        stream_schema = self.left.output_schema
+        for stream in stream_iter:
+            inp = SpillableInput.admit(stream, stream_schema, cat,
+                                       name=self.name)
+            del stream          # the catalog holds it from here
+            for out, mb in with_retry(inp, probe_body,
+                                      split=split_input_halves,
+                                      catalog=cat, name=self.name):
+                if mb is not None:
+                    matched_build = mb
+                yield out
         if self.join_type in _BUILD_TAIL_TYPES:
             # build rows no probe matched, with a null stream side; the
             # matched state is in sorted build order, as is the tail
@@ -555,3 +613,66 @@ class HashJoinExec(BinaryExec):
                 sbuild.capacity)
             yield compact(ColumnarBatch(tuple(null_left) + sbuild.columns,
                                         sbuild.num_rows), unmatched)
+
+    # ------------------------------------------------------------------
+    # Grace-hash sub-partitioning
+    # ------------------------------------------------------------------
+
+    def _bucket_pids(self, batch: ColumnarBatch, keys: Sequence[Expression],
+                     n_buckets: int) -> torch.Tensor:
+        """Each row's bucket: pmod(murmur3(keys, seed 77), n_buckets)."""
+        cols = [e.eval(batch, self.ctx) for e in keys]
+        return torch.remainder(murmur3_batch(cols, _GRACE_SEED), n_buckets)
+
+    def _cut_buckets(self, batch: ColumnarBatch, keys: Sequence[Expression],
+                     n_buckets: int) -> List[Tuple[int, ColumnarBatch]]:
+        """(bucket, piece) for each bucket ``batch`` has rows in, the rows
+        in input order at their row-count bucket."""
+        pids = self._bucket_pids(batch, keys, n_buckets)
+        return [(s, piece) for s, _rows, piece
+                in partition_pieces(batch, pids, n_buckets)]
+
+    def _grace_join(self, build_batches: List[ColumnarBatch],
+                    build_rows: int, stream_iter: Iterator[ColumnarBatch]
+                    ) -> Iterator[ColumnarBatch]:
+        """Cut both sides into ``ceil(build_rows / max_build_rows)`` buckets
+        by the bucket hash of their keys (emptying ``build_batches``) and
+        join each bucket pair through the probe loop. Stream buckets wait in the spill catalog, so device
+        residency is the build buckets and one stream bucket's probe."""
+        cat = self.catalog
+        n_buckets = -(-build_rows // self.max_build_rows)
+        self.metrics["graceBuckets"].add(n_buckets)
+        sub_builds: List[List[ColumnarBatch]] = [[] for _ in range(n_buckets)]
+        with torch.profiler.record_function("HashJoinExec.grace_split"):
+            while build_batches:     # each build batch goes once it is cut
+                for s, piece in self._cut_buckets(
+                        build_batches.pop(0), self.right_keys, n_buckets):
+                    sub_builds[s].append(piece)
+        stream_schema = self.left.output_schema
+        sub_stream: List[List[SpillableBatch]] = [[] for _ in
+                                                  range(n_buckets)]
+        try:
+            for batch in stream_iter:
+                with torch.profiler.record_function(
+                        "HashJoinExec.grace_split"):
+                    for s, piece in self._cut_buckets(batch, self.left_keys,
+                                                      n_buckets):
+                        sub_stream[s].append(register_with_retry(
+                            piece, stream_schema, catalog=cat,
+                            name=f"{self.name}.grace"))
+            batch = piece = None    # the buckets hold the rows from here
+            for s in range(n_buckets):
+                def pieces(bucket=s):
+                    for sp in sub_stream[bucket]:
+                        out = acquire_with_retry(sp,
+                                                 name=f"{self.name}.grace")
+                        sp.done_with()
+                        yield out
+                builds, sub_builds[s] = sub_builds[s], []
+                yield from self._probe(builds, pieces())
+                for sp in sub_stream[s]:
+                    sp.close()
+        finally:
+            for bucket in sub_stream:
+                for sp in bucket:
+                    sp.close()

@@ -1,11 +1,13 @@
-"""In-core sort.
+"""The global sort.
 
 Port of ``SortOrder``, ``sort_batch`` and ``SortExec`` from
 ``spark_rapids_tpu/exec/sort.py``. Every sort key becomes rank-preserving
-operands (``exec/common.sort_operands``) and ``lexsort`` orders the rows;
-the sort is global: it concatenates every input batch of every partition
-and sorts them once. The partition-local sort and the out-of-core merge of
-spilled runs come with later slices.
+operands (``exec/common.sort_operands``) and ``lexsort`` orders the rows.
+The sort is global: every input batch of every partition is registered in
+the spill catalog as it arrives; then all of them are pinned under the
+retry loop and, when their capacities add up to at most ``max_rows``,
+concatenated and sorted once, else merged through ``OutOfCoreSorter``
+(``exec/ooc_sort.py``). The partition-local sort comes with a later slice.
 """
 
 from __future__ import annotations
@@ -13,10 +15,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence
 
-from ..batch import ColumnarBatch, Schema
+from ..batch import ColumnarBatch, Schema, bucket_capacity
 from ..expressions.base import EvalContext, Expression
-from .base import Exec, UnaryExec
-from .common import concat_all, gather, lexsort, sort_operands
+from ..memory.catalog import SpillableBatch
+from ..memory.retry import (acquire_with_retry, register_with_retry,
+                            with_retry_no_split)
+from .base import Exec, Metric, UnaryExec
+from .common import concat_batches, gather, lexsort, sort_operands
 
 
 @dataclass(frozen=True)
@@ -59,9 +64,13 @@ def sort_batch(batch: ColumnarBatch, orders: Sequence[SortOrder],
 
 class SortExec(UnaryExec):
     def __init__(self, orders: Sequence[SortOrder], child: Exec,
-                 ctx: Optional[EvalContext] = None):
+                 ctx: Optional[EvalContext] = None,
+                 max_rows: int = 1 << 22):
         super().__init__(child, ctx)
         self.orders = [o.bind(child.output_schema) for o in orders]
+        self.max_rows = max_rows
+        #: sorts that took the out-of-core merge (over ``max_rows``)
+        self.metrics["oocSorts"] = Metric("oocSorts")
 
     @property
     def output_schema(self) -> Schema:
@@ -71,11 +80,52 @@ class SortExec(UnaryExec):
     def num_partitions(self) -> int:
         return 1
 
+    def _sort(self, batch: ColumnarBatch) -> ColumnarBatch:
+        return sort_batch(batch, self.orders, self.ctx)
+
     def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
-        batches: List[ColumnarBatch] = [
-            b for cp in range(self.child.num_partitions)
-            for b in self.child.execute_partition(cp)]
-        if not batches:
-            return
-        yield sort_batch(concat_all(batches, self.output_schema, self.device),
-                         self.orders, self.ctx)
+        cat = self.catalog
+        schema = self.output_schema
+        spillables: List[SpillableBatch] = []
+        try:
+            for cp in range(self.child.num_partitions):
+                for b in self.child.execute_partition(cp):
+                    # a registered handle starts unpinned (spillable)
+                    spillables.append(register_with_retry(
+                        b, schema, catalog=cat, name=self.name))
+                    del b
+            if not spillables:
+                return
+            if len(spillables) == 1:
+                yield self._sort(acquire_with_retry(spillables[0],
+                                                    name=self.name))
+                spillables[0].done_with()
+                return
+
+            def acquire_all() -> List[ColumnarBatch]:
+                got = []
+                try:
+                    for sb in spillables:
+                        got.append(sb.get())
+                except BaseException:
+                    for i in range(len(got)):
+                        spillables[i].done_with()
+                    raise
+                for sb in spillables:
+                    sb.done_with()
+                return got
+
+            batches = with_retry_no_split(acquire_all, catalog=cat,
+                                          name=self.name)
+            total_cap = sum(b.capacity for b in batches)
+            if total_cap > self.max_rows:
+                from .ooc_sort import OutOfCoreSorter
+                sorter = OutOfCoreSorter(self.orders, schema, cat)
+                self.metrics["oocSorts"].add(1)
+                yield from sorter.sort(iter(batches))
+                return
+            yield self._sort(concat_batches(batches,
+                                            bucket_capacity(total_cap)))
+        finally:
+            for sb in spillables:
+                sb.close()

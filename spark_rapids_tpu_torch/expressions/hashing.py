@@ -6,6 +6,8 @@ bit-exact with ``org.apache.spark.unsafe.hash.Murmur3_x86_32``:
 
 - int/boolean/date -> hashInt(v)
 - long             -> hashLong(v): low word, then high word
+- double           -> hashLong(doubleToLongBits(v)) with -0.0 taken as 0.0
+  and every NaN as the canonical 0x7FF8000000000000
 - string           -> Spark's hashUnsafeBytes: 4-byte little-endian words,
   then each tail byte mixed as a signed int, then fmix with the byte length
 - several columns fold left: hash = hash(col_i, seed=hash_so_far), from 42
@@ -26,6 +28,9 @@ from ..kernels.murmur3 import fmix, mix_h1, murmur3_int32, to_int32, u32
 from ..types import TypeKind
 
 DEFAULT_SEED = 42
+
+#: Java's Double.doubleToLongBits of every NaN
+CANONICAL_NAN_BITS = 0x7FF8000000000000
 
 Seed = Union[int, torch.Tensor]
 
@@ -52,6 +57,16 @@ def hash_long(v: torch.Tensor, seed: Seed) -> torch.Tensor:
     h = mix_h1(u32(_seeds(seed, v)), v & 0xFFFFFFFF)
     h = mix_h1(h, (v >> 32) & 0xFFFFFFFF)
     return to_int32(fmix(h, 8))
+
+
+def double_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 IEEE-754 bits of float64 values as Spark hashes them: -0.0 as
+    0.0, every NaN as ``CANONICAL_NAN_BITS``. The JAX package extracts the
+    bits arithmetically (a TPU has no 64-bit bitcast); here they are a
+    view of the same bytes."""
+    x = torch.where(x == 0.0, 0.0, x.to(torch.float64))
+    return torch.where(torch.isnan(x), CANONICAL_NAN_BITS,
+                       x.view(torch.int64))
 
 
 def _hash_string(col: DeviceColumn, seed: torch.Tensor) -> torch.Tensor:
@@ -85,11 +100,14 @@ def hash_column(col: DeviceColumn, seed: Seed) -> torch.Tensor:
                              col.validity.contiguous(), seed)
     if k is TypeKind.INT64:
         return torch.where(col.validity, hash_long(col.data, seed), seed)
+    if k is TypeKind.FLOAT64:
+        return torch.where(col.validity,
+                           hash_long(double_bits(col.data), seed), seed)
     if k is TypeKind.STRING:
         return torch.where(col.validity, _hash_string(col, seed), seed)
     raise NotImplementedError(
-        f"hashing {col.dtype} columns is not ported yet: doubles come with "
-        f"the expression-breadth slice, decimals with theirs")
+        f"hashing {col.dtype} columns is not ported yet: decimals come with "
+        f"the decimal slice")
 
 
 def murmur3_batch(cols: Sequence[DeviceColumn],

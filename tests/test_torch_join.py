@@ -321,11 +321,18 @@ def test_join_keeps_the_output_capacity_contract():
 
 
 def test_oversized_build_names_the_grace_join():
+    """A build over ``max_build_rows`` takes the grace join, in
+    ceil(rows / max_build_rows) buckets in each stream partition against
+    the broadcast build (the ``graceBuckets`` metric), with the rows of the
+    JAX package's ``_grace_join``."""
     stream, build, lk, rk = _inputs("exact_int64", DATA[0])
     plan = _port_join(stream, build, lk, rk, JoinType.INNER, True)
-    plan.max_build_rows = 10
-    with pytest.raises(NotImplementedError, match="_grace_join"):
-        collect(plan)
+    jplan = _jax_join(stream, build, lk, rk, JoinType.INNER, True)
+    plan.max_build_rows = jplan.max_build_rows = 10
+    got, want = collect(plan), jexec.collect(jplan)
+    assert _sorted_rows(got) == _sorted_rows(want) and got.num_rows
+    assert plan.metrics["graceBuckets"].total() == \
+        plan.num_partitions * -(-build.num_rows // 10)
 
 
 def test_cross_join_type_is_refused():

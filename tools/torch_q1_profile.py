@@ -2,14 +2,14 @@
 """Where the time of one warm run of a path of the PyTorch port goes, on
 one NVIDIA GPU.
 
-    python3 tools/torch_q1_profile.py [--query q1|q16_part|q3] [--rows N]
-                                      [--trace PATH]
+    python3 tools/torch_q1_profile.py [--query q1|q16_part|q3|q18]
+                                      [--rows N] [--trace PATH]
 
-Runs TPC-H Q1 (the default), the part stage of TPC-H Q16 or TPC-H Q3
-through ``spark_rapids_tpu_torch.entry`` over the input ``chip_smoke.py``
-gives it (the SF10 lineitem table, the SF100 part table, or the SF10
-customer, orders and lineitem tables), in its slices and shuffle
-partitions: once to warm up, three times on the host clock, then once under
+Runs TPC-H Q1 (the default), the part stage of TPC-H Q16, TPC-H Q3 or
+TPC-H Q18 through ``spark_rapids_tpu_torch.entry`` over the input
+``chip_smoke.py`` gives it (the SF10 lineitem table, the SF100 part table,
+or the SF10 customer, orders and lineitem tables; Q18 under its 1 GiB
+device budget), in its slices and shuffle partitions: once to warm up, three times on the host clock, then once under
 ``torch.profiler`` (CPU and CUDA activities). Prints the card, the warm
 wall time, the time the Arrow upload alone takes, each operator's metrics
 (rows, batches, ``opTime``; the whole tree, children indented), the device
@@ -29,7 +29,11 @@ output cut to its row-count bucket, and the exchange's write over each of
 the two. For each piece: device time by kind from the profiler, its time on
 CUDA events, and the device memory it allocates at its peak beyond what was
 allocated before it. For Q3 it times each join's build, count and expand
-steps on CUDA events over partition 0's inputs.
+steps on CUDA events over partition 0's inputs. For Q18 it reports the
+spill copies of the profiled run in each direction (the catalog's bytes
+over the device time of the pinned copies, against the PCIe bound) and the
+grace join's split (host time of its ranges and the device time under
+them).
 ``--trace`` also writes the Chrome trace. Exits 1 without CUDA.
 """
 
@@ -51,7 +55,7 @@ EXEC_NAMES = ("SortExec", "HashAggregateExec", "ShuffleExchangeExec",
               "BroadcastExchangeExec")
 #: the profiler ranges of the join's steps
 JOIN_STEPS = ("HashJoinExec.build", "HashJoinExec.count",
-              "HashJoinExec.expand")
+              "HashJoinExec.expand", "HashJoinExec.grace_split")
 RANGES = EXEC_NAMES + JOIN_STEPS
 
 
@@ -211,6 +215,40 @@ def join_steps(plan, dev) -> None:
               f"rows at capacity {stream.capacity} {ms[1]:.3f} ms; expand "
               f"to {total} pairs at capacity {out_cap} (1:1 path "
               f"{most <= 1 and out_cap >= stream.capacity}) {ms[2]:.3f} ms")
+    plan.close()
+
+
+def spill_and_grace(plan, prof, device) -> None:
+    """The profiled Q18 run's spill copies, each direction's catalog bytes
+    over the device time of its pinned copies, and the grace join's split
+    ranges, host and device time."""
+    import torch
+    import chip_smoke
+    cat = plan.catalog
+    copies = {"d2h": ("DtoH", "Pinned"), "h2d": ("HtoD", "Pinned")}
+    for way, nbytes in (("d2h", cat.spilled_to_host),
+                        ("h2d", cat.unspilled)):
+        marks = copies[way]
+        evs = [e for e in device if all(m in e.name for m in marks)]
+        us = sum(e.time_range.elapsed_us() for e in evs)
+        rate = nbytes / (us * 1e-6) / 1e9 if us else float("nan")
+        print(f"spill copies {way}: {nbytes} B in {len(evs)} pinned copies, "
+              f"{us / 1e3:.3f} ms of device time, {rate:.2f} GB/s "
+              f"(PCIe Gen5 x16 bound {chip_smoke.PCIE_BYTES_PER_S / 1e9:.0f}"
+              f" GB/s)")
+    host_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.name == "HashJoinExec.grace_split")
+    dev_us = sum(k.duration for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CPU
+                 and _owner(e) == "HashJoinExec.grace_split"
+                 for k in getattr(e, "kernels", []))
+    buckets = sum(j.metrics["graceBuckets"].total()
+                  for j in chip_smoke._execs(plan, "HashJoinExec"))
+    print(f"grace split: {buckets} buckets; host {host_us / 1e3:.2f} ms in "
+          f"its ranges, device {dev_us / 1e3:.2f} ms under them; catalog "
+          f"spilled {cat.spilled_to_host} B to host, "
+          f"{cat.spilled_to_disk} B to disk")
 
 
 def _tree_metrics(node, depth=0) -> None:
@@ -225,7 +263,7 @@ def _tree_metrics(node, depth=0) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--query", choices=("q1", "q16_part", "q3"),
+    ap.add_argument("--query", choices=("q1", "q16_part", "q3", "q18"),
                     default="q1")
     ap.add_argument("--rows", type=int, default=None,
                     help="input rows of Q1 or Q16 (default: chip_smoke's "
@@ -261,6 +299,20 @@ def main(argv=None) -> int:
 
         def make_plan(_, slices, parts, device):
             return entry.q3_plan(*tables, slices, parts, device=device)
+        table = None
+    elif args.query == "q18":
+        slices = chip_smoke.Q18_SLICES
+        parts = chip_smoke.Q18_SHUFFLE_PARTITIONS
+        tables = entry.tpch_q18_tables(chip_smoke.Q18_SF,
+                                       chip_smoke.Q18_SEED)
+        rows = tables[2].num_rows
+        expected = entry.q18_reference(*tables)
+        check = chip_smoke.check_q18_result
+
+        def make_plan(_, slices, parts, device):
+            return entry.q18_plan(*tables, slices, parts,
+                                  device_limit=chip_smoke.Q18_BUDGET,
+                                  device=device)
         table = None
     else:
         rows = args.rows or chip_smoke.SF100_PART_ROWS
@@ -352,6 +404,8 @@ def main(argv=None) -> int:
 
     if args.query == "q3":
         join_steps(plan, dev)
+    elif args.query == "q18":
+        spill_and_grace(plan, prof, device)
     else:
         partial_pieces(plan, dev, run_kinds, run_peak)
     return 0
