@@ -24,14 +24,27 @@ Then the out-of-core operators (the windowed and the sort-based aggregate
 merge, the out-of-core global sort, the grace join) run on the card and on
 the CPU at about 4M rows, 0 rows apart, and Q18 at SF1 runs under injected
 OOMs (every third allocation check fails) and must equal its clean run bit
-for bit.
+for bit. Then TPC-H Q2 and Q11 run at SF100 (80,000,000 partsupp rows):
+Q2 (the grouped Min of its subquery, the two-key join, the top 100 by four
+keys) must equal pyarrow in all 100 rows and every column and launch
+``window_match`` once per part slice, which is also held against its plain
+version at Q2's own shape (k = 5); Q11 (the HAVING against its scalar
+subquery as a nested-loop join) must give pyarrow's row set, with its
+smallest margin to the threshold printed. Last come the bench's hash_agg
+shape (4M rows, 1M keys, COMPLETE and PARTIAL -> FINAL) against pyarrow,
+every new operator (the aggregate functions, the top-N, the
+partition-local sort, the nested-loop join in every type) on the card
+against the CPU, and the fused Q1 stage (``entry.q1_stage``) on one SF10
+slice, on CUDA events, against pyarrow.
 
 Prints, in order: the card's name and power limit, the build time, each
 kernel check with its times and bound, the join check, the checks of Q1,
 the Q16 part stage and Q3 with their times, the spill copy rate, Q18's
 check with its times, the catalog's tiers, spilled bytes, retry metrics,
 grace buckets and the allocator's peak, the out-of-core check, the
-injection run, a ``{"kernels": [...]}`` JSON line, and last
+injection run, the checks of Q2 and Q11 with their times, the hash_agg,
+operator and Q1-stage checks, a ``{"kernels": [...]}`` JSON line (the
+window_match times are at Q2's shape), and last
 ``{"ok": true, "device": ...}``. Any failed phase raises, so the exit code
 is not 0 and no result line is printed. Without CUDA it exits 1 at once.
 """
@@ -1008,6 +1021,387 @@ def check_out_of_core(dev) -> None:
     print(f"out-of-core check: {time.perf_counter() - t_all:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# TPC-H Q2 and Q11 end to end, and their kernel at Q2's shape
+# ---------------------------------------------------------------------------
+
+#: TPC-H Q2 and Q11: scale factor (20,000,000 part rows, 80,000,000
+#: partsupp rows, 1,000,000 suppliers), input slices, shuffle partitions
+#: and data seed
+Q2_SF = 100
+Q2_SLICES = 8
+Q2_SHUFFLE_PARTITIONS = 8
+Q2_SEED = 2
+#: Q2's LIKE '%BRASS' as the filter runs it: endswith, k = 5
+Q2_PATTERN = b"BRASS"
+
+
+def check_window_match_at_q2(dev, part) -> dict:
+    """The kernel against its plain version at Q2's own shape: the p_type
+    column of one scanned slice of Q2's part table (an eighth of the SF100
+    rows, capacity 2^22, 64 bytes), k = 5 as ``endswith 'BRASS'`` runs it,
+    the match matrix and the predicate both; then both timed there."""
+    import torch
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.batch import from_arrow
+    from spark_rapids_tpu_torch.expressions import col, endswith
+    from spark_rapids_tpu_torch.kernels.string_search import (
+        window_match, window_match_plain)
+    rows = -(-part.num_rows // Q2_SLICES)
+    first_slice = part.slice(0, rows)
+    batch, schema = from_arrow(first_slice,
+                               string_max_len=entry.STRING_MAX_LEN,
+                               device=dev)
+    ptype = batch.columns[schema.index_of("p_type")]
+    data, lengths = ptype.data, ptype.lengths
+    got = window_match(data, lengths, Q2_PATTERN)
+    ref = window_match_plain(data, lengths, Q2_PATTERN)
+    # the filter's predicate over the card's batch (the kernel) and over
+    # the same slice on the CPU (the plain version)
+    pred = endswith(col("p_type"), Q2_PATTERN.decode()).bind(schema)
+    kernel_rows = pred.eval(batch).data.cpu()
+    cpu_batch, _ = from_arrow(first_slice, schema=schema, device="cpu")
+    plain_rows = pred.eval(cpu_batch).data
+    torch.cuda.synchronize(dev)
+    bad = int((got != ref).sum())
+    bad_rows = int((kernel_rows != plain_rows).sum())
+    n, ml = data.shape
+    print(f"window_match at Q2's shape: p_type slice of {rows} rows, "
+          f"capacity {n}, max_len {ml}, k=5 'BRASS': {int(ref.sum())} "
+          f"matches, {bad} mismatches in the matrix; endswith keeps "
+          f"{int(plain_rows.sum())} rows, {bad_rows} rows apart")
+    if bad or bad_rows:
+        raise AssertionError("window_match disagrees with its plain version "
+                             "at Q2's shape")
+    ms = time_cuda_ms(lambda: window_match(data, lengths, Q2_PATTERN), 50)
+    plain_ms = time_cuda_ms(
+        lambda: window_match_plain(data, lengths, Q2_PATTERN), 5)
+    bound_ms, by = search_bound_ms(n, ml, len(Q2_PATTERN))
+    print(f"window_match at Q2's shape n={n} max_len={ml} k=5: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({by}; {bound_ms / ms:.1%} of it)")
+    return {"name": "window_match", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/string_search.cu",
+            "replaces": "spark_rapids_tpu/kernels/string_search.py:51",
+            "max_abs_err": bad, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+
+
+def run_q2_phase(dev, counted, tables) -> dict:
+    """Q2 at SF100: the 100 rows equal to pyarrow in every column, and
+    window_match launched once per part slice."""
+    from spark_rapids_tpu_torch import entry
+
+    def check(got, expected):
+        if got.num_rows != entry.Q2_LIMIT:
+            raise AssertionError(f"Q2 gave {got.num_rows} rows, not "
+                                 f"{entry.Q2_LIMIT}")
+        if not got.equals(expected):
+            raise AssertionError(f"Q2 differs from the pyarrow oracle:\n"
+                                 f"{got.slice(0, 3)}\n{expected.slice(0, 3)}")
+        return "; all 100 rows equal in every column"
+
+    print(f"q2: SF{Q2_SF}, {Q2_SLICES} slices, {Q2_SHUFFLE_PARTITIONS} "
+          f"shuffle partitions, supplier strings at "
+          f"{entry.SUPPLIER_STRING_MAX_LEN} bytes; rows/s counts partsupp")
+    launches = run_path(
+        "q2", lambda: tables, lambda t: entry.q2_reference(*t),
+        lambda t: entry.run_q2(*t, Q2_SLICES, Q2_SHUFFLE_PARTITIONS,
+                               device=dev), check, dev, counted,
+        rows_of=lambda t: t[2].num_rows)
+    if launches["window_match"] != Q2_SLICES:
+        raise AssertionError(f"window_match launched "
+                             f"{launches['window_match']} times in Q2, not "
+                             f"once per part slice ({Q2_SLICES})")
+    return launches
+
+
+def check_q11_result(got, expected, margin: float) -> str:
+    """The row set exact, value within FLOAT_REL_TOL, in descending
+    value order."""
+    import numpy as np
+    a, e = got.sort_by("ps_partkey"), expected.sort_by("ps_partkey")
+    if a.column("ps_partkey").to_pylist() != \
+            e.column("ps_partkey").to_pylist():
+        raise AssertionError(f"Q11's row set differs from pyarrow's: "
+                             f"{a.num_rows} rows against {e.num_rows}")
+    va, ve = a.column("value").to_numpy(), e.column("value").to_numpy()
+    rel = np.abs(va - ve) / np.abs(ve)
+    if not np.all(rel <= FLOAT_REL_TOL):
+        raise AssertionError(f"Q11 value off by rel {rel.max()}")
+    v = got.column("value").to_numpy()
+    if not np.all(v[:-1] >= v[1:]):
+        raise AssertionError("Q11 is not in descending value order")
+    return (f"; row set exact ({got.num_rows} rows), value max rel err "
+            f"{float(rel.max(initial=0.0)):.3g} <= {FLOAT_REL_TOL}; smallest "
+            f"relative margin of a group to the threshold {margin:.3e}")
+
+
+def run_q11_phase(dev, counted, tables) -> dict:
+    """Q11 at SF100: the row set of pyarrow's, value within rel 1e-6, and
+    the smallest margin of any group to the threshold printed."""
+    import numpy as np
+    from spark_rapids_tpu_torch import entry
+    _, supplier, partsupp, nation, _ = tables
+    q11 = (partsupp, supplier, nation)
+    fraction = entry.q11_fraction(Q2_SF)
+    state = {}
+
+    def reference(t):
+        groups, total = entry.q11_groups_reference(*t)
+        threshold = total * fraction
+        v = groups.column("value").to_numpy()
+        state["margin"] = float(np.min(np.abs(v - threshold)) / threshold)
+        return entry.q11_reference(*t, fraction)
+
+    print(f"q11: SF{Q2_SF}, NATION {entry.Q11_NATION}, FRACTION "
+          f"{fraction:g}, {Q2_SLICES} slices, {Q2_SHUFFLE_PARTITIONS} "
+          f"shuffle partitions; rows/s counts partsupp")
+    return run_path(
+        "q11", lambda: q11, reference,
+        lambda t: entry.run_q11(*t, fraction, Q2_SLICES,
+                                Q2_SHUFFLE_PARTITIONS, device=dev),
+        lambda got, exp: check_q11_result(got, exp, state["margin"]), dev,
+        counted, rows_of=lambda t: t[0].num_rows)
+
+
+# ---------------------------------------------------------------------------
+# The bench's hash_agg shape, the new operators, the fused Q1 stage
+# ---------------------------------------------------------------------------
+
+#: bench.bench_hash_agg: 4M rows over 1M keys, and the two-stage form's
+#: slices and partitions
+HASH_AGG_ROWS = 1 << 22
+HASH_AGG_KEYS = 1 << 20
+HASH_AGG_SLICES = 8
+HASH_AGG_PARTITIONS = 8
+#: one Q1 slice at SF10 (59,986,052 rows over 8 slices, capacity 2^23)
+Q1_STAGE_ROWS = -(-SF10_LINEITEM_ROWS // Q1_SLICES)
+
+
+def check_float_table(got, want, keys, what: str) -> float:
+    """Two tables equal once sorted on ``keys``: every column but a double
+    exactly, doubles within FLOAT_REL_TOL. Returns the largest relative
+    float error."""
+    import numpy as np
+    import pyarrow as pa
+    order = [(k, "ascending") for k in keys]
+    a, b = got.sort_by(order), want.sort_by(order)
+    if a.num_rows != b.num_rows or a.column_names != b.column_names:
+        raise AssertionError(f"{what}: {a.num_rows} rows {a.column_names} "
+                             f"against {b.num_rows} {b.column_names}")
+    worst = 0.0
+    for name in a.column_names:
+        x, y = a.column(name), b.column(name)
+        if x.null_count != y.null_count or not x.is_null().equals(
+                y.is_null()):
+            raise AssertionError(f"{what}: {name}'s nulls differ")
+        if pa.types.is_floating(x.type):
+            xv = x.fill_null(0.0).to_numpy()
+            yv = y.fill_null(0.0).to_numpy()
+            same = (xv == yv) | (np.isnan(xv) & np.isnan(yv))
+            rel = np.where(same, 0.0, np.abs(xv - yv)
+                           / np.maximum(np.abs(yv), 1e-300))
+            worst = max(worst, float(rel.max(initial=0.0)))
+            if not np.all(rel <= FLOAT_REL_TOL):
+                raise AssertionError(f"{what}: {name} off by rel "
+                                     f"{rel.max()}")
+        elif not x.equals(y):
+            raise AssertionError(f"{what}: {name} differs")
+    return worst
+
+
+def check_hash_agg(dev) -> None:
+    """The bench's hash_agg shape at its 4M rows and 1M keys, COMPLETE and
+    PARTIAL -> exchange -> FINAL, against pyarrow: keys, counts and integer
+    sums exact, float sums and averages within FLOAT_REL_TOL."""
+    import torch
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.exec import collect
+    table = entry.hash_agg_table(HASH_AGG_ROWS, HASH_AGG_KEYS)
+    want = entry.hash_agg_reference(table)
+    for two_stage in (False, True):
+        label = "PARTIAL -> FINAL" if two_stage else "COMPLETE"
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = collect(entry.hash_agg_plan(
+                table, two_stage, HASH_AGG_SLICES, HASH_AGG_PARTITIONS,
+                device=dev))
+            torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+        worst = check_float_table(got, want, entry.HASH_AGG_KEYS,
+                                  f"hash_agg {label}")
+        warm = statistics.median(walls[1:])
+        print(f"hash_agg {label}: {HASH_AGG_ROWS} rows, {got.num_rows} "
+              f"groups, equal to pyarrow (float max rel err {worst:.3g}); "
+              f"cold {walls[0]:.3f} s, warm {warm:.3f} s, "
+              f"{HASH_AGG_ROWS / warm:,.0f} rows/s")
+
+
+#: the operator check's nested-loop join: stream rows, build rows, slices
+BNLJ_STREAM_ROWS = 1 << 16
+BNLJ_BUILD_ROWS = 48
+BNLJ_SLICES = 2
+#: the top-N's limit
+TOPN_LIMIT = 100
+
+
+def operator_plans(table):
+    """(name, plan maker, sort keys) of the operator check over the
+    hash_agg table: every new aggregate (COMPLETE, and PARTIAL -> FINAL
+    where it decomposes), the top-N, the partition-local sort, and the
+    nested-loop join in every type. ``None`` keys: compare in order."""
+    import numpy as np
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.exec import (
+        AggregateMode, BroadcastNestedLoopJoinExec, HashAggregateExec,
+        InMemoryScanExec, JoinType, SortExec, SortOrder,
+        TakeOrderedAndProjectExec)
+    from spark_rapids_tpu_torch.expressions import LessThan, col
+    from spark_rapids_tpu_torch.expressions import aggregates as A
+    from spark_rapids_tpu_torch.shuffle import (BroadcastExchangeExec,
+                                                HashPartitioning,
+                                                ShuffleExchangeExec)
+    key = [col("ss_item_sk")]
+
+    def scan(t, d, slices=1):
+        return InMemoryScanExec(t, batch_rows=-(-t.num_rows // slices),
+                                num_slices=slices, device=d)
+
+    def decomposable():
+        return [A.Min(col("ss_quantity")).alias("min_q"),
+                A.Max(col("ss_quantity")).alias("max_q"),
+                A.Min(col("ss_sales_price")).alias("min_p"),
+                A.Max(col("ss_sales_price")).alias("max_p"),
+                A.VarianceSamp(col("ss_net_profit")).alias("var_s"),
+                A.VariancePop(col("ss_net_profit")).alias("var_p"),
+                A.StddevSamp(col("ss_quantity")).alias("sd_s"),
+                A.StddevPop(col("ss_quantity")).alias("sd_p")]
+
+    def complete(d):
+        return HashAggregateExec(key, decomposable() + [
+            A.First(col("ss_sales_price")).alias("first_p"),
+            A.Last(col("ss_net_profit")).alias("last_n")], scan(table, d))
+
+    def two_stage(d):
+        partial = HashAggregateExec(key, decomposable(),
+                                    scan(table, d, HASH_AGG_SLICES),
+                                    AggregateMode.PARTIAL)
+        return HashAggregateExec(key, decomposable(), ShuffleExchangeExec(
+            HashPartitioning(key, HASH_AGG_PARTITIONS), partial),
+            AggregateMode.FINAL)
+
+    def percentile(approx):
+        def make(d):
+            fn = (A.ApproxPercentile(col("ss_sales_price"), 0.25, 100)
+                  if approx else A.Percentile(col("ss_net_profit"), 0.5))
+            return HashAggregateExec(key, [fn.alias("pct")], scan(table, d))
+        return make
+
+    orders = [SortOrder(col("ss_net_profit"), True),
+              SortOrder(col("ss_sales_price")), SortOrder(col("ss_item_sk"))]
+
+    def topn(d):
+        return TakeOrderedAndProjectExec(
+            TOPN_LIMIT, orders, [col("ss_item_sk"), col("ss_net_profit")],
+            scan(table, d, HASH_AGG_SLICES))
+
+    def local_sort(d):
+        return SortExec(orders, scan(table, d, HASH_AGG_SLICES),
+                        global_sort=False)
+
+    stream = table.slice(0, BNLJ_STREAM_ROWS)
+    rng = np.random.default_rng(23)
+    build = pa.table({"w": pa.array(rng.integers(0, 100, BNLJ_BUILD_ROWS),
+                                    mask=rng.random(BNLJ_BUILD_ROWS) < 0.1),
+                      "f": rng.uniform(0, 1, BNLJ_BUILD_ROWS)})
+
+    def nested(how):
+        def make(d):
+            return BroadcastNestedLoopJoinExec(
+                how, scan(stream, d, BNLJ_SLICES),
+                BroadcastExchangeExec(scan(build, d)),
+                LessThan(col("ss_quantity"), col("w")))
+        return make
+
+    keys = ["ss_item_sk"]
+    plans = [("aggregates COMPLETE", complete, keys),
+             ("aggregates PARTIAL -> FINAL", two_stage, keys),
+             ("percentile", percentile(False), keys),
+             ("approx_percentile", percentile(True), keys),
+             ("top-N", topn, None),
+             ("partition-local sort", local_sort, None)]
+    for how in JoinType:
+        plans.append((f"nested-loop join {how.name}", nested(how),
+                      [c for c in ("ss_item_sk", "ss_quantity",
+                                   "ss_sales_price", "ss_net_profit", "w",
+                                   "f", "exists")]))
+    return plans
+
+
+def check_operators(dev) -> None:
+    """Each new operator on the card against the port on the CPU over the
+    same input: 0 rows apart (doubles within FLOAT_REL_TOL: the card's
+    group sums add in another order)."""
+    import torch
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.exec import collect
+    t_all = time.perf_counter()
+    table = entry.hash_agg_table(HASH_AGG_ROWS, HASH_AGG_KEYS)
+    for name, make, keys in operator_plans(table):
+        t0 = time.perf_counter()
+        got = collect(make(dev))
+        torch.cuda.synchronize(dev)
+        card_s = time.perf_counter() - t0
+        want = collect(make("cpu"))
+        if keys is None:
+            if not got.equals(want):
+                raise AssertionError(f"{name}: the card's rows or their "
+                                     f"order differ from the CPU's")
+            worst = 0.0
+        else:
+            keys = [k for k in keys if k in got.column_names]
+            worst = check_float_table(got, want, keys, name)
+        print(f"operators, {name}: {got.num_rows} rows on the card, 0 apart "
+              f"from the CPU (float max rel err {worst:.3g}); card "
+              f"{card_s:.3f} s")
+    print(f"operator check: {time.perf_counter() - t_all:.1f} s")
+
+
+def check_q1_stage(dev) -> None:
+    """``entry.q1_stage`` (the filter fused into the COMPLETE aggregate's
+    update) on one SF10 lineitem slice, on CUDA events, then its FINAL
+    against pyarrow."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.batch import from_arrow, to_arrow
+    table = entry.lineitem_table(Q1_STAGE_ROWS, DATA_SEED)
+    batch, schema = from_arrow(table, device=dev)
+    stage, _, final, _ = entry.q1_stage(schema, device=dev)
+    ms = time_cuda_ms(lambda: stage(batch), 10)
+    got = to_arrow(final._merge_kernel(stage(batch), final=True),
+                   final.output_schema)
+    f = table.filter(pc.less_equal(table.column("l_shipdate"),
+                                   entry.Q1_SHIPDATE_MAX))
+    disc = pc.multiply(f.column("l_extendedprice"),
+                       pc.subtract(1.0, f.column("l_discount")))
+    g = f.append_column("disc", disc).group_by(list(entry.Q1_KEYS)) \
+        .aggregate([("l_quantity", "sum"), ("l_extendedprice", "sum"),
+                    ("disc", "sum"), ("l_quantity", "mean"),
+                    ("l_discount", "mean"), ("l_quantity", "count")])
+    want = pa.table([g.column(c) for c in (
+        "l_returnflag", "l_linestatus", "l_quantity_sum",
+        "l_extendedprice_sum", "disc_sum", "l_quantity_mean",
+        "l_discount_mean", "l_quantity_count")], names=got.column_names)
+    worst = check_float_table(got, want, list(entry.Q1_KEYS), "q1_stage")
+    print(f"q1_stage: one SF10 slice, {Q1_STAGE_ROWS} rows at capacity "
+          f"{batch.capacity}: {got.num_rows} groups equal to pyarrow (float "
+          f"max rel err {worst:.3g}); fused update {ms:.3f} ms on CUDA "
+          f"events, {Q1_STAGE_ROWS / ms * 1e3:,.0f} rows/s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=SF10_LINEITEM_ROWS,
@@ -1034,8 +1428,20 @@ def main(argv=None) -> int:
         print(f"build {name}: {secs:.2f} s; {info}")
 
     part = part_slice(dev)
-    kernels = [check_murmur3(dev, part), check_window_match(dev, part)]
+    murmur3 = check_murmur3(dev, part)
+    q16_search = check_window_match(dev, part)
     del part
+    from spark_rapids_tpu_torch import entry
+    t0 = time.perf_counter()
+    q2_tables = entry.tpch_q2_tables(Q2_SF, Q2_SEED)
+    print(f"q2/q11 tables at SF{Q2_SF}: "
+          f"{[t.num_rows for t in q2_tables]} rows (part, supplier, "
+          f"partsupp, nation, region) made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    search = check_window_match_at_q2(dev, q2_tables[0])
+    search["max_abs_err"] = max(search["max_abs_err"],
+                                q16_search["max_abs_err"])
+    kernels = [murmur3, search]
     check_joins(dev)
     # each path's own kernels, counted from 0 over its first run
     runs = [run_q1_phase(args, dev, [murmur3_int32]),
@@ -1046,6 +1452,14 @@ def main(argv=None) -> int:
     runs.append(run_q18_phase(dev, [murmur3_int32]))
     check_out_of_core(dev)
     run_q18_injection_phase(dev)
+    # Q2's own kernel is window_match (its exchanges hash int64 and double
+    # keys, which take no kernel); Q11 reaches none
+    runs.append(run_q2_phase(dev, [window_match], q2_tables))
+    runs.append(run_q11_phase(dev, [], q2_tables))
+    del q2_tables
+    check_hash_agg(dev)
+    check_operators(dev)
+    check_q1_stage(dev)
     for k in kernels:
         k["launches"] = sum(r.get(k["name"], 0) for r in runs)
     order = ["name", "route", "source", "replaces", "launches",

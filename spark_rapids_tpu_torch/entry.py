@@ -1,5 +1,5 @@
-"""TPC-H Q1, the part stage of TPC-H Q16, TPC-H Q3 and TPC-H Q18 through the
-port, end to end.
+"""TPC-H Q1, the part stage of TPC-H Q16, TPC-H Q3, Q18, Q2 and Q11 through
+the port, end to end, and the bench's fused Q1 stage and hash_agg shape.
 
 ``q1_plan`` and ``q16_part_plan`` build the physical tree the JAX
 package's planner gives each query (``plan/overrides.py``
@@ -72,8 +72,19 @@ partitions is past ``max_build_rows`` and takes the grace join. Its
 budget (else the device's process-wide one). ``tpch_q18_tables`` makes the
 columns Q18 reads from the same draws as ``tpch_q3_tables``.
 
-``q1_reference``, ``q16_part_reference``, ``q3_reference`` and
-``q18_reference`` compute the same with pyarrow alone, as independent
+Q2 and Q11 (spec 2.4.2 and 2.4.11) run over ``tpch_q2_tables``: ``q2_plan``
+decorrelates Q2's Min subquery into a grouped Min joined on two keys, and
+``q11_plan`` runs Q11's HAVING against its scalar subquery as a
+nested-loop join with the one-row global sum; each builds the tree the JAX
+planner gives it at SF100.
+
+``q1_stage`` is ``__graft_entry__._q1_stage``, the JAX ``entry()`` shape:
+Q1's filter fused into a COMPLETE aggregate's update. ``hash_agg_table``
+and ``hash_agg_plan`` are ``bench.bench_hash_agg``'s input and aggregate.
+
+``q1_reference``, ``q16_part_reference``, ``q3_reference``,
+``q18_reference``, ``q2_reference``, ``q11_reference`` and
+``hash_agg_reference`` compute the same with pyarrow alone, as independent
 oracles.
 """
 
@@ -86,20 +97,23 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 
-from .batch import DeviceLike, Field, Schema, resolve_device, schema_from_arrow
+from .batch import (ColumnarBatch, DeviceLike, Field, Schema, empty_batch,
+                    resolve_device, schema_from_arrow)
 from .config import JOIN_MAX_BUILD_ROWS
-from .exec import (AggregateMode, CoalesceBatchesExec, Exec, FilterExec,
-                   GlobalLimitExec, HashAggregateExec, HashJoinExec,
-                   InMemoryScanExec, JoinType, ProjectExec, SortExec,
-                   TargetSize, asc, collect, desc)
+from .exec import (AggregateMode, BroadcastNestedLoopJoinExec,
+                   CoalesceBatchesExec, Exec, FilterExec, GlobalLimitExec,
+                   HashAggregateExec, HashJoinExec, InMemoryScanExec,
+                   JoinType, ProjectExec, SortExec, TargetSize, asc, collect,
+                   desc)
 from .exec.sort import SortOrder
-from .expressions import (And, BoundReference, EqualTo, Expression, In, Not,
-                          col, lit, startswith)
-from .expressions.aggregates import Average, Count, Sum
+from .expressions import (And, BoundReference, EqualTo, Expression,
+                          GreaterThan, In, Not, col, endswith, lit,
+                          startswith)
+from .expressions.aggregates import Average, Count, Min, Sum
 from .expressions.base import epoch_days
 from .memory.catalog import BufferCatalog
 from .shuffle import (BroadcastExchangeExec, HashPartitioning,
-                      ShuffleExchangeExec)
+                      ShuffleExchangeExec, SinglePartitioning)
 
 #: l_shipdate <= date '1998-12-01' - interval '90' day, in epoch days
 Q1_SHIPDATE_MAX = 10471
@@ -125,16 +139,18 @@ def q1_aggregates():
 
 
 def _scan(table: pa.Table, num_slices: int, device: DeviceLike,
-          catalog: Optional[BufferCatalog] = None) -> InMemoryScanExec:
+          catalog: Optional[BufferCatalog] = None,
+          string_max_len: int = STRING_MAX_LEN) -> InMemoryScanExec:
     """The scan of ``table`` in ``num_slices`` input partitions of one batch
-    each. Column nullability is read from the data (null counts), as
+    each, its string columns ``string_max_len`` bytes wide. Column
+    nullability is read from the data (null counts), as
     ``batch.from_arrow`` does. ``catalog`` is the tree's buffer catalog
     (default: the device's process-wide one)."""
     dev = resolve_device(device)
     schema = Schema([Field(f.name, f.dtype,
                            f.nullable and table.column(i).null_count > 0)
                      for i, f in enumerate(schema_from_arrow(
-                         table.schema, STRING_MAX_LEN))])
+                         table.schema, string_max_len))])
     batch_rows = max(1, -(-table.num_rows // num_slices))
     return InMemoryScanExec(table, schema, batch_rows=batch_rows,
                             num_slices=num_slices, device=dev,
@@ -207,6 +223,97 @@ def q1_reference(table: pa.Table) -> pa.Table:
     columns = list(Q1_KEYS) + [f"{c}_{fn}" for c, fn in aggs]
     names = list(Q1_KEYS) + [a.name for a in q1_aggregates()]
     return pa.table([g.column(c) for c in columns], names=names)
+
+
+def q1_stage(schema: Schema, device: DeviceLike = None):
+    """The fused Q1 stage, the counterpart of ``__graft_entry__._q1_stage``:
+    ``(stage, partial, final, cond)``, where ``stage(batch)`` is the filter
+    ``l_shipdate <= 10471`` fused into a COMPLETE aggregate's update as a
+    live-row mask (filtered rows sort last like padding, with no
+    compaction) and returns its buffer-layout batch; ``partial`` and
+    ``final`` are the PARTIAL and FINAL aggregates of the same functions
+    over a placeholder scan of ``schema``, and ``cond`` the bound filter."""
+    dev = resolve_device(device)
+    placeholder = InMemoryScanExec([empty_batch(schema, dev)], schema=schema)
+    keys = [col("l_returnflag"), col("l_linestatus")]
+    agg = HashAggregateExec(
+        keys,
+        [Sum(col("l_quantity")).alias("sum_qty"),
+         Sum(col("l_extendedprice")).alias("sum_base_price"),
+         Sum(col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+             ).alias("sum_disc_price"),
+         Average(col("l_quantity")).alias("avg_qty"),
+         Average(col("l_discount")).alias("avg_disc"),
+         Count().alias("count_order")],
+        placeholder, AggregateMode.COMPLETE)
+    cond = (col("l_shipdate") <= lit(Q1_SHIPDATE_MAX)).bind(schema)
+
+    def stage(batch: ColumnarBatch) -> ColumnarBatch:
+        c = cond.eval(batch)
+        return agg._update_kernel(batch, c.data & c.validity)
+
+    named = [a.alias(n) for a, n in zip(agg.aggs, agg.agg_names)]
+    partial = HashAggregateExec(agg.group_exprs, named, placeholder,
+                                AggregateMode.PARTIAL)
+    final = HashAggregateExec(keys, named, partial, AggregateMode.FINAL)
+    return stage, partial, final, cond
+
+
+# ---------------------------------------------------------------------------
+# The bench's hash_agg shape
+# ---------------------------------------------------------------------------
+
+HASH_AGG_KEYS = ("ss_item_sk",)
+
+
+def hash_agg_table(n: int, n_keys: int, seed: int = 5) -> pa.Table:
+    """Store-sales-shaped input, the draws of ``bench.store_sales_table``:
+    ``ss_item_sk`` uniform over ``n_keys`` keys, ``ss_quantity`` in 1..99,
+    ``ss_sales_price`` in [0.5, 500), ``ss_net_profit`` in [-100, 400)."""
+    rng = np.random.default_rng(seed)
+    return pa.table({
+        "ss_item_sk": rng.integers(0, n_keys, n).astype(np.int32),
+        "ss_quantity": rng.integers(1, 100, n).astype(np.int64),
+        "ss_sales_price": rng.uniform(0.5, 500.0, n),
+        "ss_net_profit": rng.uniform(-100.0, 400.0, n),
+    })
+
+
+def hash_agg_aggregates():
+    return [Sum(col("ss_quantity")).alias("sq"),
+            Sum(col("ss_net_profit")).alias("sp"),
+            Average(col("ss_sales_price")).alias("ap"),
+            Count().alias("c")]
+
+
+def hash_agg_plan(table: pa.Table, two_stage: bool = False,
+                  num_slices: int = 1, shuffle_partitions: int = 8,
+                  device: DeviceLike = None) -> Exec:
+    """``bench.bench_hash_agg``'s aggregate over ``table``: grouped on
+    ``ss_item_sk``, COMPLETE over the table in one slice (a COMPLETE
+    aggregate sees every row of its groups), or (``two_stage``) PARTIAL
+    over ``num_slices`` slices, the hash exchange on the key and FINAL."""
+    keys = [col(k) for k in HASH_AGG_KEYS]
+    if not two_stage:
+        return HashAggregateExec(keys, hash_agg_aggregates(),
+                                 _scan(table, 1, device),
+                                 AggregateMode.COMPLETE)
+    return _grouped(_scan(table, num_slices, device), HASH_AGG_KEYS,
+                    hash_agg_aggregates, shuffle_partitions)
+
+
+def hash_agg_reference(table: pa.Table) -> pa.Table:
+    """The hash_agg shape by pyarrow alone, in ``hash_agg_plan``'s column
+    order, by key."""
+    g = table.group_by(list(HASH_AGG_KEYS)).aggregate(
+        [("ss_quantity", "sum"), ("ss_net_profit", "sum"),
+         ("ss_sales_price", "mean"), ("ss_item_sk", "count")])
+    g = g.sort_by([(HASH_AGG_KEYS[0], "ascending")])
+    return pa.table([g.column("ss_item_sk"), g.column("ss_quantity_sum"),
+                     g.column("ss_net_profit_sum"),
+                     g.column("ss_sales_price_mean"),
+                     g.column("ss_item_sk_count")],
+                    names=list(HASH_AGG_KEYS) + ["sq", "sp", "ap", "c"])
 
 
 # ---------------------------------------------------------------------------
@@ -362,20 +469,36 @@ def _tpch_columns(sf: float, seed: int) -> Dict[str, object]:
     charge = out["l_extendedprice"] * (1.0 + tax) * (1.0 - out["l_discount"])
     out["o_totalprice"] = np.bincount(np.repeat(i, lines), weights=charge,
                                       minlength=n_ord)
-    out["c_name"] = _customer_names(out["c_custkey"])
+    out["c_name"] = _numbered(b"Customer#", out["c_custkey"])
     return out
 
 
-def _customer_names(keys: np.ndarray) -> pa.Array:
-    """'Customer#%09d' of each key, built as one fixed-width byte matrix."""
-    prefix = np.frombuffer(b"Customer#", np.uint8)
-    digits = (keys[:, None] // 10 ** np.arange(8, -1, -1)) % 10
-    mat = np.concatenate([np.broadcast_to(prefix, (len(keys), 9)),
-                          (digits + ord("0")).astype(np.uint8)], axis=1)
-    offsets = np.arange(len(keys) + 1, dtype=np.int32) * 18
-    return pa.StringArray.from_buffers(
-        len(keys), pa.py_buffer(offsets.tobytes()),
-        pa.py_buffer(np.ascontiguousarray(mat).tobytes()))
+def _digits(values: np.ndarray, width: int) -> np.ndarray:
+    """uint8[n, width]: each value's last ``width`` decimal digits as
+    ASCII, zero-padded on the left."""
+    d = (values[:, None] // 10 ** np.arange(width - 1, -1, -1)) % 10
+    return (d + ord("0")).astype(np.uint8)
+
+
+def _strings(mat: np.ndarray, lengths: Optional[np.ndarray] = None
+             ) -> pa.Array:
+    """A string array whose row i is ``mat[i, :lengths[i]]`` (every row
+    whole without ``lengths``), built from the bytes at once."""
+    n, w = mat.shape
+    if lengths is None:
+        lengths = np.full(n, w, np.int64)
+    chars = mat[np.arange(w)[None, :] < lengths[:, None]]
+    offsets = np.zeros(n + 1, np.int32)
+    np.cumsum(lengths, out=offsets[1:])
+    return pa.StringArray.from_buffers(n, pa.py_buffer(offsets.tobytes()),
+                                       pa.py_buffer(chars.tobytes()))
+
+
+def _numbered(prefix: bytes, keys: np.ndarray) -> pa.Array:
+    """``prefix`` and each key in 9 digits ('Customer#%09d')."""
+    head = np.broadcast_to(np.frombuffer(prefix, np.uint8),
+                           (len(keys), len(prefix)))
+    return _strings(np.concatenate([head, _digits(keys, 9)], axis=1))
 
 
 def _tpch_table(columns: Dict[str, object], names: Sequence[str]
@@ -535,13 +658,15 @@ def _hash_exchange(child: Exec, key: str,
 
 def _grouped(child: Exec, keys: Sequence[str], aggregates,
              shuffle_partitions: int) -> Exec:
-    """Partial aggregate, hash exchange on the keys, final aggregate."""
+    """Partial aggregate, hash exchange on the keys (or into one partition
+    without keys), final aggregate."""
     key_cols = [col(k) for k in keys]
     partial = HashAggregateExec(key_cols, aggregates(), child,
                                 AggregateMode.PARTIAL)
     exchange = ShuffleExchangeExec(
         HashPartitioning([col(f.name) for f in partial.key_fields],
-                         shuffle_partitions), partial)
+                         shuffle_partitions) if keys
+        else SinglePartitioning(), partial)
     return HashAggregateExec(key_cols, aggregates(), exchange,
                              AggregateMode.FINAL)
 
@@ -632,3 +757,361 @@ def q18_reference(customer: pa.Table, orders: pa.Table,
     """Q18 computed by pyarrow alone, in ``run_q18``'s column order."""
     return q18_top(q18_groups_reference(customer, orders, lineitem,
                                         quantity))
+
+
+# ---------------------------------------------------------------------------
+# TPC-H Q2 and Q11
+# ---------------------------------------------------------------------------
+
+#: TPC-H spec 4.2.3: N_NAME and N_REGIONKEY of the 25 nations, by key
+NATIONS = (
+    ("ALGERIA", 0), ("ARGENTINA", 1), ("BRAZIL", 1), ("CANADA", 1),
+    ("EGYPT", 4), ("ETHIOPIA", 0), ("FRANCE", 3), ("GERMANY", 3),
+    ("INDIA", 2), ("INDONESIA", 2), ("IRAN", 4), ("IRAQ", 4), ("JAPAN", 2),
+    ("JORDAN", 4), ("KENYA", 0), ("MOROCCO", 0), ("MOZAMBIQUE", 0),
+    ("PERU", 1), ("CHINA", 2), ("ROMANIA", 3), ("SAUDI ARABIA", 4),
+    ("VIETNAM", 2), ("RUSSIA", 3), ("UNITED KINGDOM", 3),
+    ("UNITED STATES", 1))
+#: R_NAME of the 5 regions, by key
+REGIONS = ("AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST")
+
+#: Q2's validation parameters (spec 2.4.2.3)
+Q2_SIZE = 15
+Q2_TYPE_SUFFIX = "BRASS"
+Q2_REGION = "EUROPE"
+Q2_LIMIT = 100
+Q2_SELECT = ("s_acctbal", "s_name", "n_name", "p_partkey", "p_mfgr",
+             "s_address", "s_phone", "s_comment")
+#: Q11's validation parameters (spec 2.4.11.3): FRACTION is 0.0001 / SF
+Q11_NATION = "GERMANY"
+Q11_FRACTION = 0.0001
+#: the supplier scan's string width: S_COMMENT runs to 100 bytes
+SUPPLIER_STRING_MAX_LEN = 128
+
+_LETTERS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ",
+                         np.uint8)
+
+
+def _random_text(rng, n: int, lo: int, hi: int) -> pa.Array:
+    """Strings of ``lo`` to ``hi`` random letters (dbgen's V-string
+    lengths, not its text grammar)."""
+    lengths = rng.integers(lo, hi + 1, n)
+    mat = _LETTERS[rng.integers(0, len(_LETTERS), (n, hi), dtype=np.uint8)]
+    return _strings(mat, lengths)
+
+
+def tpch_q2_tables(sf: float, seed: int = 2
+                   ) -> Tuple[pa.Table, pa.Table, pa.Table, pa.Table,
+                              pa.Table]:
+    """``(part, supplier, partsupp, nation, region)``: every column Q2 and
+    Q11 read at scale factor ``sf``, drawn as dbgen draws them (TPC-H spec
+    4.2.3) from one numpy generator, with no Python loop per row:
+
+    - part: SF x 200,000 rows, P_PARTKEY 1..n, P_MFGR 'Manufacturer#M'
+      with M uniform in 1..5, P_TYPE and P_SIZE as ``part_table`` draws
+      them;
+    - supplier: SF x 10,000 rows, S_SUPPKEY 1..n, S_NAME 'Supplier#' and
+      the key in 9 digits, S_ADDRESS 10 to 40 random letters, S_NATIONKEY
+      uniform in 0..24, S_PHONE '(10 + nationkey)-ddd-ddd-dddd',
+      S_ACCTBAL in [-999.99, 9999.99] by 0.01, S_COMMENT 25 to 100 random
+      letters;
+    - partsupp: four rows per part, PS_SUPPKEY by dbgen's formula
+      ``(ps_partkey + i * (S / 4 + (ps_partkey - 1) / S)) % S + 1``,
+      PS_AVAILQTY in 1..9999, PS_SUPPLYCOST in [1.00, 1000.00] by 0.01;
+    - nation and region: the spec's 25 and 5 rows.
+
+    Keys are int64, money float64 (the repo's stand-in for DECIMAL)."""
+    rng = np.random.default_rng(seed)
+    n_part = max(int(round(200_000 * sf)), 1)
+    n_supp = max(int(round(10_000 * sf)), 1)
+    partkey = np.arange(1, n_part + 1, dtype=np.int64)
+    mfgr = rng.integers(1, 6, n_part)
+    ptype = rng.integers(0, len(P_TYPES), n_part)
+    size = rng.integers(1, 51, n_part).astype(np.int32)
+    part = pa.table({
+        "p_partkey": partkey,
+        "p_mfgr": pa.array([f"Manufacturer#{m}" for m in range(1, 6)]).take(
+            pa.array(mfgr - 1)),
+        "p_type": pa.array(P_TYPES).take(pa.array(ptype)),
+        "p_size": size,
+    })
+    suppkey = np.arange(1, n_supp + 1, dtype=np.int64)
+    address = _random_text(rng, n_supp, 10, 40)
+    nationkey = rng.integers(0, len(NATIONS), n_supp)
+    dash = np.full((n_supp, 1), ord("-"), np.uint8)
+    phone = _strings(np.concatenate([
+        _digits(nationkey + 10, 2), dash,
+        _digits(rng.integers(100, 1000, n_supp), 3), dash,
+        _digits(rng.integers(100, 1000, n_supp), 3), dash,
+        _digits(rng.integers(1000, 10000, n_supp), 4)], axis=1))
+    supplier = pa.table({
+        "s_suppkey": suppkey,
+        "s_name": _numbered(b"Supplier#", suppkey),
+        "s_address": address,
+        "s_nationkey": nationkey.astype(np.int64),
+        "s_phone": phone,
+        "s_acctbal": rng.integers(-99_999, 1_000_000, n_supp) / 100.0,
+        "s_comment": _random_text(rng, n_supp, 25, 100),
+    })
+    ps_partkey = np.repeat(partkey, 4)
+    i = np.tile(np.arange(4, dtype=np.int64), n_part)
+    ps_suppkey = (ps_partkey + i * (n_supp // 4 + (ps_partkey - 1) // n_supp)
+                  ) % n_supp + 1
+    del i
+    partsupp = pa.table({
+        "ps_partkey": ps_partkey,
+        "ps_suppkey": ps_suppkey,
+        "ps_availqty": rng.integers(1, 10_000, 4 * n_part).astype(np.int32),
+        "ps_supplycost": rng.integers(100, 100_001, 4 * n_part) / 100.0,
+    })
+    nation = pa.table({
+        "n_nationkey": np.arange(len(NATIONS), dtype=np.int64),
+        "n_name": [name for name, _ in NATIONS],
+        "n_regionkey": np.array([r for _, r in NATIONS], np.int64),
+    })
+    region = pa.table({"r_regionkey": np.arange(len(REGIONS),
+                                                dtype=np.int64),
+                       "r_name": list(REGIONS)})
+    return part, supplier, partsupp, nation, region
+
+
+#: the columns each query reads, by table: its plan scans only these, as
+#: Spark's column pruning leaves them
+Q2_COLUMNS = {"partsupp": ("ps_partkey", "ps_suppkey", "ps_supplycost")}
+Q11_COLUMNS = {"partsupp": ("ps_partkey", "ps_suppkey", "ps_availqty",
+                            "ps_supplycost"),
+               "supplier": ("s_suppkey", "s_nationkey"),
+               "nation": ("n_nationkey", "n_name")}
+
+
+def q11_fraction(sf: float) -> float:
+    """Q11's FRACTION at scale factor ``sf``: 0.0001 / SF."""
+    return Q11_FRACTION / sf
+
+
+def _q2_subquery_reference(partsupp: pa.Table, suppliers: pa.Table
+                           ) -> pa.Table:
+    """(ps_partkey, min_cost): the smallest supply cost of each part over
+    the suppliers given."""
+    ps = partsupp.join(suppliers.select(["s_suppkey"]), keys="ps_suppkey",
+                       right_keys="s_suppkey", join_type="inner")
+    g = ps.group_by("ps_partkey").aggregate([("ps_supplycost", "min")])
+    return g.rename_columns(["ps_partkey", "min_cost"])
+
+
+def q2_reference(part: pa.Table, supplier: pa.Table, partsupp: pa.Table,
+                 nation: pa.Table, region: pa.Table) -> pa.Table:
+    """TPC-H Q2 computed by pyarrow alone, in ``run_q2``'s column order:
+    the correlated subquery as the smallest European supply cost of each
+    part, the outer rows those whose cost equals it."""
+    r = region.filter(pc.equal(region.column("r_name"), Q2_REGION))
+    n = nation.join(r, keys="n_regionkey", right_keys="r_regionkey",
+                    join_type="inner").select(["n_nationkey", "n_name"])
+    s = supplier.join(n, keys="s_nationkey", right_keys="n_nationkey",
+                      join_type="inner")
+    mins = _q2_subquery_reference(partsupp, s)
+    p = part.filter(pc.and_(
+        pc.equal(part.column("p_size"), Q2_SIZE),
+        pc.ends_with(part.column("p_type"), Q2_TYPE_SUFFIX)))
+    j = p.join(partsupp, keys="p_partkey", right_keys="ps_partkey",
+               join_type="inner")
+    j = j.join(mins, keys="p_partkey", right_keys="ps_partkey",
+               join_type="inner")
+    j = j.filter(pc.equal(j.column("ps_supplycost"), j.column("min_cost")))
+    j = j.join(s, keys="ps_suppkey", right_keys="s_suppkey",
+               join_type="inner")
+    j = j.sort_by([("s_acctbal", "descending"), ("n_name", "ascending"),
+                   ("s_name", "ascending"), ("p_partkey", "ascending")])
+    return j.slice(0, Q2_LIMIT).select(list(Q2_SELECT))
+
+
+def q11_groups_reference(partsupp: pa.Table, supplier: pa.Table,
+                         nation: pa.Table) -> Tuple[pa.Table, float]:
+    """Every group of Q11 before its HAVING, by pyarrow alone, as
+    ``(ps_partkey, value)``, and the subquery's total."""
+    n = nation.filter(pc.equal(nation.column("n_name"), Q11_NATION))
+    s = supplier.join(n.select(["n_nationkey"]), keys="s_nationkey",
+                      right_keys="n_nationkey", join_type="inner")
+    ps = partsupp.join(s.select(["s_suppkey"]), keys="ps_suppkey",
+                       right_keys="s_suppkey", join_type="inner")
+    value = pc.multiply(ps.column("ps_supplycost"),
+                        pc.cast(ps.column("ps_availqty"), pa.float64()))
+    ps = ps.append_column("value", value)
+    g = ps.group_by("ps_partkey").aggregate([("value", "sum")])
+    total = pc.sum(value).as_py() or 0.0
+    return g.rename_columns(["ps_partkey", "value"]), total
+
+
+def q11_reference(partsupp: pa.Table, supplier: pa.Table, nation: pa.Table,
+                  fraction: float) -> pa.Table:
+    """TPC-H Q11 computed by pyarrow alone, in ``run_q11``'s column order:
+    the groups whose value passes ``total * fraction``, by value
+    descending."""
+    g, total = q11_groups_reference(partsupp, supplier, nation)
+    keep = g.filter(pc.greater(g.column("value"), total * fraction))
+    return keep.sort_by([("value", "descending"), ("ps_partkey",
+                                                   "ascending")])
+
+
+def _prune(table: pa.Table, names: Optional[Sequence[str]]) -> pa.Table:
+    return table if names is None else table.select(list(names))
+
+
+def _broadcast_join(stream: Exec, build: Exec, stream_keys: Sequence[str],
+                    build_keys: Sequence[str]) -> Exec:
+    return HashJoinExec([col(k) for k in stream_keys],
+                        [col(k) for k in build_keys], JoinType.INNER,
+                        stream, BroadcastExchangeExec(build))
+
+
+def _shuffled_join(stream: Exec, build: Exec, stream_keys: Sequence[str],
+                   build_keys: Sequence[str],
+                   shuffle_partitions: int) -> Exec:
+    lk = [col(k) for k in stream_keys]
+    rk = [col(k) for k in build_keys]
+    return HashJoinExec(
+        lk, rk, JoinType.INNER,
+        ShuffleExchangeExec(HashPartitioning(lk, shuffle_partitions), stream),
+        ShuffleExchangeExec(HashPartitioning(rk, shuffle_partitions), build),
+        broadcast_build=False)
+
+
+def q2_aggregates():
+    return [Min(col("ps_supplycost")).alias("min_cost")]
+
+
+def q2_plan(part: pa.Table, supplier: pa.Table, partsupp: pa.Table,
+            nation: pa.Table, region: pa.Table, num_slices: int = 8,
+            shuffle_partitions: int = 8, device: DeviceLike = None) -> Exec:
+    """TPC-H Q2 (spec 2.4.2, "Minimum Cost Supplier") with its validation
+    parameters, as the tree the JAX planner gives it with AQE off at SF100
+    (every join over a ``supplier``, ``part`` or ``partsupp`` input
+    shuffled, the ``nation`` and ``region`` builds broadcast)::
+
+        SELECT s_acctbal, s_name, n_name, p_partkey, p_mfgr, s_address,
+               s_phone, s_comment
+        FROM part, supplier, partsupp, nation, region
+        WHERE p_partkey = ps_partkey AND s_suppkey = ps_suppkey
+          AND p_size = 15 AND p_type LIKE '%BRASS'
+          AND s_nationkey = n_nationkey AND n_regionkey = r_regionkey
+          AND r_name = 'EUROPE'
+          AND ps_supplycost = (SELECT min(ps_supplycost)
+                               FROM partsupp, supplier, nation, region
+                               WHERE p_partkey = ps_partkey AND ...)
+        ORDER BY s_acctbal DESC, n_name, s_name, p_partkey LIMIT 100
+
+    The correlated subquery is decorrelated as Spark does it: the least
+    European supply cost of every part (a grouped Min over partsupp joined
+    to the European suppliers), renamed ``(m_partkey, min_cost)`` and
+    joined on the two keys ``(p_partkey, ps_supplycost)``. The LIKE is
+    ``endswith``, as Spark's LikeSimplification leaves it; ``supplier``
+    scans at 128 bytes a string (``s_comment`` runs to 100), the others at
+    64. Only the columns Q2 reads are scanned."""
+    def scan(t: pa.Table, width: int = STRING_MAX_LEN) -> Exec:
+        return _scan(t, num_slices, device, string_max_len=width)
+
+    ps = _prune(partsupp, Q2_COLUMNS["partsupp"])
+
+    def eu_suppliers() -> Exec:
+        regions = FilterExec(EqualTo(col("r_name"), lit(Q2_REGION)),
+                             scan(region))
+        nations = ProjectExec(
+            [col("n_nationkey"), col("n_name")],
+            _broadcast_join(scan(nation), regions, ["n_regionkey"],
+                            ["r_regionkey"]))
+        return _broadcast_join(scan(supplier, SUPPLIER_STRING_MAX_LEN),
+                               nations, ["s_nationkey"], ["n_nationkey"])
+
+    # the subquery: each part's least European supply cost
+    costs = _shuffled_join(scan(ps), ProjectExec([col("s_suppkey")],
+                                                 eu_suppliers()),
+                           ["ps_suppkey"], ["s_suppkey"], shuffle_partitions)
+    mins = ProjectExec(
+        [col("ps_partkey").alias("m_partkey"), col("min_cost")],
+        _grouped(CoalesceBatchesExec(costs, TargetSize()), ["ps_partkey"],
+                 q2_aggregates, shuffle_partitions))
+    parts = FilterExec(And(EqualTo(col("p_size"), lit(Q2_SIZE)),
+                           endswith(col("p_type"), Q2_TYPE_SUFFIX)),
+                       scan(part))
+    # the planner builds on part, the smaller side, and restores the order
+    part_ps = _swap_back(_shuffled_join(scan(ps), parts, ["ps_partkey"],
+                                        ["p_partkey"], shuffle_partitions),
+                         parts, scan(ps))
+    rows = _shuffled_join(part_ps, eu_suppliers(), ["ps_suppkey"],
+                          ["s_suppkey"], shuffle_partitions)
+    rows = _shuffled_join(rows, mins, ["p_partkey", "ps_supplycost"],
+                          ["m_partkey", "min_cost"], shuffle_partitions)
+    top = GlobalLimitExec(Q2_LIMIT, SortExec(
+        [desc(col("s_acctbal")), asc(col("n_name")), asc(col("s_name")),
+         asc(col("p_partkey"))], CoalesceBatchesExec(rows, TargetSize())))
+    return ProjectExec([col(k) for k in Q2_SELECT], top)
+
+
+def run_q2(part: pa.Table, supplier: pa.Table, partsupp: pa.Table,
+           nation: pa.Table, region: pa.Table, num_slices: int = 8,
+           shuffle_partitions: int = 8, device: DeviceLike = None
+           ) -> pa.Table:
+    """Q2 over the five tables, collected to the host."""
+    return collect(q2_plan(part, supplier, partsupp, nation, region,
+                           num_slices, shuffle_partitions, device))
+
+
+def q11_aggregates(name: str = "value"):
+    return [Sum(col("ps_supplycost") * col("ps_availqty")).alias(name)]
+
+
+def q11_plan(partsupp: pa.Table, supplier: pa.Table, nation: pa.Table,
+             fraction: float, num_slices: int = 8,
+             shuffle_partitions: int = 8, device: DeviceLike = None) -> Exec:
+    """TPC-H Q11 (spec 2.4.11, "Important Stock Identification") with
+    NATION 'GERMANY' and ``fraction`` (the spec's 0.0001 / SF,
+    ``q11_fraction``), as the tree the JAX planner gives it with AQE off
+    at SF100::
+
+        SELECT ps_partkey, sum(ps_supplycost * ps_availqty) AS value
+        FROM partsupp, supplier, nation
+        WHERE ps_suppkey = s_suppkey AND s_nationkey = n_nationkey
+          AND n_name = 'GERMANY'
+        GROUP BY ps_partkey
+        HAVING sum(ps_supplycost * ps_availqty) >
+               (SELECT sum(ps_supplycost * ps_availqty) * FRACTION
+                FROM partsupp, supplier, nation WHERE ...)
+        ORDER BY value DESC
+
+    The HAVING against the scalar subquery is a nested-loop join of the
+    grouped sums with the one-row global sum, broadcast, on the condition
+    ``value > total * fraction``. The German rows are joined twice, once
+    for each side, with the partsupp join shuffled and the nation build
+    broadcast. Only the columns Q11 reads are scanned."""
+    def scan(t: pa.Table, names: Sequence[str]) -> Exec:
+        return _scan(_prune(t, names), num_slices, device)
+
+    def german_rows() -> Exec:
+        nations = FilterExec(EqualTo(col("n_name"), lit(Q11_NATION)),
+                             scan(nation, Q11_COLUMNS["nation"]))
+        suppliers = ProjectExec(
+            [col("s_suppkey")],
+            _broadcast_join(scan(supplier, Q11_COLUMNS["supplier"]),
+                            nations, ["s_nationkey"], ["n_nationkey"]))
+        return CoalesceBatchesExec(_shuffled_join(
+            scan(partsupp, Q11_COLUMNS["partsupp"]), suppliers,
+            ["ps_suppkey"], ["s_suppkey"], shuffle_partitions), TargetSize())
+
+    groups = _grouped(german_rows(), ["ps_partkey"], q11_aggregates,
+                      shuffle_partitions)
+    total = _grouped(german_rows(), [], lambda: q11_aggregates("total"),
+                     shuffle_partitions)
+    having = BroadcastNestedLoopJoinExec(
+        JoinType.INNER, groups, BroadcastExchangeExec(total),
+        GreaterThan(col("value"), col("total") * lit(float(fraction))))
+    return SortExec([desc(col("value"))],
+                    ProjectExec([col("ps_partkey"), col("value")], having))
+
+
+def run_q11(partsupp: pa.Table, supplier: pa.Table, nation: pa.Table,
+            fraction: float, num_slices: int = 8,
+            shuffle_partitions: int = 8, device: DeviceLike = None
+            ) -> pa.Table:
+    """Q11 over the three tables, collected to the host."""
+    return collect(q11_plan(partsupp, supplier, nation, fraction,
+                            num_slices, shuffle_partitions, device))

@@ -6,5 +6,7 @@ from .basic import (FilterExec, GlobalLimitExec, InMemoryScanExec,  # noqa: F401
                     LocalLimitExec, ProjectExec)
 from .coalesce import (CoalesceBatchesExec, RequireSingleBatch,  # noqa: F401
                        TargetSize)
-from .join import HashJoinExec, JoinType  # noqa: F401
-from .sort import SortExec, SortOrder, asc, desc  # noqa: F401
+from .join import (BroadcastNestedLoopJoinExec, HashJoinExec,  # noqa: F401
+                   JoinType)
+from .sort import (SortExec, SortOrder, TakeOrderedAndProjectExec,  # noqa
+                   asc, desc)

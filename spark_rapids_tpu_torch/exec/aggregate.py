@@ -7,7 +7,11 @@ running count, and every aggregate then reduces per group through the lane
 contract of ``expressions/aggregates.py``.
 
 Modes are Spark's: PARTIAL (update -> buffers), FINAL (merge buffers and
-evaluate), COMPLETE (update, merge and evaluate). Between stages a batch
+evaluate), COMPLETE (update, merge and evaluate). An exec holding a
+sort-sensitive aggregate (Percentile and its kin: COMPLETE only, one per
+exec) concatenates its partition and runs one update over it, sorted by
+(keys, value). ``_update_kernel(batch, mask)`` fuses an upstream filter:
+rows outside the mask are dead rows of the key sort. Between stages a batch
 holds ``[group keys..., buffer columns...]`` in declaration order. Every
 output batch keeps its input's capacity, as in the JAX package; where that
 package chose among capacity tiers with ``lax.cond``, the group layout here
@@ -42,8 +46,9 @@ from ..memory.retry import (acquire_with_retry, register_with_retry,
                             with_retry_no_split)
 from .base import Exec, Metric, UnaryExec
 from .basic import bind_all, output_name
-from .common import (adjacent_equal_ops, concat_batches, gather_columns,
-                     lexsort, may_skip_null_lane, slice_batch, sort_operands)
+from .common import (adjacent_equal_ops, concat_all, concat_batches,
+                     gather_columns, lexsort, may_skip_null_lane, slice_batch,
+                     sort_operands)
 
 
 class AggregateMode(enum.Enum):
@@ -128,6 +133,20 @@ class HashAggregateExec(UnaryExec):
                 Field(n, a.dtype, a.nullable)
                 for a, n in zip(self.aggs, self.agg_names)])
 
+        # percentile and its kin read each group's values in order: one
+        # per exec, COMPLETE only, over the partition's rows sorted by
+        # (keys, value)
+        self.sort_sensitive = [a for a in self.aggs
+                               if getattr(a, "requires_sorted_input", False)]
+        if len(self.sort_sensitive) > 1:
+            raise ValueError(
+                "one sort-sensitive aggregate (percentile) per exec; the "
+                "planner must split multi-percentile projections")
+        if self.sort_sensitive and mode is not AggregateMode.COMPLETE:
+            raise ValueError(
+                f"{type(self.sort_sensitive[0]).__name__} supports "
+                f"COMPLETE mode only (not decomposable)")
+
         # update inputs: aggregates over the same bound column share one
         # sorted payload column
         self._upd_value_exprs: List[Expression] = []
@@ -159,12 +178,18 @@ class HashAggregateExec(UnaryExec):
     # ------------------------------------------------------------------
 
     def _group_kernel(self, batch: ColumnarBatch, merge: bool,
-                      final: bool) -> ColumnarBatch:
+                      final: bool,
+                      mask: Optional[torch.Tensor] = None) -> ColumnarBatch:
         """One key sort carrying every input as payload, then the batched
         lane reductions over the sorted layout. Without keys (a global
-        aggregate) the live rows form one group."""
+        aggregate) the live rows form one group. Rows outside ``mask``
+        are dead rows of the sort, like padding. A sort-sensitive
+        aggregate's input joins the sort after the keys, ascending with
+        nulls first; group boundaries stay the keys'."""
         cap, dev = batch.capacity, batch.device
         in_live = batch.row_mask()
+        if mask is not None:
+            in_live = in_live & mask
         nk = len(self.key_fields)
         if merge:
             key_cols = list(batch.columns[:nk])
@@ -182,7 +207,14 @@ class HashAggregateExec(UnaryExec):
 
         key_ops = sort_operands(key_cols, [False] * nk, [True] * nk,
                                 in_live, nullable)
-        perm = lexsort(key_ops)
+        sort_ops = key_ops
+        if self.sort_sensitive and not merge:
+            values = [flat_vals[i] for i in self._upd_per_agg[
+                self.aggs.index(self.sort_sensitive[0])]]
+            n = len(values)
+            sort_ops = key_ops + sort_operands(values, [False] * n,
+                                               [True] * n, in_live)[1:]
+        perm = lexsort(sort_ops)
         n_live = int(in_live.sum())
         sorted_live = torch.arange(cap, device=dev) < n_live
         # provably non-null columns share ONE validity object (sorted_live),
@@ -209,7 +241,10 @@ class HashAggregateExec(UnaryExec):
             finishers.append(agg.fast_merge(views, sorted_live, lanes)
                              if merge else
                              agg.fast_update(views, sorted_live, lanes))
-        res = LaneResults(lanes, gid, n_live, count)
+        # a global aggregate over no live row has one group and no start
+        group_starts = (starts if starts.shape[0] == count else
+                        torch.zeros(count, dtype=torch.int64, device=dev))
+        res = LaneResults(lanes, gid, n_live, count, group_starts)
         live_slot = torch.ones(count, dtype=torch.bool, device=dev)
         out_cols = gather_columns(key_cols, perm[starts], live_slot)
         for agg, finish in zip(self.aggs, finishers):
@@ -221,9 +256,12 @@ class HashAggregateExec(UnaryExec):
         return ColumnarBatch(tuple(_pad_column(c, cap) for c in out_cols),
                              rows_scalar(count, dev))
 
-    def _update_kernel(self, batch: ColumnarBatch) -> ColumnarBatch:
-        """input rows -> buffer-layout batch."""
-        return self._group_kernel(batch, merge=False, final=False)
+    def _update_kernel(self, batch: ColumnarBatch,
+                       mask: Optional[torch.Tensor] = None) -> ColumnarBatch:
+        """input rows -> buffer-layout batch. ``mask`` fuses an upstream
+        filter into the aggregation: rows outside it become dead rows of
+        the key sort, with no compaction."""
+        return self._group_kernel(batch, merge=False, final=False, mask=mask)
 
     def _merge_kernel(self, batch: ColumnarBatch,
                       final: bool) -> ColumnarBatch:
@@ -249,6 +287,9 @@ class HashAggregateExec(UnaryExec):
         cat = self.catalog
         buf_schema = Schema(self.key_fields + self.buffer_fields)
         finalize = self.mode is not AggregateMode.PARTIAL
+        if self.sort_sensitive:
+            yield from self._sorted_partition(p)
+            return
         entries: List[Tuple[SpillableBatch, int]] = []
         try:
             for batch in self.child.execute_partition(p):
@@ -270,6 +311,21 @@ class HashAggregateExec(UnaryExec):
         finally:
             for sb, _ in entries:
                 sb.close()
+
+    def _sorted_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        """The sort-sensitive branch: no decomposition exists, so the
+        partition's rows are concatenated and take one update, sorted by
+        (keys, value), whose buffers are evaluated as they stand."""
+        raw = list(self.child.execute_partition(p))
+        if not raw:
+            # a global aggregate over no input still yields one row
+            if not self.key_fields and p == 0:
+                yield self._eval_buffers_kernel(self._update_kernel(
+                    empty_batch(self.child.output_schema, self.device)))
+            return
+        whole = concat_all(raw, self.child.output_schema, self.device)
+        raw.clear()
+        yield self._eval_buffers_kernel(self._update_kernel(whole))
 
     def _merge_and_emit(self, entries: List[Tuple[SpillableBatch, int]],
                         finalize: bool, buf_schema: Schema

@@ -1,7 +1,8 @@
-"""Equi-joins: the sort-based hash join.
+"""Joins: the sort-based hash join and the nested-loop join.
 
-Port of ``JoinType``, ``_hash64``, ``_keys_equal``, ``_null_gather`` and
-``HashJoinExec`` from ``spark_rapids_tpu/exec/join.py``, every join type but
+Port of ``JoinType``, ``_hash64``, ``_keys_equal``, ``_null_gather``,
+``HashJoinExec`` and ``BroadcastNestedLoopJoinExec`` from
+``spark_rapids_tpu/exec/join.py``. The hash join takes every join type but
 CROSS, over a planned broadcast or over co-partitioned inputs:
 
 1. BUILD: each build row gets a search word, the build side is sorted by it
@@ -45,9 +46,19 @@ row-count bucket by one sort (``partition_pieces``) where the JAX package
 compacts at full capacity once per bucket. ``graceBuckets`` counts the
 buckets.
 
+``BroadcastNestedLoopJoinExec`` joins without keys, over a broadcast
+build: every join type, the condition bound against the (left, right)
+pair. Where the JAX package expands ``stream capacity x build capacity``
+slots, the port reads each stream batch's live row count (one host read a
+batch) and expands ``live stream rows x live build rows``, cut into build
+tiles of at most ``max_tile_rows`` slots: the same rows without the
+padding's slots (Q11's one-row build at the 128-row minimum capacity would
+be 128 times the work), stream-major within a tile; tiles cut at other
+sizes order the pairs differently across tiles.
+
 Not ported here: the AQE hooks (``_maybe_coordinate``, the runtime
-broadcast switch and the skew split), ``_expand_masked`` (whole-stage
-fusion) and ``BroadcastNestedLoopJoinExec``.
+broadcast switch and the skew split) and ``_expand_masked`` (whole-stage
+fusion).
 """
 
 from __future__ import annotations
@@ -75,7 +86,7 @@ from .aggregate import _pad_column
 from .base import BinaryExec, Exec, Metric
 from .basic import bind_all
 from .common import (compact, concat_all, gather_column, gather_columns,
-                     lexsort, orderable_words, partition_pieces)
+                     lexsort, orderable_words, partition_pieces, slice_batch)
 
 
 class JoinType(enum.Enum):
@@ -120,10 +131,19 @@ def _hash64(cols: Sequence[DeviceColumn], valid: torch.Tensor) -> torch.Tensor:
 
 def _keys_equal(a: Sequence[DeviceColumn],
                 b: Sequence[DeviceColumn]) -> torch.Tensor:
-    """Row-wise equality of two key lists; a null key equals nothing."""
+    """Row-wise equality of two key lists as Spark's join sees them: a null
+    key equals nothing, and double keys are normalized (NaN equals NaN,
+    -0.0 equals 0.0), as their hash is. The JAX package compares doubles as
+    IEEE floats, so its joins match no NaN key."""
     eq = None
     for x, y in zip(a, b):
-        e = string_equal(x, y) if x.lengths is not None else x.data == y.data
+        if x.lengths is not None:
+            e = string_equal(x, y)
+        elif x.data.is_floating_point():
+            e = (x.data == y.data) | (torch.isnan(x.data)
+                                      & torch.isnan(y.data))
+        else:
+            e = x.data == y.data
         e = e & x.validity & y.validity
         eq = e if eq is None else eq & e
     return eq
@@ -676,3 +696,156 @@ class HashJoinExec(BinaryExec):
             for bucket in sub_stream:
                 for sp in bucket:
                     sp.close()
+
+
+def _trim(batch: ColumnarBatch) -> ColumnarBatch:
+    """A compacted batch cut to its row count's bucket (one host read)."""
+    n = int(batch.num_rows)
+    cap = bucket_capacity(max(n, 1))
+    return batch if cap >= batch.capacity else slice_batch(batch, 0, n, cap)
+
+
+class BroadcastNestedLoopJoinExec(BinaryExec):
+    """Cross or conditional nested-loop join: the left child streams, the
+    right child's whole output is the build. Every stream row meets every
+    build row in bounded tiles; the condition keeps pairs. RIGHT and FULL
+    outer fold every stream partition into one, so that the build rows no
+    pair kept are emitted once, at the end."""
+
+    def __init__(self, join_type: JoinType, left: Exec, right: Exec,
+                 condition: Optional[Expression] = None,
+                 ctx: Optional[EvalContext] = None,
+                 max_tile_rows: int = 1 << 20):
+        super().__init__(left, right, ctx)
+        self.join_type = join_type
+        self.max_tile_rows = max_tile_rows
+        lf, rf = left.output_schema.fields, right.output_schema.fields
+        l_nullable = join_type in _BUILD_TAIL_TYPES
+        r_nullable = join_type in _STREAM_TAIL_TYPES
+        if join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
+            self._schema = left.output_schema
+        elif join_type is JoinType.EXISTENCE:
+            self._schema = Schema(list(lf) + [Field("exists", T.BOOLEAN,
+                                                    False)])
+        else:
+            self._schema = Schema(
+                [Field(f.name, f.dtype, f.nullable or l_nullable) for f in lf]
+                + [Field(f.name, f.dtype, f.nullable or r_nullable)
+                   for f in rf])
+        # the condition sees the (left, right) pair row, whatever the join
+        # type projects out
+        self.condition = (condition.bind(Schema(list(lf) + list(rf)))
+                          if condition is not None else None)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    @property
+    def num_partitions(self) -> int:
+        if self.join_type in _BUILD_TAIL_TYPES:
+            return 1
+        return self.left.num_partitions
+
+    def _tiles(self, n_stream: int, n_build: int) -> Iterator[Tuple[int, int]]:
+        """(offset, rows) of each build tile: at most ``max_tile_rows``
+        slots against ``n_stream`` stream rows, at least one build row."""
+        tile = max(self.max_tile_rows // max(n_stream, 1), 1)
+        for off in range(0, n_build, tile):
+            yield off, min(tile, n_build - off)
+
+    def _tile_kernel(self, stream: ColumnarBatch, n_stream: int,
+                     build: ColumnarBatch, off: int, rows: int,
+                     want_pairs: bool):
+        """Every (stream row, build row) pair of one tile, stream-major:
+        the kept pairs compacted (when ``want_pairs``), each stream row's
+        kept-pair count, and each build row's, at the build's capacity."""
+        dev = stream.device
+        slots = n_stream * rows
+        cap = bucket_capacity(max(slots, 1))
+        j = torch.arange(cap, device=dev)
+        live = j < slots
+        si = (j // rows).clamp(max=stream.capacity - 1)
+        bi = (off + j % rows).clamp(max=build.capacity - 1)
+        s_cols = gather_columns(stream.columns, si, live)
+        b_cols = gather_columns(build.columns, bi, live)
+        pairs = ColumnarBatch(tuple(s_cols + b_cols), rows_scalar(slots, dev))
+        keep = live
+        if self.condition is not None:
+            c = self.condition.eval(pairs, self.ctx)
+            keep = keep & c.data & c.validity
+        hits = keep.to(torch.int64)
+        s_m = torch.zeros(stream.capacity + 1, dtype=torch.int64, device=dev)
+        s_m.index_add_(0, torch.where(keep, si, stream.capacity), hits)
+        b_m = torch.zeros(build.capacity + 1, dtype=torch.int64, device=dev)
+        b_m.index_add_(0, torch.where(keep, bi, build.capacity), hits)
+        out = _trim(compact(pairs, keep)) if want_pairs else None
+        return out, s_m[:stream.capacity], b_m[:build.capacity]
+
+    def _stream_tail(self, stream: ColumnarBatch,
+                     s_matched: torch.Tensor) -> Iterator[ColumnarBatch]:
+        jt = self.join_type
+        unmatched = stream.row_mask() & (s_matched == 0)
+        if jt in _STREAM_TAIL_TYPES:
+            null_right = _null_gather(
+                empty_batch(self.right.output_schema, self.device, 1),
+                stream.capacity)
+            yield _trim(compact(ColumnarBatch(
+                stream.columns + tuple(null_right), stream.num_rows),
+                unmatched))
+        elif jt is JoinType.LEFT_SEMI:
+            yield compact(stream, s_matched > 0)
+        elif jt is JoinType.LEFT_ANTI:
+            yield compact(stream, unmatched)
+        elif jt is JoinType.EXISTENCE:
+            exists = DeviceColumn(s_matched > 0, stream.row_mask(),
+                                  T.BOOLEAN)
+            yield ColumnarBatch(stream.columns + (exists,), stream.num_rows)
+
+    def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        builds = [b for cp in range(self.right.num_partitions)
+                  for b in self.right.execute_partition(cp)]
+        jt = self.join_type
+        pair_out = jt not in _SEMI_TYPES
+        if jt in (JoinType.INNER, JoinType.CROSS):
+            # no match state across build batches: each batch is a build
+            # of its own, with no concatenation
+            for stream in self.left.execute_partition(p):
+                n_stream = int(stream.num_rows)
+                for build in builds:
+                    for off, rows in self._tiles(n_stream,
+                                                 int(build.num_rows)):
+                        out, _, _ = self._tile_kernel(stream, n_stream,
+                                                      build, off, rows, True)
+                        yield out
+            return
+        build = concat_all(builds, self.right.output_schema, self.device)
+        builds.clear()
+        n_build = int(build.num_rows)
+        if self.num_partitions == 1 and self.left.num_partitions > 1:
+            stream_parts: Sequence[int] = range(self.left.num_partitions)
+        else:
+            stream_parts = (p,)
+        b_matched = torch.zeros(build.capacity, dtype=torch.int64,
+                                device=self.device)
+        for sp in stream_parts:
+            for stream in self.left.execute_partition(sp):
+                n_stream = int(stream.num_rows)
+                s_matched = torch.zeros(stream.capacity, dtype=torch.int64,
+                                        device=self.device)
+                for off, rows in self._tiles(n_stream, n_build):
+                    out, s_m, b_m = self._tile_kernel(
+                        stream, n_stream, build, off, rows, pair_out)
+                    s_matched += s_m
+                    b_matched += b_m
+                    if out is not None:
+                        yield out
+                yield from self._stream_tail(stream, s_matched)
+        if jt in _BUILD_TAIL_TYPES:
+            null_left = _null_gather(
+                empty_batch(self.left.output_schema, self.device, 1),
+                build.capacity)
+            yield _trim(compact(ColumnarBatch(tuple(null_left)
+                                              + build.columns,
+                                              build.num_rows),
+                                build.row_mask() & (b_matched == 0)))

@@ -5,7 +5,7 @@ from .base import (Alias, BoundReference, EvalContext, Expression,  # noqa: F401
                    Literal, col, lit)
 from .boolean import And, Or  # noqa: F401
 from .comparison import (EqualNullSafe, EqualTo, GreaterThan,  # noqa: F401
-                         GreaterThanOrEqual, In, IsNotNull, IsNull,
+                         GreaterThanOrEqual, In, IsNaN, IsNotNull, IsNull,
                          LessThan, LessThanOrEqual, Not)
 from .strings import (StringPredicate, contains, endswith,  # noqa: F401
                       startswith)

@@ -1,22 +1,44 @@
-"""Aggregate functions with Spark semantics: Sum, Count and Average.
+"""Aggregate functions with Spark semantics.
 
-Port of ``spark_rapids_tpu/expressions/aggregates.py``. The buffer model is
-Spark's: update turns input rows into per-group buffers, merge combines
-buffers that landed in the same group, ``evaluate`` finishes the result.
-Type widening follows Spark: sum(int) -> bigint, sum(double) -> double,
-avg -> double, count -> bigint (never null).
+Port of ``spark_rapids_tpu/expressions/aggregates.py``: Sum, Count,
+Average, Min, Max, the central moments (VarianceSamp, VariancePop,
+StddevSamp, StddevPop), First, Last, Percentile and ApproxPercentile. The
+buffer model is Spark's: update turns input rows into per-group buffers,
+merge combines buffers that landed in the same group, ``evaluate`` finishes
+the result. Type widening follows Spark: sum(int) -> bigint, sum(double) ->
+double, avg and the moments -> double, count -> bigint (never null),
+min/max/first/last keep their input's type.
 
 Update and merge run as the batched lane contract on the aggregate exec's
 key-sorted layout, grouped or global: ``fast_update``/``fast_merge``
-register reduction lanes on ``FastLanes`` and return a finisher that reads
-the group totals from ``LaneResults``. The JAX package's row-buffer
-``update``/``merge`` are not ported: every aggregate here is a sum lane.
+register reduction lanes on ``FastLanes`` (sums, and min/max lanes in the
+value's own dtype) and return a finisher that reads the group results from
+``LaneResults``, which also reduces on demand (the moments' second pass
+over each group's mean, First/Last's row pick, the string Min/Max
+narrowing). The JAX package's row-buffer ``update``/``merge`` are not
+ported.
 
 Where the JAX package rode int64 sums on three exact 22-bit float64 chunk
-lanes (a TPU emulates 64-bit integers), the card sums int64 natively; the
-sum wraps mod 2^64, Spark's non-ANSI overflow. Float64 lanes are summed per
-group (``index_add_``), never as a difference of one batch-wide prefix sum,
-which would cancel small groups against the running total.
+lanes and int64 min/max off the lanes (a TPU emulates 64-bit integers), the
+card reduces int64 natively and exactly; the sum wraps mod 2^64, Spark's
+non-ANSI overflow. Float64 lanes are summed per group (``index_add_``),
+never as a difference of one batch-wide prefix sum, which would cancel
+small groups against the running total.
+
+Min and Max order doubles as Spark does: NaN above every other value, so a
+group's max is NaN if any of its values is, and its min only if all are.
+The JAX package reduces with ``jnp.minimum``/``jnp.maximum``, whose NaN
+wins both. A string Min/Max narrows each group's candidates word by word
+over the port's orderable words, as the JAX package does.
+
+Percentile and ApproxPercentile are sort-sensitive: COMPLETE mode only,
+over rows the exec sorts by (keys, value) with nulls first; the
+interpolated percentile reads the group's k-th valid value at
+``start + nulls + k``. ApproxPercentile answers exactly and ignores its
+accuracy argument. First and Last take the first or last live row of a
+group in the order the exec's stable key sort leaves, which is input order
+within a batch; across batches and merges it is as non-deterministic as
+Spark's.
 """
 
 from __future__ import annotations
@@ -28,7 +50,7 @@ import torch
 
 from .. import types as T
 from ..batch import DeviceColumn
-from ..types import SqlType
+from ..types import SqlType, TypeKind
 from .base import Expression
 
 
@@ -47,12 +69,15 @@ def _ones(n: int, like: torch.Tensor) -> torch.Tensor:
 
 class FastLanes:
     """Collects reduction lanes during the aggregate's planning pass:
-    float64 sum lanes and int64 sum lanes (integer sums and counts)."""
+    float64 sum lanes, int64 sum lanes (integer sums and counts), and
+    min/max lanes, each a value in its own dtype with the mask of the rows
+    it reduces."""
 
     def __init__(self, live: torch.Tensor):
         self.live = live
         self.f64_lanes: List[torch.Tensor] = []
         self.i64_lanes: List[torch.Tensor] = []
+        self.extreme_lanes: List[Tuple[torch.Tensor, torch.Tensor, str]] = []
         self._count_cache: List[Tuple[Optional[torch.Tensor], int]] = []
 
     def sum_f64(self, x: torch.Tensor) -> int:
@@ -74,29 +99,64 @@ class FastLanes:
         self._count_cache.append((key, idx))
         return idx
 
+    def extreme(self, x: torch.Tensor, ok: torch.Tensor, how: str) -> int:
+        """A per-group ``amin`` or ``amax`` lane of ``x`` over the rows
+        where ``ok``, in ``x``'s own dtype."""
+        self.extreme_lanes.append((x, ok, how))
+        return len(self.extreme_lanes) - 1
+
 
 class LaneResults:
-    """Group totals of every registered lane. Rows are key-sorted with the
-    live rows first, so only the ``n_live`` prefix is reduced."""
+    """Group results of every registered lane, and per-group reductions on
+    demand. Rows are key-sorted with the live rows first, so only the
+    ``n_live`` prefix is reduced; ``seg`` is that prefix's group ids and
+    ``starts`` each group's first sorted row."""
 
     def __init__(self, lanes: FastLanes, gid: torch.Tensor, n_live: int,
-                 num_groups: int):
-        seg = gid[:n_live]
+                 num_groups: int, starts: torch.Tensor):
+        self.seg = gid[:n_live]
+        self.n_live = n_live
+        self.num_groups = num_groups
+        self.starts = starts
 
-        def reduce(stack):
+        def summed(stack):
             if not stack:
                 return None
-            x = torch.stack([lane[:n_live] for lane in stack], dim=1)
-            return group_sums(x, seg, num_groups)
+            return self.group_sum(torch.stack(stack, dim=1))
 
-        self._f64 = reduce(lanes.f64_lanes)
-        self._i64 = reduce(lanes.i64_lanes)
+        self._f64 = summed(lanes.f64_lanes)
+        self._i64 = summed(lanes.i64_lanes)
+        self._extreme = [self.reduce(x, ok, how)
+                         for x, ok, how in lanes.extreme_lanes]
 
     def sum_f64(self, ref: int) -> torch.Tensor:
         return self._f64[:, ref]
 
     def sum_int(self, ref: int) -> torch.Tensor:
         return self._i64[:, ref]
+
+    def extreme(self, ref: int) -> torch.Tensor:
+        return self._extreme[ref]
+
+    def group_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-group sums of the live prefix of ``x`` (1-D or [rows,
+        lanes])."""
+        return group_sums(x[:self.n_live], self.seg, self.num_groups)
+
+    def per_row(self, per_group: torch.Tensor) -> torch.Tensor:
+        """Each live row's value of a per-group tensor."""
+        return per_group[self.seg]
+
+    def reduce(self, x: torch.Tensor, ok: torch.Tensor,
+               how: str) -> torch.Tensor:
+        """Per-group ``amin``/``amax`` of ``x`` over the live rows where
+        ``ok``; 0 for a group with none. Rows outside ``ok`` go to a slot
+        past the groups, so no identity value is needed."""
+        n = self.n_live
+        seg = torch.where(ok[:n], self.seg, self.num_groups)
+        out = x.new_zeros(self.num_groups + 1)
+        return out.scatter_reduce_(0, seg, x[:n], how,
+                                   include_self=False)[:self.num_groups]
 
 
 @dataclass(frozen=True, eq=False)
@@ -256,3 +316,284 @@ class Average(AggregateFunction):
         sref = B.sum_f64(_masked(buffers[0], live)[0])
         nref = B.sum_int(_masked(buffers[1], live)[0])
         return self._finisher(sref, nref)
+
+
+class _MinMax(AggregateFunction):
+    """min(x) / max(x): the input's type; null iff the group has no
+    non-null input. One buffer, merged as it was made."""
+
+    _how = "amin"
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def buffer_types(self):
+        return [self.dtype]
+
+    def evaluate(self, buffers, group_live):
+        b = buffers[0]
+        return DeviceColumn(b.data, b.validity & group_live, b.dtype,
+                            b.lengths)
+
+    def _string(self, col: DeviceColumn, ok: torch.Tensor, nref: int):
+        """Each group's least (greatest) string: candidates narrow word by
+        word over the orderable words (the byte words, then the length),
+        and the group's first surviving row is gathered."""
+        from ..exec.common import orderable_words
+        words = orderable_words(col)
+        is_min = self._how == "amin"
+
+        def finish(res: LaneResults):
+            n = res.n_live
+            candidate = ok[:n]
+            for w in words:
+                key = (w if is_min else ~w)[:n].to(torch.int64)
+                best = res.reduce(key, candidate, "amin")
+                candidate = candidate & (key == res.per_row(best))
+            rows = torch.arange(n, device=ok.device)
+            pick = res.reduce(rows, candidate, "amin")
+            valid = res.sum_int(nref) > 0
+            return [DeviceColumn(
+                torch.where(valid[:, None], col.data[pick], 0), valid,
+                self.dtype, torch.where(valid, col.lengths[pick], 0))]
+        return finish
+
+    def _lanes(self, col: DeviceColumn, live, B: FastLanes):
+        ok = _view_ok(col, live)
+        nref = B.count(ok)
+        if col.lengths is not None:
+            return self._string(col, ok, nref)
+        kind = self.dtype.kind
+        x = col.data.to(torch.int32) if kind is TypeKind.BOOLEAN else col.data
+        nan = None
+        if kind is TypeKind.FLOAT64:
+            # Spark's order: NaN above every other value. Reduce the
+            # numbers, and count the NaN rows beside them
+            nan = torch.isnan(x) & ok
+            nan_ref = B.count(nan)
+            ok = ok & ~nan
+        ref = B.extreme(x, ok, self._how)
+
+        def finish(res: LaneResults):
+            n = res.sum_int(nref)
+            valid = n > 0
+            m = res.extreme(ref)
+            if nan is not None:
+                n_nan = res.sum_int(nan_ref)
+                # max: NaN if any value is; min: NaN if every value is
+                to_nan = n_nan > 0 if self._how == "amax" else n_nan == n
+                m = torch.where(to_nan, float("nan"), m)
+            if kind is TypeKind.BOOLEAN:
+                m = m > 0
+            zero = torch.zeros((), dtype=m.dtype, device=m.device)
+            return [DeviceColumn(torch.where(valid, m, zero), valid,
+                                 self.dtype)]
+        return finish
+
+    def fast_update(self, inputs, live, B):
+        return self._lanes(inputs[0], live, B)
+
+    def fast_merge(self, buffers, live, B):
+        return self._lanes(buffers[0], live, B)
+
+
+class Min(_MinMax):
+    _how = "amin"
+
+
+class Max(_MinMax):
+    _how = "amax"
+
+
+class _CentralMoment(AggregateFunction):
+    """The second central moment's buffers (n, mean, m2), all double: the
+    update takes each group's mean, then its squared deviations (two
+    passes); merges combine partials by Chan's pairwise formula,
+    ``m2 = sum(m2_i) + sum(n_i * (mean_i - mean)^2)``."""
+
+    @property
+    def dtype(self):
+        return T.FLOAT64
+
+    def buffer_types(self):
+        return [T.FLOAT64, T.FLOAT64, T.FLOAT64]      # n, mean, m2
+
+    def _finish(self, n: torch.Tensor, m2: torch.Tensor):
+        raise NotImplementedError
+
+    def evaluate(self, buffers, group_live):
+        n, m2 = buffers[0].data, buffers[2].data
+        val, valid = self._finish(n, m2)
+        valid = valid & group_live
+        return DeviceColumn(torch.where(valid, val, 0.0), valid, T.FLOAT64)
+
+    @staticmethod
+    def _buffers(n, mean, m2):
+        one = _ones(n.shape[0], n)
+        return [DeviceColumn(n, one, T.FLOAT64),
+                DeviceColumn(mean, one, T.FLOAT64),
+                DeviceColumn(m2, one, T.FLOAT64)]
+
+    def fast_update(self, inputs, live, B):
+        col = inputs[0]
+        ok = _view_ok(col, live)
+        x = torch.where(ok, col.data.to(torch.float64), 0.0)
+        nref, sref = B.count(ok), B.sum_f64(x)
+
+        def finish(res: LaneResults):
+            n = res.sum_int(nref).to(torch.float64)
+            mean = res.sum_f64(sref) / torch.where(n > 0, n, 1.0)
+            k = res.n_live
+            dev = torch.where(ok[:k], x[:k] - res.per_row(mean), 0.0)
+            return self._buffers(n, mean, res.group_sum(dev * dev))
+        return finish
+
+    def fast_merge(self, buffers, live, B):
+        n, mean, m2 = (torch.where(live, b.data, 0.0) for b in buffers)
+        nref, sref = B.sum_f64(n), B.sum_f64(n * mean)
+
+        def finish(res: LaneResults):
+            big_n = res.sum_f64(nref)
+            gmean = res.sum_f64(sref) / torch.where(big_n > 0, big_n, 1.0)
+            k = res.n_live
+            d = mean[:k] - res.per_row(gmean)
+            return self._buffers(big_n, gmean,
+                                 res.group_sum(m2[:k] + n[:k] * d * d))
+        return finish
+
+
+class VarianceSamp(_CentralMoment):
+    def _finish(self, n, m2):
+        return m2 / torch.where(n > 1, n - 1, 1.0), n > 1
+
+
+class VariancePop(_CentralMoment):
+    def _finish(self, n, m2):
+        return m2 / torch.where(n > 0, n, 1.0), n > 0
+
+
+class StddevSamp(_CentralMoment):
+    def _finish(self, n, m2):
+        return torch.sqrt(m2 / torch.where(n > 1, n - 1, 1.0)), n > 1
+
+
+class StddevPop(_CentralMoment):
+    def _finish(self, n, m2):
+        return torch.sqrt(m2 / torch.where(n > 0, n, 1.0)), n > 0
+
+
+class First(AggregateFunction):
+    """first(x) (ignoreNulls=False): the value of the group's first live
+    row, null or not. Buffers (value, has_value); a partial without a
+    value never wins a merge."""
+
+    _how = "amin"
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def buffer_types(self):
+        return [self.dtype, T.BOOLEAN]       # value, has_value
+
+    def evaluate(self, buffers, group_live):
+        val, has = buffers
+        return DeviceColumn(val.data, val.validity & has.data & group_live,
+                            self.dtype, val.lengths)
+
+    def _pick(self, col: DeviceColumn, present: torch.Tensor, B: FastLanes):
+        rows = torch.arange(present.shape[0], device=present.device)
+        ref = B.extreme(rows, present, self._how)
+        nref = B.count(present)
+
+        def finish(res: LaneResults):
+            has = res.sum_int(nref) > 0
+            idx = res.extreme(ref)
+            lengths = None if col.lengths is None else col.lengths[idx]
+            return [DeviceColumn(col.data[idx], col.validity[idx] & has,
+                                 self.dtype, lengths),
+                    DeviceColumn(has, _ones(has.shape[0], has), T.BOOLEAN)]
+        return finish
+
+    def fast_update(self, inputs, live, B):
+        return self._pick(inputs[0], live, B)
+
+    def fast_merge(self, buffers, live, B):
+        return self._pick(buffers[0], live & buffers[1].data, B)
+
+
+class Last(First):
+    """last(x) (ignoreNulls=False): the group's last live row."""
+
+    _how = "amax"
+
+
+class Percentile(AggregateFunction):
+    """percentile(x, percentage): the exact percentile, interpolated at
+    ``percentage * (cnt - 1)`` between the group's sorted valid values;
+    null for a group with no valid value. Not decomposable: COMPLETE mode
+    only, over rows the exec sorts by (keys, value), nulls first."""
+
+    supports_partial = False
+    requires_sorted_input = True
+
+    def __init__(self, child: Optional[Expression] = None,
+                 percentage: float = 0.5):
+        object.__setattr__(self, "child", child)
+        object.__setattr__(self, "percentage", float(percentage))
+
+    def with_children(self, c):
+        return type(self)(c[0] if c else None, self.percentage)
+
+    @property
+    def dtype(self):
+        return T.FLOAT64
+
+    def buffer_types(self):
+        return [T.FLOAT64]
+
+    def evaluate(self, buffers, group_live):
+        b = buffers[0]
+        return DeviceColumn(b.data, b.validity & group_live, T.FLOAT64)
+
+    def fast_update(self, inputs, live, B):
+        col = inputs[0]
+        ok = _view_ok(col, live)
+        cnt_ref, rows_ref = B.count(ok), B.count(None)
+        x = col.data.to(torch.float64)
+        last = x.shape[0] - 1
+
+        def finish(res: LaneResults):
+            cnt = res.sum_int(cnt_ref)
+            nulls = res.sum_int(rows_ref) - cnt
+            r = self.percentage * (cnt - 1).clamp(min=0).to(torch.float64)
+            lo, hi = torch.floor(r), torch.ceil(r)
+            frac = r - lo
+            base = res.starts + nulls
+            v = ((1.0 - frac) * x[(base + lo.long()).clamp(0, last)]
+                 + frac * x[(base + hi.long()).clamp(0, last)])
+            valid = cnt > 0
+            return [DeviceColumn(torch.where(valid, v, 0.0), valid,
+                                 T.FLOAT64)]
+        return finish
+
+    def fast_merge(self, buffers, live, B):
+        raise NotImplementedError(
+            "percentile is not decomposable; COMPLETE mode only")
+
+
+class ApproxPercentile(Percentile):
+    """approx_percentile(x, percentage[, accuracy]), answered exactly: the
+    exec sorts each group's values, so the exact percentile costs what a
+    sketch would, and it meets any accuracy. ``accuracy`` is kept and
+    ignored."""
+
+    def __init__(self, child: Optional[Expression] = None,
+                 percentage: float = 0.5, accuracy: int = 10000):
+        super().__init__(child, percentage)
+        object.__setattr__(self, "accuracy", accuracy)
+
+    def with_children(self, c):
+        return ApproxPercentile(c[0] if c else None, self.percentage,
+                                self.accuracy)

@@ -2,7 +2,7 @@
 
 Port of ``BinaryComparison`` (``EqualTo``, ``LessThan``,
 ``LessThanOrEqual``, ``GreaterThan``, ``GreaterThanOrEqual``),
-``EqualNullSafe``, ``Not``, ``IsNull``, ``IsNotNull`` and ``In`` from
+``EqualNullSafe``, ``Not``, ``IsNull``, ``IsNotNull``, ``IsNaN`` and ``In`` from
 ``spark_rapids_tpu/expressions/comparison.py``, for the fixed-width kinds
 and strings. A null on either side makes a comparison null (``<=>`` is never
 null); the payload of null rows is False.
@@ -190,6 +190,31 @@ class IsNotNull(IsNull):
 
     def __repr__(self):
         return f"isnotnull({self.child!r})"
+
+
+@dataclass(frozen=True, eq=False)
+class IsNaN(Expression):
+    """isnan(x): true for a NaN double; null where x is null."""
+
+    child: Expression
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return IsNaN(c[0])
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        return _bool_col(torch.isnan(c.data.to(torch.float64)), c.validity)
+
+    def __repr__(self):
+        return f"isnan({self.child!r})"
 
 
 @dataclass(frozen=True, eq=False)

@@ -2,14 +2,16 @@
 """Where the time of one warm run of a path of the PyTorch port goes, on
 one NVIDIA GPU.
 
-    python3 tools/torch_q1_profile.py [--query q1|q16_part|q3|q18]
+    python3 tools/torch_q1_profile.py [--query q1|q16_part|q3|q18|q2|q11]
                                       [--rows N] [--trace PATH]
 
-Runs TPC-H Q1 (the default), the part stage of TPC-H Q16, TPC-H Q3 or
-TPC-H Q18 through ``spark_rapids_tpu_torch.entry`` over the input
-``chip_smoke.py`` gives it (the SF10 lineitem table, the SF100 part table,
-or the SF10 customer, orders and lineitem tables; Q18 under its 1 GiB
-device budget), in its slices and shuffle partitions: once to warm up, three times on the host clock, then once under
+Runs TPC-H Q1 (the default), the part stage of TPC-H Q16, TPC-H Q3,
+TPC-H Q18, TPC-H Q2 or TPC-H Q11 through ``spark_rapids_tpu_torch.entry``
+over the input ``chip_smoke.py`` gives it (the SF10 lineitem table, the
+SF100 part table, the SF10 customer, orders and lineitem tables, Q18 under
+its 1 GiB device budget, or the SF100 part, supplier, partsupp, nation and
+region tables), in its slices and shuffle partitions: once to warm up,
+three times on the host clock, then once under
 ``torch.profiler`` (CPU and CUDA activities). Prints the card, the warm
 wall time, the time the Arrow upload alone takes, each operator's metrics
 (rows, batches, ``opTime``; the whole tree, children indented), the device
@@ -33,7 +35,8 @@ steps on CUDA events over partition 0's inputs. For Q18 it reports the
 spill copies of the profiled run in each direction (the catalog's bytes
 over the device time of the pinned copies, against the PCIe bound) and the
 grace join's split (host time of its ranges and the device time under
-them).
+them). For Q11 it prints the smallest relative margin of a group's value
+to the HAVING threshold.
 ``--trace`` also writes the Chrome trace. Exits 1 without CUDA.
 """
 
@@ -52,7 +55,7 @@ sys.path.insert(0, str(ROOT))
 EXEC_NAMES = ("SortExec", "HashAggregateExec", "ShuffleExchangeExec",
               "CoalesceBatchesExec", "FilterExec", "InMemoryScanExec",
               "HashJoinExec", "ProjectExec", "GlobalLimitExec",
-              "BroadcastExchangeExec")
+              "BroadcastExchangeExec", "BroadcastNestedLoopJoinExec")
 #: the profiler ranges of the join's steps
 JOIN_STEPS = ("HashJoinExec.build", "HashJoinExec.count",
               "HashJoinExec.expand", "HashJoinExec.grace_split")
@@ -263,7 +266,8 @@ def _tree_metrics(node, depth=0) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--query", choices=("q1", "q16_part", "q3", "q18"),
+    ap.add_argument("--query",
+                    choices=("q1", "q16_part", "q3", "q18", "q2", "q11"),
                     default="q1")
     ap.add_argument("--rows", type=int, default=None,
                     help="input rows of Q1 or Q16 (default: chip_smoke's "
@@ -314,6 +318,48 @@ def main(argv=None) -> int:
                                   device_limit=chip_smoke.Q18_BUDGET,
                                   device=device)
         table = None
+    elif args.query in ("q2", "q11"):
+        slices = chip_smoke.Q2_SLICES
+        parts = chip_smoke.Q2_SHUFFLE_PARTITIONS
+        part, supplier, partsupp, nation, region = entry.tpch_q2_tables(
+            chip_smoke.Q2_SF, chip_smoke.Q2_SEED)
+        rows = partsupp.num_rows
+        if args.query == "q2":
+            inputs = [part, supplier, partsupp, nation, region]
+            expected = entry.q2_reference(*inputs)
+
+            def make_plan(_, slices, parts, device):
+                return entry.q2_plan(*inputs, slices, parts, device=device)
+
+            def check(got, exp):
+                if not got.equals(exp):
+                    raise AssertionError("q2 differs from its oracle")
+        else:
+            inputs = [partsupp, supplier, nation]
+            fraction = entry.q11_fraction(chip_smoke.Q2_SF)
+            expected = entry.q11_reference(*inputs, fraction)
+            groups, total = entry.q11_groups_reference(*inputs)
+            v = groups.column("value").to_numpy()
+            margin = float(abs(v - total * fraction).min()
+                           / (total * fraction))
+
+            def make_plan(_, slices, parts, device):
+                return entry.q11_plan(*inputs, fraction, slices, parts,
+                                      device=device)
+
+            def check(got, exp):
+                print("q11 matches its oracle"
+                      + chip_smoke.check_q11_result(got, exp, margin))
+        # the upload measure below scans each table once, as the plan
+        # prunes it (Q2 and Q11 scan partsupp twice)
+        columns = (entry.Q2_COLUMNS if args.query == "q2"
+                   else entry.Q11_COLUMNS)
+        names = (("part", "supplier", "partsupp", "nation", "region")
+                 if args.query == "q2" else ("partsupp", "supplier",
+                                             "nation"))
+        tables = [entry._prune(t, columns.get(n))
+                  for t, n in zip(inputs, names)]
+        table = None
     else:
         rows = args.rows or chip_smoke.SF100_PART_ROWS
         slices = chip_smoke.Q16_SLICES
@@ -344,8 +390,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         for t in tables:
             step = max(1, -(-t.num_rows // slices))
+            # supplier's strings scan at their own width
+            width = (entry.SUPPLIER_STRING_MAX_LEN
+                     if "s_comment" in t.column_names
+                     else entry.STRING_MAX_LEN)
             for off in range(0, t.num_rows, step):
-                from_arrow(t.slice(off, step), device=dev)
+                from_arrow(t.slice(off, step), string_max_len=width,
+                           device=dev)
         torch.cuda.synchronize(dev)
         ups.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
@@ -406,7 +457,7 @@ def main(argv=None) -> int:
         join_steps(plan, dev)
     elif args.query == "q18":
         spill_and_grace(plan, prof, device)
-    else:
+    elif args.query in ("q1", "q16_part"):
         partial_pieces(plan, dev, run_kinds, run_peak)
     return 0
 
