@@ -37,14 +37,31 @@ partition-local sort, the nested-loop join in every type) on the card
 against the CPU, and the fused Q1 stage (``entry.q1_stage``) on one SF10
 slice, on CUDA events, against pyarrow.
 
+Then whole-stage fusion (``exec/fuse.py``): Q2's part filter (one Q2 part
+slice, ``window_match`` at k = 5) and a join on two int32 keys (murmur3)
+each run as a fused stage captured in a CUDA graph and replayed, every run
+equal to the iterator path, the capture holding the kernel, the kernel
+equal to its plain version on the stage's own input; union, range, expand,
+sample (seeded) and every arithmetic expression over edge rows on the card
+against the CPU, and the ANSI errors raising on the card in a
+``ProjectExec`` and in a fused stage. Last the bench's join+sort stage
+(``entry.join_sort_runner``) at 2^21 x 2^18 and at 59,986,052 x 15,000,000
+rows through the captured graph, the eager fused program and the iterator
+path, every row equal to pyarrow, with each mode's warm wall, rows/s, peak,
+and the device busy time and idle share of one profiled run; and the 8x
+overflow retry at 1M stream rows, which must re-plan and capture at the
+needed factor.
+
 Prints, in order: the card's name and power limit, the build time, each
 kernel check with its times and bound, the join check, the checks of Q1,
 the Q16 part stage and Q3 with their times, the spill copy rate, Q18's
 check with its times, the catalog's tiers, spilled bytes, retry metrics,
 grace buckets and the allocator's peak, the out-of-core check, the
-injection run, the checks of Q2 and Q11 with their times, the hash_agg,
-operator and Q1-stage checks, a ``{"kernels": [...]}`` JSON line (the
-window_match times are at Q2's shape), and last
+injection run, the checks of Q2 and Q11 with their times, the captured
+kernel checks, the hash_agg, operator, new-operator and Q1-stage checks,
+the join_sort modes and the overflow retry, each phase's wall time, a
+``{"kernels": [...]}`` JSON line (the window_match times are at Q2's
+shape; launches count a graph's replays), and last
 ``{"ok": true, "device": ...}``. Any failed phase raises, so the exit code
 is not 0 and no result line is printed. Without CUDA it exits 1 at once.
 """
@@ -476,10 +493,11 @@ def check_joins(dev) -> None:
                 plan.right.output_schema, dev))
         finally:
             plan.close()        # the broadcast relation leaves the catalog
-        print(f"join {keys}: broadcast build dense {table.dense}")
-        if table.dense != (keys == "dense"):
+        dense = table.dense is not None and bool(table.dense)
+        print(f"join {keys}: broadcast build dense {dense}")
+        if dense != (keys == "dense"):
             raise AssertionError(f"the {keys} build's dense flag is "
-                                 f"{table.dense}")
+                                 f"{dense}")
         for how in JoinType:
             if how is JoinType.CROSS:
                 continue
@@ -1369,6 +1387,159 @@ def check_operators(dev) -> None:
     print(f"operator check: {time.perf_counter() - t_all:.1f} s")
 
 
+#: edge rows of the arithmetic check: int64 and int32 extremes, 0 and -1
+#: divisors, NaN, infinities and signed zeros, shift amounts around the
+#: widths
+ARITH_INT64 = [(-(1 << 63), -1), (-(1 << 63), 2), (-(1 << 63), 3),
+               ((1 << 63) - 1, -1), (-7, -3), (7, -3), (-7, 3), (0, 0),
+               (5, 0), (-(1 << 62), 2), (1, -(1 << 63)), (None, 4),
+               (3, None), (1 << 40, 64), (-1, 63), (123, -1)]
+ARITH_INT32 = [(-(1 << 31), -1), (-(1 << 31), 3), ((1 << 31) - 1, 2),
+               (-7, -3), (5, 0), (46341, 46341), (-1, 31), (1, 32),
+               (9, -33), (None, 1)]
+ARITH_DOUBLE = [(7.5, 2.0), (-7.5, -2.0), (1.0, 0.0), (1.0, -0.0),
+                (float("nan"), 1.0), (1.0, float("nan")),
+                (float("inf"), 2.0), (2.0, float("inf")), (-0.0, 3.0),
+                (None, 1.0)]
+
+
+def arithmetic_plans():
+    """(name, plan maker) of every arithmetic expression of the port over
+    the edge rows, outside ANSI mode."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.exec import InMemoryScanExec, ProjectExec
+    from spark_rapids_tpu_torch.expressions import arithmetic as A
+    from spark_rapids_tpu_torch.expressions import col
+
+    def table(rows, typ):
+        a, b = zip(*rows)
+        return pa.table({"a": pa.array(a, typ), "b": pa.array(b, typ)})
+    tables = {"int64": table(ARITH_INT64, pa.int64()),
+              "int32": table(ARITH_INT32, pa.int32()),
+              "double": table(ARITH_DOUBLE, pa.float64())}
+    binary = [A.Add, A.Subtract, A.Multiply, A.Divide, A.IntegralDivide,
+              A.Remainder, A.Pmod]
+    plans = []
+    for tname, t in tables.items():
+        exprs = [cls(col("a"), col("b")) for cls in binary]
+        exprs += [A.UnaryMinus(col("a")), A.Abs(col("a"))]
+        if tname != "double":
+            exprs += [A.BitwiseOp(col("a"), col("b"), op)
+                      for op in ("and", "or", "xor")]
+            exprs += [A.BitwiseNot(col("a"))]
+            exprs += [A.Shift(col("a"), col("b"), op)
+                      for op in ("left", "right", "right_unsigned")]
+        for i, e in enumerate(exprs):
+            plans.append((f"{tname} {type(e).__name__}"
+                          f"{' ' + e.op if hasattr(e, 'op') else ''}",
+                          lambda d, e=e, t=t: ProjectExec(
+                              [e.alias("r")], InMemoryScanExec(t, device=d))))
+    return plans
+
+
+def _equal_nan(got, want) -> bool:
+    """Two tables equal in every row: integers exactly, doubles as values
+    with their sign (NaN equal to NaN)."""
+    import numpy as np
+    import pyarrow as pa
+    if got.num_rows != want.num_rows or \
+            got.column_names != want.column_names:
+        return False
+    for x, y in zip(got.columns, want.columns):
+        if not x.is_null().equals(y.is_null()):
+            return False
+        valid = ~np.asarray(x.is_null())
+        xv = x.to_numpy(zero_copy_only=False)[valid]
+        yv = y.to_numpy(zero_copy_only=False)[valid]
+        if pa.types.is_floating(x.type):
+            nan = np.isnan(xv)
+            if not (np.array_equal(nan, np.isnan(yv))
+                    and np.array_equal(xv[~nan], yv[~nan])
+                    and np.array_equal(np.signbit(xv[~nan]),
+                                       np.signbit(yv[~nan]))):
+                return False
+        elif not np.array_equal(xv, yv):
+            return False
+    return True
+
+
+def check_new_operators(dev) -> None:
+    """``UnionExec``, ``RangeExec``, ``ExpandExec`` and ``SampleExec`` on
+    the card against the CPU (the sample seeded: the same rows twice, a
+    subset in input order), every arithmetic expression over its edge rows
+    card against CPU, and the ANSI errors (overflow, divide by zero)
+    raising ``ArithmeticException`` with the JAX package's kind names in a
+    ``ProjectExec`` and in a fused stage on the card."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+    from spark_rapids_tpu_torch import entry, types as T
+    from spark_rapids_tpu_torch.exec import (ArithmeticException, ExpandExec,
+                                             InMemoryScanExec, ProjectExec,
+                                             RangeExec, SampleExec,
+                                             UnionExec, collect, try_fuse)
+    from spark_rapids_tpu_torch.expressions import col, lit
+    from spark_rapids_tpu_torch.expressions.arithmetic import (Divide,
+                                                               Multiply)
+    from spark_rapids_tpu_torch.expressions.base import EvalContext
+    t_all = time.perf_counter()
+    table = entry.hash_agg_table(1 << 20, 1 << 16)
+
+    def scan(t, d, slices=1):
+        return InMemoryScanExec(t, batch_rows=-(-t.num_rows // slices),
+                                num_slices=slices, device=d)
+    plans = [
+        ("union", lambda d: UnionExec([scan(table, d, 4),
+                                       scan(table.slice(0, 1000), d)])),
+        ("range", lambda d: RangeExec(-5, 3_000_000, 3, batch_rows=1 << 20,
+                                      device=d)),
+        ("expand", lambda d: ExpandExec(
+            [[col("ss_item_sk"), lit(None, T.INT64)],
+             [col("ss_item_sk"), col("ss_quantity")]], scan(table, d, 2))),
+    ] + arithmetic_plans()
+    for name, make in plans:
+        got = collect(make(dev))
+        want = collect(make("cpu"))
+        if not _equal_nan(got, want):
+            raise AssertionError(f"{name}: the card differs from the CPU")
+    print(f"new operators: union, range, expand and {len(plans) - 3} "
+          f"arithmetic expressions over edge rows, card equal to the CPU")
+
+    def sample(d):
+        return SampleExec(0.3, 42, RangeExec(0, 4_000_000,
+                                             batch_rows=1 << 20, device=d))
+    s1, s2 = collect(sample(dev)), collect(sample(dev))
+    ids = s1.column("id").to_numpy()
+    if not (s1.equals(s2) and np.all(np.diff(ids) > 0)
+            and 0.29 < len(ids) / 4_000_000 < 0.31):
+        raise AssertionError("sample: not a seeded subset in input order")
+    print(f"sample 0.3 of 4,000,000 ids on the card: {len(ids)} rows, the "
+          f"same twice, increasing; the CPU's generator keeps "
+          f"{collect(sample('cpu')).num_rows}")
+
+    t = pa.table({"a": pa.array([1, 2, 1 << 62], pa.int64()),
+                  "z": pa.array([1, 0, 2], pa.int64())})
+    for expr, kind in ((Multiply(col("a"), lit(4)), "ARITHMETIC_OVERFLOW"),
+                       (Divide(col("a"), col("z")), "DIVIDE_BY_ZERO")):
+        for how in ("ProjectExec", "fused stage"):
+            plan = ProjectExec([expr.alias("x")],
+                               InMemoryScanExec(t, device=dev),
+                               ctx=EvalContext(True))
+            try:
+                if how == "ProjectExec":
+                    collect(plan)
+                else:
+                    try_fuse(plan).run()
+            except ArithmeticException as e:
+                if kind not in str(e):
+                    raise AssertionError(f"{how}: raised {e}, not {kind}")
+                print(f"ANSI {kind} on the card, {how}: {e}")
+            else:
+                raise AssertionError(f"{how}: {kind} did not raise")
+    torch.cuda.synchronize(dev)
+    print(f"new-operator check: {time.perf_counter() - t_all:.1f} s")
+
+
 def check_q1_stage(dev) -> None:
     """``entry.q1_stage`` (the filter fused into the COMPLETE aggregate's
     update) on one SF10 lineitem slice, on CUDA events, then its FINAL
@@ -1402,6 +1573,363 @@ def check_q1_stage(dev) -> None:
           f"events, {Q1_STAGE_ROWS / ms * 1e3:,.0f} rows/s")
 
 
+# ---------------------------------------------------------------------------
+# The fused stage captured in a CUDA graph: join_sort and its checks
+# ---------------------------------------------------------------------------
+
+#: profiler ranges the port opens around operators and join steps; the
+#: profiler mirrors them onto the device timeline, where they are not work
+PROFILER_RANGES = ("SortExec", "HashAggregateExec", "ShuffleExchangeExec",
+                   "CoalesceBatchesExec", "FilterExec", "InMemoryScanExec",
+                   "HashJoinExec", "ProjectExec", "GlobalLimitExec",
+                   "LocalLimitExec", "BroadcastExchangeExec",
+                   "BroadcastNestedLoopJoinExec", "TakeOrderedAndProjectExec",
+                   "HashJoinExec.build", "HashJoinExec.count",
+                   "HashJoinExec.expand", "HashJoinExec.grace_split")
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def device_events(prof):
+    """Kernels, copies and memsets of a profile, without the operators'
+    ranges that the profiler mirrors onto the device timeline."""
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name not in PROFILER_RANGES]
+
+
+def profiled(fn, dev, host: bool = True):
+    """(profile, host wall us, device busy us, device events) of one call
+    of ``fn`` under ``torch.profiler``; fails if the device did nothing.
+    ``host=False`` records the device's activity alone, which reads back
+    far quicker when a run launches hundreds of thousands of kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = device_events(prof)
+    if not events:
+        raise RuntimeError("the profiler recorded no device activity")
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in events])
+    return prof, wall_us, busy, events
+
+
+#: (stream rows, build rows) of the join_sort runs: bench.bench_join_sort's
+#: size, and TPC-H SF10's lineitem probing its orders (the Q3/Q10 shape)
+JOIN_SORT_SIZES = ((1 << 21, 1 << 18), (SF10_LINEITEM_ROWS, 15_000_000))
+
+
+def check_join_sort_result(got, want) -> int:
+    """The fused or iterator rows against pyarrow's: row count, l_revenue
+    exact and in order, o_orderkey equal to l_orderkey, and (l_orderkey,
+    o_custkey) exact, compared as sets within each run of equal revenue.
+    Returns the rows in ties."""
+    import numpy as np
+    if got.num_rows != want.num_rows:
+        raise AssertionError(f"join_sort: {got.num_rows} rows, pyarrow "
+                             f"{want.num_rows}")
+    rev = got.column("l_revenue").to_numpy()
+    if not np.array_equal(rev, want.column("l_revenue").to_numpy()):
+        raise AssertionError("join_sort: l_revenue differs or is out of "
+                             "order")
+    keys = got.column("l_orderkey").to_numpy()
+    if not np.array_equal(keys, got.column("o_orderkey").to_numpy()):
+        raise AssertionError("join_sort: o_orderkey differs from the key")
+    mine = np.stack([keys, got.column("o_custkey").to_numpy()], 1)
+    theirs = np.stack([want.column("l_orderkey").to_numpy(),
+                       want.column("o_custkey").to_numpy()], 1)
+    tie = np.zeros(len(rev), bool)
+    tie[1:] = rev[1:] == rev[:-1]
+    tie[:-1] |= tie[1:]
+    if not np.array_equal(mine[~tie], theirs[~tie]):
+        raise AssertionError("join_sort: keys or o_custkey differ")
+    idx = np.flatnonzero(tie)
+    if len(idx):
+        group = np.cumsum(np.r_[True, rev[idx][1:] != rev[idx][:-1]])
+        a, b = mine[idx], theirs[idx]
+        oa = np.lexsort((a[:, 1], a[:, 0], group))
+        ob = np.lexsort((b[:, 1], b[:, 0], group))
+        if not np.array_equal(a[oa], b[ob]):
+            raise AssertionError("join_sort: rows within a revenue tie "
+                                 "differ")
+    return len(idx)
+
+
+def _same_batch(a, b) -> bool:
+    """Two device batches hold the same live rows."""
+    import torch
+    n = int(a.num_rows)
+    if n != int(b.num_rows):
+        return False
+    return all(torch.equal(x.data[:n], y.data[:n])
+               and torch.equal(x.validity[:n], y.validity[:n])
+               for x, y in zip(a.columns, b.columns))
+
+
+def run_join_sort_phase(dev, n_stream: int, n_build: int) -> dict:
+    """The bench's join+sort stage at one size, three ways: the fused stage
+    captured in a CUDA graph, the eager fused program and the iterator
+    path. The graph's first (cold) result is checked against pyarrow, every
+    other result against it on the device; prints each mode's warm
+    median wall (three warm calls after the cold one), stream rows/s, the
+    CUDA-event time of one graph replay, the allocator's peak, and, from
+    one warm run profiled on the device, the device kernels and copies per
+    run, device busy time and idle share. Returns {mode: warm
+    seconds}."""
+    import torch
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.batch import to_arrow
+    name = f"join_sort {n_stream} x {n_build}"
+    t0 = time.perf_counter()
+    stream, build = entry.join_sort_tables(n_stream, n_build)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = entry.join_sort_reference(stream, build)
+    oracle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = entry.join_sort_plan(stream, build, dev)
+    torch.cuda.synchronize(dev)
+    print(f"{name}: tables made in {gen_s:.2f} s, pyarrow oracle "
+          f"{oracle_s:.2f} s ({want.num_rows} rows), uploaded once in "
+          f"{time.perf_counter() - t0:.2f} s")
+    del stream, build
+    walls, checked = {}, None
+    for mode in entry.JOIN_SORT_MODES:
+        run = entry.join_sort_runner(plan, mode)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        cold = run()
+        torch.cuda.synchronize(dev)
+        cold_s = time.perf_counter() - t0
+        if checked is None:
+            ties = check_join_sort_result(
+                to_arrow(cold, plan.output_schema), want)
+            checked = cold
+            del want
+        elif not _same_batch(cold, checked):
+            raise AssertionError(f"{name} {mode}: differs from the graph's "
+                                 f"rows, which equal pyarrow's")
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize(dev)
+            warm.append(time.perf_counter() - t0)
+            if not _same_batch(out, cold):
+                raise AssertionError(f"{name} {mode}: a warm run differs "
+                                     f"from the checked cold run")
+        del out
+        peak = torch.cuda.max_memory_allocated(dev)
+        wall = statistics.median(warm)
+        walls[mode] = wall
+        line = (f"{name} {mode}: equal to pyarrow ({ties} rows in revenue "
+                f"ties, compared as sets); cold {cold_s * 1e3:.3f} ms, warm "
+                f"median {wall * 1e3:.3f} ms of "
+                f"{[round(w * 1e3, 3) for w in warm]}, "
+                f"{n_stream / wall:,.0f} stream rows/s; device memory peak "
+                f"{peak / 2**30:.3f} GiB")
+        # the device's activity alone: at SF10 the iterator launches
+        # about 450,000 kernels (the grace join, the out-of-core sort),
+        # whose host-side events take minutes to read back
+        _, prof_us, busy, events = profiled(run, dev, host=False)
+        line += (f"; profiled run: {len(events)} device kernels and "
+                 f"copies, wall {prof_us / 1e3:.3f} ms, busy "
+                 f"{busy / 1e3:.3f} ms, idle share "
+                 f"{1 - busy / prof_us:.1%} (against the warm wall "
+                 f"{1 - busy / (wall * 1e6):.1%})")
+        if mode != "iterator":
+            stage = run.stage
+            line += (f"; stage: factor {stage.expand_factor}, "
+                     f"{stage.captures} capture(s), {stage.retries} "
+                     f"re-plan(s)")
+        if mode == "graph":
+            program, _ = stage.prepare()
+            replay_ms = time_cuda_ms(program, reps=10)
+            line += (f"; one replay on CUDA events {replay_ms:.3f} ms; "
+                     f"host launches per run: 1 graph replay, 1 flag read, "
+                     f"{len(plan.output_schema)} column copies")
+        print(line)
+        del run, cold
+    del checked
+    plan.close()
+    return walls
+
+
+def check_overflow_retry(dev) -> None:
+    """``test_fuse.py``'s 8x expansion on the card at 1,048,576 stream
+    rows: the 1x bucket overflows, the flag trips, the stage is planned and
+    captured again at the needed factor, and its rows equal pyarrow's."""
+    import numpy as np
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.batch import to_arrow
+    from spark_rapids_tpu_torch.exec import (HashJoinExec, InMemoryScanExec,
+                                             JoinType, SortExec, desc,
+                                             try_fuse)
+    from spark_rapids_tpu_torch.expressions import col
+    n = 1 << 20
+    stream = pa.table({"k": np.arange(n, dtype=np.int64) % 16,
+                       "v": np.arange(n, dtype=np.float64)})
+    build = pa.table({"bk": np.repeat(np.arange(16, dtype=np.int64), 8),
+                      "w": np.arange(128, dtype=np.int64)})
+    plan = SortExec([desc(col("v"))], HashJoinExec(
+        [col("k")], [col("bk")], JoinType.INNER,
+        InMemoryScanExec(stream, device=dev),
+        InMemoryScanExec(build, device=dev)))
+    stage = try_fuse(plan, expand_factor=1)
+    first = to_arrow(stage.run(), plan.output_schema)
+    second = to_arrow(stage.run(), plan.output_schema)
+    want = stream.join(build, keys="k", right_keys="bk", join_type="inner")
+
+    def canon(t):
+        cols = [t.column(c).to_numpy() for c in ("k", "v", "w")]
+        order = np.lexsort((cols[2], -cols[1]))
+        return np.stack([c[order].astype(np.float64) for c in cols])
+    if stage.retries != 1 or stage.expand_factor != 8 or stage.captures != 1:
+        raise AssertionError(f"overflow retry: {stage.retries} re-plans at "
+                             f"factor {stage.expand_factor}, "
+                             f"{stage.captures} captures")
+    if not (first.num_rows == second.num_rows == want.num_rows == 8 * n
+            and np.array_equal(canon(first), canon(want))
+            and second.equals(first)):
+        raise AssertionError("overflow retry: rows differ from pyarrow")
+    print(f"overflow retry: {n} stream rows x 8 matches each overflowed the "
+          f"1x bucket, the flag tripped, one re-plan captured at factor "
+          f"{stage.expand_factor}; {first.num_rows} rows equal to pyarrow, "
+          f"the replay equal to the first run")
+
+
+def _captured_check(name, make_plan, wrapper, kernel_vs_plain) -> dict:
+    """A fused stage that launches ``wrapper``'s kernel: run, captured and
+    replayed; its rows equal the iterator path's; the capture recorded the
+    kernel; the kernel equals its plain version on the stage's own input
+    (``kernel_vs_plain(stage)`` returns the mismatches). Returns the
+    kernel's launches in the run: the eager run's, and the capture's
+    times the replays."""
+    from spark_rapids_tpu_torch.batch import to_arrow
+    from spark_rapids_tpu_torch.exec import collect, try_fuse
+    wrapper.launches = 0
+    plan = make_plan()
+    stage = try_fuse(plan)
+    runs = [to_arrow(stage.run(), plan.output_schema) for _ in range(3)]
+    host_calls = wrapper.launches
+    captured = stage.capture_launches[wrapper.__name__]
+    launches = host_calls - captured + captured * stage.replays
+    want = collect(make_plan())
+    bad = kernel_vs_plain(stage)
+    print(f"captured {name}: {runs[0].num_rows} rows; every run (eager, "
+          f"then {stage.replays} replays) equal to the iterator path: "
+          f"{all(r.equals(want) for r in runs)}; {wrapper.__name__} "
+          f"recorded {captured} time(s) by the capture, {launches} launches "
+          f"in the run; kernel against its plain version on the stage's "
+          f"input: {bad} mismatches")
+    if not all(r.equals(want) for r in runs) or captured <= 0 or bad:
+        raise AssertionError(f"captured {name} failed")
+    return {wrapper.__name__: launches}
+
+
+#: the captured two-int32-key join: stream and build rows, key domains
+HASHED_STREAM_ROWS = 1 << 22
+HASHED_BUILD_ROWS = 1 << 18
+
+
+def check_captured_murmur3(dev) -> dict:
+    """A fused join on two int32 keys (the hashed probe: ``_hash64`` ->
+    ``hash_column`` -> ``murmur3_int32``), then a sort, captured."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+    from spark_rapids_tpu_torch.exec import (HashJoinExec, InMemoryScanExec,
+                                             JoinType, SortExec, desc)
+    from spark_rapids_tpu_torch.expressions import col
+    from spark_rapids_tpu_torch.kernels.murmur3 import (
+        murmur3_int32, murmur3_int32_plain)
+    rng = np.random.default_rng(29)
+    n, m = HASHED_STREAM_ROWS, HASHED_BUILD_ROWS
+    stream = pa.table({
+        "a": rng.integers(0, 1 << 16, n).astype(np.int32),
+        "b": rng.integers(0, 8, n).astype(np.int32),
+        "v": rng.uniform(0, 1, n)})
+    build = pa.table({
+        "a2": rng.permutation(1 << 16).repeat(m >> 16).astype(np.int32),
+        "b2": np.tile(np.arange(8, dtype=np.int32), m // 8),
+        "w": np.arange(m, dtype=np.int64)})
+
+    def make_plan():
+        return SortExec([desc(col("v"))], HashJoinExec(
+            [col("a"), col("b")], [col("a2"), col("b2")], JoinType.INNER,
+            InMemoryScanExec(stream, device=dev),
+            InMemoryScanExec(build, device=dev)))
+
+    def kernel_vs_plain(stage):
+        a = stage.inputs[0].columns[0]
+        seeds = torch.full_like(a.data, 42)
+        return int((murmur3_int32(a.data, a.validity, seeds)
+                    != murmur3_int32_plain(a.data, a.validity, seeds)).sum())
+    return _captured_check("two-int32-key join", make_plan, murmur3_int32,
+                           kernel_vs_plain)
+
+
+def check_captured_window_match(dev, part) -> dict:
+    """Q2's part filter (p_size = 15 AND endswith(p_type, 'BRASS')) and a
+    projection over one Q2 part slice, captured: ``window_match`` at
+    k = 5."""
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.batch import from_arrow
+    from spark_rapids_tpu_torch.exec import (FilterExec, InMemoryScanExec,
+                                             ProjectExec)
+    from spark_rapids_tpu_torch.expressions import (And, EqualTo, col,
+                                                    endswith, lit)
+    from spark_rapids_tpu_torch.kernels.string_search import (
+        window_match, window_match_plain)
+    batch, schema = from_arrow(part.slice(0, -(-part.num_rows // Q2_SLICES)),
+                               string_max_len=entry.STRING_MAX_LEN,
+                               device=dev)
+
+    def make_plan():
+        cond = And(EqualTo(col("p_size"), lit(15)),
+                   endswith(col("p_type"), Q2_PATTERN.decode()))
+        return ProjectExec([col("p_partkey"), col("p_mfgr"), col("p_type")],
+                           FilterExec(cond, InMemoryScanExec(
+                               [batch], schema=schema)))
+
+    def kernel_vs_plain(stage):
+        t = stage.inputs[0].columns[schema.index_of("p_type")]
+        return int((window_match(t.data, t.lengths, Q2_PATTERN)
+                    != window_match_plain(t.data, t.lengths, Q2_PATTERN))
+                   .sum())
+    return _captured_check("Q2 part filter", make_plan, window_match,
+                           kernel_vs_plain)
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, with the phase's wall time printed after it."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase {name}: {time.perf_counter() - t0:.1f} s]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=SF10_LINEITEM_ROWS,
@@ -1428,8 +1956,8 @@ def main(argv=None) -> int:
         print(f"build {name}: {secs:.2f} s; {info}")
 
     part = part_slice(dev)
-    murmur3 = check_murmur3(dev, part)
-    q16_search = check_window_match(dev, part)
+    murmur3 = timed("murmur3", check_murmur3, dev, part)
+    q16_search = timed("window_match", check_window_match, dev, part)
     del part
     from spark_rapids_tpu_torch import entry
     t0 = time.perf_counter()
@@ -1438,28 +1966,41 @@ def main(argv=None) -> int:
           f"{[t.num_rows for t in q2_tables]} rows (part, supplier, "
           f"partsupp, nation, region) made in "
           f"{time.perf_counter() - t0:.2f} s")
-    search = check_window_match_at_q2(dev, q2_tables[0])
+    search = timed("window_match at q2", check_window_match_at_q2, dev,
+                   q2_tables[0])
     search["max_abs_err"] = max(search["max_abs_err"],
                                 q16_search["max_abs_err"])
     kernels = [murmur3, search]
-    check_joins(dev)
+    timed("joins", check_joins, dev)
     # each path's own kernels, counted from 0 over its first run
-    runs = [run_q1_phase(args, dev, [murmur3_int32]),
-            run_q16_part_phase(dev, [murmur3_int32, window_match]),
-            run_q3_phase(dev, [murmur3_int32])]
+    runs = [timed("q1", run_q1_phase, args, dev, [murmur3_int32]),
+            timed("q16_part", run_q16_part_phase, dev,
+                  [murmur3_int32, window_match]),
+            timed("q3", run_q3_phase, dev, [murmur3_int32])]
     # before Q18, whose spills would leave pinned buffers in the cache
-    measure_spill_rates(dev)
-    runs.append(run_q18_phase(dev, [murmur3_int32]))
-    check_out_of_core(dev)
-    run_q18_injection_phase(dev)
+    timed("spill rates", measure_spill_rates, dev)
+    runs.append(timed("q18", run_q18_phase, dev, [murmur3_int32]))
+    timed("out of core", check_out_of_core, dev)
+    timed("q18 injection", run_q18_injection_phase, dev)
     # Q2's own kernel is window_match (its exchanges hash int64 and double
     # keys, which take no kernel); Q11 reaches none
-    runs.append(run_q2_phase(dev, [window_match], q2_tables))
-    runs.append(run_q11_phase(dev, [], q2_tables))
+    runs.append(timed("q2", run_q2_phase, dev, [window_match], q2_tables))
+    runs.append(timed("q11", run_q11_phase, dev, [], q2_tables))
+    # the fused, captured stages that launch each kernel
+    runs.append(timed("captured window_match", check_captured_window_match,
+                      dev, q2_tables[0]))
     del q2_tables
-    check_hash_agg(dev)
-    check_operators(dev)
-    check_q1_stage(dev)
+    runs.append(timed("captured murmur3", check_captured_murmur3, dev))
+    timed("hash_agg", check_hash_agg, dev)
+    timed("operators", check_operators, dev)
+    timed("new operators", check_new_operators, dev)
+    timed("q1_stage", check_q1_stage, dev)
+    # the bench's join+sort stage three ways (its int64 key is probed
+    # exactly: no kernel), and the overflow retry
+    for n_stream, n_build in JOIN_SORT_SIZES:
+        timed(f"join_sort {n_stream}", run_join_sort_phase, dev, n_stream,
+              n_build)
+    timed("overflow retry", check_overflow_retry, dev)
     for k in kernels:
         k["launches"] = sum(r.get(k["name"], 0) for r in runs)
     order = ["name", "route", "source", "replaces", "launches",

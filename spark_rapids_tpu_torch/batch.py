@@ -37,6 +37,11 @@ class StringOverflowError(ValueError):
     """A string exceeded its column's device ``max_len`` byte budget."""
 
 
+class CapacityError(ValueError):
+    """A fixed device budget was exceeded; the result would be silently
+    truncated, so the host boundary fails loud instead."""
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
     another. Asking for CUDA where there is none raises; nothing continues
@@ -140,10 +145,12 @@ class ColumnarBatch:
 
 
 def rows_scalar(n, device: torch.device) -> torch.Tensor:
-    """A row count as the batch's int32 scalar tensor."""
+    """A row count as the batch's int32 scalar tensor. A Python count is
+    filled in on the device, not copied from the host, so the call is safe
+    inside a CUDA graph capture."""
     if isinstance(n, torch.Tensor):
         return n.to(device=device, dtype=torch.int32)
-    return torch.tensor(n, dtype=torch.int32, device=device)
+    return torch.full((), n, dtype=torch.int32, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,15 @@
 
 from .aggregate import AggregateMode, HashAggregateExec  # noqa: F401
 from .base import BinaryExec, Exec, collect  # noqa: F401
-from .basic import (FilterExec, GlobalLimitExec, InMemoryScanExec,  # noqa: F401
-                    LocalLimitExec, ProjectExec)
+from .basic import (ArithmeticException, ExpandExec,  # noqa: F401
+                    FilterExec, GlobalLimitExec, InMemoryScanExec,
+                    LocalLimitExec, ProjectExec, RangeExec, SampleExec,
+                    UnionExec)
 from .coalesce import (CoalesceBatchesExec, RequireSingleBatch,  # noqa: F401
                        TargetSize)
 from .join import (BroadcastNestedLoopJoinExec, HashJoinExec,  # noqa: F401
                    JoinType)
 from .sort import (SortExec, SortOrder, TakeOrderedAndProjectExec,  # noqa
                    asc, desc)
+from .fuse import (FusedStage, FusedStageExec, FusionUnsupported,  # noqa
+                   try_fuse, try_fuse_exec)

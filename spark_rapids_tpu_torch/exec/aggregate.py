@@ -15,7 +15,11 @@ rows outside the mask are dead rows of the key sort. Between stages a batch
 holds ``[group keys..., buffer columns...]`` in declaration order. Every
 output batch keeps its input's capacity, as in the JAX package; where that
 package chose among capacity tiers with ``lax.cond``, the group layout here
-is sized from the observed group count.
+is sized from the observed group count (two host reads). With
+``static=True`` (the fused stage, which runs captured in a CUDA graph) the
+kernel reads nothing back: groups are laid out at the input's capacity,
+their starts come from a stable compaction and the group count stays a
+device scalar.
 
 The partials of a partition wait in the spill catalog, and no merge pins
 more than ``max_result_rows`` of their capacity at once
@@ -46,9 +50,9 @@ from ..memory.retry import (acquire_with_retry, register_with_retry,
                             with_retry_no_split)
 from .base import Exec, Metric, UnaryExec
 from .basic import bind_all, output_name
-from .common import (adjacent_equal_ops, concat_all, concat_batches,
-                     gather_columns, lexsort, may_skip_null_lane, slice_batch,
-                     sort_operands)
+from .common import (adjacent_equal_ops, compaction_indices, concat_all,
+                     concat_batches, gather_columns, lexsort,
+                     may_skip_null_lane, slice_batch, sort_operands)
 
 
 class AggregateMode(enum.Enum):
@@ -79,6 +83,16 @@ def _pad_column(c: DeviceColumn, cap: int) -> DeviceColumn:
             [a, a.new_zeros((pad,) + a.shape[1:])])
 
     return DeviceColumn(pz(c.data), pz(c.validity), c.dtype, pz(c.lengths))
+
+
+def _dead_past(c: DeviceColumn, live: torch.Tensor) -> DeviceColumn:
+    """``c`` with the rows outside ``live`` dead: invalid, zero payload."""
+    row = live.view((-1,) + (1,) * (c.data.dim() - 1))
+    zero = torch.zeros((), dtype=c.data.dtype, device=c.data.device)
+    return DeviceColumn(torch.where(row, c.data, zero), c.validity & live,
+                        c.dtype,
+                        None if c.lengths is None
+                        else torch.where(live, c.lengths, 0))
 
 
 class HashAggregateExec(UnaryExec):
@@ -178,14 +192,15 @@ class HashAggregateExec(UnaryExec):
     # ------------------------------------------------------------------
 
     def _group_kernel(self, batch: ColumnarBatch, merge: bool,
-                      final: bool,
-                      mask: Optional[torch.Tensor] = None) -> ColumnarBatch:
+                      final: bool, mask: Optional[torch.Tensor] = None,
+                      static: bool = False) -> ColumnarBatch:
         """One key sort carrying every input as payload, then the batched
         lane reductions over the sorted layout. Without keys (a global
         aggregate) the live rows form one group. Rows outside ``mask``
         are dead rows of the sort, like padding. A sort-sensitive
         aggregate's input joins the sort after the keys, ascending with
-        nulls first; group boundaries stay the keys'."""
+        nulls first; group boundaries stay the keys'. ``static``: no host
+        read (see the module's docstring)."""
         cap, dev = batch.capacity, batch.device
         in_live = batch.row_mask()
         if mask is not None:
@@ -215,8 +230,9 @@ class HashAggregateExec(UnaryExec):
             sort_ops = key_ops + sort_operands(values, [False] * n,
                                                [True] * n, in_live)[1:]
         perm = lexsort(sort_ops)
-        n_live = int(in_live.sum())
-        sorted_live = torch.arange(cap, device=dev) < n_live
+        live_rows = in_live.sum()
+        n_live = cap if static else int(live_rows)
+        sorted_live = torch.arange(cap, device=dev) < live_rows
         # provably non-null columns share ONE validity object (sorted_live),
         # which also shares their non-null-count lane downstream
         svals = [DeviceColumn(c.data[perm],
@@ -230,9 +246,19 @@ class HashAggregateExec(UnaryExec):
               else torch.arange(cap, device=dev) > 0)
         new_group = sorted_live & ~eq
         gid = torch.cumsum(new_group, 0) - 1
-        starts = torch.nonzero(new_group).squeeze(1)
-        # a global aggregate yields one row even over no live row
-        count = starts.shape[0] if nk else 1
+        if static:
+            # every lane masks its rows with sorted_live, so the dead rows
+            # may sit in any group: clamp them in range (-1 with no group)
+            gid = gid.clamp(min=0)
+            starts, n_groups = compaction_indices(new_group)
+            count = cap
+            group_live = (torch.arange(cap, device=dev)
+                          < (n_groups if nk else 1))
+        else:
+            starts = torch.nonzero(new_group).squeeze(1)
+            # a global aggregate yields one row even over no live row
+            count = starts.shape[0] if nk else 1
+            group_live = torch.ones(count, dtype=torch.bool, device=dev)
 
         lanes = FastLanes(sorted_live)
         finishers = []
@@ -245,28 +271,34 @@ class HashAggregateExec(UnaryExec):
         group_starts = (starts if starts.shape[0] == count else
                         torch.zeros(count, dtype=torch.int64, device=dev))
         res = LaneResults(lanes, gid, n_live, count, group_starts)
-        live_slot = torch.ones(count, dtype=torch.bool, device=dev)
-        out_cols = gather_columns(key_cols, perm[starts], live_slot)
+        out_cols = gather_columns(key_cols, perm[group_starts], group_live)
         for agg, finish in zip(self.aggs, finishers):
             bufs = finish(res)
             if merge and final:
-                out_cols.append(agg.evaluate(bufs, live_slot))
+                out_cols.append(agg.evaluate(bufs, group_live))
             else:
                 out_cols.extend(bufs)
+        if static:
+            return ColumnarBatch(
+                tuple(_dead_past(c, group_live) for c in out_cols),
+                group_live.sum(dtype=torch.int32))
         return ColumnarBatch(tuple(_pad_column(c, cap) for c in out_cols),
                              rows_scalar(count, dev))
 
     def _update_kernel(self, batch: ColumnarBatch,
-                       mask: Optional[torch.Tensor] = None) -> ColumnarBatch:
+                       mask: Optional[torch.Tensor] = None,
+                       static: bool = False) -> ColumnarBatch:
         """input rows -> buffer-layout batch. ``mask`` fuses an upstream
         filter into the aggregation: rows outside it become dead rows of
         the key sort, with no compaction."""
-        return self._group_kernel(batch, merge=False, final=False, mask=mask)
+        return self._group_kernel(batch, merge=False, final=False, mask=mask,
+                                  static=static)
 
-    def _merge_kernel(self, batch: ColumnarBatch,
-                      final: bool) -> ColumnarBatch:
+    def _merge_kernel(self, batch: ColumnarBatch, final: bool,
+                      static: bool = False) -> ColumnarBatch:
         """buffer-layout rows -> merged buffer rows (or final results)."""
-        return self._group_kernel(batch, merge=True, final=final)
+        return self._group_kernel(batch, merge=True, final=final,
+                                  static=static)
 
     def _eval_buffers_kernel(self, batch: ColumnarBatch) -> ColumnarBatch:
         """Buffer-layout rows whose groups are already unique -> final

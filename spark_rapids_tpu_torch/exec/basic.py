@@ -1,23 +1,37 @@
-"""Basic operators: in-memory scan, project, filter and the limits.
+"""Basic operators: in-memory scan, project, filter, the limits, union,
+range, sample and expand.
 
-Port of ``InMemoryScanExec``, ``ProjectExec``, ``FilterExec``,
-``LocalLimitExec`` and ``GlobalLimitExec`` from
-``spark_rapids_tpu/exec/basic.py``. The scan is the H2D boundary: an Arrow
-table is cut into ``batch_rows`` chunks dealt round-robin to ``num_slices``
-partitions, and a partition uploads only its own chunks, when it runs. Each
-chunk's upload runs under the OOM retry loop (no split: the chunk count
-fixes the round-robin), with the ``scan.h2d`` injection site.
+Port of ``spark_rapids_tpu/exec/basic.py``. The scan is the H2D boundary:
+an Arrow table is cut into ``batch_rows`` chunks dealt round-robin to
+``num_slices`` partitions, and a partition uploads only its own chunks,
+when it runs. Each chunk's upload runs under the OOM retry loop (no split:
+the chunk count fixes the round-robin), with the ``scan.h2d`` injection
+site.
+
+The ANSI contract: ``ProjectExec`` and ``FilterExec`` evaluate each batch
+with a fresh error collector and raise ``ArithmeticException`` (or
+``CapacityError`` for a ``CAPACITY_*`` kind) after the batch when a row was
+reported. The counts are read back to the host only when a report was
+made, which outside ANSI mode never happens.
+
+``SampleExec`` draws from an explicit ``torch.Generator`` on the batch's
+device, seeded from (seed, partition, batch ordinal), so a re-execution
+draws the same rows; torch's random stream is not JAX's, so the two
+packages keep different (seeded) subsets.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
+import numpy as np
 import pyarrow as pa
 import torch
 
-from ..batch import (ColumnarBatch, DeviceLike, Field, Schema, from_arrow,
-                     resolve_device, schema_from_arrow)
+from .. import types as T
+from ..batch import (CapacityError, ColumnarBatch, DeviceColumn, DeviceLike,
+                     Field, Schema, bucket_capacity, from_arrow,
+                     resolve_device, rows_scalar, schema_from_arrow)
 from ..expressions.base import Alias, EvalContext, Expression, raw_eval
 from ..memory.catalog import BufferCatalog
 from ..memory.retry import maybe_inject, with_retry_no_split
@@ -102,6 +116,33 @@ class InMemoryScanExec(LeafExec):
         return batch
 
 
+class ArithmeticException(ArithmeticError):
+    """An ANSI-mode evaluation error (Spark's ArithmeticException)."""
+
+
+def _sum_errors(ctx: EvalContext) -> Dict[str, torch.Tensor]:
+    """kind -> the device count of rows reported under it."""
+    return {k: torch.stack(v).sum() for k, v in ctx.errors.items()}
+
+
+def _raise_ansi(errs: Dict[str, object]) -> None:
+    """Raise for the first kind with a count above 0: ``CapacityError``
+    for a ``CAPACITY_*`` kind, else ``ArithmeticException``. Counts are
+    ints or device scalars; scalars are read in one transfer, and only
+    when there is a kind to read."""
+    if not errs:
+        return
+    counts = torch.stack([torch.as_tensor(c) for c in errs.values()])
+    for kind, count in zip(errs, counts.tolist()):
+        if count > 0:
+            if kind.startswith("CAPACITY"):
+                raise CapacityError(
+                    f"[{kind}] {count} row(s) exceeded a fixed device "
+                    f"budget; raise the budget or fall back to CPU")
+            raise ArithmeticException(
+                f"[{kind}] {count} row(s) failed (ANSI mode)")
+
+
 class ProjectExec(UnaryExec):
     def __init__(self, exprs: Sequence[Expression], child: Exec,
                  ctx: Optional[EvalContext] = None):
@@ -115,7 +156,9 @@ class ProjectExec(UnaryExec):
 
     def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         for batch in self.child.execute_partition(p):
-            cols = tuple(raw_eval(e, batch, self.ctx) for e in self.exprs)
+            ctx = EvalContext(self.ctx.ansi, {})
+            cols = tuple(raw_eval(e, batch, ctx) for e in self.exprs)
+            _raise_ansi(_sum_errors(ctx))
             yield ColumnarBatch(cols, batch.num_rows)
 
 
@@ -137,7 +180,9 @@ class FilterExec(UnaryExec):
 
     def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         for batch in self.child.execute_partition(p):
-            c = self.condition.eval(batch, self.ctx)
+            ctx = EvalContext(self.ctx.ansi, {})
+            c = self.condition.eval(batch, ctx)
+            _raise_ansi(_sum_errors(ctx))
             yield compact(batch, c.data & c.validity)
 
 
@@ -178,3 +223,122 @@ class GlobalLimitExec(LocalLimitExec):
     def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         yield from self._take(b for cp in range(self.child.num_partitions)
                               for b in self.child.execute_partition(cp))
+
+
+class UnionExec(Exec):
+    """The children's partitions one after another, unchanged."""
+
+    def __init__(self, children: Sequence[Exec]):
+        super().__init__(children)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema
+
+    @property
+    def num_partitions(self) -> int:
+        return sum(c.num_partitions for c in self.children)
+
+    def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        for c in self.children:
+            if p < c.num_partitions:
+                yield from c.execute_partition(p)
+                return
+            p -= c.num_partitions
+        raise IndexError(p)
+
+
+class RangeExec(LeafExec):
+    """``id`` from ``start`` toward ``end`` by ``step`` (end excluded), in
+    batches of at most ``batch_rows``, made on the device; no range still
+    gives one empty batch."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 batch_rows: int = 1 << 20, name: str = "id",
+                 device: DeviceLike = None):
+        super().__init__()
+        if step == 0:
+            raise ValueError("step must not be 0")
+        self.start, self.end, self.step = start, end, step
+        self.batch_rows = batch_rows
+        self._device = resolve_device(device)
+        self._schema = Schema([Field(name, T.INT64, nullable=False)])
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        total = max(0, -(-(self.end - self.start) // self.step))
+        emitted = 0
+        while True:
+            n = min(self.batch_rows, total - emitted)
+            iota = torch.arange(bucket_capacity(max(n, 1)),
+                                dtype=torch.int64, device=self._device)
+            live = iota < n
+            data = torch.where(
+                live, iota * self.step + (self.start + emitted * self.step),
+                0)
+            yield ColumnarBatch((DeviceColumn(data, live, T.INT64),),
+                                rows_scalar(n, self._device))
+            emitted += n
+            if emitted >= total:
+                return
+
+
+def _sample_seed(seed: int, p: int, i: int) -> int:
+    """The generator seed of batch ``i`` of partition ``p``: a fixed mix of
+    the three (numpy's SeedSequence), the same in every process."""
+    return int(np.random.SeedSequence([seed & (2**64 - 1), p, i])
+               .generate_state(1, np.uint64)[0] >> 1)
+
+
+class SampleExec(UnaryExec):
+    """Bernoulli row sample: each row is kept with probability
+    ``fraction``, in input order."""
+
+    def __init__(self, fraction: float, seed: int, child: Exec):
+        super().__init__(child)
+        self.fraction, self.seed = fraction, seed
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.child.output_schema
+
+    def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        for i, batch in enumerate(self.child.execute_partition(p)):
+            gen = torch.Generator(device=batch.device)
+            gen.manual_seed(_sample_seed(self.seed, p, i))
+            u = torch.rand(batch.capacity, generator=gen,
+                           dtype=torch.float64, device=batch.device)
+            yield compact(batch, u < self.fraction)
+
+
+class ExpandExec(UnaryExec):
+    """One output batch per projection per input batch (rollup, cube,
+    grouping sets). A column is nullable if it is in any projection."""
+
+    def __init__(self, projections: Sequence[Sequence[Expression]],
+                 child: Exec, ctx: Optional[EvalContext] = None):
+        super().__init__(child, ctx)
+        self.projections = [bind_all(p, child.output_schema)
+                            for p in projections]
+        first = schema_of(self.projections[0])
+        self._schema = Schema([
+            Field(f.name, f.dtype, any(p[i].nullable
+                                       for p in self.projections))
+            for i, f in enumerate(first)])
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        for batch in self.child.execute_partition(p):
+            for proj in self.projections:
+                yield ColumnarBatch(tuple(e.eval(batch, self.ctx)
+                                          for e in proj), batch.num_rows)

@@ -103,6 +103,14 @@ def concat_all(batches: Sequence[ColumnarBatch], schema: Schema,
         sum(b.capacity for b in batches)))
 
 
+def _int64_scalar(v, device: torch.device) -> torch.Tensor:
+    """An int or scalar tensor as an int64 scalar on ``device``; an int is
+    filled in on the device (no host copy, so capture-safe)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.int64)
+    return torch.full((), v, dtype=torch.int64, device=device)
+
+
 def slice_batch(batch: ColumnarBatch, start, count,
                 capacity: Optional[int] = None) -> ColumnarBatch:
     """Rows ``[start, start + count)`` as a new batch of ``capacity`` rows
@@ -110,9 +118,9 @@ def slice_batch(batch: ColumnarBatch, start, count,
     tensors; nothing is read back to the host."""
     cap = capacity or batch.capacity
     dev = batch.device
-    start = torch.as_tensor(start, dtype=torch.int64, device=dev)
+    start = _int64_scalar(start, dev)
     iota = torch.arange(cap, device=dev)
-    n = torch.minimum(torch.as_tensor(count, dtype=torch.int64, device=dev),
+    n = torch.minimum(_int64_scalar(count, dev),
                       (batch.num_rows.to(torch.int64) - start).clamp(min=0))
     return gather(batch, iota + start, n, iota < n)
 

@@ -56,9 +56,15 @@ padding's slots (Q11's one-row build at the 128-row minimum capacity would
 be 128 times the work), stream-major within a tile; tiles cut at other
 sizes order the pairs differently across tiles.
 
+The whole-stage fusion of ``exec/fuse.py`` runs the same kernels with no
+host read: the build's dense flag and the 1:1 choice come in as the
+branch its planning run took (``FusedStage._choose``), the candidate total
+stays a device scalar, and the output is sized statically. It also uses
+``_expand_masked``, the INNER expansion without its compaction, in front
+of an aggregate.
+
 Not ported here: the AQE hooks (``_maybe_coordinate``, the runtime
-broadcast switch and the skew split) and ``_expand_masked`` (whole-stage
-fusion).
+broadcast switch and the skew split).
 """
 
 from __future__ import annotations
@@ -195,14 +201,14 @@ def _append_rows(a: ColumnarBatch, b: ColumnarBatch,
 @dataclasses.dataclass
 class _BuildTable:
     """The build kernel's output: sorted words, the count of valid rows,
-    per-position run lengths, the first word and the dense flag (read once
-    to the host)."""
+    per-position run lengths, the first word and the dense flag, a device
+    bool (None where the probe is hashed)."""
 
     words: torch.Tensor
     n_valid: torch.Tensor
     runlen: torch.Tensor
     first: torch.Tensor
-    dense: bool
+    dense: Optional[torch.Tensor]
 
 
 class HashJoinExec(BinaryExec):
@@ -321,20 +327,24 @@ class HashJoinExec(BinaryExec):
         # part of it: {0, 2, 2} spans n - 1 too. The int64 difference may
         # wrap, which keeps equality with n - 1 exact mod 2^64.
         first = sorted_h[0]
-        dense = False
+        dense = None
         if self._exact_probe:
-            last_i = (n_valid - 1).clamp(min=0)
-            dense = bool((n_valid > 0) & (gid[last_i] + 1 == n_valid)
-                         & (sorted_h[last_i] - first == n_valid - 1))
+            # a one-element gather, not a 0-d index (which reads to the host)
+            last_i = (n_valid - 1).clamp(min=0).view(1)
+            dense = ((n_valid > 0) & (gid.gather(0, last_i)[0] + 1 == n_valid)
+                     & (sorted_h.gather(0, last_i)[0] - first == n_valid - 1))
         return _BuildTable(sorted_h, n_valid, runlen, first, dense), sbuild
 
-    def _count_kernel(self, stream: ColumnarBatch, table: _BuildTable
+    def _count_kernel(self, stream: ColumnarBatch, table: _BuildTable,
+                      dense: bool
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(lo, counts, offsets): each probe row's first candidate in the
-        sorted build, its candidate count and the running count."""
+        sorted build, its candidate count and the running count. ``dense``
+        takes the offset path (the build's dense flag, read by the
+        caller)."""
         keys, valid = self._key_cols(stream, self.left_keys)
         h = self._probe_words(keys, valid, build_side=False)
-        if table.dense:
+        if dense:
             # a unique contiguous build: position is key - first, presence
             # a range test. A key more than 2^63 above first wraps to a
             # negative offset, which the range test rejects.
@@ -392,9 +402,10 @@ class HashJoinExec(BinaryExec):
 
     def _gather_pairs(self, stream: ColumnarBatch, build: ColumnarBatch,
                       lo: torch.Tensor, counts: torch.Tensor,
-                      offsets: torch.Tensor, total: int, out_cap: int):
+                      offsets: torch.Tensor, total, out_cap: int):
         """Candidate pairs at ``out_cap`` slots: both sides gathered, keys
-        verified on the hash path, the condition applied."""
+        verified on the hash path, the condition applied. ``total``, the
+        candidate count, is an int or a device scalar."""
         j = torch.arange(out_cap, device=stream.device)
         probe_row = torch.searchsorted(offsets, j, right=True).clamp(
             0, stream.capacity - 1)
@@ -503,7 +514,34 @@ class HashJoinExec(BinaryExec):
                            bucket_capacity(out_cap + stream.capacity))
         return out, matched_build
 
-    def _semi_kernel(self, stream, build, lo, counts, offsets, total: int,
+    def _expand_masked(self, stream, build, lo, counts, offsets, total,
+                       unique: bool, out_cap: int):
+        """INNER expansion without the compaction: the pair batch at
+        ``out_cap`` slots (every slot a row) and the mask of its verified
+        pairs, for a consumer that tolerates dead rows in between, such as
+        an aggregate, which key-sorts anyway (``_update_kernel(b, mask)``).
+        ``unique`` (at most one candidate a probe row) maps rows 1:1."""
+        if self.join_type is not JoinType.INNER:
+            raise ValueError("_expand_masked serves INNER joins only")
+        dev = stream.device
+        if unique and out_cap >= stream.capacity:
+            b_cols, pair_ok = self._unique_probe_cols(stream, build, lo,
+                                                      counts)
+            pairs = ColumnarBatch(stream.columns + tuple(b_cols),
+                                  rows_scalar(stream.capacity, dev))
+            if self.condition is not None:
+                c = self.condition.eval(pairs, self.ctx)
+                pair_ok = pair_ok & c.data & c.validity
+            pad = out_cap - stream.capacity
+            return (ColumnarBatch(_pad_batch(pairs, out_cap).columns,
+                                  rows_scalar(out_cap, dev)),
+                    torch.cat([pair_ok, pair_ok.new_zeros(pad)]))
+        s_cols, b_cols, pair_ok, _, _ = self._gather_pairs(
+            stream, build, lo, counts, offsets, total, out_cap)
+        return (ColumnarBatch(tuple(s_cols + b_cols),
+                              rows_scalar(out_cap, dev)), pair_ok)
+
+    def _semi_kernel(self, stream, build, lo, counts, offsets, total,
                      out_cap: int) -> ColumnarBatch:
         if self._exact_probe and self.condition is None:
             # candidate counts are verified match counts on the exact path
@@ -583,6 +621,8 @@ class HashJoinExec(BinaryExec):
         finally:
             for binp in build_inputs:
                 binp.close()
+        # the offset path's choice, read to the host once per build
+        dense = table.dense is not None and bool(table.dense)
         matched_build = torch.zeros(sbuild.capacity, dtype=torch.bool,
                                     device=sbuild.device)
         semi = self.join_type in _SEMI_TYPES
@@ -591,7 +631,8 @@ class HashJoinExec(BinaryExec):
             stream = item.acquire()
             try:
                 with torch.profiler.record_function("HashJoinExec.count"):
-                    lo, counts, offsets = self._count_kernel(stream, table)
+                    lo, counts, offsets = self._count_kernel(stream, table,
+                                                             dense)
                     # one transfer: the candidate total sizes the output,
                     # the largest count picks the 1:1 path
                     total, most = torch.stack([offsets[-1], counts.max()]

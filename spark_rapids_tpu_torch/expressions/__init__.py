@@ -1,6 +1,8 @@
 """Expressions of the port (a subset of the JAX package's)."""
 
-from .arithmetic import Add, Multiply, Subtract  # noqa: F401
+from .arithmetic import (Abs, Add, BitwiseNot, BitwiseOp,  # noqa: F401
+                         Divide, IntegralDivide, Multiply, Pmod, Remainder,
+                         Shift, Subtract, UnaryMinus)
 from .base import (Alias, BoundReference, EvalContext, Expression,  # noqa: F401
                    Literal, col, lit)
 from .boolean import And, Or  # noqa: F401

@@ -11,8 +11,9 @@ against a schema with ``bind``.
 from __future__ import annotations
 
 import datetime
+import functools
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,16 +27,28 @@ from ..types import SqlType, TypeKind
 
 @dataclass(frozen=True)
 class EvalContext:
-    """Evaluation flags. The port evaluates with Spark's non-ANSI semantics
-    (integer overflow wraps); ANSI error reporting comes with the planner
-    slice."""
+    """Evaluation flags, and the collector of row errors.
+
+    Under ANSI mode an expression reports the rows that must fail (integer
+    overflow, division by zero) with ``report``, which appends a count to
+    ``errors`` as a device scalar: nothing is read back while the
+    expressions run. The operator that made the collector sums it and
+    raises after the batch (``exec/basic.py`` ``_raise_ansi``); the fused
+    stage reads it once with its other flags. Outside ANSI mode, and with
+    no collector, ``report`` does nothing."""
 
     ansi: bool = False
+    #: kind -> device counts of the rows reported; None collects nothing
+    errors: Optional[Dict[str, List[torch.Tensor]]] = None
 
-    def __post_init__(self):
-        if self.ansi:
-            raise NotImplementedError(
-                "ANSI mode is not ported yet (planner slice)")
+    def report(self, bad: torch.Tensor, kind: str = "ARITHMETIC_OVERFLOW",
+               always: bool = False) -> None:
+        """``bad``: bool rows that must fail under ANSI. ``always`` reports
+        whatever the ANSI flag says (fixed device budgets, ``CAPACITY_*``
+        kinds, must fail loud in any mode)."""
+        if (self.ansi or always) and self.errors is not None:
+            self.errors.setdefault(kind, []).append(
+                bad.sum(dtype=torch.int64))
 
 
 @dataclass(frozen=True)
@@ -93,6 +106,30 @@ class Expression:
     def __rmul__(self, other):
         from .arithmetic import Multiply
         return Multiply(lit_if_needed(other), self)
+
+    def __truediv__(self, other):
+        from .arithmetic import Divide
+        return Divide(self, lit_if_needed(other))
+
+    def __mod__(self, other):
+        from .arithmetic import Remainder
+        return Remainder(self, lit_if_needed(other))
+
+    def __neg__(self):
+        from .arithmetic import UnaryMinus
+        return UnaryMinus(self)
+
+    def __and__(self, other):
+        from .boolean import And
+        return And(self, lit_if_needed(other))
+
+    def __or__(self, other):
+        from .boolean import Or
+        return Or(self, lit_if_needed(other))
+
+    def __invert__(self):
+        from .comparison import Not
+        return Not(self)
 
     def __lt__(self, other):
         from .comparison import LessThan
@@ -220,10 +257,8 @@ class Literal(Expression):
             b = str(self.value).encode("utf-8")
             if len(b) > d.max_len:
                 raise StringOverflowError(f"literal longer than {d.max_len}")
-            row = torch.zeros(d.max_len, dtype=torch.uint8)
-            row[:len(b)] = torch.tensor(list(b), dtype=torch.uint8)
             # one row on the device, broadcast (a view) to every row
-            data = row.to(dev).expand(cap, d.max_len)
+            data = _device_row(b, d.max_len, dev).expand(cap, d.max_len)
             return DeviceColumn(data, batch.row_mask(), d,
                                 torch.full((cap,), len(b), dtype=torch.int32,
                                            device=dev))
@@ -235,6 +270,17 @@ class Literal(Expression):
 
     def __repr__(self):
         return f"lit({self.value!r})"
+
+
+@functools.lru_cache(maxsize=256)
+def _device_row(value: bytes, max_len: int,
+                device: torch.device) -> torch.Tensor:
+    """A string literal's zero-padded bytes on the device, copied there
+    once per value and device: a later evaluation makes no host copy, so it
+    is safe inside a CUDA graph capture."""
+    row = torch.zeros(max_len, dtype=torch.uint8)
+    row[:len(value)] = torch.tensor(list(value), dtype=torch.uint8)
+    return row.to(device)
 
 
 def _infer_literal_type(v: Any) -> SqlType:

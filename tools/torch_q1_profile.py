@@ -2,8 +2,9 @@
 """Where the time of one warm run of a path of the PyTorch port goes, on
 one NVIDIA GPU.
 
-    python3 tools/torch_q1_profile.py [--query q1|q16_part|q3|q18|q2|q11]
-                                      [--rows N] [--trace PATH]
+    python3 tools/torch_q1_profile.py
+        [--query q1|q16_part|q3|q18|q2|q11|join_sort] [--rows N]
+        [--trace PATH]
 
 Runs TPC-H Q1 (the default), the part stage of TPC-H Q16, TPC-H Q3,
 TPC-H Q18, TPC-H Q2 or TPC-H Q11 through ``spark_rapids_tpu_torch.entry``
@@ -37,6 +38,13 @@ over the device time of the pinned copies, against the PCIe bound) and the
 grace join's split (host time of its ranges and the device time under
 them). For Q11 it prints the smallest relative margin of a group's value
 to the HAVING threshold.
+
+``--query join_sort`` runs the bench's join+sort stage at
+``chip_smoke.py``'s two sizes (2^21 x 2^18 rows, and 59,986,052 x
+15,000,000), inputs on the card, through the iterator path and through the
+fused stage captured in a CUDA graph, side by side: each mode's warm wall, the device
+busy time and idle share of one profiled warm run, and the device time
+under each operator range of the iterator path.
 ``--trace`` also writes the Chrome trace. Exits 1 without CUDA.
 """
 
@@ -52,29 +60,10 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-EXEC_NAMES = ("SortExec", "HashAggregateExec", "ShuffleExchangeExec",
-              "CoalesceBatchesExec", "FilterExec", "InMemoryScanExec",
-              "HashJoinExec", "ProjectExec", "GlobalLimitExec",
-              "BroadcastExchangeExec", "BroadcastNestedLoopJoinExec")
-#: the profiler ranges of the join's steps
-JOIN_STEPS = ("HashJoinExec.build", "HashJoinExec.count",
-              "HashJoinExec.expand", "HashJoinExec.grace_split")
-RANGES = EXEC_NAMES + JOIN_STEPS
+import chip_smoke  # noqa: E402  (the repo root is on the path above)
 
-
-def _busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
+#: the operators' and the join steps' profiler ranges
+RANGES = chip_smoke.PROFILER_RANGES
 
 
 def _owner(evt) -> str:
@@ -99,15 +88,6 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def _device_events(prof):
-    """Kernels, copies and memsets, not the operators' ranges that the
-    profiler mirrors onto the device timeline."""
-    import torch
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name not in RANGES]
-
-
 def _by_kind(device) -> collections.Counter:
     ms = collections.Counter()
     for e in device:
@@ -122,7 +102,6 @@ def _piece(fn, dev):
     warm call, against which the profiler's sum can be checked."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    import chip_smoke
     fn()
     torch.cuda.synchronize(dev)
     base = torch.cuda.memory_allocated(dev)
@@ -132,7 +111,7 @@ def _piece(fn, dev):
         out = fn()
         torch.cuda.synchronize(dev)
     peak = torch.cuda.max_memory_allocated(dev) - base
-    kinds = _by_kind(_device_events(prof))
+    kinds = _by_kind(chip_smoke.device_events(prof))
     kinds["events"] = chip_smoke.time_cuda_ms(fn, reps=1, warmup=0)
     return out, kinds, peak
 
@@ -190,10 +169,8 @@ def partial_pieces(plan, dev, run_kinds, run_peak) -> None:
 
 def join_steps(plan, dev) -> None:
     """Each join's build, count and expand over partition 0's inputs, on
-    CUDA events (median of 5 warm calls; the build's time includes its one
-    host read, the dense flag)."""
+    CUDA events (median of 5 warm calls)."""
     import torch
-    import chip_smoke
     from spark_rapids_tpu_torch.batch import bucket_capacity
     from spark_rapids_tpu_torch.exec.common import concat_all
     for join in chip_smoke._execs(plan, "HashJoinExec"):
@@ -201,19 +178,20 @@ def join_steps(plan, dev) -> None:
                            join.right.output_schema, dev)
         [stream] = list(join.left.execute_partition(0))
         table, sbuild = join._build_kernel(build)
-        lo, counts, offsets = join._count_kernel(stream, table)
+        dense = table.dense is not None and bool(table.dense)
+        lo, counts, offsets = join._count_kernel(stream, table, dense)
         total, most = [int(v) for v in (offsets[-1], counts.max())]
         out_cap = bucket_capacity(max(total, 1))
         matched = torch.zeros(sbuild.capacity, dtype=torch.bool,
                               device=dev)
         ms = [chip_smoke.time_cuda_ms(fn, reps=5) for fn in (
             lambda: join._build_kernel(build),
-            lambda: join._count_kernel(stream, table),
+            lambda: join._count_kernel(stream, table, dense),
             lambda: join._expand_kernel(stream, sbuild, lo, counts, offsets,
                                         total, most <= 1, matched, out_cap))]
         keys = ", ".join(k.name for k in join.left_keys)
         print(f"join on {keys}, partition 0: build {int(build.num_rows)} "
-              f"rows at capacity {build.capacity} (dense {table.dense}) "
+              f"rows at capacity {build.capacity} (dense {dense}) "
               f"{ms[0]:.3f} ms; count over {int(stream.num_rows)} probe "
               f"rows at capacity {stream.capacity} {ms[1]:.3f} ms; expand "
               f"to {total} pairs at capacity {out_cap} (1:1 path "
@@ -226,7 +204,6 @@ def spill_and_grace(plan, prof, device) -> None:
     over the device time of its pinned copies, and the grace join's split
     ranges, host and device time."""
     import torch
-    import chip_smoke
     cat = plan.catalog
     copies = {"d2h": ("DtoH", "Pinned"), "h2d": ("HtoD", "Pinned")}
     for way, nbytes in (("d2h", cat.spilled_to_host),
@@ -264,10 +241,65 @@ def _tree_metrics(node, depth=0) -> None:
         _tree_metrics(c, depth + 1)
 
 
+def join_sort_profile(args, dev) -> int:
+    """The join_sort stage through the iterator path and through the
+    captured graph, side by side: warm wall, device busy time and idle
+    share of one profiled warm run each, and the iterator path's device
+    time under each operator range."""
+    from spark_rapids_tpu_torch import entry
+    for n_stream, n_build in chip_smoke.JOIN_SORT_SIZES:
+        stream, build = entry.join_sort_tables(n_stream, n_build)
+        plan = entry.join_sort_plan(stream, build, dev)
+        del stream, build
+        _join_sort_modes(args, dev, plan, n_stream, n_build)
+        plan.close()
+    return 0
+
+
+def _join_sort_modes(args, dev, plan, n_stream, n_build) -> None:
+    import torch
+    from spark_rapids_tpu_torch import entry
+    for mode in ("iterator", "graph"):
+        run = entry.join_sort_runner(plan, mode)
+        run()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        prof, prof_us, busy, device = chip_smoke.profiled(run, dev)
+        print(f"join_sort {n_stream} x {n_build} {mode}: warm wall "
+              f"{wall * 1e3:.3f} ms (median of "
+              f"{[round(w * 1e3, 3) for w in walls]}), {len(device)} "
+              f"device kernels and copies, busy {busy / 1e3:.3f} ms, idle "
+              f"share {1 - busy / prof_us:.1%} of the profiled wall "
+              f"{prof_us / 1e3:.3f} ms ({1 - busy / (wall * 1e6):.1%} of "
+              f"the warm wall)")
+        if mode == "iterator":
+            per_op = collections.Counter()
+            for e in prof.events():
+                if e.device_type != torch.autograd.DeviceType.CPU:
+                    continue
+                for k in getattr(e, "kernels", []):
+                    per_op[_owner(e)] += k.duration
+            for name, us in per_op.most_common():
+                print(f"  device time under {name}: {us / 1e3:.3f} ms "
+                      f"({us / busy:.1%} of busy)")
+        print(f"  device ms by kind: {_kinds_line(_by_kind(device))}")
+        if args.trace:
+            path = pathlib.Path(f"{args.trace}.{n_stream}.{mode}.json")
+            path.parent.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(path))
+            print(f"trace written to {path}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--query",
-                    choices=("q1", "q16_part", "q3", "q18", "q2", "q11"),
+                    choices=("q1", "q16_part", "q3", "q18", "q2", "q11",
+                             "join_sort"),
                     default="q1")
     ap.add_argument("--rows", type=int, default=None,
                     help="input rows of Q1 or Q16 (default: chip_smoke's "
@@ -280,12 +312,13 @@ def main(argv=None) -> int:
         print("torch_q1_profile: CUDA is not available", file=sys.stderr)
         return 1
     from torch.profiler import ProfilerActivity, profile
-    import chip_smoke
     from spark_rapids_tpu_torch import entry
     from spark_rapids_tpu_torch.batch import from_arrow
     from spark_rapids_tpu_torch.exec import collect
     dev = torch.device("cuda", 0)
     print(chip_smoke.card_line())
+    if args.query == "join_sort":
+        return join_sort_profile(args, dev)
     if args.query == "q1":
         rows = args.rows or chip_smoke.SF10_LINEITEM_ROWS
         slices, parts = chip_smoke.Q1_SLICES, chip_smoke.Q1_SHUFFLE_PARTITIONS
@@ -415,10 +448,10 @@ def main(argv=None) -> int:
         plan, _ = run()
         prof_wall_us = (time.perf_counter() - t0) * 1e6
     run_peak = torch.cuda.max_memory_allocated(dev)
-    device = _device_events(prof)
+    device = chip_smoke.device_events(prof)
     if not device:
         raise RuntimeError("the profiler recorded no device activity")
-    busy = _busy_us([(e.time_range.start, e.time_range.end)
+    busy = chip_smoke.busy_us([(e.time_range.start, e.time_range.end)
                      for e in device])
     print(f"profiled run: wall {prof_wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, idle share {1 - busy / prof_wall_us:.1%} "
