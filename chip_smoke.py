@@ -52,14 +52,30 @@ and the device busy time and idle share of one profiled run; and the 8x
 overflow retry at 1M stream rows, which must re-plan and capture at the
 needed factor.
 
+Then adaptive execution (AQE) and the new kinds: Q3 and Q18 at SF10 run
+again under the JAX Session's default adaptive conf, equal to pyarrow,
+with their decisions, warm walls and peaks beside the AQE-off runs (Q18
+must leave no catalog entry); the range exchange plus a partition-local
+sort over 2^24 rows of Q3's lineitem must equal pyarrow's global sort;
+the skew bench's query (``tools/skew_bench.py``) at 67,108,864 fact rows
+and 2,097,152 dim rows runs in its three legs, each equal to pyarrow and
+bit for bit to the others, with its decisions, warm wall, rows/s, peak
+and idle share; and a column of each new kind (int8, int16, float,
+DECIMAL(15,2), timestamp, NULL) at the SF10 lineitem row count is
+hash-partitioned alone, its partition counts over a 2^22-row prefix equal
+on the card and the CPU, murmur3 launched for the int8, int16 and float
+keys.
+
 Prints, in order: the card's name and power limit, the build time, each
 kernel check with its times and bound, the join check, the checks of Q1,
-the Q16 part stage and Q3 with their times, the spill copy rate, Q18's
-check with its times, the catalog's tiers, spilled bytes, retry metrics,
-grace buckets and the allocator's peak, the out-of-core check, the
-injection run, the checks of Q2 and Q11 with their times, the captured
-kernel checks, the hash_agg, operator, new-operator and Q1-stage checks,
-the join_sort modes and the overflow retry, each phase's wall time, a
+the Q16 part stage and Q3 (AQE off, then on) with their times, the range
+sort, the spill copy rate, Q18's checks (AQE off, then on) with their
+times, the catalog's tiers, spilled bytes, retry metrics, grace buckets
+and the allocator's peak, the skew legs, the types exchange, the
+out-of-core check, the injection run, the checks of Q2 and Q11 with their
+times, the captured kernel checks, the hash_agg, operator, new-operator
+and Q1-stage checks, the join_sort modes and the overflow retry, each
+phase's wall time, a
 ``{"kernels": [...]}`` JSON line (the window_match times are at Q2's
 shape; launches count a graph's replays), and last
 ``{"ok": true, "device": ...}``. Any failed phase raises, so the exit code
@@ -175,8 +191,9 @@ def check_murmur3(dev, part) -> dict:
     validity and chained seeds over two key columns. At the Q16 part
     stage's capacity the first column is p_size of ``part`` (one scanned
     slice) and its seeds are the running hash of p_brand and p_type, as in
-    that stage's exchange. Q18's shape is checked in its own phase
-    (``check_murmur3_at_q18``), on that query's data."""
+    that stage's exchange. The shapes of Q3, Q18 and the skewed join are
+    checked in their own phases (``check_murmur3_at_exchanges``), on
+    those paths' data."""
     import numpy as np
     import torch
     from spark_rapids_tpu_torch.expressions.hashing import (DEFAULT_SEED,
@@ -556,12 +573,14 @@ def check_q16_part_result(got, expected) -> None:
 
 
 def run_path(name: str, make_table, reference, run, check, dev, counted,
-             rows_of=lambda table: table.num_rows) -> dict:
+             rows_of=lambda table: table.num_rows,
+             stats: dict = None) -> dict:
     """One path end to end: make its data and its oracle's answer, run it
     cold with every kernel's launch count set to 0 just before, check it and
     read the counts, then three warm runs. ``rows_of`` gives the input rows
-    that rows/s counts. Returns the launches per kernel of the cold run;
-    fails if a kernel of the path was not launched."""
+    that rows/s counts; ``stats``, where given, gets the cold and warm
+    seconds and the allocator's peak. Returns the launches per kernel of
+    the cold run; fails if a kernel of the path was not launched."""
     import torch
     t0 = time.perf_counter()
     table = make_table()
@@ -602,6 +621,44 @@ def run_path(name: str, make_table, reference, run, check, dev, counted,
     print(f"{name}: cold {cold_s:.3f} s, warm median {warm_s:.3f} s of "
           f"{[round(w, 4) for w in warm]}, {rows / warm_s:,.0f} rows/s;"
           f" device memory peak {peak / 2**30:.2f} GiB")
+    if stats is not None:
+        stats.update(cold_s=cold_s, warm_s=warm_s, peak=peak, rows=rows)
+    return launches
+
+
+def run_adaptive(name: str, tables, expected, make_plan, check, dev,
+                 counted, off: dict, rows_of) -> dict:
+    """A path again over the same tables with AQE on (``make_plan()`` builds
+    its tree): ``run_path``'s checks, then the decisions of its cold run
+    and its warm wall and peak beside the AQE-off run's (``off``).
+    ``check(got, expected, state)`` returns the detail to print; ``state``
+    holds the run's ``plan`` and the retry metrics before it, ``retry0``."""
+    from spark_rapids_tpu_torch import adaptive
+    from spark_rapids_tpu_torch.exec import collect
+    from spark_rapids_tpu_torch.memory.retry import metrics
+    state, stats = {}, {}
+
+    def run(_):
+        state.pop("plan", None)
+        mark = adaptive.reason_mark()
+        state["retry0"] = metrics().snapshot()
+        state["plan"] = make_plan()
+        out = collect(state["plan"])
+        state.setdefault("decisions", adaptive.reasons(since=mark))
+        return out
+
+    launches = run_path(f"{name} aqe", lambda: tables, lambda _: expected,
+                        run, lambda got, exp: check(got, exp, state),
+                        dev, counted, rows_of=rows_of, stats=stats)
+    print(f"{name} aqe: decisions of the cold run: {state['decisions']}")
+    print(f"{name} aqe: warm median {stats['warm_s']:.3f} s against "
+          f"{off['warm_s']:.3f} s with AQE off "
+          f"({stats['warm_s'] / off['warm_s']:.2f}x); peak "
+          f"{stats['peak'] / 2**30:.2f} GiB against "
+          f"{off['peak'] / 2**30:.2f} GiB")
+    if not state["decisions"]:
+        raise AssertionError(f"{name} with AQE on decided nothing")
+    state.clear()
     return launches
 
 
@@ -703,9 +760,43 @@ def run_q3_phase(dev, counted) -> dict:
 
     print(f"q3: SF{Q3_SF}, {Q3_SLICES} slices, {Q3_SHUFFLE_PARTITIONS} "
           f"shuffle partitions, both joins shuffled")
-    return run_path(
-        "q3", lambda: entry.tpch_q3_tables(Q3_SF, Q3_SEED), reference, run,
-        check, dev, counted, rows_of=lambda tables: tables[2].num_rows)
+
+    def make_tables():
+        state["tables"] = entry.tpch_q3_tables(Q3_SF, Q3_SEED)
+        return state["tables"]
+
+    def reference_kept(tables):
+        state["expected"] = reference(tables)
+        return state["expected"]
+
+    off = {}
+    launches = [run_path("q3", make_tables, reference_kept, run, check, dev,
+                         counted, rows_of=lambda t: t[2].num_rows,
+                         stats=off)]
+    state.pop("plan", None)
+    tables = state["tables"]
+
+    def check_aqe(got, expected, _state):
+        worst = check_q3_result(got, expected)
+        return f"; keys exact, revenue max rel err {worst:.3g}"
+
+    from spark_rapids_tpu_torch import config
+    print(f"q3 aqe: the JAX Session's default adaptive conf (targetRows "
+          f"{config.ADAPTIVE_TARGET_ROWS}, splitRows "
+          f"{config.SKEW_SPLIT_ROWS}, broadcastJoin.maxBuildRows "
+          f"{config.ADAPTIVE_BROADCAST_MAX_BUILD_ROWS})")
+    launches.append(run_adaptive(
+        "q3", tables, state["expected"],
+        lambda: entry.q3_plan(*tables, Q3_SLICES, Q3_SHUFFLE_PARTITIONS,
+                              device=dev, adaptive=True),
+        check_aqe, dev, counted, off, lambda t: t[2].num_rows))
+    for aqe in (False, True):
+        check_murmur3_at_exchanges(
+            f"q3{' aqe' if aqe else ''}",
+            entry.q3_plan(*tables, Q3_SLICES, Q3_SHUFFLE_PARTITIONS,
+                          device=dev, adaptive=aqe), dev)
+    state.clear()
+    return launches, tables
 
 
 # ---------------------------------------------------------------------------
@@ -794,57 +885,67 @@ def q18_memory_report(plan, dev, retry0) -> dict:
             "buckets": buckets, "retry": retry}
 
 
-def check_murmur3_at_q18(tables, dev) -> None:
-    """murmur3 against its plain version, bit for bit, at the shape Q18
-    gives it: the final exchange hashes o_orderdate in each PARTIAL output
-    at that output's capacity, seeded by the running hash of the keys
-    before it. Runs the PARTIAL aggregate of a fresh Q18 tree over every
-    partition and compares the kernel on each of its outputs."""
+def check_murmur3_at_exchanges(what: str, plan, dev) -> list:
+    """murmur3 against its plain version, bit for bit, at the shapes a
+    path gives it: for each hash exchange of a fresh, unrun ``plan`` with
+    a key the kernel hashes, the exchange's child runs over each of its
+    partitions, and on each output batch the kernel and its plain version
+    hash that key's int32 words seeded by the running hash of the keys
+    before it (seed 42), as the exchange does. Closes the plan. Returns
+    (key, capacity, max_abs_err) per comparison; raises on a difference or
+    when no key reached the kernel."""
     import torch
-    from spark_rapids_tpu_torch import entry
     from spark_rapids_tpu_torch.expressions.base import raw_eval
-    from spark_rapids_tpu_torch.expressions.hashing import (DEFAULT_SEED,
-                                                            hash_column)
+    from spark_rapids_tpu_torch.expressions.hashing import (
+        DEFAULT_SEED, INT32_HASHED_KINDS, hash_column, int32_words)
     from spark_rapids_tpu_torch.kernels.murmur3 import (murmur3_int32,
                                                         murmur3_int32_plain)
-    from spark_rapids_tpu_torch.types import TypeKind
-    plan = entry.q18_plan(*tables, Q18_SLICES, Q18_SHUFFLE_PARTITIONS,
-                          device_limit=Q18_BUDGET, device=dev)
-    exchange = _execs(plan, "ShuffleExchangeExec")[0]   # the final one
-    partial = exchange.child
+    from spark_rapids_tpu_torch.shuffle import HashPartitioning
     compared = []
     try:
-        for p in range(partial.num_partitions):
-            for batch in partial.execute_partition(p):
-                seed = torch.full((batch.capacity,), DEFAULT_SEED,
-                                  dtype=torch.int32, device=dev)
-                for e in exchange.partitioning.exprs:
-                    c = raw_eval(e, batch)
-                    if c.dtype.kind is TypeKind.DATE:
-                        args = (c.data.to(torch.int32).contiguous(),
-                                c.validity.contiguous(), seed)
-                        err = int((murmur3_int32(*args).long()
-                                   - murmur3_int32_plain(*args).long())
-                                  .abs().max())
-                        compared.append((batch.capacity, err))
-                    seed = hash_column(c, seed)
+        for exchange in _execs(plan, "ShuffleExchangeExec"):
+            part = exchange.partitioning
+            if not (isinstance(part, HashPartitioning) and any(
+                    e.dtype.kind in INT32_HASHED_KINDS for e in part.exprs)):
+                continue
+            child = exchange.child
+            for p in range(child.num_partitions):
+                for batch in child.execute_partition(p):
+                    seed = torch.full((batch.capacity,), DEFAULT_SEED,
+                                      dtype=torch.int32, device=dev)
+                    for e in part.exprs:
+                        c = raw_eval(e, batch)
+                        if c.dtype.kind in INT32_HASHED_KINDS:
+                            args = (int32_words(c), c.validity.contiguous(),
+                                    seed)
+                            err = int((murmur3_int32(*args).long()
+                                       - murmur3_int32_plain(*args).long())
+                                      .abs().max())
+                            compared.append((str(e), batch.capacity, err))
+                        seed = hash_column(c, seed)
     finally:
         plan.close()
-    print(f"murmur3_int32 at Q18's final exchange: o_orderdate seeded by "
-          f"the c_name, c_custkey, o_orderkey hash, (capacity, "
-          f"max_abs_err) per PARTIAL output {compared}")
+    shapes = {}
+    for key, cap, err in compared:
+        n, worst = shapes.get((key, cap), (0, 0))
+        shapes[(key, cap)] = (n + 1, max(worst, err))
+    print(f"murmur3_int32 against its plain version at {what}'s hash "
+          f"exchanges, (key, capacity): (batches, max_abs_err) {shapes}")
     if not compared:
-        raise AssertionError("Q18's final exchange hashed no date column")
-    if any(err for _, err in compared):
-        raise AssertionError("murmur3_int32 disagrees with its plain version "
-                             "at Q18's final exchange")
+        raise AssertionError(f"{what}: no hash exchange key reached "
+                             f"murmur3_int32")
+    if any(err for _, _, err in compared):
+        raise AssertionError(f"murmur3_int32 disagrees with its plain "
+                             f"version at {what}'s exchanges")
+    return compared
 
 
 def run_q18_phase(dev, counted) -> dict:
     """Q18 at SF10 over 2 partitions under a 1 GiB budget: equal to the
     pyarrow oracle, and it must spill, run the grace join in at least 2
-    buckets, launch murmur3 and leave the catalog empty. Then murmur3
-    against its plain version at the final exchange's shape."""
+    buckets, launch murmur3 and leave the catalog empty; then again with
+    AQE on. Then murmur3 against its plain version at the shapes of both
+    trees' exchanges."""
     from spark_rapids_tpu_torch import entry
     from spark_rapids_tpu_torch.exec import collect
     from spark_rapids_tpu_torch.memory.retry import metrics
@@ -888,10 +989,40 @@ def run_q18_phase(dev, counted) -> dict:
         state["tables"] = entry.tpch_q18_tables(Q18_SF, Q18_SEED)
         return state["tables"]
 
-    launches = run_path("q18", make_tables, reference, run, check, dev,
-                        counted, rows_of=lambda tables: tables[2].num_rows)
+    def reference_kept(tables):
+        state["expected"] = reference(tables)
+        return state["expected"]
+
+    off = {}
+    launches = [run_path("q18", make_tables, reference_kept, run, check,
+                         dev, counted, rows_of=lambda t: t[2].num_rows,
+                         stats=off)]
     state.pop("plan", None)
-    check_murmur3_at_q18(state["tables"], dev)
+    tables = state["tables"]
+
+    def check_aqe(got, expected, aqe_state):
+        check_q18_result(got, expected)
+        plan = aqe_state["plan"]
+        report = q18_memory_report(plan, dev, aqe_state["retry0"])
+        switched = sum(j.metrics["switchBuildBytes"].total()
+                       for j in _execs(plan, "HashJoinExec"))
+        return (f"; every column exact; spilled {report['spilled']} B; "
+                f"grace buckets {report['buckets']}; runtime broadcast "
+                f"build held outside the budget: {switched} B; no catalog "
+                f"entry left")
+
+    launches.append(run_adaptive(
+        "q18", tables, state["expected"],
+        lambda: entry.q18_plan(*tables, Q18_SLICES, Q18_SHUFFLE_PARTITIONS,
+                               device_limit=Q18_BUDGET, device=dev,
+                               adaptive=True),
+        check_aqe, dev, counted, off, lambda t: t[2].num_rows))
+    for aqe in (False, True):
+        check_murmur3_at_exchanges(
+            f"q18{' aqe' if aqe else ''}",
+            entry.q18_plan(*tables, Q18_SLICES, Q18_SHUFFLE_PARTITIONS,
+                           device_limit=Q18_BUDGET, device=dev,
+                           adaptive=aqe), dev)
     state.clear()
     return launches
 
@@ -1922,6 +2053,254 @@ def check_captured_window_match(dev, part) -> dict:
                            kernel_vs_plain)
 
 
+# ---------------------------------------------------------------------------
+# Adaptive execution: the skewed join, the types exchange, the range sort
+# ---------------------------------------------------------------------------
+
+#: the repo's skew shape (BENCH_skew.json ``params``: 131,072 fact rows,
+#: 4,096 keys, 32 partitions, hot fraction 0.5, seed 29, splitRows 16,384)
+#: scaled to 2^26 fact rows with its ratios kept: 32 fact rows per key, 16
+#: fact slices (tools/skew_bench._query), splitRows rows / 8, and the
+#: adaptive_bcast leg's maxBuildRows max(keys, 2^16)
+SKEW_ROWS = 1 << 26
+SKEW_KEYS = SKEW_ROWS // 32
+SKEW_HOT_FRAC = 0.5
+SKEW_SEED = 29
+SKEW_SPLIT_ROWS = SKEW_ROWS // 8
+
+
+def run_skew_phase(dev, counted) -> list:
+    """The skew bench's query at 67,108,864 x 2,097,152 rows in its three
+    legs: each leg's cold run (launch counts from 0) equal to pyarrow and
+    bit for bit to the other legs, its decisions, warm median wall of three,
+    rows/s, allocator peak, and the device idle share of one profiled warm
+    run; then murmur3 against its plain version at each leg's aggregate
+    exchange. Returns the launches of each leg's cold run."""
+    import torch
+    from spark_rapids_tpu_torch import adaptive, entry
+    t0 = time.perf_counter()
+    fact, dim = entry.skew_tables(SKEW_ROWS, SKEW_KEYS, SKEW_HOT_FRAC,
+                                  SKEW_SEED)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = entry.skew_reference(fact, dim)
+    print(f"skew: {fact.num_rows} fact rows ({SKEW_HOT_FRAC:.0%} on key 0),"
+          f" {dim.num_rows} dim rows, {entry.SKEW_PARTITIONS} partitions, "
+          f"{entry.SKEW_SLICES} fact slices, splitRows {SKEW_SPLIT_ROWS}; "
+          f"made in {gen_s:.2f} s, pyarrow oracle "
+          f"{time.perf_counter() - t0:.2f} s ({want.num_rows} groups)")
+    first, launches = None, []
+    for leg in entry.SKEW_LEGS:
+        def run():
+            return entry.run_skew(fact, dim, leg, split_rows=SKEW_SPLIT_ROWS,
+                                  device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for wrapper in counted:
+            wrapper.launches = 0
+        mark = adaptive.reason_mark()
+        t0 = time.perf_counter()
+        got = run()
+        cold_s = time.perf_counter() - t0
+        decisions = adaptive.reasons(since=mark)
+        counts = {w.__name__: w.launches for w in counted}
+        if not got.equals(want):
+            raise AssertionError(f"skew {leg} differs from pyarrow")
+        if first is not None and not got.equals(first):
+            raise AssertionError(f"skew {leg} differs from the static leg")
+        first = got if first is None else first
+        for kernel, n in counts.items():
+            if n <= 0:
+                raise AssertionError(f"{kernel} was not launched by the "
+                                     f"skew {leg} run")
+        if (leg == "static") != (not decisions):
+            raise AssertionError(f"skew {leg}: decisions {decisions}")
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            if not run().equals(want):
+                raise AssertionError(f"skew {leg}: a warm run differs")
+            warm.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev)
+        wall = statistics.median(warm)
+        _, prof_us, busy, events = profiled(run, dev, host=False)
+        print(f"skew {leg}: equal to pyarrow and to the static leg, bit for "
+              f"bit; kernel launches {counts}; decisions {decisions}")
+        print(f"skew {leg}: cold {cold_s:.3f} s, warm median {wall:.3f} s of "
+              f"{[round(w, 4) for w in warm]}, {SKEW_ROWS / wall:,.0f} fact "
+              f"rows/s; device memory peak {peak / 2**30:.2f} GiB; profiled "
+              f"run: {len(events)} device kernels and copies, wall "
+              f"{prof_us / 1e6:.3f} s, busy {busy / 1e6:.3f} s, idle share "
+              f"{1 - busy / prof_us:.1%} (against the warm wall "
+              f"{1 - busy / (wall * 1e6):.1%})")
+        launches.append(counts)
+    for leg in entry.SKEW_LEGS:
+        check_murmur3_at_exchanges(
+            f"skew {leg}", entry.skew_plan(fact, dim, leg,
+                                           split_rows=SKEW_SPLIT_ROWS,
+                                           device=dev), dev)
+    return launches
+
+
+#: the types exchange: one column of each new kind at the SF10 lineitem
+#: row count, each hash-partitioned alone; the card's partition counts over
+#: a 2^22-row prefix equal the CPU's
+TYPES_ROWS = SF10_LINEITEM_ROWS
+TYPES_PREFIX = 1 << 22
+TYPES_SLICES = 8
+TYPES_PARTITIONS = 8
+TYPES_SEED = 41
+
+
+def types_table(n: int, seed: int):
+    """int8, int16, float32 (with NaN, infinities and -0.0), DECIMAL(15,2),
+    timestamp and an all-null column, about 5% nulls in each; the decimal
+    built from its unscaled int64 buffer."""
+    import numpy as np
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+
+    def mask():
+        return rng.random(n) < 0.05
+    f = rng.standard_normal(n).astype(np.float32)
+    f[:4] = [np.nan, np.inf, -np.inf, -0.0]
+    valid = ~mask()
+    unscaled = np.where(valid, rng.integers(-10 ** 15 + 1, 10 ** 15, n), 0)
+    words = np.stack([unscaled, unscaled >> 63], axis=1)
+    dec = pa.Array.from_buffers(
+        pa.decimal128(15, 2), n,
+        [pa.py_buffer(np.packbits(valid, bitorder="little").tobytes()),
+         pa.py_buffer(words.tobytes())])
+    return pa.table({
+        "i8": pa.array(rng.integers(-128, 128, n, dtype=np.int8),
+                       mask=mask()),
+        "i16": pa.array(rng.integers(-32768, 32768, n, dtype=np.int16),
+                        mask=mask()),
+        "f32": pa.array(f, mask=mask()),
+        "d15": dec,
+        "ts": pa.array(rng.integers(-2 ** 60, 2 ** 60, n),
+                       pa.timestamp("us", tz="UTC"), mask=mask()),
+        "nul": pa.nulls(n),
+    })
+
+
+def check_types_exchange(dev, murmur3) -> dict:
+    """Each new kind hash-partitioned alone into 8 partitions: at the SF10
+    lineitem row count on the card (every row routed), and over a 2^22-row
+    prefix on the card and on the CPU, whose partition row counts and
+    partition ids row for row must be equal. int8, int16 and float32 keys
+    must launch murmur3 at full size. Returns the launches of the
+    full-size exchanges."""
+    import torch
+    from spark_rapids_tpu_torch.batch import from_arrow
+    from spark_rapids_tpu_torch.exec import InMemoryScanExec
+    from spark_rapids_tpu_torch.expressions import col
+    from spark_rapids_tpu_torch.shuffle import (HashPartitioning,
+                                                ShuffleExchangeExec)
+    t0 = time.perf_counter()
+    table = types_table(TYPES_ROWS, TYPES_SEED)
+    print(f"types exchange: {TYPES_ROWS} rows of {table.schema.types} made "
+          f"in {time.perf_counter() - t0:.2f} s")
+
+    def counts(t, device):
+        ex = ShuffleExchangeExec(
+            HashPartitioning([col(t.column_names[0])], TYPES_PARTITIONS),
+            InMemoryScanExec(t, batch_rows=-(-t.num_rows // TYPES_SLICES),
+                             num_slices=TYPES_SLICES, device=device))
+        try:
+            return ex.partition_row_counts()
+        finally:
+            ex.close()
+
+    def ids(t, device):
+        """The prefix's partition id per row, from one batch."""
+        batch, schema = from_arrow(t, device=device)
+        part = HashPartitioning([col(t.column_names[0])],
+                                TYPES_PARTITIONS).bind(schema)
+        return part.partition_ids(batch)[:t.num_rows]
+
+    total = 0
+    for name in table.column_names:
+        one = table.select([name])
+        murmur3.launches = 0
+        t0 = time.perf_counter()
+        full = counts(one, dev)
+        torch.cuda.synchronize(dev)
+        full_s = time.perf_counter() - t0
+        launched = murmur3.launches
+        total += launched
+        if sum(full) != TYPES_ROWS:
+            raise AssertionError(f"types exchange {name}: {sum(full)} rows "
+                                 f"routed of {TYPES_ROWS}")
+        prefix = one.slice(0, TYPES_PREFIX)
+        card, cpu = counts(prefix, dev), counts(prefix, "cpu")
+        if card != cpu:
+            raise AssertionError(f"types exchange {name}: card {card} != "
+                                 f"CPU {cpu}")
+        apart = int((ids(prefix, dev).cpu() != ids(prefix, "cpu")).sum())
+        if apart:
+            raise AssertionError(f"types exchange {name}: {apart} rows of "
+                                 f"the prefix routed apart on the card and "
+                                 f"the CPU")
+        if name in ("i8", "i16", "f32") and launched <= 0:
+            raise AssertionError(f"types exchange {name}: murmur3_int32 was "
+                                 f"not launched")
+        print(f"types exchange {name} ({one.schema.types[0]}): {full_s:.3f} s"
+              f" for {TYPES_ROWS} rows, partition rows {full}; murmur3_int32"
+              f" launches {launched}; the {TYPES_PREFIX}-row prefix: card "
+              f"{card} == CPU, and its partition ids row for row")
+    return {"murmur3_int32": total}
+
+
+#: range exchange plus a partition-local sort, over the first 2^24 rows of
+#: Q3's SF10 lineitem, against pyarrow's global sort
+RANGE_ROWS = 1 << 24
+RANGE_SLICES = 8
+RANGE_PARTITIONS = 8
+
+
+def check_range_sort(dev, lineitem) -> None:
+    """``tests/test_shuffle.py``'s range-plus-local-sort shape at 2^24
+    rows: four keys (date ascending, int64 descending, two doubles), whose
+    concatenated partitions equal pyarrow's sort row for row."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.batch import to_arrow
+    from spark_rapids_tpu_torch.exec import InMemoryScanExec, SortExec
+    from spark_rapids_tpu_torch.exec.sort import asc, desc
+    from spark_rapids_tpu_torch.expressions import col
+    from spark_rapids_tpu_torch.shuffle import (RangePartitioning,
+                                                ShuffleExchangeExec)
+    t = lineitem.slice(0, RANGE_ROWS).combine_chunks()
+    keys = [("l_shipdate", "ascending"), ("l_orderkey", "descending"),
+            ("l_extendedprice", "ascending"), ("l_discount", "ascending")]
+    orders = [(asc if d == "ascending" else desc)(col(k)) for k, d in keys]
+    t0 = time.perf_counter()
+    want = t.sort_by(keys)
+    oracle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex = ShuffleExchangeExec(
+        RangePartitioning(orders, RANGE_PARTITIONS),
+        InMemoryScanExec(t, batch_rows=RANGE_ROWS // RANGE_SLICES,
+                         num_slices=RANGE_SLICES, device=dev))
+    plan = SortExec(orders, ex, global_sort=False)
+    try:
+        parts = [[to_arrow(b, plan.output_schema)
+                  for b in plan.execute_partition(p)]
+                 for p in range(RANGE_PARTITIONS)]
+    finally:
+        plan.close()
+    run_s = time.perf_counter() - t0
+    got = pa.concat_tables([b for p in parts for b in p])
+    if not got.equals(want):
+        raise AssertionError("range exchange plus local sort differs from "
+                             "pyarrow's global sort")
+    sizes = [sum(b.num_rows for b in p) for p in parts]
+    print(f"range sort: {RANGE_ROWS} rows in {RANGE_PARTITIONS} range "
+          f"partitions {sizes}, each sorted alone, equal row for row to "
+          f"pyarrow's global sort on {[k for k, _ in keys]}; {run_s:.2f} s "
+          f"(pyarrow {oracle_s:.2f} s)")
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, with the phase's wall time printed after it."""
     t0 = time.perf_counter()
@@ -1975,11 +2354,20 @@ def main(argv=None) -> int:
     # each path's own kernels, counted from 0 over its first run
     runs = [timed("q1", run_q1_phase, args, dev, [murmur3_int32]),
             timed("q16_part", run_q16_part_phase, dev,
-                  [murmur3_int32, window_match]),
-            timed("q3", run_q3_phase, dev, [murmur3_int32])]
+                  [murmur3_int32, window_match])]
+    # Q3 with AQE off, then on (the JAX Session's default adaptive conf)
+    q3_runs, q3_tables = timed("q3", run_q3_phase, dev, [murmur3_int32])
+    runs += q3_runs
+    timed("range sort", check_range_sort, dev, q3_tables[2])
+    del q3_tables
     # before Q18, whose spills would leave pinned buffers in the cache
     timed("spill rates", measure_spill_rates, dev)
-    runs.append(timed("q18", run_q18_phase, dev, [murmur3_int32]))
+    runs += timed("q18", run_q18_phase, dev, [murmur3_int32])
+    # the skewed join's three legs (its aggregate exchange hashes the int32
+    # group key), and the new kinds through the hash exchange
+    runs += timed("skew", run_skew_phase, dev, [murmur3_int32])
+    runs.append(timed("types exchange", check_types_exchange, dev,
+                      murmur3_int32))
     timed("out of core", check_out_of_core, dev)
     timed("q18 injection", run_q18_injection_phase, dev)
     # Q2's own kernel is window_match (its exchanges hash int64 and double

@@ -176,11 +176,41 @@ def _padded(values: np.ndarray, dtype: torch.dtype, capacity: int,
     return out
 
 
+def _decimal_storage(arr: pa.Array, dtype: SqlType) -> np.ndarray:
+    """The unscaled int64 values of an Arrow decimal128 array of at most 18
+    digits: the low 8 bytes of each 16-byte little-endian value, read from
+    the buffer as they stand (no Python ``Decimal`` per row, no float).
+    Null slots, whose bytes Arrow leaves undefined, become 0."""
+    if not pa.types.is_decimal128(arr.type):
+        raise NotImplementedError(
+            f"arrow type {arr.type}: only decimal128 uploads")
+    T.decimal(arr.type.precision, arr.type.scale)   # raises past 18 digits
+    if arr.type.scale != dtype.scale:
+        raise ValueError(f"decimal scale {arr.type.scale} does not match "
+                         f"the column's {dtype}")
+    n = len(arr)
+    if n == 0:
+        return np.zeros(0, np.int64)
+    words = np.frombuffer(arr.buffers()[1], dtype=np.int64,
+                          count=2 * (arr.offset + n))[2 * arr.offset::2]
+    if arr.null_count:
+        return np.where(np.asarray(arr.is_valid()), words, 0)
+    return words
+
+
 def _scalar_storage(arr: pa.Array, dtype: SqlType) -> np.ndarray:
     """Arrow array -> numpy storage values; null slots become 0/False
-    (validity carries nullness, and zeros keep NaN out of reductions)."""
+    (validity carries nullness, and zeros keep NaN out of reductions).
+    Decimals give their unscaled int64, timestamps their UTC epoch
+    microseconds and NULL columns zeros."""
+    if dtype.kind is TypeKind.DECIMAL:
+        return _decimal_storage(arr, dtype)
+    if dtype.kind is TypeKind.NULL:
+        return np.zeros(len(arr), np.int8)
     if dtype.kind is TypeKind.DATE:
         arr = arr.view(pa.int32())
+    elif dtype.kind is TypeKind.TIMESTAMP:
+        arr = arr.cast(pa.timestamp("us", tz=arr.type.tz)).view(pa.int64())
     if arr.null_count:
         arr = arr.fill_null(False if dtype.kind is TypeKind.BOOLEAN else 0)
     return np.asarray(arr.to_numpy(zero_copy_only=False),
@@ -357,17 +387,44 @@ def _string_to_arrow(col: DeviceColumn, n: int,
         pa.py_buffer(np.packbits(validity, bitorder="little").tobytes()))
 
 
+def _validity_buffer(validity: np.ndarray) -> Optional[pa.Buffer]:
+    if validity.all():
+        return None
+    return pa.py_buffer(np.packbits(validity, bitorder="little").tobytes())
+
+
+def _decimal_to_arrow(data: np.ndarray, dtype: SqlType,
+                      validity: np.ndarray) -> pa.Array:
+    """Unscaled int64 values as an Arrow decimal128 array, exactly: each
+    value sign-extended to 16 little-endian bytes, null slots zero."""
+    words = np.empty((data.shape[0], 2), np.int64)
+    words[:, 0] = np.where(validity, data, 0)
+    words[:, 1] = words[:, 0] >> 63
+    return pa.Array.from_buffers(T.to_arrow(dtype), data.shape[0],
+                                 [_validity_buffer(validity),
+                                  pa.py_buffer(words.tobytes())])
+
+
 def to_arrow(batch: ColumnarBatch, schema: Schema) -> pa.Table:
     n = int(batch.num_rows)
     arrays = []
     for col, f in zip(batch.columns, schema):
+        k = f.dtype.kind
         validity = col.validity[:n].cpu().numpy()
-        if f.dtype.kind is TypeKind.STRING:
+        if k is TypeKind.STRING:
             arrays.append(_string_to_arrow(col, n, validity))
             continue
+        if k is TypeKind.NULL:
+            arrays.append(pa.nulls(n))
+            continue
         data = col.data[:n].cpu().numpy()
-        if f.dtype.kind is TypeKind.DATE:
+        if k is TypeKind.DECIMAL:
+            arrays.append(_decimal_to_arrow(data, f.dtype, validity))
+            continue
+        if k is TypeKind.DATE:
             data = data.astype("datetime64[D]")
+        elif k is TypeKind.TIMESTAMP:
+            data = data.astype("datetime64[us]")
         arrays.append(pa.array(data, type=T.to_arrow(f.dtype),
                                mask=~validity))
     return pa.table(arrays, names=schema.names)

@@ -41,6 +41,19 @@ AGG_MAX_RESULT_ROWS = 1 << 22
 #: ``spark.rapids.tpu.sql.join.maxBuildRows``: per-partition build-side
 #: row budget; bigger builds grace-hash sub-partition both sides
 JOIN_MAX_BUILD_ROWS = 1 << 22
+#: ``spark.rapids.tpu.sql.adaptive.coalescePartitions.targetRows``: row
+#: target of an adaptive exchange's reader partitions; adjacent thin
+#: partitions coalesce toward it (``adaptive.enabled`` defaults to true in
+#: the JAX package; here an entry point takes ``adaptive=``)
+ADAPTIVE_TARGET_ROWS = 1 << 20
+#: ``spark.rapids.tpu.sql.adaptive.skewJoin.splitRows``: stream rows above
+#: which one partition of a co-partitioned join counts as skewed and splits
+#: (``skewJoin.enabled`` defaults to true)
+SKEW_SPLIT_ROWS = 1 << 21
+#: ``spark.rapids.tpu.sql.adaptive.broadcastJoin.maxBuildRows``: measured
+#: build rows at or under which a shuffled hash join switches to a
+#: broadcast at run time (``broadcastJoin.enabled`` defaults to true)
+ADAPTIVE_BROADCAST_MAX_BUILD_ROWS = 1 << 16
 
 
 @dataclass

@@ -1,6 +1,6 @@
-"""TPC-H Q1, the part stage of TPC-H Q16, TPC-H Q3, Q18, Q2 and Q11 through
-the port, end to end, and the bench's fused Q1 stage and its hash_agg and
-join_sort shapes.
+"""TPC-H Q1, the part stage of TPC-H Q16, TPC-H Q3, Q18, Q2 and Q11 and the
+repo's skewed join through the port, end to end, and the bench's fused Q1
+stage and its hash_agg and join_sort shapes.
 
 ``q1_plan`` and ``q16_part_plan`` build the physical tree the JAX
 package's planner gives each query (``plan/overrides.py``
@@ -79,6 +79,17 @@ decorrelates Q2's Min subquery into a grouped Min joined on two keys, and
 nested-loop join with the one-row global sum; each builds the tree the JAX
 planner gives it at SF100.
 
+With ``adaptive=True`` (and the knobs ``target_rows``, ``skew_split_rows``
+and ``broadcast_switch_rows``, the JAX package's defaults), ``q3_plan``
+and ``q18_plan`` build the tree the JAX Session gives under its default
+adaptive conf: adaptive exchanges, shuffled joins that lay out their reads
+together, split skewed partitions and switch a small build to a broadcast
+at run time, and an aggregate exchange only where its child reads as more
+than one partition (``Adaptive``). ``skew_tables`` makes
+``tools/skew_bench.py``'s skewed fact and dim tables, ``skew_plan`` and
+``run_skew`` its query in each of its legs (``SKEW_LEGS``), and
+``skew_reference`` its pyarrow answer.
+
 ``q1_stage`` is ``__graft_entry__._q1_stage``, the JAX ``entry()`` shape:
 Q1's filter fused into a COMPLETE aggregate's update. ``hash_agg_table``
 and ``hash_agg_plan`` are ``bench.bench_hash_agg``'s input and aggregate.
@@ -90,8 +101,8 @@ program or the iterator path.
 
 ``q1_reference``, ``q16_part_reference``, ``q3_reference``,
 ``q18_reference``, ``q2_reference``, ``q11_reference``,
-``hash_agg_reference`` and ``join_sort_reference`` compute the same with
-pyarrow alone, as independent oracles.
+``hash_agg_reference``, ``join_sort_reference`` and ``skew_reference``
+compute the same with pyarrow alone, as independent oracles.
 """
 
 from __future__ import annotations
@@ -105,7 +116,8 @@ import pyarrow.compute as pc
 
 from .batch import (ColumnarBatch, DeviceLike, Field, Schema, empty_batch,
                     from_arrow, resolve_device, schema_from_arrow, to_arrow)
-from .config import JOIN_MAX_BUILD_ROWS
+from .config import (ADAPTIVE_BROADCAST_MAX_BUILD_ROWS, ADAPTIVE_TARGET_ROWS,
+                     JOIN_MAX_BUILD_ROWS, SKEW_SPLIT_ROWS)
 from .exec import (AggregateMode, BroadcastNestedLoopJoinExec,
                    CoalesceBatchesExec, Exec, FilterExec, GlobalLimitExec,
                    HashAggregateExec, HashJoinExec, InMemoryScanExec,
@@ -306,8 +318,9 @@ def hash_agg_plan(table: pa.Table, two_stage: bool = False,
         return HashAggregateExec(keys, hash_agg_aggregates(),
                                  _scan(table, 1, device),
                                  AggregateMode.COMPLETE)
-    return _grouped(_scan(table, num_slices, device), HASH_AGG_KEYS,
-                    hash_agg_aggregates, shuffle_partitions)
+    return Adaptive.OFF.grouped(_scan(table, num_slices, device),
+                                HASH_AGG_KEYS, hash_agg_aggregates,
+                                shuffle_partitions)
 
 
 def hash_agg_reference(table: pa.Table) -> pa.Table:
@@ -635,8 +648,70 @@ def q3_aggregates():
             .alias("revenue")]
 
 
+class Adaptive:
+    """The adaptive-execution knobs of one tree, with the JAX package's
+    defaults (``spark.rapids.tpu.sql.adaptive.*``): what its shuffle
+    exchanges and its shuffled hash joins are built with. ``None`` for
+    ``skew_split_rows`` or ``broadcast_switch_rows`` turns that decision
+    off, as its ``enabled`` key does. ``Adaptive.OFF`` is the tree with
+    AQE off."""
+
+    def __init__(self, enabled: bool = True,
+                 target_rows: int = ADAPTIVE_TARGET_ROWS,
+                 skew_split_rows: Optional[int] = SKEW_SPLIT_ROWS,
+                 broadcast_switch_rows: Optional[int] =
+                 ADAPTIVE_BROADCAST_MAX_BUILD_ROWS):
+        self.enabled = enabled
+        self.target_rows = target_rows
+        self.skew_split_rows = skew_split_rows if enabled else None
+        self.broadcast_switch_rows = (broadcast_switch_rows if enabled
+                                      else None)
+
+    def exchange(self, partitioning, child: Exec) -> ShuffleExchangeExec:
+        return ShuffleExchangeExec(partitioning, child,
+                                   adaptive=self.enabled,
+                                   target_rows=self.target_rows)
+
+    def shuffled_join(self, stream_keys: Sequence[Expression],
+                      build_keys: Sequence[Expression], how: JoinType,
+                      stream: Exec, build: Exec, shuffle_partitions: int,
+                      **kw) -> Exec:
+        """A hash join over both sides hash-partitioned on their keys."""
+        return HashJoinExec(
+            stream_keys, build_keys, how,
+            self.exchange(HashPartitioning(stream_keys, shuffle_partitions),
+                          stream),
+            self.exchange(HashPartitioning(build_keys, shuffle_partitions),
+                          build),
+            broadcast_build=False, skew_split_rows=self.skew_split_rows,
+            broadcast_switch_rows=self.broadcast_switch_rows, **kw)
+
+    def grouped(self, child: Exec, keys: Sequence[str], aggregates,
+                shuffle_partitions: int) -> Exec:
+        """Partial aggregate, exchange (hash on the keys, or into one
+        partition without keys), final aggregate. With AQE on, the
+        exchange is left out where the child reads as one partition, as
+        the JAX planner's ``_convert_aggregate`` does; asking an adaptive
+        child for its partitions materializes the exchanges below it."""
+        key_cols = [col(k) for k in keys]
+        partial = HashAggregateExec(key_cols, aggregates(), child,
+                                    AggregateMode.PARTIAL)
+        below: Exec = partial
+        if not self.enabled or child.num_partitions > 1:
+            below = self.exchange(
+                HashPartitioning([col(f.name) for f in partial.key_fields],
+                                 shuffle_partitions) if keys
+                else SinglePartitioning(), partial)
+        return HashAggregateExec(key_cols, aggregates(), below,
+                                 AggregateMode.FINAL)
+
+
+Adaptive.OFF = Adaptive(enabled=False)
+
+
 def _inner_join(stream: Exec, build: Exec, stream_key: str, build_key: str,
-                shuffle_partitions: int, broadcast: bool) -> Exec:
+                shuffle_partitions: int, broadcast: bool,
+                aqe: Adaptive = Adaptive.OFF) -> Exec:
     """An inner hash join of ``stream`` (probe) and ``build``: over a
     broadcast build with a coalesced stream, or over both sides
     hash-partitioned on their keys."""
@@ -645,11 +720,8 @@ def _inner_join(stream: Exec, build: Exec, stream_key: str, build_key: str,
         return HashJoinExec(lk, rk, JoinType.INNER,
                             CoalesceBatchesExec(stream, TargetSize()),
                             BroadcastExchangeExec(build))
-    return HashJoinExec(
-        lk, rk, JoinType.INNER,
-        ShuffleExchangeExec(HashPartitioning(lk, shuffle_partitions), stream),
-        ShuffleExchangeExec(HashPartitioning(rk, shuffle_partitions), build),
-        broadcast_build=False)
+    return aqe.shuffled_join(lk, rk, JoinType.INNER, stream, build,
+                             shuffle_partitions)
 
 
 def _swap_back(join: Exec, first: Exec, second: Exec) -> Exec:
@@ -666,10 +738,23 @@ def _swap_back(join: Exec, first: Exec, second: Exec) -> Exec:
 
 def q3_plan(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
             num_slices: int = 8, shuffle_partitions: int = 8,
-            broadcast: bool = False, device: DeviceLike = None) -> Exec:
+            broadcast: bool = False, device: DeviceLike = None,
+            adaptive: bool = False,
+            target_rows: int = ADAPTIVE_TARGET_ROWS,
+            skew_split_rows: Optional[int] = SKEW_SPLIT_ROWS,
+            broadcast_switch_rows: Optional[int] =
+            ADAPTIVE_BROADCAST_MAX_BUILD_ROWS) -> Exec:
     """Q3's physical tree over the three tables. The JAX planner joins
     customer with orders and that with lineitem, and swaps each join's
-    sides to build on the smaller one."""
+    sides to build on the smaller one. With ``adaptive`` the tree is the
+    one the JAX Session gives under its default adaptive conf (the knobs
+    as arguments): adaptive exchanges, shuffled joins that coordinate
+    their reads, split skewed partitions and switch a small build to a
+    broadcast at run time, and the aggregate's exchange only where the
+    join reads as more than one partition (which materializes the joins'
+    exchanges while the tree is built)."""
+    aqe = Adaptive(adaptive, target_rows, skew_split_rows,
+                   broadcast_switch_rows)
     c = FilterExec(EqualTo(col("c_mktsegment"), lit(Q3_SEGMENT)),
                    _scan(customer, num_slices, device))
     o = FilterExec(col("o_orderdate") < lit(Q3_DATE),
@@ -677,17 +762,11 @@ def q3_plan(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
     li = FilterExec(col("l_shipdate") > lit(Q3_DATE),
                     _scan(lineitem, num_slices, device))
     co = _swap_back(_inner_join(o, c, "o_custkey", "c_custkey",
-                                shuffle_partitions, broadcast), c, o)
+                                shuffle_partitions, broadcast, aqe), c, o)
     joined = _swap_back(_inner_join(li, co, "l_orderkey", "o_orderkey",
-                                    shuffle_partitions, broadcast), co, li)
-    keys = [col(k) for k in Q3_KEYS]
-    partial = HashAggregateExec(keys, q3_aggregates(), joined,
-                                AggregateMode.PARTIAL)
-    exchange = ShuffleExchangeExec(
-        HashPartitioning([col(f.name) for f in partial.key_fields],
-                         shuffle_partitions), partial)
-    final = HashAggregateExec(keys, q3_aggregates(), exchange,
-                              AggregateMode.FINAL)
+                                    shuffle_partitions, broadcast, aqe),
+                        co, li)
+    final = aqe.grouped(joined, Q3_KEYS, q3_aggregates, shuffle_partitions)
     top = GlobalLimitExec(Q3_LIMIT, SortExec(
         [desc(col("revenue")), asc(col("o_orderdate"))], final))
     return ProjectExec([col(k) for k in Q3_SELECT], top)
@@ -695,10 +774,13 @@ def q3_plan(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
 
 def run_q3(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
            num_slices: int = 8, shuffle_partitions: int = 8,
-           broadcast: bool = False, device: DeviceLike = None) -> pa.Table:
-    """Q3 over the three tables, collected to the host."""
+           broadcast: bool = False, device: DeviceLike = None,
+           adaptive: bool = False, **knobs) -> pa.Table:
+    """Q3 over the three tables, collected to the host (``knobs``: the
+    adaptive ones of ``q3_plan``)."""
     return collect(q3_plan(customer, orders, lineitem, num_slices,
-                           shuffle_partitions, broadcast, device))
+                           shuffle_partitions, broadcast, device, adaptive,
+                           **knobs))
 
 
 def q3_groups_reference(customer: pa.Table, orders: pa.Table,
@@ -762,36 +844,22 @@ def q18_aggregates(name: str = "sum_qty"):
     return [Sum(col("l_quantity")).alias(name)]
 
 
-def _hash_exchange(child: Exec, key: str,
-                   shuffle_partitions: int) -> ShuffleExchangeExec:
-    return ShuffleExchangeExec(HashPartitioning([col(key)],
-                                                shuffle_partitions), child)
-
-
-def _grouped(child: Exec, keys: Sequence[str], aggregates,
-             shuffle_partitions: int) -> Exec:
-    """Partial aggregate, hash exchange on the keys (or into one partition
-    without keys), final aggregate."""
-    key_cols = [col(k) for k in keys]
-    partial = HashAggregateExec(key_cols, aggregates(), child,
-                                AggregateMode.PARTIAL)
-    exchange = ShuffleExchangeExec(
-        HashPartitioning([col(f.name) for f in partial.key_fields],
-                         shuffle_partitions) if keys
-        else SinglePartitioning(), partial)
-    return HashAggregateExec(key_cols, aggregates(), exchange,
-                             AggregateMode.FINAL)
-
-
 def q18_plan(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
              num_slices: int = 8, shuffle_partitions: int = 2,
              device_limit: Optional[int] = None,
              max_build_rows: int = JOIN_MAX_BUILD_ROWS,
              device: DeviceLike = None,
-             quantity: float = Q18_QUANTITY) -> Exec:
+             quantity: float = Q18_QUANTITY, adaptive: bool = False,
+             target_rows: int = ADAPTIVE_TARGET_ROWS,
+             skew_split_rows: Optional[int] = SKEW_SPLIT_ROWS,
+             broadcast_switch_rows: Optional[int] =
+             ADAPTIVE_BROADCAST_MAX_BUILD_ROWS) -> Exec:
     """Q18's physical tree over the three tables, every join shuffled. With
     ``device_limit`` the tree gets a buffer catalog of its own with that
-    device budget (``plan.catalog``)."""
+    device budget (``plan.catalog``). ``adaptive`` and its knobs as in
+    ``q3_plan``."""
+    aqe = Adaptive(adaptive, target_rows, skew_split_rows,
+                   broadcast_switch_rows)
     cat = BufferCatalog(device_limit) if device_limit else None
 
     def scan(t: pa.Table) -> Exec:
@@ -799,16 +867,14 @@ def q18_plan(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
 
     def shuffled_join(stream: Exec, build: Exec, stream_key: str,
                       build_key: str, how: JoinType) -> Exec:
-        return HashJoinExec(
-            [col(stream_key)], [col(build_key)], how,
-            _hash_exchange(stream, stream_key, shuffle_partitions),
-            _hash_exchange(build, build_key, shuffle_partitions),
-            broadcast_build=False, max_build_rows=max_build_rows)
+        return aqe.shuffled_join([col(stream_key)], [col(build_key)], how,
+                                 stream, build, shuffle_partitions,
+                                 max_build_rows=max_build_rows)
 
     big_orders = FilterExec(
         col("sq") > lit(float(quantity)),
-        _grouped(scan(lineitem), ["l_orderkey"],
-                 lambda: q18_aggregates("sq"), shuffle_partitions))
+        aqe.grouped(scan(lineitem), ["l_orderkey"],
+                    lambda: q18_aggregates("sq"), shuffle_partitions))
     semi = shuffled_join(scan(orders), big_orders, "o_orderkey",
                          "l_orderkey", JoinType.LEFT_SEMI)
     cust = scan(customer)
@@ -816,8 +882,8 @@ def q18_plan(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
                                   JoinType.INNER), cust, semi)
     joined = shuffled_join(co, scan(lineitem), "o_orderkey", "l_orderkey",
                            JoinType.INNER)
-    final = _grouped(CoalesceBatchesExec(joined, TargetSize()), Q18_KEYS,
-                     q18_aggregates, shuffle_partitions)
+    final = aqe.grouped(CoalesceBatchesExec(joined, TargetSize()), Q18_KEYS,
+                        q18_aggregates, shuffle_partitions)
     return GlobalLimitExec(Q18_LIMIT, SortExec(
         [desc(col("o_totalprice")), asc(col("o_orderdate"))], final))
 
@@ -827,11 +893,14 @@ def run_q18(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
             device_limit: Optional[int] = None,
             max_build_rows: int = JOIN_MAX_BUILD_ROWS,
             device: DeviceLike = None,
-            quantity: float = Q18_QUANTITY) -> pa.Table:
-    """Q18 over the three tables, collected to the host."""
+            quantity: float = Q18_QUANTITY, adaptive: bool = False,
+            **knobs) -> pa.Table:
+    """Q18 over the three tables, collected to the host (``knobs``: the
+    adaptive ones of ``q18_plan``)."""
     return collect(q18_plan(customer, orders, lineitem, num_slices,
                             shuffle_partitions, device_limit,
-                            max_build_rows, device, quantity))
+                            max_build_rows, device, quantity, adaptive,
+                            **knobs))
 
 
 def q18_groups_reference(customer: pa.Table, orders: pa.Table,
@@ -1140,8 +1209,9 @@ def q2_plan(part: pa.Table, supplier: pa.Table, partsupp: pa.Table,
                            ["ps_suppkey"], ["s_suppkey"], shuffle_partitions)
     mins = ProjectExec(
         [col("ps_partkey").alias("m_partkey"), col("min_cost")],
-        _grouped(CoalesceBatchesExec(costs, TargetSize()), ["ps_partkey"],
-                 q2_aggregates, shuffle_partitions))
+        Adaptive.OFF.grouped(CoalesceBatchesExec(costs, TargetSize()),
+                             ["ps_partkey"], q2_aggregates,
+                             shuffle_partitions))
     parts = FilterExec(And(EqualTo(col("p_size"), lit(Q2_SIZE)),
                            endswith(col("p_type"), Q2_TYPE_SUFFIX)),
                        scan(part))
@@ -1209,10 +1279,11 @@ def q11_plan(partsupp: pa.Table, supplier: pa.Table, nation: pa.Table,
             scan(partsupp, Q11_COLUMNS["partsupp"]), suppliers,
             ["ps_suppkey"], ["s_suppkey"], shuffle_partitions), TargetSize())
 
-    groups = _grouped(german_rows(), ["ps_partkey"], q11_aggregates,
-                      shuffle_partitions)
-    total = _grouped(german_rows(), [], lambda: q11_aggregates("total"),
-                     shuffle_partitions)
+    groups = Adaptive.OFF.grouped(german_rows(), ["ps_partkey"],
+                                  q11_aggregates, shuffle_partitions)
+    total = Adaptive.OFF.grouped(german_rows(), [],
+                                 lambda: q11_aggregates("total"),
+                                 shuffle_partitions)
     having = BroadcastNestedLoopJoinExec(
         JoinType.INNER, groups, BroadcastExchangeExec(total),
         GreaterThan(col("value"), col("total") * lit(float(fraction))))
@@ -1227,3 +1298,98 @@ def run_q11(partsupp: pa.Table, supplier: pa.Table, nation: pa.Table,
     """Q11 over the three tables, collected to the host."""
     return collect(q11_plan(partsupp, supplier, nation, fraction,
                             num_slices, shuffle_partitions, device))
+
+
+# ---------------------------------------------------------------------------
+# The skewed join (tools/skew_bench.py's shape)
+# ---------------------------------------------------------------------------
+
+#: the skew bench's legs (``tools/skew_bench.LEGS``): AQE off; coalesce and
+#: skew split; and those with the runtime broadcast switch
+SKEW_LEGS = ("static", "adaptive", "adaptive_bcast")
+#: the bench's fact slices (its upstream map tasks: one piece per slice
+#: per shuffle partition, the granularity a skewed partition splits at)
+SKEW_SLICES = 16
+SKEW_PARTITIONS = 32
+#: the bench's ``skewJoin.splitRows`` (16,384 of its 131,072 fact rows)
+SKEW_SPLIT_ROWS_BENCH = 1 << 14
+
+
+def skew_tables(rows: int = 1 << 17, keys: int = 1 << 12,
+                hot_frac: float = 0.5, seed: int = 29
+                ) -> Tuple[pa.Table, pa.Table]:
+    """``(fact, dim)``: the skew bench's draws
+    (``tools/skew_bench.make_skewed_tables``). Key 0 takes ``hot_frac`` of
+    the fact rows and the rest are uniform over keys 1 to ``keys - 1``, so
+    after hash partitioning one shuffle partition holds about ``hot_frac``
+    of the table; ``g`` is one of 64 groups and ``v`` a measure. The dim
+    has one row per key, ``dk`` with a measure ``w``."""
+    rng = np.random.default_rng(seed)
+    n_hot = int(rows * hot_frac)
+    k = np.concatenate([
+        np.zeros(n_hot, dtype=np.int64),
+        rng.integers(1, keys, rows - n_hot).astype(np.int64)])
+    rng.shuffle(k)
+    fact = pa.table({
+        "k": k,
+        "g": rng.integers(0, 64, rows).astype(np.int32),
+        "v": rng.integers(-1000, 1000, rows).astype(np.int64),
+    })
+    dim = pa.table({
+        "dk": np.arange(keys, dtype=np.int64),
+        "w": rng.integers(0, 10, keys).astype(np.int64),
+    })
+    return fact, dim
+
+
+def skew_aggregates():
+    return [Sum(col("v")).alias("sv"), Sum(col("w")).alias("sw"),
+            Count().alias("c")]
+
+
+def skew_plan(fact: pa.Table, dim: pa.Table, leg: str = "adaptive_bcast",
+              split_rows: int = SKEW_SPLIT_ROWS_BENCH,
+              num_slices: int = SKEW_SLICES,
+              shuffle_partitions: int = SKEW_PARTITIONS,
+              target_rows: int = ADAPTIVE_TARGET_ROWS,
+              device: DeviceLike = None) -> Exec:
+    """The tree the JAX Session gives the skew bench's query
+    (``tools/skew_bench._query``: fact JOIN dim ON k = dk, GROUP BY g with
+    sum(v), sum(w) and count(*), ORDER BY g) under the conf of ``leg``:
+    the join shuffled in every leg (``autoBroadcastJoinThreshold`` 0);
+    ``adaptive`` splits a stream partition over ``split_rows`` rows;
+    ``adaptive_bcast`` also switches the join to a broadcast when the dim
+    measures at most ``max(dim rows, 2^16)`` rows. The fact scans in
+    ``num_slices`` slices of one batch each, the dim in one."""
+    if leg not in SKEW_LEGS:
+        raise ValueError(f"leg {leg!r} is not one of {SKEW_LEGS}")
+    aqe = Adaptive(
+        leg != "static", target_rows, split_rows,
+        max(dim.num_rows, 1 << 16) if leg == "adaptive_bcast" else None)
+    dev = resolve_device(device)
+    facts = InMemoryScanExec(fact, schema_from_arrow(fact.schema),
+                             batch_rows=max(1, fact.num_rows // num_slices),
+                             num_slices=num_slices, device=dev)
+    dims = InMemoryScanExec(dim, schema_from_arrow(dim.schema), device=dev)
+    joined = aqe.shuffled_join([col("k")], [col("dk")], JoinType.INNER,
+                               facts, dims, shuffle_partitions)
+    final = aqe.grouped(CoalesceBatchesExec(joined, TargetSize()), ["g"],
+                        skew_aggregates, shuffle_partitions)
+    return SortExec([asc(col("g"))], final)
+
+
+def run_skew(fact: pa.Table, dim: pa.Table, leg: str = "adaptive_bcast",
+             device: DeviceLike = None, **kw) -> pa.Table:
+    """The skew bench's query under ``leg``, collected to the host
+    (``kw``: the other arguments of ``skew_plan``)."""
+    return collect(skew_plan(fact, dim, leg, device=device, **kw))
+
+
+def skew_reference(fact: pa.Table, dim: pa.Table) -> pa.Table:
+    """The skew bench's query computed by pyarrow alone."""
+    j = fact.join(dim, keys="k", right_keys="dk", join_type="inner")
+    g = j.group_by("g").aggregate([("v", "sum"), ("w", "sum"),
+                                   ("g", "count")])
+    out = pa.table([g.column("g"), g.column("v_sum"), g.column("w_sum"),
+                    g.column("g_count")], names=["g", "sv", "sw", "c"])
+    return out.sort_by("g")

@@ -162,20 +162,26 @@ def _string_words(data: torch.Tensor) -> torch.Tensor:
 
 def orderable_words(col: DeviceColumn) -> List[torch.Tensor]:
     """Tensors whose lexicographic order under torch's own comparison is
-    the column's SQL ascending order. Doubles give a NaN-flag word first,
-    so NaN ranks greatest (Spark), and compare as floats, so -0.0 == 0.0.
-    Strings give their 8-byte words, whose zero padding orders "a" before
-    "ab", then their length, which orders "a" before "a\x00"."""
+    the column's SQL ascending order. Floats and doubles give a NaN-flag
+    word first, so NaN ranks greatest (Spark), and compare as floats, so
+    -0.0 == 0.0 (the JAX package orders float32 by its bits, -0.0 below
+    0.0). Strings give their 8-byte words, whose zero padding orders "a"
+    before "ab", then their length, which orders "a" before "a\x00".
+    int8, int16 and NULL columns widen to int32; int32, date, int64,
+    timestamp and decimal (unscaled, one scale per column) sort on their
+    signed value."""
     k = col.dtype.kind
     if k is TypeKind.STRING:
         words = _string_words(col.data)
         return [words[:, i] for i in range(words.shape[1])] + [col.lengths]
     if k is TypeKind.BOOLEAN:
         return [col.data.to(torch.uint8)]
-    if k is TypeKind.FLOAT64:
+    if col.dtype.is_fractional:
         nan = torch.isnan(col.data)
         return [nan.to(torch.uint8), torch.where(nan, 0.0, col.data)]
-    return [col.data]            # int32, date, int64: signed order is SQL's
+    if col.data.dtype in (torch.int8, torch.int16):
+        return [col.data.to(torch.int32)]
+    return [col.data]
 
 
 def may_skip_null_lane(expr) -> bool:

@@ -18,8 +18,8 @@ CROSS, over a planned broadcast or over co-partitioned inputs:
    candidate counts, gathers both sides and keeps verified pairs. A probe
    batch whose rows have at most one candidate each maps rows 1:1 instead.
 
-The search word of a single int32, int64, date or boolean key is the key
-itself, so candidates are exact matches. Other keys take a 31-bit murmur3
+The search word of a single int8, int16, int32, int64, date, timestamp or
+boolean key is the key itself, so candidates are exact matches. Other keys take a 31-bit murmur3
 row hash and every candidate is verified on the keys, so a hash collision
 costs a candidate, never a wrong row.
 
@@ -63,8 +63,20 @@ stays a device scalar, and the output is sized statically. It also uses
 ``_expand_masked``, the INNER expansion without its compaction, in front
 of an aggregate.
 
-Not ported here: the AQE hooks (``_maybe_coordinate``, the runtime
-broadcast switch and the skew split).
+Adaptive execution, as in the JAX package: over two shuffle exchanges, the
+join's first look at its partitions (``num_partitions`` or a read) lays
+out both exchanges' reader partitions together
+(``shuffle.exchange.coordinate_join_reads``), with the skew split at
+``skew_split_rows`` stream rows, suppressed for RIGHT and FULL outer joins
+(their per-partition build tails need each build row probed in exactly one
+reader partition). Before that, a build side that measures at most
+``broadcast_switch_rows`` rows switches the join to a broadcast at run time
+(never for RIGHT or FULL outer): the build exchange is read once, its
+batches kept in a plain list outside the catalog's budget and probed by
+every stream partition. ``close`` restores the planned mode, so a re-run
+decides again from fresh statistics. The probe loop pre-splits a stream
+batch over ``skew_split_rows`` rows through the retry loop's split
+(``with_retry(presplit_rows=)``).
 """
 
 from __future__ import annotations
@@ -76,6 +88,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import torch
 
 from .. import types as T
+from ..adaptive import record_decision
 from ..batch import (ColumnarBatch, DeviceColumn, Field, Schema,
                      bucket_capacity, empty_batch, rows_scalar)
 from ..config import JOIN_MAX_BUILD_ROWS
@@ -111,7 +124,8 @@ _BUILD_TAIL_TYPES = (JoinType.RIGHT_OUTER, JoinType.FULL_OUTER)
 _STREAM_TAIL_TYPES = (JoinType.LEFT_OUTER, JoinType.FULL_OUTER)
 
 #: key kinds probed on their own value, not on a hash
-_EXACT_KINDS = (TypeKind.INT32, TypeKind.INT64, TypeKind.DATE,
+_EXACT_KINDS = (TypeKind.INT8, TypeKind.INT16, TypeKind.INT32,
+                TypeKind.INT64, TypeKind.DATE, TypeKind.TIMESTAMP,
                 TypeKind.BOOLEAN)
 
 _WORD_MAX = torch.iinfo(torch.int64).max
@@ -220,7 +234,9 @@ class HashJoinExec(BinaryExec):
                  condition: Optional[Expression] = None,
                  broadcast_build: bool = True,
                  ctx: Optional[EvalContext] = None,
-                 max_build_rows: int = JOIN_MAX_BUILD_ROWS):
+                 max_build_rows: int = JOIN_MAX_BUILD_ROWS,
+                 skew_split_rows: Optional[int] = None,
+                 broadcast_switch_rows: Optional[int] = None):
         super().__init__(left, right, ctx)
         if join_type is JoinType.CROSS:
             raise ValueError("use BroadcastNestedLoopJoinExec for cross joins")
@@ -228,9 +244,21 @@ class HashJoinExec(BinaryExec):
         # partition. False: both children are hash-partitioned on the join
         # keys and partition p probes partition p.
         self.broadcast_build = broadcast_build
+        self._planned_broadcast = broadcast_build
         self.max_build_rows = max_build_rows
+        #: AQE: stream rows above which a partition splits (None: off)
+        self.skew_split_rows = skew_split_rows
+        #: AQE: measured build rows at or under which a shuffled join
+        #: switches to a broadcast (None: off)
+        self.broadcast_switch_rows = broadcast_switch_rows
+        self._coordinated = False
+        #: the runtime broadcast's build, read once from the exchange
+        self._switch_build_cache: Optional[List[ColumnarBatch]] = None
         #: grace-join buckets over all partitions (0: no grace join ran)
         self.metrics["graceBuckets"] = Metric("graceBuckets")
+        #: device bytes of the runtime broadcast's build, held outside the
+        #: catalog's budget while the join runs (0: no switch)
+        self.metrics["switchBuildBytes"] = Metric("switchBuildBytes")
         self.join_type = join_type
         self.left_keys = bind_all(left_keys, left.output_schema)
         self.right_keys = bind_all(right_keys, right.output_schema)
@@ -562,8 +590,62 @@ class HashJoinExec(BinaryExec):
     # Iterator
     # ------------------------------------------------------------------
 
+    def _maybe_coordinate(self) -> None:
+        """Over two shuffle exchanges, once: try the runtime broadcast
+        switch, else lay out both exchanges' reader partitions together
+        (coalesce on the combined counts, skew split)."""
+        if self.broadcast_build or self._coordinated:
+            return
+        self._coordinated = True
+        from ..shuffle.exchange import (ShuffleExchangeExec,
+                                        coordinate_join_reads)
+        l, r = self.left, self.right
+        if not (isinstance(l, ShuffleExchangeExec)
+                and isinstance(r, ShuffleExchangeExec)):
+            return
+        if self._maybe_broadcast_switch(r):
+            return
+        if not (l.adaptive or r.adaptive or self.skew_split_rows):
+            return
+        split = self.skew_split_rows
+        if self.join_type in _BUILD_TAIL_TYPES:
+            # per-partition build tails stay right only while each build
+            # row is probed in exactly one reader partition
+            split = None
+        coordinate_join_reads(l, r, l.target_rows, split)
+
+    def _maybe_broadcast_switch(self, build_ex) -> bool:
+        """The runtime shuffled -> broadcast switch: reading the build
+        exchange's row counts materializes it; a build of at most
+        ``broadcast_switch_rows`` rows is then replicated to every stream
+        partition. Never for RIGHT or FULL outer joins. A replicated build
+        probes the same pairs per stream partition as the co-partitioned
+        layout does across partitions."""
+        if (self.broadcast_switch_rows is None
+                or self.join_type in _BUILD_TAIL_TYPES):
+            return False
+        build_rows = sum(build_ex.partition_row_counts())
+        if build_rows > self.broadcast_switch_rows:
+            return False
+        record_decision(
+            "broadcastSwitch",
+            f"shuffled {self.join_type.name} join: build side measured "
+            f"{build_rows} rows <= maxBuildRows="
+            f"{self.broadcast_switch_rows} -> replicating build "
+            f"(runtime broadcast)")
+        self.broadcast_build = True
+        return True
+
+    def do_close(self) -> None:
+        # the exchanges drop their pieces and reader specs on close: a
+        # re-run must lay them out again, and decide the switch again
+        self._coordinated = False
+        self.broadcast_build = self._planned_broadcast
+        self._switch_build_cache = None
+
     @property
     def num_partitions(self) -> int:
+        self._maybe_coordinate()
         # with a replicated build, RIGHT/FULL outer need one matched-build
         # state over every stream row, so every stream partition folds
         # into one and the build tail is emitted once
@@ -572,7 +654,20 @@ class HashJoinExec(BinaryExec):
         return self.left.num_partitions
 
     def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
-        if self.broadcast_build:
+        self._maybe_coordinate()
+        if self.broadcast_build and not self._planned_broadcast:
+            # the runtime switch: the build is still a shuffle exchange,
+            # read whole once (its pieces close after their read) and
+            # kept for every stream partition; bounded by the switch's
+            # row ceiling
+            if self._switch_build_cache is None:
+                self._switch_build_cache = [
+                    b for cp in range(self.right.num_partitions)
+                    for b in self.right.execute_partition(cp)]
+                self.metrics["switchBuildBytes"].add(
+                    sum(b.size_bytes() for b in self._switch_build_cache))
+            build_batches = list(self._switch_build_cache)
+        elif self.broadcast_build:
             build_batches = [b for cp in range(self.right.num_partitions)
                              for b in self.right.execute_partition(cp)]
         else:
@@ -659,9 +754,12 @@ class HashJoinExec(BinaryExec):
             inp = SpillableInput.admit(stream, stream_schema, cat,
                                        name=self.name)
             del stream          # the catalog holds it from here
+            # the skew seam: a stream batch measured over the split rows
+            # pre-splits through the retry loop's split
             for out, mb in with_retry(inp, probe_body,
                                       split=split_input_halves,
-                                      catalog=cat, name=self.name):
+                                      catalog=cat, name=self.name,
+                                      presplit_rows=self.skew_split_rows):
                 if mb is not None:
                     matched_build = mb
                 yield out

@@ -27,9 +27,13 @@ Where the JAX package departs from Spark, the port follows Spark:
 - ANSI reports the JAX package leaves out: ``MIN div -1``, ``-MIN`` and
   ``abs(MIN)`` overflow, and ``%`` and ``pmod`` by zero divide by zero.
 
-``Multiply``'s decimal result type waits for the DECIMAL type; int8 and
-int16 operands, and ``Shift``'s promotion of them to int, wait for their
-types.
+int8 and int16 operands wrap at their own width, as Java's narrowing of
+the int result does; ``pmod`` computes ``(r + n) % n`` in int, as Java
+promotes bytes and shorts. ``Shift`` promotes them to int.
+``Multiply`` of decimals gives DECIMAL(p1 + p2 + 1, s1 + s2) over the
+unscaled product (an integral operand counts as precision 0, scale 0, as in
+the JAX package); past 18 digits the type raises ``NotImplementedError``.
+Other arithmetic on decimals adds unscaled values as the JAX package does.
 """
 
 from __future__ import annotations
@@ -131,6 +135,15 @@ class Subtract(BinaryArithmetic):
 class Multiply(BinaryArithmetic):
     SYMBOL = "*"
 
+    @property
+    def dtype(self):
+        d = T.common_numeric_type(self.left.dtype, self.right.dtype)
+        if d.kind is TypeKind.DECIMAL:
+            ld, rd = self.left.dtype, self.right.dtype
+            return T.decimal(ld.precision + rd.precision + 1,
+                             ld.scale + rd.scale)
+        return d
+
     def eval(self, batch, ctx=EvalContext()):
         l, r, v, d = self._operands(batch, ctx)
         res = l * r
@@ -219,10 +232,13 @@ class Pmod(_DivisionFamily):
 
     def eval(self, batch, ctx=EvalContext()):
         l, r, v, d = self._divisor_checked(batch, ctx)
+        if l.dtype in (torch.int8, torch.int16):
+            # Java adds bytes and shorts as ints: r + n must not wrap
+            l, r = l.to(torch.int32), r.to(torch.int32)
         safe = _safe_divisor(r, d.is_fractional)
         m = torch.fmod(l, safe)
         m = torch.where(m < 0, torch.fmod(m + r, safe), m)
-        return numeric_column(m, v, d)
+        return numeric_column(m.to(d.storage_dtype), v, d)
 
 
 @dataclass(frozen=True, eq=False)

@@ -44,7 +44,7 @@ def _compare_data(lc: DeviceColumn, rc: DeviceColumn, op: str
             return eq
         lt = string_compare_lt(lc, rc)
         return {"lt": lt, "le": lt | eq, "gt": ~(lt | eq), "ge": ~lt}[op]
-    if lc.dtype.kind is TypeKind.FLOAT64 or rc.dtype.kind is TypeKind.FLOAT64:
+    if lc.dtype.is_fractional or rc.dtype.is_fractional:
         return _float_compare(lc.data.to(torch.float64),
                               rc.data.to(torch.float64), op)
     # torch promotes mixed widths (int32 date vs int64 literal) itself

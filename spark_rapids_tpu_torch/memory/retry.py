@@ -9,6 +9,9 @@ Port of ``spark_rapids_tpu/memory/retry.py``:
   ``spark.rapids.tpu.retry.splitFloorRows``) and the halves re-enter the
   queue in order, so concatenated results are bit for bit the no-OOM
   output.
+- ``presplit_inputs`` and ``with_retry(..., presplit_rows=n)``: the
+  adaptive skew seam, which halves an input measured over ``n`` rows
+  before its first attempt (``preSplitCount``).
 - ``with_retry_no_split(body)``: the same loop for bodies whose input
   cannot be halved (final merges, builds, single acquires).
 - ``SpillableInput``: a batch parked in the catalog across a retry
@@ -105,6 +108,9 @@ class RetryMetrics:
         self.retry_block_time_ns = 0
         self.spill_bytes_triggered = 0
         self.empty_cache_count = 0
+        #: adaptive skew pre-splits: inputs cut to the skew row target
+        #: before the first device attempt (``with_retry(presplit_rows=)``)
+        self.pre_split_count = 0
         #: per-operator {name: [retries, splits]} for the OOM dump
         self.per_op: Dict[str, List[int]] = {}
 
@@ -116,6 +122,11 @@ class RetryMetrics:
     def note_split(self, name: str) -> None:
         with self._lock:
             self.split_and_retry_count += 1
+            self.per_op.setdefault(name, [0, 0])[1] += 1
+
+    def note_presplit(self, name: str) -> None:
+        with self._lock:
+            self.pre_split_count += 1
             self.per_op.setdefault(name, [0, 0])[1] += 1
 
     def note_block(self, ns: int) -> None:
@@ -138,6 +149,7 @@ class RetryMetrics:
                 "retryBlockTime": self.retry_block_time_ns,
                 "retrySpillBytes": self.spill_bytes_triggered,
                 "emptyCacheCount": self.empty_cache_count,
+                "preSplitCount": self.pre_split_count,
             }
 
 
@@ -407,6 +419,28 @@ def split_input_halves(item):
     return item.split(_POLICY.split_floor_rows)
 
 
+def presplit_inputs(inp, target_rows: int,
+                    split: Callable = split_input_halves) -> List:
+    """Adaptive pre-split: cut an input measured over ``target_rows`` rows
+    into in-order chunks before the first device attempt, with the split
+    policy the retry loop applies on OOM (so the chunks are the halves an
+    OOM would have made, and the split floor still bounds the recursion).
+    An input without a ``rows`` measure passes through."""
+    work, out = deque([inp]), []
+    while work:
+        item = work.popleft()
+        rows = getattr(item, "rows", None)
+        if rows is not None and rows > target_rows:
+            halves = split(item)
+            if halves:
+                _METRICS.note_presplit(getattr(item, "name", "presplit"))
+                for h in reversed(halves):
+                    work.appendleft(h)
+                continue
+        out.append(item)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the retry state machine
 # ---------------------------------------------------------------------------
@@ -451,18 +485,27 @@ def _final_oom(exc: BaseException, cat: BufferCatalog, name: str,
 
 def with_retry(inp, body: Callable, split: Optional[Callable] = None, *,
                catalog: BufferCatalog, name: str = "op",
-               max_retries: Optional[int] = None, close_input: bool = True):
+               max_retries: Optional[int] = None, close_input: bool = True,
+               presplit_rows: Optional[int] = None):
     """Generator: run ``body`` over ``inp`` and whatever ``split`` makes of
     it under OOM, yielding each result in input-row order.
 
     ``body`` must be re-runnable and must undo its own partial side effects
     (e.g. close staged catalog handles) before letting a retryable OOM
     propagate: the framework restores pins, not arbitrary state. Items are
-    closed after use when ``close_input`` (and on any raise)."""
+    closed after use when ``close_input`` (and on any raise).
+
+    ``presplit_rows`` (the join probe's skew seam): an input measuring over
+    this many rows is split through the same machinery before its first
+    attempt, so a hot partition that the shuffle statistics already
+    measured never has to OOM its way down to a workable size."""
     cat = catalog
     if max_retries is None:
         max_retries = _POLICY.max_retries
-    work = deque([inp])
+    if presplit_rows and split is not None and _POLICY.enabled:
+        work = deque(presplit_inputs(inp, presplit_rows, split))
+    else:
+        work = deque([inp])
     try:
         while work:
             item = work.popleft()

@@ -1,5 +1,8 @@
-"""Shuffle: partitionings and the in-process exchange."""
+"""Shuffle: partitionings, the in-process exchange and its adaptive reads."""
 
 from .exchange import (BroadcastExchangeExec,  # noqa: F401
-                       BroadcastTooLargeError, ShuffleExchangeExec)
-from .partitioning import HashPartitioning, SinglePartitioning  # noqa: F401
+                       BroadcastTooLargeError, ReadSpec,
+                       ShuffleExchangeExec, coordinate_join_reads)
+from .partitioning import (HashPartitioning,  # noqa: F401
+                           RangePartitioning, RoundRobinPartitioning,
+                           SinglePartitioning)

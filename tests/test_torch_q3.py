@@ -232,6 +232,11 @@ def test_q3_entry_points_ask_for_cuda_by_default(monkeypatch, entry_point):
 def test_join_slice_modules_load_no_jax():
     modules = ["spark_rapids_tpu_torch.exec.join",
                "spark_rapids_tpu_torch.shuffle.exchange",
+               "spark_rapids_tpu_torch.shuffle.partitioning",
+               "spark_rapids_tpu_torch.adaptive",
+               "spark_rapids_tpu_torch.types",
+               "spark_rapids_tpu_torch.expressions.hashing",
+               "spark_rapids_tpu_torch.memory.retry",
                "spark_rapids_tpu_torch.entry"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m.split('.')[0] in\n"

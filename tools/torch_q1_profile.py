@@ -3,8 +3,8 @@
 one NVIDIA GPU.
 
     python3 tools/torch_q1_profile.py
-        [--query q1|q16_part|q3|q18|q2|q11|join_sort] [--rows N]
-        [--trace PATH]
+        [--query q1|q16_part|q3|q18|q2|q11|join_sort|skew] [--rows N]
+        [--adaptive] [--leg static|adaptive|adaptive_bcast] [--trace PATH]
 
 Runs TPC-H Q1 (the default), the part stage of TPC-H Q16, TPC-H Q3,
 TPC-H Q18, TPC-H Q2 or TPC-H Q11 through ``spark_rapids_tpu_torch.entry``
@@ -38,6 +38,13 @@ over the device time of the pinned copies, against the PCIe bound) and the
 grace join's split (host time of its ranges and the device time under
 them). For Q11 it prints the smallest relative margin of a group's value
 to the HAVING threshold.
+
+``--adaptive`` builds Q3 or Q18 under the JAX Session's default adaptive
+conf (``entry.q3_plan(..., adaptive=True)``) and prints the decisions of
+the profiled run. ``--query skew`` runs the skew bench's query at
+``chip_smoke.py``'s size (67,108,864 fact rows, 2,097,152 dim rows) in one
+leg (``--leg``) or, by default, in each of its three legs in turn, with the
+decisions of each profiled run.
 
 ``--query join_sort`` runs the bench's join+sort stage at
 ``chip_smoke.py``'s two sizes (2^21 x 2^18 rows, and 59,986,052 x
@@ -174,6 +181,10 @@ def join_steps(plan, dev) -> None:
     from spark_rapids_tpu_torch.batch import bucket_capacity
     from spark_rapids_tpu_torch.exec.common import concat_all
     for join in chip_smoke._execs(plan, "HashJoinExec"):
+        # an exchange's piece goes with its last read: start each join
+        # from fresh exchanges, laid out as the run laid them out
+        plan.close()
+        join.num_partitions
         build = concat_all(list(join.right.execute_partition(0)),
                            join.right.output_schema, dev)
         [stream] = list(join.left.execute_partition(0))
@@ -196,6 +207,7 @@ def join_steps(plan, dev) -> None:
               f"rows at capacity {stream.capacity} {ms[1]:.3f} ms; expand "
               f"to {total} pairs at capacity {out_cap} (1:1 path "
               f"{most <= 1 and out_cap >= stream.capacity}) {ms[2]:.3f} ms")
+    plan.close()
     plan.close()
 
 
@@ -295,12 +307,114 @@ def _join_sort_modes(args, dev, plan, n_stream, n_build) -> None:
             print(f"trace written to {path}")
 
 
+def profile_run(args, dev, label, make_plan, tables, slices, parts, rows,
+                expected, check, table=None):
+    """One path's warm walls, upload time, operator metrics and one
+    profiled run (device time per operator, per kernel and by kind).
+    Returns (plan, profile, device events, device ms by kind, peak)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from spark_rapids_tpu_torch import adaptive, entry
+    from spark_rapids_tpu_torch.batch import from_arrow
+    from spark_rapids_tpu_torch.exec import collect
+
+    def run():
+        plan = make_plan(table, slices, parts, device=dev)
+        out = collect(plan)
+        torch.cuda.synchronize(dev)
+        return plan, out
+
+    check(run()[1], expected)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        plan, _ = run()
+        walls.append(time.perf_counter() - t0)
+    ups = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for t in tables:
+            step = max(1, -(-t.num_rows // slices))
+            # supplier's strings scan at their own width
+            width = (entry.SUPPLIER_STRING_MAX_LEN
+                     if "s_comment" in t.column_names
+                     else entry.STRING_MAX_LEN)
+            for off in range(0, t.num_rows, step):
+                from_arrow(t.slice(off, step), string_max_len=width,
+                           device=dev)
+        torch.cuda.synchronize(dev)
+        ups.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    print(f"{label} warm wall {wall:.4f} s (median of "
+          f"{[round(w, 4) for w in walls]}), {rows / wall:,.0f} rows/s;"
+          f" Arrow upload alone {statistics.median(ups):.4f} s")
+    _tree_metrics(plan)
+
+    # the last warm run's plan holds its exchanges' pieces: drop it, so the
+    # peak below is the profiled run's own
+    plan = None
+    torch.cuda.reset_peak_memory_stats(dev)
+    mark = adaptive.reason_mark()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        plan, _ = run()
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    decided = adaptive.reasons(since=mark)
+    if decided:
+        print(f"{label} decisions of the profiled run: {decided}")
+    run_peak = torch.cuda.max_memory_allocated(dev)
+    device = chip_smoke.device_events(prof)
+    if not device:
+        raise RuntimeError("the profiler recorded no device activity")
+    busy = chip_smoke.busy_us([(e.time_range.start, e.time_range.end)
+                     for e in device])
+    print(f"profiled run: wall {prof_wall_us / 1e3:.2f} ms, device busy "
+          f"{busy / 1e3:.2f} ms, idle share {1 - busy / prof_wall_us:.1%} "
+          f"(against the unprofiled warm wall "
+          f"{1 - busy / (wall * 1e6):.1%}), device memory peak "
+          f"{run_peak / 2**30:.3f} GiB")
+
+    per_op = collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for k in getattr(e, "kernels", []):
+            per_op[_owner(e)] += k.duration
+    for name, us in per_op.most_common():
+        print(f"  device time under {name}: {us / 1e3:.2f} ms "
+              f"({us / busy:.1%} of busy)")
+    per_kernel = collections.Counter()
+    counts = collections.Counter()
+    for e in device:
+        per_kernel[e.name] += e.time_range.elapsed_us()
+        counts[e.name] += 1
+    top = [name for name, _ in per_kernel.most_common(14)]
+    top += [name for name in per_kernel if name not in top and
+            ("murmur3" in name or "window_match" in name)]
+    for name in top:
+        print(f"  {per_kernel[name] / 1e3:9.3f} ms  x{counts[name]:<5d} "
+              f"{name[:100]}")
+    run_kinds = _by_kind(device)
+    print(f"  device ms by kind: {_kinds_line(run_kinds)}")
+    if args.trace:
+        pathlib.Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+        print(f"trace written to {args.trace}")
+    return plan, prof, device, run_kinds, run_peak
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--query",
                     choices=("q1", "q16_part", "q3", "q18", "q2", "q11",
-                             "join_sort"),
+                             "join_sort", "skew"),
                     default="q1")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="q3, q18: the tree under the default adaptive conf")
+    ap.add_argument("--leg", default=None,
+                    choices=("static", "adaptive", "adaptive_bcast"),
+                    help="skew: one leg (default: each in turn)")
     ap.add_argument("--rows", type=int, default=None,
                     help="input rows of Q1 or Q16 (default: chip_smoke's "
                          "SF10 lineitem or SF100 part count)")
@@ -311,14 +425,32 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_q1_profile: CUDA is not available", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
     from spark_rapids_tpu_torch import entry
-    from spark_rapids_tpu_torch.batch import from_arrow
-    from spark_rapids_tpu_torch.exec import collect
     dev = torch.device("cuda", 0)
     print(chip_smoke.card_line())
     if args.query == "join_sort":
         return join_sort_profile(args, dev)
+    if args.query == "skew":
+        fact, dim = entry.skew_tables(chip_smoke.SKEW_ROWS,
+                                      chip_smoke.SKEW_KEYS,
+                                      chip_smoke.SKEW_HOT_FRAC,
+                                      chip_smoke.SKEW_SEED)
+        expected = entry.skew_reference(fact, dim)
+
+        def check(got, exp):
+            if not got.equals(exp):
+                raise AssertionError("skew differs from its oracle")
+        for leg in ([args.leg] if args.leg else entry.SKEW_LEGS):
+            print(f"skew leg {leg}")
+
+            def make_plan(_, slices, parts, device, leg=leg):
+                return entry.skew_plan(
+                    fact, dim, leg, split_rows=chip_smoke.SKEW_SPLIT_ROWS,
+                    device=device)
+            profile_run(args, dev, f"skew {leg}", make_plan, [fact, dim],
+                        entry.SKEW_SLICES, entry.SKEW_PARTITIONS,
+                        fact.num_rows, expected, check)
+        return 0
     if args.query == "q1":
         rows = args.rows or chip_smoke.SF10_LINEITEM_ROWS
         slices, parts = chip_smoke.Q1_SLICES, chip_smoke.Q1_SHUFFLE_PARTITIONS
@@ -335,7 +467,8 @@ def main(argv=None) -> int:
         check = chip_smoke.check_q3_result
 
         def make_plan(_, slices, parts, device):
-            return entry.q3_plan(*tables, slices, parts, device=device)
+            return entry.q3_plan(*tables, slices, parts, device=device,
+                                 adaptive=args.adaptive)
         table = None
     elif args.query == "q18":
         slices = chip_smoke.Q18_SLICES
@@ -349,7 +482,7 @@ def main(argv=None) -> int:
         def make_plan(_, slices, parts, device):
             return entry.q18_plan(*tables, slices, parts,
                                   device_limit=chip_smoke.Q18_BUDGET,
-                                  device=device)
+                                  device=device, adaptive=args.adaptive)
         table = None
     elif args.query in ("q2", "q11"):
         slices = chip_smoke.Q2_SLICES
@@ -406,86 +539,10 @@ def main(argv=None) -> int:
             if not got.equals(exp):
                 raise AssertionError("q16_part differs from its oracle")
 
-    def run():
-        plan = make_plan(table, slices, parts, device=dev)
-        out = collect(plan)
-        torch.cuda.synchronize(dev)
-        return plan, out
-
-    check(run()[1], expected)
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        plan, _ = run()
-        walls.append(time.perf_counter() - t0)
-    ups = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for t in tables:
-            step = max(1, -(-t.num_rows // slices))
-            # supplier's strings scan at their own width
-            width = (entry.SUPPLIER_STRING_MAX_LEN
-                     if "s_comment" in t.column_names
-                     else entry.STRING_MAX_LEN)
-            for off in range(0, t.num_rows, step):
-                from_arrow(t.slice(off, step), string_max_len=width,
-                           device=dev)
-        torch.cuda.synchronize(dev)
-        ups.append(time.perf_counter() - t0)
-    wall = statistics.median(walls)
-    print(f"{args.query} warm wall {wall:.4f} s (median of "
-          f"{[round(w, 4) for w in walls]}), {rows / wall:,.0f} rows/s;"
-          f" Arrow upload alone {statistics.median(ups):.4f} s")
-    _tree_metrics(plan)
-
-    # the last warm run's plan holds its exchanges' pieces: drop it, so the
-    # peak below is the profiled run's own
-    plan = None
-    torch.cuda.reset_peak_memory_stats(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        plan, _ = run()
-        prof_wall_us = (time.perf_counter() - t0) * 1e6
-    run_peak = torch.cuda.max_memory_allocated(dev)
-    device = chip_smoke.device_events(prof)
-    if not device:
-        raise RuntimeError("the profiler recorded no device activity")
-    busy = chip_smoke.busy_us([(e.time_range.start, e.time_range.end)
-                     for e in device])
-    print(f"profiled run: wall {prof_wall_us / 1e3:.2f} ms, device busy "
-          f"{busy / 1e3:.2f} ms, idle share {1 - busy / prof_wall_us:.1%} "
-          f"(against the unprofiled warm wall "
-          f"{1 - busy / (wall * 1e6):.1%}), device memory peak "
-          f"{run_peak / 2**30:.3f} GiB")
-
-    per_op = collections.Counter()
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CPU:
-            continue
-        for k in getattr(e, "kernels", []):
-            per_op[_owner(e)] += k.duration
-    for name, us in per_op.most_common():
-        print(f"  device time under {name}: {us / 1e3:.2f} ms "
-              f"({us / busy:.1%} of busy)")
-    per_kernel = collections.Counter()
-    counts = collections.Counter()
-    for e in device:
-        per_kernel[e.name] += e.time_range.elapsed_us()
-        counts[e.name] += 1
-    top = [name for name, _ in per_kernel.most_common(14)]
-    top += [name for name in per_kernel if name not in top and
-            ("murmur3" in name or "window_match" in name)]
-    for name in top:
-        print(f"  {per_kernel[name] / 1e3:9.3f} ms  x{counts[name]:<5d} "
-              f"{name[:100]}")
-    run_kinds = _by_kind(device)
-    print(f"  device ms by kind: {_kinds_line(run_kinds)}")
-    if args.trace:
-        pathlib.Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(args.trace)
-        print(f"trace written to {args.trace}")
-
+    label = args.query + (" aqe" if args.adaptive else "")
+    plan, prof, device, run_kinds, run_peak = profile_run(
+        args, dev, label, make_plan, tables, slices, parts, rows, expected,
+        check, table)
     if args.query == "q3":
         join_steps(plan, dev)
     elif args.query == "q18":
