@@ -66,6 +66,24 @@ hash-partitioned alone, its partition counts over a 2^22-row prefix equal
 on the card and the CPU, murmur3 launched for the int8, int16 and float
 keys.
 
+Last the Parquet slice (``spark_rapids_tpu_torch/io``), over files written
+to a fresh temporary directory that is removed at the end: the SF10
+lineitem written through ``entry.write_lineitem_bucketed`` from an 8-slice
+scan into 16 buckets on l_shipdate (SNAPPY), whose ``WriteStats`` must count
+every row in 8 x 16 files, whose files read back through the port's
+``ParquetSource`` must hold only rows of their bucket (``murmur3_int32`` on
+the card, equal to its plain version) and together equal the input as a
+multiset of rows; the bench's scan (``bench.bench_parquet_scan``: 2^21 rows
+in 8 files, each reader type, then the SF10 lineitem in 8 files,
+MULTITHREADED), equal to pyarrow's dataset read as a row set, with its warm
+wall, rows/s, the decode alone beside the upload alone, the row groups
+pruned and the peak; Q1 from those SF10 files, equal to the pyarrow oracle
+and to the in-memory ``run_q1``, with its idle share and murmur3 held
+against its plain version on every batch of its exchange; and Q16's part
+stage from the SF100 part table in 8 files, exact. Every row group of
+those files must decode through the port's native decoder, and no scan of
+the runs may take the pyarrow fallback.
+
 Prints, in order: the card's name and power limit, the build time, each
 kernel check with its times and bound, the join check, the checks of Q1,
 the Q16 part stage and Q3 (AQE off, then on) with their times, the range
@@ -74,8 +92,8 @@ times, the catalog's tiers, spilled bytes, retry metrics, grace buckets
 and the allocator's peak, the skew legs, the types exchange, the
 out-of-core check, the injection run, the checks of Q2 and Q11 with their
 times, the captured kernel checks, the hash_agg, operator, new-operator
-and Q1-stage checks, the join_sort modes and the overflow retry, each
-phase's wall time, a
+and Q1-stage checks, the join_sort modes and the overflow retry, the
+Parquet write, scans, Q1 and Q16 part stage, each phase's wall time, a
 ``{"kernels": [...]}`` JSON line (the window_match times are at Q2's
 shape; launches count a graph's replays), and last
 ``{"ok": true, "device": ...}``. Any failed phase raises, so the exit code
@@ -86,9 +104,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 #: TPC-H SF10 lineitem rows
@@ -1716,7 +1736,8 @@ PROFILER_RANGES = ("SortExec", "HashAggregateExec", "ShuffleExchangeExec",
                    "LocalLimitExec", "BroadcastExchangeExec",
                    "BroadcastNestedLoopJoinExec", "TakeOrderedAndProjectExec",
                    "HashJoinExec.build", "HashJoinExec.count",
-                   "HashJoinExec.expand", "HashJoinExec.grace_split")
+                   "HashJoinExec.expand", "HashJoinExec.grace_split",
+                   "FileSourceScanExec[parquet]")
 
 
 def busy_us(intervals) -> float:
@@ -1734,31 +1755,108 @@ def busy_us(intervals) -> float:
     return total
 
 
+#: the kernel that brackets every profiled run (``torch.cuda._sleep``);
+#: nothing in the port launches it
+SENTINEL_KERNEL = "spin_kernel"
+#: its length in device cycles: a few microseconds
+SENTINEL_CYCLES = 10_000
+#: tries at one profile before it fails
+PROFILE_TRIES = 6
+#: the profiler range around the call itself inside ``capture``
+CALL_RANGE = "chip_smoke.capture"
+#: how ``capture`` opens and closes its window: the tiny kernels launched
+#: before the first sentinel, and the seconds of host idle after the last.
+#: Each doubles when its sentinel goes missing, and stays grown for later
+#: calls, since the losses grow as the process runs.
+_window = {"lead": 256, "pad": 0.02}
+
+
 def device_events(prof):
     """Kernels, copies and memsets of a profile, without the operators'
-    ranges that the profiler mirrors onto the device timeline."""
+    ranges that the profiler mirrors onto the device timeline and without
+    the sentinels and the call's range of ``capture``."""
     import torch
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name not in PROFILER_RANGES]
+            and e.name not in PROFILER_RANGES and e.name != CALL_RANGE
+            and SENTINEL_KERNEL not in e.name]
 
 
-def profiled(fn, dev, host: bool = True):
-    """(profile, host wall us, device busy us, device events) of one call
-    of ``fn`` under ``torch.profiler``; fails if the device did nothing.
+def capture(fn, dev, host: bool = True):
+    """(profile, host wall us, result, device records of the call) of one
+    call of ``fn`` under ``torch.profiler``, with every record of the call.
+
+    The profiler drops the device records it finds outside its window, and
+    on the H100 it finds some there: the first few records of a session
+    (late in a long run, every record of the bench's scan at its own
+    size), now and then the last. So the call is bracketed by a
+    sentinel kernel on each side, each followed by a synchronize; a lead of
+    tiny kernels before the first sentinel takes the losses at the start,
+    and idle host time after the last those at the end. While a sentinel
+    is missing, the call is profiled again with its side's lead or pad
+    doubled. The call's records are those between the sentinels; on the
+    host, the call runs under the range ``CALL_RANGE``.
     ``host=False`` records the device's activity alone, which reads back
     far quicker when a run launches hundreds of thousands of kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     activities = [ProfilerActivity.CUDA]
     if host:
         activities.append(ProfilerActivity.CPU)
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize(dev)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = device_events(prof)
+    lead_buf = torch.zeros(1, dtype=torch.int32, device=dev)
+    for _ in range(PROFILE_TRIES):
+        lead, pad = _window["lead"], _window["pad"]
+        with profile(activities=activities) as prof:
+            for _ in range(lead):
+                lead_buf.fill_(0)
+            torch.cuda._sleep(SENTINEL_CYCLES)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with record_function(CALL_RANGE):
+                out = fn()
+                torch.cuda.synchronize(dev)
+            wall_us = (time.perf_counter() - t0) * 1e6
+            torch.cuda._sleep(SENTINEL_CYCLES)
+            torch.cuda.synchronize(dev)
+            time.sleep(pad)
+        records = device_events(prof)
+        marks = sorted((e.time_range for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and SENTINEL_KERNEL in e.name),
+                       key=lambda r: r.start)
+        if len(marks) == 2:
+            first, last = marks
+            inside = [e for e in records if e.time_range.start >= first.end
+                      and e.time_range.end <= last.start]
+            # outside the sentinels lie the lead's kernels, no more
+            if len(records) - len(inside) > lead:
+                raise RuntimeError(
+                    f"{len(records) - len(inside) - lead} device records "
+                    f"of the call fell outside its sentinels")
+            return prof, wall_us, out, inside
+        # a lone sentinel with records after it opened the call
+        lost_first = not marks or not any(
+            e.time_range.start >= marks[0].end for e in records)
+        lost_last = len(marks) != 1 or not lost_first
+        if lost_first:
+            _window["lead"] = 2 * lead
+        if lost_last:
+            _window["pad"] = 2 * pad
+        lost = " and ".join(side for side, gone in (
+            ("first", lost_first), ("last", lost_last)) if gone)
+        print(f"profiler: the {lost} sentinel fell outside the window "
+              f"(lead {lead} kernels, pad {pad:.2f} s); "
+              f"profiling again with lead {_window['lead']}, pad "
+              f"{_window['pad']:.2f} s")
+    raise RuntimeError(f"the profiler dropped a sentinel kernel "
+                       f"{PROFILE_TRIES} times, the last with a lead of "
+                       f"{lead} kernels and a pad of {pad:.2f} s")
+
+
+def profiled(fn, dev, host: bool = True):
+    """(profile, host wall us, device busy us, device records) of one call
+    of ``fn`` through ``capture``; fails if the device did nothing."""
+    prof, wall_us, _, events = capture(fn, dev, host)
     if not events:
         raise RuntimeError("the profiler recorded no device activity")
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in events])
@@ -2301,6 +2399,332 @@ def check_range_sort(dev, lineitem) -> None:
           f"(pyarrow {oracle_s:.2f} s)")
 
 
+# ---------------------------------------------------------------------------
+# the Parquet slice: bucketed write, the bench's scan, Q1 and Q16's part
+# stage read from files
+# ---------------------------------------------------------------------------
+
+#: the bucketed write: SF10 lineitem from an 8-slice scan into 16 buckets
+#: on l_shipdate, SNAPPY (8 tasks x 16 bucket files)
+PARQUET_WRITE_SLICES = 8
+PARQUET_BUCKETS = 16
+#: bench.bench_parquet_scan's size and file count, and the SF10 files
+PARQUET_BENCH_ROWS = 1 << 21
+PARQUET_FILES = 8
+#: Q1 and Q16's part stage from files: scan partitions and shuffle
+#: partitions, as in memory
+PARQUET_SLICES = 8
+PARQUET_PARTITIONS = 8
+
+
+def same_rows(got, want, dev, what: str) -> None:
+    """``got`` and ``want`` (pyarrow tables of integer and double columns,
+    no nulls) hold the same multiset of rows: both are sorted on the card
+    by every column (doubles by their bits) and compared column for
+    column."""
+    import numpy as np
+    import torch
+    if got.column_names != want.column_names:
+        raise AssertionError(f"{what}: columns {got.column_names} != "
+                             f"{want.column_names}")
+    if got.num_rows != want.num_rows:
+        raise AssertionError(f"{what}: {got.num_rows} rows != "
+                             f"{want.num_rows}")
+
+    def sorted_columns(t):
+        cols = []
+        for name in t.column_names:
+            c = t.column(name)
+            if c.null_count:
+                raise AssertionError(f"{what}: {name} holds nulls")
+            a = np.ascontiguousarray(c.to_numpy())
+            a = a.view(np.int64) if a.dtype == np.float64 else a
+            cols.append(torch.from_numpy(a).to(dev))
+        order = torch.arange(t.num_rows, device=dev)
+        for x in reversed(cols):
+            order = order[torch.sort(x[order], stable=True).indices]
+        return [x[order] for x in cols]
+
+    for name, a, b in zip(got.column_names, sorted_columns(got),
+                          sorted_columns(want)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: column {name} differs as a "
+                                 f"multiset of rows")
+
+
+def check_native_decode(what: str, paths) -> int:
+    """Every row group of every file decodes through the port's native
+    decoder (``read_row_group_native`` gives a table, never the pyarrow
+    fallback's None), on the shared reader pool. Returns the row groups."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.io.parquet_native import \
+        read_row_group_native
+    from spark_rapids_tpu_torch.io.source import reader_pool
+
+    def one(path):
+        schema = pq.read_schema(path)
+        n = pq.ParquetFile(path).metadata.num_row_groups
+        for rg in range(n):
+            t = read_row_group_native(path, rg, schema.names, schema)
+            if t is None:
+                raise AssertionError(f"{what}: row group {rg} of {path} "
+                                     f"is outside the native decoder")
+        return n
+    groups = sum(reader_pool(8).map(one, paths))
+    print(f"{what}: all {groups} row groups of {len(paths)} files decode "
+          f"natively")
+    return groups
+
+
+def no_fallback(what: str, plan) -> None:
+    """No row group of ``plan``'s file scans took the pyarrow fallback."""
+    for scan in _execs(plan, "FileSourceScanExec[parquet]"):
+        if scan.source.row_groups_fallback:
+            raise AssertionError(
+                f"{what}: {scan.source.row_groups_fallback} row groups "
+                f"took the pyarrow fallback")
+
+
+def run_parquet_write_phase(dev, counted, table, out) -> dict:
+    """The bucketed write of ``table`` (SF10 lineitem) under ``out``:
+    ``WriteStats`` must count every row in 8 x 16 files; every file read
+    back through the port's ``ParquetSource`` must hold only rows whose
+    bucket id, from ``murmur3_int32`` on the card, equals the plain
+    version's and the file's bucket number; and the files' rows together
+    must equal the input as a multiset. Returns the write's launches."""
+    import pyarrow as pa
+    import torch
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.batch import to_arrow
+    from spark_rapids_tpu_torch.expressions.hashing import (DEFAULT_SEED,
+                                                            int32_words)
+    from spark_rapids_tpu_torch.io.parquet import ParquetSource
+    from spark_rapids_tpu_torch.io.scan import FileSourceScanExec
+    from spark_rapids_tpu_torch.kernels.murmur3 import (murmur3_int32,
+                                                        murmur3_int32_plain)
+    n = table.num_rows
+    torch.cuda.reset_peak_memory_stats(dev)
+    for wrapper in counted:
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    stats = entry.write_lineitem_bucketed(table, out, PARQUET_BUCKETS,
+                                          PARQUET_WRITE_SLICES, device=dev)
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in counted}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"parquet write: {stats.describe()} in {wall:.3f} s, "
+          f"{n / wall:,.0f} rows/s, {stats.num_bytes / wall / 1e6:,.1f} MB/s"
+          f" written; device memory peak {peak / 2**30:.2f} GiB; kernel "
+          f"launches {launches}")
+    want_files = PARQUET_WRITE_SLICES * PARQUET_BUCKETS
+    if (stats.num_rows, stats.num_files, stats.num_tasks) != (
+            n, want_files, PARQUET_WRITE_SLICES):
+        raise AssertionError(f"parquet write: {stats.describe()}, not {n} "
+                             f"rows in {want_files} files")
+    for kernel, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{kernel} was not launched by the "
+                                 f"bucketed write")
+
+    t0 = time.perf_counter()
+    key = table.column_names.index(entry.BUCKET_KEY)
+    pieces, worst, batches = [], 0, 0
+    for path in stats.files:
+        bucket = int(path.rsplit("_", 1)[1].split(".")[0])
+        scan = FileSourceScanExec(ParquetSource([path]), device=dev)
+        for batch in scan.execute():
+            c = batch.columns[key]
+            seed = torch.full((batch.capacity,), DEFAULT_SEED,
+                              dtype=torch.int32, device=dev)
+            args = (int32_words(c), c.validity.contiguous(), seed)
+            k, plain = murmur3_int32(*args), murmur3_int32_plain(*args)
+            worst = max(worst, int((k.long() - plain.long()).abs().max()))
+            live = batch.row_mask()
+            ids = torch.remainder(k, PARQUET_BUCKETS)
+            if bool((live & (ids != bucket)).any()):
+                raise AssertionError(f"parquet write: {path} holds rows of "
+                                     f"another bucket than {bucket}")
+            pieces.append(to_arrow(batch, scan.output_schema))
+            batches += 1
+        no_fallback("parquet write read-back", scan)
+    if worst:
+        raise AssertionError(f"murmur3_int32 disagrees with its plain "
+                             f"version on the written files ({worst})")
+    same_rows(pa.concat_tables(pieces), table, dev, "parquet write")
+    print(f"parquet write: {len(stats.files)} files read back through "
+          f"ParquetSource in {time.perf_counter() - t0:.2f} s "
+          f"({batches} batches): every row in its bucket by murmur3_int32"
+          f" on the card, equal to its plain version (max_abs_err "
+          f"{worst}); the files' rows equal the input as a multiset")
+    again = f"{out}_profiled"
+    profiled_idle("parquet write", lambda: entry.write_lineitem_bucketed(
+        table, again, PARQUET_BUCKETS, PARQUET_WRITE_SLICES, device=dev),
+        dev)
+    shutil.rmtree(again)
+    return launches
+
+
+def run_parquet_scan(dev, label: str, paths, rows: int, reader) -> dict:
+    """The bench's scan over ``paths`` in one reader type: its batches
+    equal pyarrow's dataset read as a row set, then the warm wall (median
+    of three), rows/s of input rows, the decode alone (``read_split``,
+    nothing uploaded) beside the upload alone (those tables through
+    ``from_arrow``), the row groups pruned and the allocator peak."""
+    import pyarrow.dataset as ds
+    import torch
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.batch import from_arrow, to_arrow
+    from spark_rapids_tpu_torch.exec.base import assemble_result
+    cols = list(entry.PARQUET_SCAN_COLUMNS)
+    t0 = time.perf_counter()
+    want = ds.dataset(paths).to_table(
+        columns=cols, filter=ds.field("l_shipdate") <= entry.Q1_SHIPDATE_MAX)
+    oracle_s = time.perf_counter() - t0
+
+    def run():
+        plan = entry.parquet_scan_plan(paths, reader_type=reader,
+                                       device=dev)
+        batches = list(plan.execute())
+        torch.cuda.synchronize(dev)
+        return plan, batches
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    plan, batches = run()
+    got = assemble_result([to_arrow(b, plan.output_schema) for b in batches],
+                          plan.output_schema)
+    same_rows(got, want, dev, f"parquet scan {label}")
+    no_fallback(f"parquet scan {label}", plan)
+    pruned = plan.source.row_groups_pruned
+    del batches, got
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    peak = torch.cuda.max_memory_allocated(dev)
+    profiled_idle(f"parquet scan {label}", run, dev)
+    src = plan.source
+    t0 = time.perf_counter()
+    tables = list(src.read_split(src.files))
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for t in tables:
+        from_arrow(t, schema=plan.output_schema, device=dev)
+    torch.cuda.synchronize(dev)
+    upload_s = time.perf_counter() - t0
+    print(f"parquet scan {label}: {len(paths)} files, {rows} rows -> "
+          f"{want.num_rows} rows in {len(tables)} tables, equal to pyarrow's"
+          f" dataset read ({oracle_s:.2f} s) as a row set; warm median "
+          f"{wall:.4f} s of {[round(w, 4) for w in walls]}, "
+          f"{rows / wall:,.0f} rows/s; decode alone {decode_s:.4f} s, "
+          f"upload alone {upload_s:.4f} s; row groups pruned {pruned}; "
+          f"device memory peak {peak / 2**30:.2f} GiB")
+    return {"wall": wall, "decode_s": decode_s, "upload_s": upload_s}
+
+
+def run_parquet_scan_phase(dev, table, tmp) -> list:
+    """The bench's scan (``bench.bench_parquet_scan``): at its own size, 8
+    files written by ``pq.write_table``, in each reader type, then over
+    the SF10 lineitem in 8 files, MULTITHREADED. Every file's row groups
+    must decode natively. Returns the SF10 files."""
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.io.source import ReaderType
+    bench = entry.lineitem_table(PARQUET_BENCH_ROWS, DATA_SEED).drop(
+        ["l_tax"])
+    bench_paths = entry.parquet_files(bench, f"{tmp}/bench",
+                                      PARQUET_FILES)
+    check_native_decode("parquet scan bench files", bench_paths)
+    for reader in (ReaderType.PERFILE, ReaderType.COALESCING,
+                   ReaderType.MULTITHREADED):
+        run_parquet_scan(dev, f"{PARQUET_BENCH_ROWS} {reader.value}",
+                         bench_paths, PARQUET_BENCH_ROWS, reader)
+    t0 = time.perf_counter()
+    paths = entry.parquet_files(table, f"{tmp}/sf10", PARQUET_FILES)
+    print(f"parquet scan: SF10 lineitem written to {PARQUET_FILES} files in"
+          f" {time.perf_counter() - t0:.2f} s")
+    check_native_decode("parquet scan SF10 files", paths)
+    run_parquet_scan(dev, f"SF10 {ReaderType.MULTITHREADED.value}", paths,
+                     table.num_rows, ReaderType.MULTITHREADED)
+    return paths
+
+
+def profiled_idle(what: str, run, dev) -> float:
+    """The idle share of one profiled warm run of ``run()``."""
+    _, wall_us, busy, _ = profiled(run, dev)
+    idle = 1 - busy / wall_us
+    print(f"{what}: profiled warm run {wall_us / 1e3:.1f} ms, device busy "
+          f"{busy / 1e3:.1f} ms, idle share {idle:.1%}")
+    return idle
+
+
+def run_q1_parquet_phase(dev, counted, table, paths) -> dict:
+    """Q1 at SF10 from the SF10 files: equal to the pyarrow oracle and to
+    ``run_q1`` over the same table in memory, with its warm wall, rows/s,
+    peak, idle share and murmur3's launches; murmur3 held bit for bit
+    against its plain version on every batch of its exchange."""
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.exec import collect
+    in_memory = entry.run_q1(table, Q1_SLICES, Q1_SHUFFLE_PARTITIONS,
+                             device=dev)
+    state = {}
+
+    def run(paths):
+        state["plan"] = entry.q1_parquet_plan(paths, PARQUET_SLICES,
+                                              PARQUET_PARTITIONS, device=dev)
+        return collect(state["plan"])
+
+    def check(got, expected):
+        worst = check_q1_result(got, expected)
+        worst = max(worst, check_q1_result(got, in_memory))
+        no_fallback("q1 parquet", state["plan"])
+        return (f"; and the in-memory run_q1; keys, counts and int sums "
+                f"exact, float max rel err {worst:.3g} <= {FLOAT_REL_TOL}")
+
+    print(f"q1 parquet: {len(paths)} files, {PARQUET_SLICES} scan "
+          f"partitions, {PARQUET_PARTITIONS} shuffle partitions")
+    launches = run_path("q1 parquet", lambda: paths,
+                        lambda _: entry.q1_reference(table), run, check, dev,
+                        counted, rows_of=lambda _: table.num_rows)
+    profiled_idle("q1 parquet", lambda: run(paths), dev)
+    check_murmur3_at_exchanges(
+        "q1 parquet", entry.q1_parquet_plan(paths, PARQUET_SLICES,
+                                            PARQUET_PARTITIONS, device=dev),
+        dev)
+    return launches
+
+
+def run_q16_parquet_phase(dev, counted, tmp) -> dict:
+    """Q16's part stage over the SF100 part table written by
+    ``pq.write_table`` (dictionary-encoded string pages), exact against
+    the pyarrow oracle, its row groups decoded natively; with its wall,
+    idle share and window_match's launches."""
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.exec import collect
+    part = entry.part_table(SF100_PART_ROWS, PART_SEED)
+    t0 = time.perf_counter()
+    paths = entry.parquet_files(part, f"{tmp}/part", PARQUET_FILES)
+    print(f"q16 parquet: {SF100_PART_ROWS} part rows written to "
+          f"{len(paths)} files in {time.perf_counter() - t0:.2f} s")
+    check_native_decode("q16 parquet part files", paths)
+    state = {}
+
+    def run(paths):
+        state["plan"] = entry.q16_part_parquet_plan(
+            paths, PARQUET_SLICES, PARQUET_PARTITIONS, device=dev)
+        return collect(state["plan"])
+
+    def check(got, expected):
+        check_q16_part_result(got, expected)
+        no_fallback("q16 parquet", state["plan"])
+
+    launches = run_path("q16 parquet", lambda: paths,
+                        lambda _: entry.q16_part_reference(part), run, check,
+                        dev, counted, rows_of=lambda _: part.num_rows)
+    profiled_idle("q16 parquet", lambda: run(paths), dev)
+    return launches
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, with the phase's wall time printed after it."""
     t0 = time.perf_counter()
@@ -2326,7 +2750,9 @@ def main(argv=None) -> int:
     print(card_line())
 
     t0 = time.perf_counter()
-    built = build.build()
+    # every library at once: the CUDA kernels, the frame codec and the
+    # Parquet decoder
+    built = build.build([*build.SOURCES, *build.HOST_SOURCES])
     print(f"build: {time.perf_counter() - t0:.2f} s for "
           f"{sorted(built) or 'nothing (already built)'}")
     for name, (secs, output) in built.items():
@@ -2389,6 +2815,24 @@ def main(argv=None) -> int:
         timed(f"join_sort {n_stream}", run_join_sort_phase, dev, n_stream,
               n_build)
     timed("overflow retry", check_overflow_retry, dev)
+    # the Parquet slice: the bucketed write (murmur3 on its int32 bucket
+    # key), the bench's scan, Q1 read from files (murmur3 at its exchange)
+    # and Q16's part stage read from files (window_match, k = 15)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parquet_")
+    try:
+        lineitem = entry.lineitem_table(args.rows, DATA_SEED)
+        runs.append(timed("parquet write", run_parquet_write_phase, dev,
+                          [murmur3_int32], lineitem, f"{tmp}/bucketed"))
+        shutil.rmtree(f"{tmp}/bucketed")
+        paths = timed("parquet scan", run_parquet_scan_phase, dev,
+                      lineitem, tmp)
+        runs.append(timed("q1 parquet", run_q1_parquet_phase, dev,
+                          [murmur3_int32], lineitem, paths))
+        del lineitem
+        runs.append(timed("q16 parquet", run_q16_parquet_phase, dev,
+                          [murmur3_int32, window_match], tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
         k["launches"] = sum(r.get(k["name"], 0) for r in runs)
     order = ["name", "route", "source", "replaces", "launches",

@@ -3,8 +3,10 @@
 Port of the registry of ``spark_rapids_tpu/config.py`` (``ConfEntry`` and
 ``RapidsTpuConf``), holding only the keys that a conf dict sets today:
 the retry policy, the OOM dump directory and the OOM injection, read by
-``memory.retry.apply_session_conf`` under the same ``spark.rapids.tpu.*``
-names and defaults, so one conf dict drives both packages.
+``memory.retry.apply_session_conf``, and the file readers' keys, read by
+``io.source.FileSource.apply_conf`` and ``io.parquet.ParquetSource``,
+under the same ``spark.rapids.tpu.*`` names and defaults, so one conf dict
+drives both packages.
 
 The settings that the JAX package reads from a Session's conf (the planner
 and the plugin) are plain constants here, with the JAX key's default:
@@ -104,6 +106,60 @@ INJECT_OOM_SKIP_COUNT = _entry(
 INJECT_OOM_OOM_COUNT = _entry(
     "spark.rapids.tpu.test.injectOOM.oomCount", 1,
     "Consecutive synthetic OOMs thrown per trigger.", int)
+
+# the file readers' keys, read by FileSource.apply_conf and
+# ParquetSource.apply_conf
+MULTITHREADED_READ_THREADS = _entry(
+    "spark.rapids.tpu.sql.multiThreadedRead.numThreads", 8,
+    "Thread-pool size for the multithreaded multi-file reader.", int)
+READER_BATCH_ROWS = _entry(
+    "spark.rapids.tpu.sql.reader.batchSizeRows", 1 << 20,
+    "Row target per decoded host batch a scan emits.", int)
+MT_READER_MAX_TASKS = _entry(
+    "spark.rapids.tpu.sql.format.multithreaded.maxTasksInFlight", 64,
+    "Bound on decode tasks submitted to the shared reader pool at once; "
+    "keeps many-file scans from queueing unbounded host memory.", int)
+COALESCING_PARALLEL_FILES = _entry(
+    "spark.rapids.tpu.sql.format.coalescing.numFilesParallel", 8,
+    "Files decoded concurrently by the COALESCING reader before the "
+    "concat.", int)
+PREFETCH_ENABLED = _entry(
+    "spark.rapids.tpu.prefetch.enabled", True,
+    "Pipelined host prefetch (pipeline.py): the PERFILE and COALESCING "
+    "scans decode batch N+1 on a background thread while batch N is "
+    "uploaded and computed on. Disabling reproduces the synchronous path "
+    "bit for bit; single-core hosts skip the thread handoff.", _bool)
+PREFETCH_DEPTH = _entry(
+    "spark.rapids.tpu.prefetch.depth", 2,
+    "Bounded look-ahead of each prefetch stage (items buffered ahead of "
+    "the consumer); 0 disables, as prefetch.enabled=false does.", int)
+PARQUET_NATIVE_DECODE = _entry(
+    "spark.rapids.tpu.sql.format.parquet.nativeDecode.enabled", True,
+    "Decode parquet column chunks with the native C++ decoder "
+    "(csrc/rtpu_parquet.cpp: thrift footer parse, PLAIN/RLE_DICTIONARY "
+    "pages, SNAPPY and, where libzstd is present, ZSTD) instead of "
+    "pyarrow; row groups outside the native subset (nested columns, "
+    "INT96, other codecs, legacy-rebase files) fall back to pyarrow one "
+    "by one.", _bool)
+# recorded by the scan; until the dictionary-encoding slice the port
+# decodes every string to bytes, which gives the same rows
+DICT_ENCODING_ENABLED = _entry(
+    "spark.rapids.tpu.dictEncoding.enabled", True,
+    "Compressed execution for string columns (dictionary codes on the "
+    "device). Results are the same either way.", _bool)
+DICT_MAX_CARDINALITY = _entry(
+    "spark.rapids.tpu.dictEncoding.maxCardinality", 1 << 16,
+    "Distinct-value budget per dictionary-encoded string column.", int)
+DICT_MAX_CARD_FRACTION = _entry(
+    "spark.rapids.tpu.dictEncoding.maxCardinalityFraction", 0.5,
+    "Dictionary cardinality must stay below this fraction of the batch's "
+    "rows for encoding to be kept at the scan boundary.", float)
+DICT_SCAN_ENABLED = _entry(
+    "spark.rapids.tpu.dictEncoding.scan.enabled", True,
+    "Ask the parquet readers to preserve dictionary pages of string "
+    "columns. Only meaningful while dictEncoding.enabled is true.", _bool)
+
+
 class RapidsTpuConf:
     """Typed view over a plain dict of settings, with registry defaults.
     Keys the port does not know yet are kept and ignored, so a conf dict

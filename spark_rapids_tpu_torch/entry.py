@@ -1,6 +1,7 @@
 """TPC-H Q1, the part stage of TPC-H Q16, TPC-H Q3, Q18, Q2 and Q11 and the
-repo's skewed join through the port, end to end, and the bench's fused Q1
-stage and its hash_agg and join_sort shapes.
+repo's skewed join through the port, end to end, Q1 and the Q16 part stage
+read from Parquet files, a bucketed Parquet write, and the bench's fused
+Q1 stage and its hash_agg, join_sort and parquet_scan shapes.
 
 ``q1_plan`` and ``q16_part_plan`` build the physical tree the JAX
 package's planner gives each query (``plan/overrides.py``
@@ -98,6 +99,17 @@ inputs (resident on the device, one batch each) and its inner join and
 sort; ``join_sort_runner`` and ``run_join_sort`` run that stage through the
 captured CUDA graph of the fused stage (``exec/fuse.py``), the eager fused
 program or the iterator path.
+
+From Parquet files (``io/``): ``parquet_files`` writes a table as files of
+consecutive rows; ``parquet_scan_plan`` is ``bench.bench_parquet_scan``'s
+scan (three lineitem columns where ``l_shipdate <= 10471``, MULTITHREADED);
+``q1_parquet_plan`` and ``q16_part_parquet_plan`` (``run_q1_parquet``,
+``run_q16_part_parquet``) are Q1's and the Q16 part stage's trees with a
+``FileSourceScanExec`` in place of the in-memory scan, the predicate pushed
+down and kept in the ``FilterExec`` above it, as the JAX planner gives
+``read_parquet(...).where(...)``; ``write_lineitem_bucketed`` writes a
+table through ``io.writer.write_plan`` into bucket files on the int32
+``l_shipdate``.
 
 ``q1_reference``, ``q16_part_reference``, ``q3_reference``,
 ``q18_reference``, ``q2_reference``, ``q11_reference``,
@@ -1393,3 +1405,117 @@ def skew_reference(fact: pa.Table, dim: pa.Table) -> pa.Table:
     out = pa.table([g.column("g"), g.column("v_sum"), g.column("w_sum"),
                     g.column("g_count")], names=["g", "sv", "sw", "c"])
     return out.sort_by("g")
+
+
+# ---------------------------------------------------------------------------
+# Parquet: the bench's scan, Q1 and Q16's part stage read from files, and
+# the bucketed lineitem write
+# ---------------------------------------------------------------------------
+
+#: the columns Q1 reads (``lineitem_table``'s)
+Q1_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
+              "l_extendedprice", "l_discount", "l_shipdate", "l_tax")
+#: ``bench.bench_parquet_scan``'s projection; its predicate is Q1's filter
+PARQUET_SCAN_COLUMNS = ("l_quantity", "l_extendedprice", "l_shipdate")
+#: the bucketed write's key (an int32 column, hashed by murmur3_int32)
+BUCKET_KEY = "l_shipdate"
+
+
+def parquet_files(table: pa.Table, directory: str, n_files: int,
+                  **write_kw) -> list:
+    """Write ``table`` as ``n_files`` Parquet files of consecutive rows
+    (``part-{i}.parquet`` under ``directory``, pyarrow's writer defaults
+    unless ``write_kw`` says otherwise), as ``bench.bench_parquet_scan``
+    lays out its input; every row lands in a file. Returns the paths."""
+    import os
+    import pyarrow.parquet as pq
+    os.makedirs(directory, exist_ok=True)
+    per = max(1, -(-table.num_rows // n_files))
+    paths = []
+    for i in range(n_files):
+        path = os.path.join(directory, f"part-{i}.parquet")
+        pq.write_table(table.slice(i * per, per), path, **write_kw)
+        paths.append(path)
+    return paths
+
+
+def _file_scan(paths, columns: Sequence[str], predicate: Expression,
+               num_slices: int, device: DeviceLike,
+               reader_type=None) -> Exec:
+    """A Parquet scan of ``paths`` with the projection and the predicate
+    pushed down, under the reader keys' defaults (the JAX planner applies
+    the Session's conf to the source, ``plan/overrides.py:961``)."""
+    from .io.parquet import ParquetSource
+    from .io.scan import FileSourceScanExec
+    from .io.source import ReaderType
+    source = ParquetSource(paths, columns=list(columns), predicate=predicate,
+                           reader_type=reader_type or ReaderType.AUTO)
+    source.apply_conf({})
+    return FileSourceScanExec(source, num_slices, device=device)
+
+
+def parquet_scan_plan(paths, num_slices: int = 1, reader_type=None,
+                      device: DeviceLike = None) -> Exec:
+    """``bench.bench_parquet_scan``'s scan: ``PARQUET_SCAN_COLUMNS`` where
+    ``l_shipdate <= 10471``, MULTITHREADED unless ``reader_type`` (an
+    ``io.source.ReaderType``) says otherwise; its batches land on the
+    device."""
+    from .io.source import ReaderType
+    return _file_scan(paths, PARQUET_SCAN_COLUMNS,
+                      col("l_shipdate") <= lit(Q1_SHIPDATE_MAX),
+                      num_slices, device,
+                      reader_type or ReaderType.MULTITHREADED)
+
+
+def q1_parquet_plan(paths, num_slices: int = 8, shuffle_partitions: int = 8,
+                    device: DeviceLike = None) -> Exec:
+    """Q1's physical tree with a ``FileSourceScanExec`` of ``paths`` in
+    place of the in-memory scan: Q1's columns, its filter pushed down and
+    kept above the scan in a ``FilterExec``, as the JAX planner keeps it.
+    The file schema is nullable, so the aggregates and the exchange run
+    their nullable branches."""
+    cond = col("l_shipdate") <= lit(Q1_SHIPDATE_MAX)
+    return _grouped_stage(
+        _file_scan(paths, Q1_COLUMNS, cond, num_slices, device), cond,
+        Q1_KEYS, q1_aggregates, shuffle_partitions,
+        [asc(col(k)) for k in Q1_KEYS])
+
+
+def run_q1_parquet(paths, num_slices: int = 8, shuffle_partitions: int = 8,
+                   device: DeviceLike = None) -> pa.Table:
+    """Q1 over the lineitem files ``paths``, collected to the host."""
+    return collect(q1_parquet_plan(paths, num_slices, shuffle_partitions,
+                                   device))
+
+
+def q16_part_parquet_plan(paths, num_slices: int = 8,
+                          shuffle_partitions: int = 8,
+                          device: DeviceLike = None) -> Exec:
+    """The tree of Q16's part stage over the part files ``paths``, its
+    predicate pushed down (pyarrow takes none of it but ``p_size IN``, and
+    the row groups' statistics prune nothing) and kept in a
+    ``FilterExec``."""
+    cond = q16_part_condition()
+    return _grouped_stage(
+        _file_scan(paths, Q16_KEYS, cond, num_slices, device), cond,
+        Q16_KEYS, q16_part_aggregates, shuffle_partitions,
+        [desc(col("part_cnt"))] + [asc(col(k)) for k in Q16_KEYS])
+
+
+def run_q16_part_parquet(paths, num_slices: int = 8,
+                         shuffle_partitions: int = 8,
+                         device: DeviceLike = None) -> pa.Table:
+    """Q16's part stage over the part files ``paths``, collected."""
+    return collect(q16_part_parquet_plan(paths, num_slices,
+                                         shuffle_partitions, device))
+
+
+def write_lineitem_bucketed(table: pa.Table, path: str, buckets: int = 16,
+                            num_slices: int = 8, device: DeviceLike = None):
+    """Write ``table`` under ``path`` as SNAPPY Parquet from a
+    ``num_slices``-slice in-memory scan, one write task per slice, each row
+    into the bucket file ``pmod(murmur3(l_shipdate, 42), buckets)`` of its
+    task (``io.writer.write_plan``). Returns the job's ``WriteStats``."""
+    from .io.writer import write_plan
+    return write_plan(_scan(table, num_slices, device), path,
+                      bucket_by=([BUCKET_KEY], buckets))

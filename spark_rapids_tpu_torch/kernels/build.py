@@ -3,9 +3,10 @@
 Each CUDA source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface, loaded through ``ctypes``
 (seconds to build, where a source that includes PyTorch's headers takes
-minutes). The host codec of the frame format (``host_codec.cpp``) compiles
-the same way with the host C++ compiler, linking libzstd where the system
-has its header. Libraries build at first use, from the sources in the
+minutes). The host sources, the frame format's codec (``host_codec.cpp``)
+and the Parquet decoder (``rtpu_parquet.cpp``), compile the same way with
+the host C++ compiler, with ``-DRTPU_WITH_ZSTD`` and libzstd where the
+system has its header. Libraries build at first use, from the sources in the
 package only, into ``_build/`` beside them; the file name carries a digest
 of the source and the flags, so an edited source builds anew. ``build()``
 starts one compiler per source, all together, and waits for all of them.
@@ -33,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: library name -> its CUDA source under csrc/
 SOURCES = {"murmur3": "murmur3.cu", "string_search": "string_search.cu"}
 #: library name -> its host C++ source under csrc/
-HOST_SOURCES = {"host_codec": "host_codec.cpp"}
+HOST_SOURCES = {"host_codec": "host_codec.cpp",
+                "rtpu_parquet": "rtpu_parquet.cpp"}
 _ZSTD_HEADER = Path("/usr/include/zstd.h")
 
 _lock = threading.Lock()
@@ -57,7 +59,7 @@ def host_cxx() -> str:
         if found:
             return found
     raise RuntimeError("no host C++ compiler: building the port's host "
-                       "codec needs g++, c++ or clang++")
+                       "libraries needs g++, c++ or clang++")
 
 
 def _command(name: str, out: Path) -> List[str]:

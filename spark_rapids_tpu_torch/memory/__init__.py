@@ -13,7 +13,7 @@ from .catalog import (BufferCatalog, OutOfBudgetError, SpillableBatch,
 from .retry import (FinalOOMError, InjectedOOMError, SpillableInput,
                     acquire_with_retry, admit_all, is_retryable_oom,
                     maybe_inject, oom_injection, presplit_inputs,
-                    register_with_retry,
+                    register_with_retry, split_host_table,
                     split_input_halves, with_retry, with_retry_no_split)
 
 __all__ = [n for n in dir() if not n.startswith("_")]

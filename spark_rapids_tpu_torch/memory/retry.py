@@ -419,6 +419,18 @@ def split_input_halves(item):
     return item.split(_POLICY.split_floor_rows)
 
 
+def split_host_table(t):
+    """Split policy for host (pyarrow) tables at the upload boundary: half
+    the rows need half the fresh device memory. Zero-copy slices, in row
+    order, so the halves' device batches concatenate bit for bit to the
+    unsplit upload; None at the split floor."""
+    n = t.num_rows
+    if n <= max(_POLICY.split_floor_rows, 1) or n < 2:
+        return None
+    mid = n // 2
+    return [t.slice(0, mid), t.slice(mid)]
+
+
 def presplit_inputs(inp, target_rows: int,
                     split: Callable = split_input_halves) -> List:
     """Adaptive pre-split: cut an input measured over ``target_rows`` rows

@@ -3,7 +3,8 @@
 one NVIDIA GPU.
 
     python3 tools/torch_q1_profile.py
-        [--query q1|q16_part|q3|q18|q2|q11|join_sort|skew] [--rows N]
+        [--query q1|q16_part|q3|q18|q2|q11|join_sort|skew|q1_parquet|
+                 parquet_scan] [--rows N]
         [--adaptive] [--leg static|adaptive|adaptive_bcast] [--trace PATH]
 
 Runs TPC-H Q1 (the default), the part stage of TPC-H Q16, TPC-H Q3,
@@ -52,6 +53,11 @@ decisions of each profiled run.
 fused stage captured in a CUDA graph, side by side: each mode's warm wall, the device
 busy time and idle share of one profiled warm run, and the device time
 under each operator range of the iterator path.
+``--query q1_parquet`` runs Q1 from the SF10 lineitem written to 8
+Parquet files, ``--query parquet_scan`` the bench's scan over them
+(MULTITHREADED): the warm wall, the host decode alone beside the upload
+alone, and one profiled warm run whose device busy time splits into H2D
+copies and compute, with its idle share.
 ``--trace`` also writes the Chrome trace. Exits 1 without CUDA.
 """
 
@@ -83,6 +89,23 @@ def _owner(evt) -> str:
     return "(outside operators: collect)"
 
 
+def _per_operator(prof) -> collections.Counter:
+    """Device us of the profiled call under each operator's range; the
+    kernels ``chip_smoke.capture`` launches around the call are left out."""
+    import torch
+    per_op = collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        owner, p = _owner(e), e
+        while p is not None and p.name != chip_smoke.CALL_RANGE:
+            p = p.cpu_parent
+        if p is not None:
+            for k in getattr(e, "kernels", []):
+                per_op[owner] += k.duration
+    return per_op
+
+
 def _kind(name: str) -> str:
     """The kind of a device kernel or copy, from its name."""
     low = name.lower()
@@ -108,17 +131,13 @@ def _piece(fn, dev):
     kinds also hold "events": the call's time on CUDA events, a second
     warm call, against which the profiler's sum can be checked."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize(dev)
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize(dev)
+    _, _, out, device = chip_smoke.capture(fn, dev)
     peak = torch.cuda.max_memory_allocated(dev) - base
-    kinds = _by_kind(chip_smoke.device_events(prof))
+    kinds = _by_kind(device)
     kinds["events"] = chip_smoke.time_cuda_ms(fn, reps=1, warmup=0)
     return out, kinds, peak
 
@@ -253,6 +272,116 @@ def _tree_metrics(node, depth=0) -> None:
         _tree_metrics(c, depth + 1)
 
 
+def parquet_profile(args, dev) -> int:
+    """Q1 from Parquet (``--query q1_parquet``) or the bench's scan
+    (``--query parquet_scan``, MULTITHREADED) over the SF10 lineitem
+    (``--rows``) in ``chip_smoke.py``'s 8 files, written to a temporary
+    directory and removed after: the warm wall (median of three), the
+    decode alone on the host (``read_split``, nothing uploaded), the
+    upload of those tables alone, and one profiled warm run whose device
+    busy time splits into the H2D copies and the compute (kernels, other
+    copies), with its idle share, device time per operator and the scan's
+    prefetch metrics."""
+    import shutil
+    import tempfile
+    import torch
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.batch import from_arrow
+    from spark_rapids_tpu_torch.exec import collect
+    rows = args.rows or chip_smoke.SF10_LINEITEM_ROWS
+    table = entry.lineitem_table(rows, chip_smoke.DATA_SEED)
+    tmp = tempfile.mkdtemp(prefix="torch_q1_profile_")
+    try:
+        t0 = time.perf_counter()
+        paths = entry.parquet_files(table, tmp, chip_smoke.PARQUET_FILES)
+        print(f"{rows} lineitem rows written to {len(paths)} files in "
+              f"{time.perf_counter() - t0:.2f} s")
+        if args.query == "q1_parquet":
+            expected = entry.q1_reference(table)
+
+            def make():
+                return entry.q1_parquet_plan(
+                    paths, chip_smoke.PARQUET_SLICES,
+                    chip_smoke.PARQUET_PARTITIONS, device=dev)
+
+            def run():
+                plan = make()
+                chip_smoke.check_q1_result(collect(plan), expected)
+                return plan
+        else:
+            def make():
+                return entry.parquet_scan_plan(paths, device=dev)
+
+            def run():
+                plan = make()
+                for _ in plan.execute():
+                    pass
+                return plan
+        del table
+        run()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        plan = make()
+        scan = plan
+        while scan.children:
+            scan = scan.children[0]
+        src = scan.source
+        t0 = time.perf_counter()
+        tables = list(src.read_split(src.files))
+        decode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for t in tables:
+            from_arrow(t, schema=scan.output_schema, device=dev)
+        torch.cuda.synchronize(dev)
+        upload_s = time.perf_counter() - t0
+        del tables
+        plan.close()
+        print(f"{args.query} warm wall {wall:.4f} s (median of "
+              f"{[round(w, 4) for w in walls]}), {rows / wall:,.0f} rows/s;"
+              f" decode alone {decode_s:.4f} s on the host, upload alone "
+              f"{upload_s:.4f} s")
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = {}
+        prof, prof_us, busy, device = chip_smoke.profiled(
+            lambda: state.update(plan=run()), dev)
+        h2d = sum(e.time_range.elapsed_us() for e in device
+                  if "HtoD" in e.name)
+        other = sum(e.time_range.elapsed_us() for e in device
+                    if "HtoD" not in e.name)
+        print(f"profiled run: wall {prof_us / 1e3:.2f} ms, device busy "
+              f"{busy / 1e3:.2f} ms, idle share {1 - busy / prof_us:.1%} "
+              f"(against the unprofiled warm wall "
+              f"{1 - busy / (wall * 1e6):.1%}); device time in H2D copies "
+              f"{h2d / 1e3:.2f} ms, in compute (kernels and other copies) "
+              f"{other / 1e3:.2f} ms; device memory peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+        _tree_metrics(state["plan"])
+        scan = state["plan"]
+        while scan.children:
+            scan = scan.children[0]
+        m = {k: v.total() for k, v in scan.metrics.items()}
+        print(f"  scan prefetch: overlapTime {m['overlapTime'] / 1e6:.2f} "
+              f"ms, prefetchWaitTime {m['prefetchWaitTime'] / 1e6:.2f} ms"
+              f" (MULTITHREADED pipelines in its decode window instead)")
+        for name, us in _per_operator(prof).most_common():
+            print(f"  device time under {name}: {us / 1e3:.2f} ms "
+                  f"({us / busy:.1%} of busy)")
+        print(f"  device ms by kind: {_kinds_line(_by_kind(device))}")
+        if args.trace:
+            pathlib.Path(args.trace).parent.mkdir(parents=True,
+                                                  exist_ok=True)
+            prof.export_chrome_trace(args.trace)
+            print(f"trace written to {args.trace}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
 def join_sort_profile(args, dev) -> int:
     """The join_sort stage through the iterator path and through the
     captured graph, side by side: warm wall, device busy time and idle
@@ -290,13 +419,7 @@ def _join_sort_modes(args, dev, plan, n_stream, n_build) -> None:
               f"{prof_us / 1e3:.3f} ms ({1 - busy / (wall * 1e6):.1%} of "
               f"the warm wall)")
         if mode == "iterator":
-            per_op = collections.Counter()
-            for e in prof.events():
-                if e.device_type != torch.autograd.DeviceType.CPU:
-                    continue
-                for k in getattr(e, "kernels", []):
-                    per_op[_owner(e)] += k.duration
-            for name, us in per_op.most_common():
+            for name, us in _per_operator(prof).most_common():
                 print(f"  device time under {name}: {us / 1e3:.3f} ms "
                       f"({us / busy:.1%} of busy)")
         print(f"  device ms by kind: {_kinds_line(_by_kind(device))}")
@@ -313,7 +436,6 @@ def profile_run(args, dev, label, make_plan, tables, slices, parts, rows,
     profiled run (device time per operator, per kernel and by kind).
     Returns (plan, profile, device events, device ms by kind, peak)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from spark_rapids_tpu_torch import adaptive, entry
     from spark_rapids_tpu_torch.batch import from_arrow
     from spark_rapids_tpu_torch.exec import collect
@@ -355,16 +477,11 @@ def profile_run(args, dev, label, make_plan, tables, slices, parts, rows,
     plan = None
     torch.cuda.reset_peak_memory_stats(dev)
     mark = adaptive.reason_mark()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        plan, _ = run()
-        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    prof, prof_wall_us, (plan, _), device = chip_smoke.capture(run, dev)
     decided = adaptive.reasons(since=mark)
     if decided:
         print(f"{label} decisions of the profiled run: {decided}")
     run_peak = torch.cuda.max_memory_allocated(dev)
-    device = chip_smoke.device_events(prof)
     if not device:
         raise RuntimeError("the profiler recorded no device activity")
     busy = chip_smoke.busy_us([(e.time_range.start, e.time_range.end)
@@ -375,13 +492,7 @@ def profile_run(args, dev, label, make_plan, tables, slices, parts, rows,
           f"{1 - busy / (wall * 1e6):.1%}), device memory peak "
           f"{run_peak / 2**30:.3f} GiB")
 
-    per_op = collections.Counter()
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CPU:
-            continue
-        for k in getattr(e, "kernels", []):
-            per_op[_owner(e)] += k.duration
-    for name, us in per_op.most_common():
+    for name, us in _per_operator(prof).most_common():
         print(f"  device time under {name}: {us / 1e3:.2f} ms "
               f"({us / busy:.1%} of busy)")
     per_kernel = collections.Counter()
@@ -408,7 +519,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--query",
                     choices=("q1", "q16_part", "q3", "q18", "q2", "q11",
-                             "join_sort", "skew"),
+                             "join_sort", "skew", "q1_parquet",
+                             "parquet_scan"),
                     default="q1")
     ap.add_argument("--adaptive", action="store_true",
                     help="q3, q18: the tree under the default adaptive conf")
@@ -416,8 +528,9 @@ def main(argv=None) -> int:
                     choices=("static", "adaptive", "adaptive_bcast"),
                     help="skew: one leg (default: each in turn)")
     ap.add_argument("--rows", type=int, default=None,
-                    help="input rows of Q1 or Q16 (default: chip_smoke's "
-                         "SF10 lineitem or SF100 part count)")
+                    help="input rows of Q1, Q16 or the Parquet queries "
+                         "(default: chip_smoke's SF10 lineitem or SF100 "
+                         "part count)")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
 
@@ -430,6 +543,8 @@ def main(argv=None) -> int:
     print(chip_smoke.card_line())
     if args.query == "join_sort":
         return join_sort_profile(args, dev)
+    if args.query in ("q1_parquet", "parquet_scan"):
+        return parquet_profile(args, dev)
     if args.query == "skew":
         fact, dim = entry.skew_tables(chip_smoke.SKEW_ROWS,
                                       chip_smoke.SKEW_KEYS,
