@@ -84,9 +84,22 @@ stage from the SF100 part table in 8 files, exact. Every row group of
 those files must decode through the port's native decoder, and no scan of
 the runs may take the pyarrow fallback.
 
+Right after Q1 and the Q16 part stage comes the Session phase: the port's
+``plan.Session`` plans Q1 at SF10, the Q16 part stage at 20,000,000 part
+rows and the bench's q1_stage, hash_agg, join_sort and parquet_scan
+shapes from their DataFrames (``entry.*_df``) under the conf the port's
+tests use (incompatibleOps on, AQE off), each tree equal to the
+hand-built ``entry.*_plan``'s, nothing fallen back and every operator on
+the card, each result against pyarrow, with each path's warm wall and
+planning time; murmur3 is held against its plain version at the Session
+Q1's and Q16's exchanges and ``window_match`` at the Session Q16's filter,
+and join_sort runs as a fused stage that ``Session.collect`` captures in
+a CUDA graph and replays.
+
 Prints, in order: the card's name and power limit, the build time, each
-kernel check with its times and bound, the join check, the checks of Q1,
-the Q16 part stage and Q3 (AQE off, then on) with their times, the range
+kernel check with its times and bound, the join check, the checks of Q1
+and the Q16 part stage, the Session phase, Q3 (AQE off, then on) with
+their times, the range
 sort, the spill copy rate, Q18's checks (AQE off, then on) with their
 times, the catalog's tiers, spilled bytes, retry metrics, grace buckets
 and the allocator's peak, the skew legs, the types exchange, the
@@ -802,9 +815,9 @@ def run_q3_phase(dev, counted) -> dict:
 
     from spark_rapids_tpu_torch import config
     print(f"q3 aqe: the JAX Session's default adaptive conf (targetRows "
-          f"{config.ADAPTIVE_TARGET_ROWS}, splitRows "
-          f"{config.SKEW_SPLIT_ROWS}, broadcastJoin.maxBuildRows "
-          f"{config.ADAPTIVE_BROADCAST_MAX_BUILD_ROWS})")
+          f"{config.ADAPTIVE_TARGET_ROWS.default}, splitRows "
+          f"{config.SKEW_SPLIT_ROWS.default}, broadcastJoin.maxBuildRows "
+          f"{config.ADAPTIVE_BROADCAST_MAX_BUILD_ROWS.default})")
     launches.append(run_adaptive(
         "q3", tables, state["expected"],
         lambda: entry.q3_plan(*tables, Q3_SLICES, Q3_SHUFFLE_PARTITIONS,
@@ -2658,6 +2671,319 @@ def profiled_idle(what: str, run, dev) -> float:
     return idle
 
 
+# ---------------------------------------------------------------------------
+# The Session: the same paths planned by spark_rapids_tpu_torch.plan
+# ---------------------------------------------------------------------------
+
+#: the bench scan's files in the Session phase
+SESSION_SCAN_FILES = 8
+
+
+def plan_tree(e, depth: int = 0) -> list:
+    """A physical tree node by node (a fused stage as the tree it runs):
+    exec class and name, join type, build mode and keys, partitioning keys
+    and count, aggregate mode, limit, coalesce goal, sort keys, a file
+    scan's partitions, columns and reader, and the output columns' names
+    and kinds."""
+    stage = getattr(e, "stage", None)
+    if stage is not None:
+        e = stage.plan
+    attrs = [type(e).__name__, e.name]
+    if hasattr(e, "join_type"):
+        attrs += [e.join_type.name, getattr(e, "broadcast_build", None)]
+    for keys in ("left_keys", "right_keys"):
+        if hasattr(e, keys):
+            attrs.append(tuple((type(k).__name__, getattr(k, "ordinal", None),
+                                k.dtype.kind.value)
+                               for k in getattr(e, keys)))
+    part = getattr(e, "partitioning", None)
+    if part is not None:
+        attrs.append(tuple((k.ordinal, k.dtype.kind.value)
+                           for k in getattr(part, "exprs", ())))
+        attrs.append(part.num_partitions)
+    if hasattr(e, "mode"):
+        attrs.append(e.mode.name)
+    if hasattr(e, "goal"):
+        attrs.append(type(e.goal).__name__)
+    if hasattr(e, "limit"):
+        attrs.append(e.limit)
+    if hasattr(e, "orders"):
+        attrs.append(tuple((o.child.ordinal, o.descending)
+                           for o in e.orders))
+    if hasattr(e, "source"):
+        attrs += [e.num_partitions, e.source.columns,
+                  e.source.effective_reader().value]
+    attrs.append(tuple((f.name, f.dtype.kind.value)
+                       for f in e.output_schema))
+    out = [(depth,) + tuple(attrs)]
+    for c in e.children:
+        out += plan_tree(c, depth + 1)
+    return out
+
+
+def _walk_plan(e):
+    yield e
+    for c in e.children:
+        yield from _walk_plan(c)
+
+
+def check_session_plan(name: str, ses, hand) -> None:
+    """The Session's last plan is the hand-built tree, nothing fell back,
+    and every operator's batches live on the card."""
+    got, want = plan_tree(ses.last_plan), plan_tree(hand)
+    hand.close()
+    if got != want:
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a != b:
+                raise AssertionError(f"session {name}: node {i} of the "
+                                     f"Session's tree {a} != the "
+                                     f"hand-built {b}")
+        raise AssertionError(f"session {name}: {len(got)} nodes against "
+                             f"the hand-built {len(want)}")
+    if ses.fell_back():
+        raise AssertionError(f"session {name}: fell back {ses.fell_back()}")
+    off = [e.name for e in _walk_plan(ses.last_plan)
+           if e.device.type != "cuda"]
+    if off:
+        raise AssertionError(f"session {name}: off the card: {off}")
+    print(f"session {name}: the Session's tree is the hand-built one "
+          f"({len(got)} nodes, root {type(ses.last_plan).__name__}); "
+          f"nothing fell back, every operator on the card")
+
+
+def run_session_path(name: str, dev, counted, table, reference, make_df,
+                     make_hand, check, conf, rows_of=lambda t: t.num_rows,
+                     reuse_plan: bool = False):
+    """One path planned by ``plan.Session`` through ``run_path`` (its cold
+    run's launch counts, three warm runs, the oracle): after the cold run
+    its tree is held against the hand-built ``make_hand(table)``. With
+    ``reuse_plan`` one prepared plan is collected every time (a fused
+    stage then plans, captures and replays); else each run plans afresh.
+    Prints the planning time of ``prepare`` (host ms). Returns (launches,
+    Session)."""
+    from spark_rapids_tpu_torch.plan import Session
+    ses = Session(conf, device=dev)
+    state = {"prepare_ms": []}
+
+    def run(t):
+        df = make_df(t)
+        prepared = None
+        if reuse_plan:
+            if "prepared" not in state:
+                state["prepared"] = ses.prepare(df)
+                state["prepare_ms"].append(ses.last_prepare_ns / 1e6)
+            prepared = state["prepared"]
+        out = ses.collect(df, _prepared=prepared)
+        if not reuse_plan:
+            state["prepare_ms"].append(ses.last_prepare_ns / 1e6)
+        if "checked" not in state:
+            check_session_plan(name, ses, make_hand(t))
+            state["checked"] = True
+        return out
+
+    launches = run_path(f"session {name}", lambda: table, reference, run,
+                        check, dev, counted, rows_of=rows_of)
+    ms = state["prepare_ms"]
+    print(f"session {name}: planning (prepare) {statistics.median(ms):.2f} "
+          f"ms host median of {[round(m, 2) for m in ms]}")
+    return launches, ses, state.get("prepared")
+
+
+def check_window_match_at_session_q16(dev, ses, df) -> int:
+    """``window_match`` against its plain version on the batch the
+    Session's Q16 filter sees (its scan's first batch), at k = 15 as
+    ``NOT startswith 'MEDIUM POLISHED'`` runs it: the match matrix, and the
+    filter's predicate on the card against the same rows on the CPU.
+    Returns the mismatches (0)."""
+    import torch
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.batch import from_arrow, to_arrow
+    from spark_rapids_tpu_torch.exec import FilterExec
+    from spark_rapids_tpu_torch.kernels.string_search import (
+        window_match, window_match_plain)
+    _, plan = ses.prepare(df)
+    try:
+        filt = next(e for e in _walk_plan(plan) if isinstance(e, FilterExec))
+        schema = filt.child.output_schema
+        batch = next(iter(filt.child.execute_partition(0)))
+        ptype = batch.columns[schema.index_of("p_type")]
+        pat = entry.Q16_TYPE_PREFIX.encode()
+        got = window_match(ptype.data, ptype.lengths, pat)
+        ref = window_match_plain(ptype.data, ptype.lengths, pat)
+        on_card = filt.condition.eval(batch).data.cpu()
+        cpu_batch, _ = from_arrow(to_arrow(batch, schema), schema=schema,
+                                  device="cpu")
+        on_cpu = filt.condition.eval(cpu_batch).data
+        live = int(batch.num_rows)
+        on_card, on_cpu = on_card[:live], on_cpu[:live]
+        torch.cuda.synchronize(dev)
+        bad = int((got != ref).sum()) + int((on_card != on_cpu).sum())
+    finally:
+        plan.close()
+    n, ml = ptype.data.shape
+    print(f"window_match at the Session's Q16 filter: capacity {n}, max_len "
+          f"{ml}, k = {len(pat)}: {int(ref.sum())} matches, the filter keeps "
+          f"{int(on_cpu.sum())} rows; {bad} mismatches against the plain "
+          f"version and the CPU")
+    if bad:
+        raise AssertionError("window_match disagrees at the Session's Q16 "
+                             "filter")
+    return bad
+
+
+def run_session_phase(dev, args) -> list:
+    """The Session (``spark_rapids_tpu_torch.plan.Session``) plans and runs
+    the paths from their DataFrames (``entry.*_df``) under the conf the
+    port's tests use (incompatibleOps on, AQE off): Q1 at SF10 and the Q16
+    part stage at 20,000,000 part rows against pyarrow (murmur3 held
+    against its plain version at the Session's exchanges, window_match at
+    its filter), then the bench's q1_stage (2^22 rows, one slice),
+    hash_agg (2^22 rows, 2^20 keys, 8 slices), join_sort (2^21 x 2^18, a
+    fused stage captured in a CUDA graph and replayed) and parquet_scan
+    (2^21 rows in 8 files, MULTITHREADED). Each tree equals the hand-built
+    ``entry.*_plan``'s. Returns each path's launches."""
+    import pyarrow.dataset as ds
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.exec import FusedStageExec
+    from spark_rapids_tpu_torch.kernels.murmur3 import murmur3_int32
+    from spark_rapids_tpu_torch.kernels.string_search import \
+        window_match as window_match_wrapper
+    runs = []
+
+    def q1_check(got, expected):
+        return f"; float max rel err {check_q1_result(got, expected):.3g}"
+
+    lineitem = entry.lineitem_table(args.rows, DATA_SEED)
+    launches, ses, _ = run_session_path(
+        "q1", dev, [murmur3_int32], lineitem, entry.q1_reference,
+        lambda t: entry.q1_df(t, Q1_SLICES),
+        lambda t: entry.q1_plan(t, Q1_SLICES, Q1_SHUFFLE_PARTITIONS,
+                                device=dev),
+        q1_check, entry.session_conf(Q1_SHUFFLE_PARTITIONS))
+    runs.append(launches)
+    ses.prepare(entry.q1_df(lineitem, Q1_SLICES))
+    check_murmur3_at_exchanges("the Session's Q1", ses.last_plan, dev)
+    del lineitem
+
+    part = entry.part_table(SF100_PART_ROWS, PART_SEED)
+    launches, ses, _ = run_session_path(
+        "q16_part", dev, [murmur3_int32, window_match_wrapper], part,
+        entry.q16_part_reference,
+        lambda t: entry.q16_part_df(t, Q16_SLICES),
+        lambda t: entry.q16_part_plan(t, Q16_SLICES, Q16_SHUFFLE_PARTITIONS,
+                                      device=dev),
+        check_q16_part_result, entry.session_conf(Q16_SHUFFLE_PARTITIONS))
+    runs.append(launches)
+    ses.prepare(entry.q16_part_df(part, Q16_SLICES))
+    check_murmur3_at_exchanges("the Session's Q16 part stage",
+                               ses.last_plan, dev)
+    check_window_match_at_session_q16(dev, ses,
+                                      entry.q16_part_df(part, Q16_SLICES))
+    del part
+
+    lineitem = entry.lineitem_table(HASH_AGG_ROWS, DATA_SEED)
+    q1_stage_ref = entry.q1_stage_plan(lineitem, device="cpu").output_schema
+
+    def q1_stage_reference(t):
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        f = t.filter(pc.less_equal(t.column("l_shipdate"),
+                                   entry.Q1_SHIPDATE_MAX))
+        f = f.append_column("disc", pc.multiply(
+            f.column("l_extendedprice"),
+            pc.subtract(1.0, f.column("l_discount"))))
+        g = f.group_by(list(entry.Q1_KEYS)).aggregate(
+            [("l_quantity", "sum"), ("l_extendedprice", "sum"),
+             ("disc", "sum"), ("l_quantity", "mean"),
+             ("l_discount", "mean"), ("l_quantity", "count")])
+        return pa.table([g.column(c) for c in (
+            "l_returnflag", "l_linestatus", "l_quantity_sum",
+            "l_extendedprice_sum", "disc_sum", "l_quantity_mean",
+            "l_discount_mean", "l_quantity_count")],
+            names=q1_stage_ref.names)
+
+    def keyed_check(keys, what):
+        def check(got, expected):
+            worst = check_float_table(got, expected, list(keys), what)
+            return f"; float max rel err {worst:.3g}"
+        return check
+
+    launches, _, _ = run_session_path(
+        "q1_stage", dev, [], lineitem, q1_stage_reference,
+        entry.q1_stage_df, lambda t: entry.q1_stage_plan(t, device=dev),
+        keyed_check(entry.Q1_KEYS, "session q1_stage"),
+        entry.session_conf(HASH_AGG_PARTITIONS))
+    runs.append(launches)
+    del lineitem
+
+    sales = entry.hash_agg_table(HASH_AGG_ROWS, HASH_AGG_KEYS)
+    launches, _, _ = run_session_path(
+        "hash_agg", dev, [murmur3_int32], sales, entry.hash_agg_reference,
+        lambda t: entry.hash_agg_df(t, HASH_AGG_SLICES),
+        lambda t: entry.hash_agg_plan(t, True, HASH_AGG_SLICES,
+                                      HASH_AGG_PARTITIONS, device=dev),
+        keyed_check(entry.HASH_AGG_KEYS, "session hash_agg"),
+        entry.session_conf(HASH_AGG_PARTITIONS))
+    runs.append(launches)
+    del sales
+
+    n_stream, n_build = JOIN_SORT_SIZES[0]
+    tables = entry.join_sort_tables(n_stream, n_build)
+
+    def join_sort_check(got, expected):
+        return (f"; {check_join_sort_result(got, expected)} rows in "
+                f"revenue ties, compared as sets")
+
+    launches, ses, prepared = run_session_path(
+        "join_sort", dev, [], tables,
+        lambda t: entry.join_sort_reference(*t),
+        lambda t: entry.join_sort_df(*t),
+        lambda t: entry.join_sort_plan(*t, device=dev),
+        join_sort_check, entry.session_conf(HASH_AGG_PARTITIONS),
+        rows_of=lambda t: t[0].num_rows, reuse_plan=True)
+    runs.append(launches)
+    plan = prepared[1]
+    stage = plan.stage if isinstance(plan, FusedStageExec) else None
+    if stage is None or stage.captures != 1 or stage.replays < 2:
+        raise AssertionError(
+            f"session join_sort: not a captured, replayed fused stage "
+            f"({type(plan).__name__}, "
+            f"{getattr(stage, 'captures', 0)} captures, "
+            f"{getattr(stage, 'replays', 0)} replays)")
+    print(f"session join_sort: a FusedStageExec captured "
+          f"{stage.captures} time(s) in a CUDA graph and replayed "
+          f"{stage.replays} times by Session.collect")
+    del tables, prepared, plan, stage
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_session_")
+    try:
+        bench = entry.lineitem_table(PARQUET_BENCH_ROWS, DATA_SEED).drop(
+            ["l_tax"])
+        paths = entry.parquet_files(bench, f"{tmp}/bench",
+                                    SESSION_SCAN_FILES)
+
+        def scan_reference(_):
+            return ds.dataset(paths).to_table(
+                columns=list(entry.PARQUET_SCAN_COLUMNS),
+                filter=ds.field("l_shipdate") <= entry.Q1_SHIPDATE_MAX)
+
+        def scan_check(got, expected):
+            same_rows(got, expected, dev, "session parquet_scan")
+            return "; the same rows as a multiset"
+
+        launches, ses, _ = run_session_path(
+            "parquet_scan", dev, [], paths, scan_reference,
+            entry.parquet_scan_df,
+            lambda t: entry.parquet_scan_plan(t, device=dev),
+            scan_check, entry.session_conf(HASH_AGG_PARTITIONS),
+            rows_of=lambda _: bench.num_rows)
+        runs.append(launches)
+        no_fallback("session parquet_scan", ses.last_plan)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def run_q1_parquet_phase(dev, counted, table, paths) -> dict:
     """Q1 at SF10 from the SF10 files: equal to the pyarrow oracle and to
     ``run_q1`` over the same table in memory, with its warm wall, rows/s,
@@ -2781,6 +3107,9 @@ def main(argv=None) -> int:
     runs = [timed("q1", run_q1_phase, args, dev, [murmur3_int32]),
             timed("q16_part", run_q16_part_phase, dev,
                   [murmur3_int32, window_match])]
+    # the same paths and the bench's four shapes planned by the port's
+    # Session from their DataFrames
+    runs += timed("session", run_session_phase, dev, args)
     # Q3 with AQE off, then on (the JAX Session's default adaptive conf)
     q3_runs, q3_tables = timed("q3", run_q3_phase, dev, [murmur3_int32])
     runs += q3_runs

@@ -15,9 +15,9 @@ compare as they stand.
 
 Not ported here: cost-fed planning (``advise`` and the observed-cost
 store, with its ``costFed`` and ``explore`` kinds and counters), which
-waits for the planner slice (ROADMAP Queue 1 item 5), and the
-zero-width ``adaptive.<kind>`` trace span of each decision, which waits for
-``trace.py`` (item 8).
+waits for the plan cache's fingerprint, and the zero-width
+``adaptive.<kind>`` trace span of each decision, which waits for
+``trace.py`` (both ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations

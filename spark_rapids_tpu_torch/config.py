@@ -1,17 +1,19 @@
-"""Configuration the port reads so far.
+"""Configuration.
 
 Port of the registry of ``spark_rapids_tpu/config.py`` (``ConfEntry`` and
-``RapidsTpuConf``), holding only the keys that a conf dict sets today:
-the retry policy, the OOM dump directory and the OOM injection, read by
-``memory.retry.apply_session_conf``, and the file readers' keys, read by
-``io.source.FileSource.apply_conf`` and ``io.parquet.ParquetSource``,
-under the same ``spark.rapids.tpu.*`` names and defaults, so one conf dict
-drives both packages.
+``RapidsTpuConf``) for the keys the port reads, under the same
+``spark.rapids.tpu.*`` names and defaults, so one conf dict drives both
+packages: the planner's and the Session's switches (``plan/``), the memory
+budget, the retry policy and the OOM injection
+(``memory.retry.apply_session_conf``), the adaptive-execution knobs, and
+the file readers' keys (``io.source.FileSource.apply_conf`` and
+``io.parquet.ParquetSource``). Operators and catalogs take an entry's
+``default`` where their caller passes nothing; the Session passes the
+conf's value.
 
-The settings that the JAX package reads from a Session's conf (the planner
-and the plugin) are plain constants here, with the JAX key's default:
-operators and catalogs take them as their defaults, and their callers pass
-other values as arguments. The planner slice turns them into keys.
+Per-exec and per-expression switches (``spark.rapids.tpu.sql.exec.<Name>``
+and ``spark.rapids.tpu.sql.expression.<Name>``) are not registered; they
+default to true (``RapidsTpuConf.is_op_enabled``).
 
 One default differs in form: the spill directory is ``rapids_tpu_spill``
 under the process's temporary directory (``tempfile.gettempdir()``), which
@@ -27,36 +29,6 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
 _REGISTRY: Dict[str, "ConfEntry"] = {}
-
-#: ``spark.rapids.tpu.memory.hbm.reserve``: device bytes held back from the
-#: buffer catalog's budget for operator temporaries
-HBM_RESERVE = 2 << 30
-#: ``spark.rapids.tpu.memory.host.spillStorageSize``: host bytes for
-#: spilled device buffers before they overflow to disk
-HOST_SPILL_LIMIT = 4 << 30
-#: ``spark.rapids.tpu.memory.spillDir``: the disk tier's directory
-SPILL_DIR = os.path.join(tempfile.gettempdir(), "rapids_tpu_spill")
-#: ``spark.rapids.tpu.sql.agg.maxResultRows``: row budget of one aggregate
-#: merge; partials over it merge in windows and, when that stops shrinking
-#: them, through the sort-based out-of-core merge
-AGG_MAX_RESULT_ROWS = 1 << 22
-#: ``spark.rapids.tpu.sql.join.maxBuildRows``: per-partition build-side
-#: row budget; bigger builds grace-hash sub-partition both sides
-JOIN_MAX_BUILD_ROWS = 1 << 22
-#: ``spark.rapids.tpu.sql.adaptive.coalescePartitions.targetRows``: row
-#: target of an adaptive exchange's reader partitions; adjacent thin
-#: partitions coalesce toward it (``adaptive.enabled`` defaults to true in
-#: the JAX package; here an entry point takes ``adaptive=``)
-ADAPTIVE_TARGET_ROWS = 1 << 20
-#: ``spark.rapids.tpu.sql.adaptive.skewJoin.splitRows``: stream rows above
-#: which one partition of a co-partitioned join counts as skewed and splits
-#: (``skewJoin.enabled`` defaults to true)
-SKEW_SPLIT_ROWS = 1 << 21
-#: ``spark.rapids.tpu.sql.adaptive.broadcastJoin.maxBuildRows``: measured
-#: build rows at or under which a shuffled hash join switches to a
-#: broadcast at run time (``broadcastJoin.enabled`` defaults to true)
-ADAPTIVE_BROADCAST_MAX_BUILD_ROWS = 1 << 16
-
 
 @dataclass
 class ConfEntry:
@@ -77,6 +49,152 @@ def _entry(key: str, default, doc: str, conv) -> ConfEntry:
 def _bool(s) -> bool:
     return str(s).strip().lower() in ("true", "1")
 
+
+def parse_bytes(s) -> int:
+    """A byte count: an int, or text with an optional k/m/g/t suffix."""
+    if isinstance(s, (int, float)):
+        return int(s)
+    s = str(s).strip().lower()
+    units = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40, "b": 1}
+    for suffix in ("kb", "mb", "gb", "tb", "k", "m", "g", "t", "b"):
+        if s.endswith(suffix):
+            return int(float(s[: -len(suffix)]) * units[suffix[0]])
+    return int(float(s))
+
+
+# ---- the planner and the Session (plan/) ----
+
+SQL_ENABLED = _entry(
+    "spark.rapids.tpu.sql.enabled", True,
+    "Master switch: when false every operator stays on the CPU. The port "
+    "has no CPU side yet: a Session with this false raises.", _bool)
+MODE = _entry(
+    "spark.rapids.tpu.sql.mode", "executeontpu",
+    "executeontpu or explainonly: explainonly plans as if the device were "
+    "present but executes on the CPU. The port has no CPU side yet: a "
+    "Session in explainonly raises.", str)
+INCOMPATIBLE_OPS = _entry(
+    "spark.rapids.tpu.sql.incompatibleOps.enabled", False,
+    "Enable operators whose results differ from Spark in corner cases "
+    "(float aggregation order; float64 sums, averages and moments).", _bool)
+ANSI_ENABLED = _entry(
+    "spark.rapids.tpu.sql.ansi.enabled", False,
+    "ANSI SQL mode: overflow and division by zero raise instead of "
+    "null/wrap.", _bool)
+BATCH_SIZE_BYTES = _entry(
+    "spark.rapids.tpu.sql.batchSizeBytes", 512 << 20,
+    "Target device batch size; the coalesce pass concatenates operator "
+    "output batches up to this size.", parse_bytes)
+COALESCE_MAX_ROWS = _entry(
+    "spark.rapids.tpu.sql.coalesce.maxRows", 1 << 22,
+    "Row cap per coalesced output batch in CoalesceBatchesExec.", int)
+FUSION_ENABLED = _entry(
+    "spark.rapids.tpu.sql.fusion.enabled", True,
+    "Whole-stage fusion: an eligible linear single-batch stage runs as one "
+    "program, captured in a CUDA graph on the card (exec/fuse.py).", _bool)
+CBO_ENABLED = _entry(
+    "spark.rapids.tpu.sql.optimizer.enabled", False,
+    "Cost-based optimizer, which moves subtrees to the CPU. The port has "
+    "no CPU side yet: a Session with this true raises.", _bool)
+PARQUET_ENABLED = _entry(
+    "spark.rapids.tpu.sql.format.parquet.enabled", True,
+    "Accelerate parquet scans; a scan with this false is refused.", _bool)
+REGEXP_ENABLED = _entry(
+    "spark.rapids.tpu.sql.regexp.enabled", True,
+    "Master switch for device regular expressions.", _bool)
+FILECACHE_ENABLED = _entry(
+    "spark.rapids.tpu.filecache.enabled", True,
+    "Session.cache materializes a DataFrame; false keeps its logical "
+    "plan.", _bool)
+SHUFFLE_PARTITIONS = _entry(
+    "spark.rapids.tpu.shuffle.partitions", 8,
+    "Default number of shuffle partitions.", int)
+SHUFFLE_MODE = _entry(
+    "spark.rapids.tpu.shuffle.mode", "DEFAULT",
+    "Shuffle manager mode: DEFAULT, MULTITHREADED, ICI or CACHED. The port "
+    "has DEFAULT; the others raise.", str)
+BROADCAST_THRESHOLD = _entry(
+    "spark.rapids.tpu.sql.autoBroadcastJoinThreshold", 10 << 20,
+    "Max estimated build-side bytes for a broadcast hash join; larger (or "
+    "unknown-size) builds shuffle both sides on the join keys.", int)
+BROADCAST_LIMIT = _entry(
+    "spark.rapids.tpu.broadcast.maxBytes", 1 << 30,
+    "Maximum device bytes for one broadcast relation.", parse_bytes)
+DPP_ENABLED = _entry(
+    "spark.rapids.tpu.sql.dynamicPartitionPruning.enabled", True,
+    "Prune hive-partitioned scan files at plan time using the distinct "
+    "join-key values of a broadcast build side.", _bool)
+AGG_MAX_RESULT_ROWS = _entry(
+    "spark.rapids.tpu.sql.agg.maxResultRows", 1 << 22,
+    "Row budget of one aggregate merge; partials over it merge in windows "
+    "and, when that stops shrinking them, through the sort-based "
+    "out-of-core merge.", int)
+JOIN_MAX_BUILD_ROWS = _entry(
+    "spark.rapids.tpu.sql.join.maxBuildRows", 1 << 22,
+    "Per-partition build-side row budget; bigger builds grace-hash "
+    "sub-partition both sides.", int)
+ADAPTIVE_ENABLED = _entry(
+    "spark.rapids.tpu.sql.adaptive.enabled", True,
+    "Adaptive query execution at the exchanges: coalesce thin partitions, "
+    "split skewed ones, switch a small build to a broadcast.", _bool)
+ADAPTIVE_TARGET_ROWS = _entry(
+    "spark.rapids.tpu.sql.adaptive.coalescePartitions.targetRows", 1 << 20,
+    "Row target when coalescing adjacent small shuffle partitions.", int)
+SKEW_JOIN_ENABLED = _entry(
+    "spark.rapids.tpu.sql.adaptive.skewJoin.enabled", True,
+    "Split a skewed stream-side partition of a co-partitioned join.",
+    _bool)
+SKEW_SPLIT_ROWS = _entry(
+    "spark.rapids.tpu.sql.adaptive.skewJoin.splitRows", 1 << 21,
+    "Stream-side rows above which one shuffle partition counts as skewed "
+    "and is split.", int)
+ADAPTIVE_BROADCAST_ENABLED = _entry(
+    "spark.rapids.tpu.sql.adaptive.broadcastJoin.enabled", True,
+    "Runtime shuffled-to-broadcast join switch.", _bool)
+ADAPTIVE_BROADCAST_MAX_BUILD_ROWS = _entry(
+    "spark.rapids.tpu.sql.adaptive.broadcastJoin.maxBuildRows", 1 << 16,
+    "Measured build-side row total at or under which a shuffled hash join "
+    "switches to broadcast at run time.", int)
+ADAPTIVE_COST_ENABLED = _entry(
+    "spark.rapids.tpu.sql.adaptive.costFeedback.enabled", False,
+    "Cost-fed placement from measured wall times. Not in the port yet: a "
+    "Session with this true raises.", _bool)
+
+# ---- the serving keys whose features the port does not have yet ----
+
+SERVER_PLAN_CACHE_ENABLED = _entry(
+    "spark.rapids.tpu.server.planCache.enabled", True,
+    "Memoize planning per plan-shape fingerprint. Changes no result; the "
+    "port plans afresh every time (Session.last_cache['plan']).", _bool)
+SERVER_RESULT_CACHE_ENABLED = _entry(
+    "spark.rapids.tpu.server.resultCache.enabled", False,
+    "Serve repeated queries from a result cache. Not in the port yet: a "
+    "Session with this true raises.", _bool)
+SHARING_ENABLED = _entry(
+    "spark.rapids.tpu.server.sharing.enabled", False,
+    "Cross-query work sharing. Not in the port yet: a Session with this "
+    "true raises.", _bool)
+TRACE_ENABLED = _entry(
+    "spark.rapids.tpu.trace.enabled", False,
+    "Query tracing. Not in the port yet: a Session with this true "
+    "raises.", _bool)
+
+# ---- the memory budget, read where a Session makes its catalog ----
+
+HBM_RESERVE = _entry(
+    "spark.rapids.tpu.memory.hbm.reserve", 2 << 30,
+    "Device bytes held back from the buffer catalog's budget for operator "
+    "temporaries.", parse_bytes)
+HOST_SPILL_LIMIT = _entry(
+    "spark.rapids.tpu.memory.host.spillStorageSize", 4 << 30,
+    "Host bytes for spilled device buffers before they overflow to "
+    "disk.", parse_bytes)
+SPILL_DIR = _entry(
+    "spark.rapids.tpu.memory.spillDir",
+    os.path.join(tempfile.gettempdir(), "rapids_tpu_spill"),
+    "The disk tier's directory.", str)
+
+# ---- the retry policy and the OOM injection ----
 
 OOM_DUMP_DIR = _entry(
     "spark.rapids.tpu.memory.oomDumpDir", "",
@@ -174,3 +292,32 @@ class RapidsTpuConf:
             raw = self._settings[key]
             return entry.conv(raw) if isinstance(raw, str) else raw
         return entry.default
+
+    @property
+    def sql_enabled(self) -> bool:
+        return self.get(SQL_ENABLED.key)
+
+    @property
+    def batch_size_bytes(self) -> int:
+        return self.get(BATCH_SIZE_BYTES.key)
+
+    @property
+    def ansi(self) -> bool:
+        return self.get(ANSI_ENABLED.key)
+
+    @property
+    def incompatible_ops(self) -> bool:
+        return self.get(INCOMPATIBLE_OPS.key)
+
+    def is_op_enabled(self, op_key: str, default: bool = True) -> bool:
+        """The per-exec and per-expression switches
+        (``spark.rapids.tpu.sql.exec.<Name>``,
+        ``spark.rapids.tpu.sql.expression.<Name>``), true unless set."""
+        v = self._settings.get(op_key, default)
+        if isinstance(v, str):
+            return v.strip().lower() in ("true", "1")
+        return bool(v)
+
+    def is_default(self, entry: ConfEntry) -> bool:
+        """Whether the conf leaves ``entry`` at its default."""
+        return self.get(entry.key) == entry.default

@@ -111,6 +111,13 @@ down and kept in the ``FilterExec`` above it, as the JAX planner gives
 table through ``io.writer.write_plan`` into bucket files on the int32
 ``l_shipdate``.
 
+Each path is also a DataFrame of the port's planner (``plan/``):
+``q1_df``, ``q16_part_df``, ``q3_df``, ``q18_df``, ``q2_df``, ``q11_df``,
+``q1_stage_df``, ``hash_agg_df``, ``join_sort_df`` and ``parquet_scan_df``,
+written as the JAX tests write them, for ``plan.Session`` under
+``session_conf()``; the Session gives each the hand-built ``*_plan``'s
+tree (``q1_stage_plan`` for the Q1 stage's query).
+
 ``q1_reference``, ``q16_part_reference``, ``q3_reference``,
 ``q18_reference``, ``q2_reference``, ``q11_reference``,
 ``hash_agg_reference``, ``join_sort_reference`` and ``skew_reference``
@@ -192,18 +199,12 @@ def _scan(table: pa.Table, num_slices: int, device: DeviceLike,
 def _grouped_stage(scan: Exec, condition: Expression, keys: Sequence[str],
                    aggregates, shuffle_partitions: int,
                    orders: Sequence[SortOrder]) -> Exec:
-    """Filter, partial aggregate, hash exchange on the keys, final
-    aggregate and sort: the JAX planner's tree for a grouped query."""
-    filtered = FilterExec(condition, scan)
-    key_cols = [col(k) for k in keys]
-    partial = HashAggregateExec(key_cols, aggregates(),
-                                CoalesceBatchesExec(filtered),
-                                AggregateMode.PARTIAL)
-    exchange = ShuffleExchangeExec(
-        HashPartitioning([col(f.name) for f in partial.key_fields],
-                         shuffle_partitions), partial)
-    final = HashAggregateExec(key_cols, aggregates(), exchange,
-                              AggregateMode.FINAL)
+    """Filter, coalesce, partial aggregate, hash exchange on the keys
+    (over more than one partition), final aggregate and sort: the JAX
+    planner's tree for a grouped query."""
+    final = Adaptive.OFF.grouped(
+        CoalesceBatchesExec(FilterExec(condition, scan)), keys, aggregates,
+        shuffle_partitions)
     return SortExec(orders, final)
 
 
@@ -257,6 +258,28 @@ def q1_reference(table: pa.Table) -> pa.Table:
     return pa.table([g.column(c) for c in columns], names=names)
 
 
+def q1_stage_aggregates():
+    """The six aggregates of ``__graft_entry__._q1_stage``."""
+    return [Sum(col("l_quantity")).alias("sum_qty"),
+            Sum(col("l_extendedprice")).alias("sum_base_price"),
+            Sum(col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+                ).alias("sum_disc_price"),
+            Average(col("l_quantity")).alias("avg_qty"),
+            Average(col("l_discount")).alias("avg_disc"),
+            Count().alias("count_order")]
+
+
+def q1_stage_plan(table: pa.Table, device: DeviceLike = None) -> Exec:
+    """The tree the planner gives the fused Q1 stage's query over
+    ``table`` in one slice (``q1_stage_df``): the filter, a coalesce, and
+    the PARTIAL and FINAL aggregates with no exchange between them (one
+    partition)."""
+    return Adaptive.OFF.grouped(
+        CoalesceBatchesExec(FilterExec(
+            col("l_shipdate") <= lit(Q1_SHIPDATE_MAX),
+            _scan(table, 1, device))), Q1_KEYS, q1_stage_aggregates, 1)
+
+
 def q1_stage(schema: Schema, device: DeviceLike = None):
     """The fused Q1 stage, the counterpart of ``__graft_entry__._q1_stage``:
     ``(stage, partial, final, cond)``, where ``stage(batch)`` is the filter
@@ -268,16 +291,8 @@ def q1_stage(schema: Schema, device: DeviceLike = None):
     dev = resolve_device(device)
     placeholder = InMemoryScanExec([empty_batch(schema, dev)], schema=schema)
     keys = [col("l_returnflag"), col("l_linestatus")]
-    agg = HashAggregateExec(
-        keys,
-        [Sum(col("l_quantity")).alias("sum_qty"),
-         Sum(col("l_extendedprice")).alias("sum_base_price"),
-         Sum(col("l_extendedprice") * (lit(1.0) - col("l_discount"))
-             ).alias("sum_disc_price"),
-         Average(col("l_quantity")).alias("avg_qty"),
-         Average(col("l_discount")).alias("avg_disc"),
-         Count().alias("count_order")],
-        placeholder, AggregateMode.COMPLETE)
+    agg = HashAggregateExec(keys, q1_stage_aggregates(), placeholder,
+                            AggregateMode.COMPLETE)
     cond = (col("l_shipdate") <= lit(Q1_SHIPDATE_MAX)).bind(schema)
 
     def stage(batch: ColumnarBatch) -> ColumnarBatch:
@@ -377,16 +392,20 @@ def join_sort_tables(n_stream: int, n_build: int, seed: int = 7
 def join_sort_plan(stream: pa.Table, build: pa.Table,
                    device: DeviceLike = None) -> Exec:
     """``bench.bench_join_sort``'s plan over inputs uploaded once, one
-    batch a scan: ``HashJoinExec INNER l_orderkey = o_orderkey`` (build on
-    orders), then ``SortExec [l_revenue DESC]``."""
+    batch a scan, as the planner gives it (``join_sort_df``): ``HashJoinExec
+    INNER l_orderkey = o_orderkey`` over the orders build broadcast, its
+    output coalesced, then ``SortExec [l_revenue DESC]``. Over one batch
+    the broadcast and the coalesce pass it through, so the stage fuses."""
     dev = resolve_device(device)
     sb, s_schema = from_arrow(stream, device=dev)
     bb, b_schema = from_arrow(build, device=dev)
     join = HashJoinExec([col("l_orderkey")], [col("o_orderkey")],
                         JoinType.INNER,
                         InMemoryScanExec([sb], schema=s_schema),
-                        InMemoryScanExec([bb], schema=b_schema))
-    return SortExec([desc(col("l_revenue"))], join)
+                        BroadcastExchangeExec(
+                            InMemoryScanExec([bb], schema=b_schema)))
+    return SortExec([desc(col("l_revenue"))],
+                    CoalesceBatchesExec(join, TargetSize()))
 
 
 def join_sort_runner(plan: Exec, mode: str = "graph"
@@ -669,10 +688,10 @@ class Adaptive:
     AQE off."""
 
     def __init__(self, enabled: bool = True,
-                 target_rows: int = ADAPTIVE_TARGET_ROWS,
-                 skew_split_rows: Optional[int] = SKEW_SPLIT_ROWS,
+                 target_rows: int = ADAPTIVE_TARGET_ROWS.default,
+                 skew_split_rows: Optional[int] = SKEW_SPLIT_ROWS.default,
                  broadcast_switch_rows: Optional[int] =
-                 ADAPTIVE_BROADCAST_MAX_BUILD_ROWS):
+                 ADAPTIVE_BROADCAST_MAX_BUILD_ROWS.default):
         self.enabled = enabled
         self.target_rows = target_rows
         self.skew_split_rows = skew_split_rows if enabled else None
@@ -701,15 +720,15 @@ class Adaptive:
     def grouped(self, child: Exec, keys: Sequence[str], aggregates,
                 shuffle_partitions: int) -> Exec:
         """Partial aggregate, exchange (hash on the keys, or into one
-        partition without keys), final aggregate. With AQE on, the
-        exchange is left out where the child reads as one partition, as
-        the JAX planner's ``_convert_aggregate`` does; asking an adaptive
-        child for its partitions materializes the exchanges below it."""
+        partition without keys), final aggregate. The exchange is left out
+        where the child reads as one partition, as the JAX planner's
+        ``_convert_aggregate`` does; asking an adaptive child for its
+        partitions materializes the exchanges below it."""
         key_cols = [col(k) for k in keys]
         partial = HashAggregateExec(key_cols, aggregates(), child,
                                     AggregateMode.PARTIAL)
         below: Exec = partial
-        if not self.enabled or child.num_partitions > 1:
+        if child.num_partitions > 1:
             below = self.exchange(
                 HashPartitioning([col(f.name) for f in partial.key_fields],
                                  shuffle_partitions) if keys
@@ -752,10 +771,10 @@ def q3_plan(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
             num_slices: int = 8, shuffle_partitions: int = 8,
             broadcast: bool = False, device: DeviceLike = None,
             adaptive: bool = False,
-            target_rows: int = ADAPTIVE_TARGET_ROWS,
-            skew_split_rows: Optional[int] = SKEW_SPLIT_ROWS,
+            target_rows: int = ADAPTIVE_TARGET_ROWS.default,
+            skew_split_rows: Optional[int] = SKEW_SPLIT_ROWS.default,
             broadcast_switch_rows: Optional[int] =
-            ADAPTIVE_BROADCAST_MAX_BUILD_ROWS) -> Exec:
+            ADAPTIVE_BROADCAST_MAX_BUILD_ROWS.default) -> Exec:
     """Q3's physical tree over the three tables. The JAX planner joins
     customer with orders and that with lineitem, and swaps each join's
     sides to build on the smaller one. With ``adaptive`` the tree is the
@@ -859,13 +878,13 @@ def q18_aggregates(name: str = "sum_qty"):
 def q18_plan(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
              num_slices: int = 8, shuffle_partitions: int = 2,
              device_limit: Optional[int] = None,
-             max_build_rows: int = JOIN_MAX_BUILD_ROWS,
+             max_build_rows: int = JOIN_MAX_BUILD_ROWS.default,
              device: DeviceLike = None,
              quantity: float = Q18_QUANTITY, adaptive: bool = False,
-             target_rows: int = ADAPTIVE_TARGET_ROWS,
-             skew_split_rows: Optional[int] = SKEW_SPLIT_ROWS,
+             target_rows: int = ADAPTIVE_TARGET_ROWS.default,
+             skew_split_rows: Optional[int] = SKEW_SPLIT_ROWS.default,
              broadcast_switch_rows: Optional[int] =
-             ADAPTIVE_BROADCAST_MAX_BUILD_ROWS) -> Exec:
+             ADAPTIVE_BROADCAST_MAX_BUILD_ROWS.default) -> Exec:
     """Q18's physical tree over the three tables, every join shuffled. With
     ``device_limit`` the tree gets a buffer catalog of its own with that
     device budget (``plan.catalog``). ``adaptive`` and its knobs as in
@@ -903,7 +922,7 @@ def q18_plan(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
 def run_q18(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
             num_slices: int = 8, shuffle_partitions: int = 2,
             device_limit: Optional[int] = None,
-            max_build_rows: int = JOIN_MAX_BUILD_ROWS,
+            max_build_rows: int = JOIN_MAX_BUILD_ROWS.default,
             device: DeviceLike = None,
             quantity: float = Q18_QUANTITY, adaptive: bool = False,
             **knobs) -> pa.Table:
@@ -1363,7 +1382,7 @@ def skew_plan(fact: pa.Table, dim: pa.Table, leg: str = "adaptive_bcast",
               split_rows: int = SKEW_SPLIT_ROWS_BENCH,
               num_slices: int = SKEW_SLICES,
               shuffle_partitions: int = SKEW_PARTITIONS,
-              target_rows: int = ADAPTIVE_TARGET_ROWS,
+              target_rows: int = ADAPTIVE_TARGET_ROWS.default,
               device: DeviceLike = None) -> Exec:
     """The tree the JAX Session gives the skew bench's query
     (``tools/skew_bench._query``: fact JOIN dim ON k = dk, GROUP BY g with
@@ -1519,3 +1538,186 @@ def write_lineitem_bucketed(table: pa.Table, path: str, buckets: int = 16,
     from .io.writer import write_plan
     return write_plan(_scan(table, num_slices, device), path,
                       bucket_by=([BUCKET_KEY], buckets))
+
+
+# ---------------------------------------------------------------------------
+# The same paths as DataFrames, for the port's Session (``plan/``)
+# ---------------------------------------------------------------------------
+
+def session_conf(shuffle_partitions: int = 8, **settings) -> Dict:
+    """The conf the Session runs these paths under, the one the port's
+    tests give the JAX Session: ``incompatibleOps`` on (float64 sums), AQE
+    off, ``shuffle_partitions`` shuffle partitions; ``settings`` (full
+    ``spark.rapids.tpu.*`` keys) add to it or override it."""
+    conf = {"spark.rapids.tpu.sql.incompatibleOps.enabled": True,
+            "spark.rapids.tpu.sql.adaptive.enabled": False,
+            "spark.rapids.tpu.shuffle.partitions": shuffle_partitions}
+    conf.update(settings)
+    return conf
+
+
+def _df(table: pa.Table, num_slices: int,
+        string_max_len: int = STRING_MAX_LEN):
+    """A DataFrame scan of ``table`` in ``num_slices`` partitions of one
+    batch each, as the JAX tests give ``table()``; strings
+    ``string_max_len`` bytes wide (the JAX Session's 64 unless named)."""
+    from .plan.logical import DataFrame, LogicalScan
+    return DataFrame(LogicalScan(
+        (), data=table,
+        _schema=(None if string_max_len == STRING_MAX_LEN else
+                 schema_from_arrow(table.schema, string_max_len)),
+        num_slices=num_slices,
+        batch_rows=max(1, -(-table.num_rows // num_slices))))
+
+
+def q1_df(table: pa.Table, num_slices: int = 8):
+    """TPC-H Q1 as a DataFrame (``q1_plan``'s query)."""
+    return (_df(table, num_slices)
+            .where(col("l_shipdate") <= lit(Q1_SHIPDATE_MAX))
+            .group_by(*Q1_KEYS)
+            .agg(*q1_aggregates())
+            .order_by(*[asc(col(k)) for k in Q1_KEYS]))
+
+
+def q16_part_df(table: pa.Table, num_slices: int = 8):
+    """Q16's part stage as a DataFrame (``q16_part_plan``'s query)."""
+    return (_df(table, num_slices)
+            .where(q16_part_condition())
+            .group_by(*Q16_KEYS)
+            .agg(*q16_part_aggregates())
+            .order_by(desc(col("part_cnt")),
+                      *[asc(col(k)) for k in Q16_KEYS]))
+
+
+def q3_df(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
+          num_slices: int = 8):
+    """TPC-H Q3 as a DataFrame, tables in the FROM order (``q3_plan``'s
+    query)."""
+    day = Q3_DATE
+    return (_df(customer, num_slices)
+            .where(EqualTo(col("c_mktsegment"), lit(Q3_SEGMENT)))
+            .join(_df(orders, num_slices)
+                  .where(col("o_orderdate") < lit(day)),
+                  ["c_custkey"], ["o_custkey"])
+            .join(_df(lineitem, num_slices)
+                  .where(col("l_shipdate") > lit(day)),
+                  ["o_orderkey"], ["l_orderkey"])
+            .group_by(*Q3_KEYS)
+            .agg(*q3_aggregates())
+            .order_by(desc(col("revenue")), asc(col("o_orderdate")))
+            .limit(Q3_LIMIT)
+            .select(*Q3_SELECT))
+
+
+def q18_df(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
+           num_slices: int = 8, quantity: float = Q18_QUANTITY):
+    """TPC-H Q18 as a DataFrame, the IN subquery as a LEFT SEMI join
+    (``q18_plan``'s query)."""
+    big = (_df(lineitem, num_slices).group_by("l_orderkey")
+           .agg(*q18_aggregates("sq"))
+           .where(GreaterThan(col("sq"), lit(float(quantity)))))
+    return (_df(customer, num_slices)
+            .join(_df(orders, num_slices).join(
+                big, ["o_orderkey"], ["l_orderkey"], JoinType.LEFT_SEMI),
+                  ["c_custkey"], ["o_custkey"])
+            .join(_df(lineitem, num_slices), ["o_orderkey"], ["l_orderkey"])
+            .group_by(*Q18_KEYS)
+            .agg(*q18_aggregates())
+            .order_by(desc(col("o_totalprice")), asc(col("o_orderdate")))
+            .limit(Q18_LIMIT))
+
+
+def q2_df(part: pa.Table, supplier: pa.Table, partsupp: pa.Table,
+          nation: pa.Table, region: pa.Table, num_slices: int = 8):
+    """TPC-H Q2 as a DataFrame, the correlated subquery decorrelated
+    (``q2_plan``'s query); ``supplier`` scans at 128 bytes a string."""
+    ps = _prune(partsupp, Q2_COLUMNS["partsupp"])
+
+    def eu_suppliers():
+        regions = _df(region, num_slices).where(
+            EqualTo(col("r_name"), lit(Q2_REGION)))
+        nations = (_df(nation, num_slices)
+                   .join(regions, ["n_regionkey"], ["r_regionkey"])
+                   .select("n_nationkey", "n_name"))
+        return _df(supplier, num_slices, SUPPLIER_STRING_MAX_LEN).join(
+            nations, ["s_nationkey"], ["n_nationkey"])
+
+    mins = (_df(ps, num_slices)
+            .join(eu_suppliers().select("s_suppkey"), ["ps_suppkey"],
+                  ["s_suppkey"])
+            .group_by("ps_partkey")
+            .agg(*q2_aggregates())
+            .select(col("ps_partkey").alias("m_partkey"), col("min_cost")))
+    parts = _df(part, num_slices).where(And(
+        EqualTo(col("p_size"), lit(Q2_SIZE)),
+        endswith(col("p_type"), Q2_TYPE_SUFFIX)))
+    return (parts.join(_df(ps, num_slices), ["p_partkey"], ["ps_partkey"])
+            .join(eu_suppliers(), ["ps_suppkey"], ["s_suppkey"])
+            .join(mins, ["p_partkey", "ps_supplycost"],
+                  ["m_partkey", "min_cost"])
+            .order_by(desc(col("s_acctbal")), asc(col("n_name")),
+                      asc(col("s_name")), asc(col("p_partkey")))
+            .limit(Q2_LIMIT)
+            .select(*Q2_SELECT))
+
+
+def q11_df(partsupp: pa.Table, supplier: pa.Table, nation: pa.Table,
+           fraction: float, num_slices: int = 8):
+    """TPC-H Q11 as a DataFrame, the HAVING against the scalar subquery
+    as a keyless join with the one-row global sum (``q11_plan``'s
+    query)."""
+    ps = _prune(partsupp, Q11_COLUMNS["partsupp"])
+    s = _prune(supplier, Q11_COLUMNS["supplier"])
+    n = _prune(nation, Q11_COLUMNS["nation"])
+
+    def german_rows():
+        nations = _df(n, num_slices).where(
+            EqualTo(col("n_name"), lit(Q11_NATION)))
+        suppliers = (_df(s, num_slices)
+                     .join(nations, ["s_nationkey"], ["n_nationkey"])
+                     .select("s_suppkey"))
+        return _df(ps, num_slices).join(suppliers, ["ps_suppkey"],
+                                        ["s_suppkey"])
+
+    groups = german_rows().group_by("ps_partkey").agg(*q11_aggregates())
+    total = german_rows().agg(*q11_aggregates("total"))
+    cond = GreaterThan(col("value"), col("total") * lit(float(fraction)))
+    return (groups.join(total, [], [], JoinType.INNER, condition=cond)
+            .select("ps_partkey", "value")
+            .order_by(desc(col("value"))))
+
+
+def q1_stage_df(table: pa.Table):
+    """The fused Q1 stage's query (``__graft_entry__._q1_stage``) as a
+    DataFrame over ``table`` in one slice (``q1_stage_plan``'s tree)."""
+    return (_df(table, 1)
+            .where(col("l_shipdate") <= lit(Q1_SHIPDATE_MAX))
+            .group_by(*Q1_KEYS)
+            .agg(*q1_stage_aggregates()))
+
+
+def hash_agg_df(table: pa.Table, num_slices: int = 8):
+    """``bench.bench_hash_agg``'s aggregate as a DataFrame over
+    ``num_slices`` slices (``hash_agg_plan(two_stage=True)``'s tree)."""
+    return (_df(table, num_slices).group_by(*HASH_AGG_KEYS)
+            .agg(*hash_agg_aggregates()))
+
+
+def join_sort_df(stream: pa.Table, build: pa.Table):
+    """``bench.bench_join_sort``'s join and sort as a DataFrame, each input
+    one batch (``join_sort_plan``'s tree, which the Session fuses)."""
+    return (_df(stream, 1)
+            .join(_df(build, 1), ["l_orderkey"], ["o_orderkey"])
+            .order_by(desc(col("l_revenue"))))
+
+
+def parquet_scan_df(paths, num_slices: int = 1, reader_type=None):
+    """``bench.bench_parquet_scan``'s scan as a DataFrame over
+    ``read_parquet`` (``parquet_scan_plan``'s tree), MULTITHREADED unless
+    ``reader_type`` says otherwise."""
+    from .io.scan import read_parquet
+    from .io.source import ReaderType
+    return read_parquet(paths, columns=list(PARQUET_SCAN_COLUMNS),
+                        predicate=col("l_shipdate") <= lit(Q1_SHIPDATE_MAX),
+                        num_slices=num_slices,
+                        reader_type=reader_type or ReaderType.MULTITHREADED)

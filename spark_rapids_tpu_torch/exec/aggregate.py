@@ -96,11 +96,15 @@ def _dead_past(c: DeviceColumn, live: torch.Tensor) -> DeviceColumn:
 
 
 class HashAggregateExec(UnaryExec):
+    def coalesce_goal_for_child(self, i):
+        from .coalesce import TargetSize
+        return TargetSize()
+
     def __init__(self, group_exprs: Sequence[Expression],
                  agg_exprs: Sequence[Expression], child: Exec,
                  mode: AggregateMode = AggregateMode.COMPLETE,
                  ctx: Optional[EvalContext] = None,
-                 max_result_rows: int = AGG_MAX_RESULT_ROWS):
+                 max_result_rows: int = AGG_MAX_RESULT_ROWS.default):
         super().__init__(child, ctx)
         self.mode = mode
         self.max_result_rows = max_result_rows

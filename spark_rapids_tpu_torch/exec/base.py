@@ -90,6 +90,21 @@ class Exec:
     def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         raise NotImplementedError(type(self).__name__)
 
+    def coalesce_goal_for_child(self, i: int):
+        """The batch-size contract this operator declares for child ``i``:
+        None (no requirement), ``TargetSize`` (feed me batches near the
+        configured size) or ``RequireSingleBatch`` (I need the whole
+        partition in one batch). The planner's transition pass
+        (``plan/overrides.insert_coalesce_transitions``) inserts a
+        ``CoalesceBatchesExec`` to meet a declared goal and verifies it."""
+        return None
+
+    @property
+    def produces_single_batch(self) -> bool:
+        """True when every partition of this operator yields at most one
+        batch (meets ``RequireSingleBatch`` without a coalesce)."""
+        return False
+
     def close(self) -> None:
         """Release the catalog handles the tree still holds once the query
         is over (children first); subclasses override ``do_close``."""
@@ -178,12 +193,19 @@ def assemble_result(tables, schema: Schema) -> pa.Table:
     return pa.concat_tables(tables)
 
 
+def iter_subplan_tables(plan: Exec):
+    """Run a plan and yield one host Arrow table per output batch, in
+    partition order (the "subplan produced" side of the collect seam)."""
+    schema = plan.output_schema
+    for b in plan.execute():
+        yield to_arrow(b, schema)
+
+
 def collect(plan: Exec) -> pa.Table:
     """Run a plan and pull the result to the host as one Arrow table, then
     close the plan, so the query leaves no handle in any catalog."""
-    schema = plan.output_schema
     try:
-        return assemble_result((to_arrow(b, schema)
-                                for b in plan.execute()), schema)
+        return assemble_result(iter_subplan_tables(plan),
+                               plan.output_schema)
     finally:
         plan.close()

@@ -4,8 +4,8 @@ Port of ``CoalesceBatchesExec`` with its goals ``TargetSize`` and
 ``RequireSingleBatch`` from ``spark_rapids_tpu/exec/coalesce.py``: under
 ``TargetSize`` batches of one partition concatenate until the next would
 pass the byte target or the row limit; under ``RequireSingleBatch`` (a join's
-build side) the whole partition becomes one batch. The planner's
-goal-verification pass comes with the planner slice.
+build side) the whole partition becomes one batch. ``verify_coalesce_goals``
+is the planner's check that every declared ``RequireSingleBatch`` is met.
 """
 
 from __future__ import annotations
@@ -46,6 +46,11 @@ class CoalesceBatchesExec(UnaryExec):
     def output_schema(self) -> Schema:
         return self.child.output_schema
 
+    @property
+    def produces_single_batch(self) -> bool:
+        return isinstance(self.goal, RequireSingleBatch) \
+            or self.child.produces_single_batch
+
     def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         pending: List[ColumnarBatch] = []
         pending_bytes = 0
@@ -64,3 +69,21 @@ class CoalesceBatchesExec(UnaryExec):
             pending_bytes += b
         if pending:
             yield concat_all(pending, self.output_schema, self.device)
+
+
+class CoalesceGoalError(RuntimeError):
+    """A declared coalesce goal is not met by the converted plan."""
+
+
+def verify_coalesce_goals(plan: Exec) -> None:
+    """Every child position whose parent declares ``RequireSingleBatch``
+    must be served by a single-batch producer (a ``RequireSingleBatch``
+    coalesce, or an operator that yields one batch per partition)."""
+    for i, c in enumerate(plan.children):
+        goal = plan.coalesce_goal_for_child(i)
+        if isinstance(goal, RequireSingleBatch) and \
+                not c.produces_single_batch:
+            raise CoalesceGoalError(
+                f"{plan.name} child {i} declares RequireSingleBatch but "
+                f"{c.name} may emit multiple batches")
+        verify_coalesce_goals(c)

@@ -27,6 +27,13 @@ branches give the JAX package's rows. A capture that fails raises: there
 is no eager substitute. On the CPU (asked for explicitly, as the tests
 do) the program runs eagerly every time.
 
+One difference from the JAX package: a ``CoalesceBatchesExec`` or a
+``BroadcastExchangeExec`` inside the stage fuses as the batch it passes
+through (every scan of a fused stage supplies one batch), so a join and
+sort that the planner gives a broadcast build and a coalesced stream, as
+``plan.Session`` does for the bench's join_sort shape, fuses where the JAX
+package's fusion leaves it to the iterator path.
+
 The kernel wrappers count host calls, so a replay adds nothing to their
 counts: ``capture_launches`` holds the launches the capture recorded, and
 ``replays`` the replays since.
@@ -46,6 +53,7 @@ from .aggregate import AggregateMode, HashAggregateExec
 from .base import Exec, LeafExec
 from .basic import (FilterExec, InMemoryScanExec, LocalLimitExec,
                     ProjectExec, _raise_ansi)
+from .coalesce import CoalesceBatchesExec
 from .common import compact, slice_batch
 from .join import _SEMI_TYPES, HashJoinExec, JoinType
 from .sort import SortExec, TakeOrderedAndProjectExec, sort_batch
@@ -57,6 +65,12 @@ _FUSABLE_JOIN_TYPES = (JoinType.INNER, JoinType.LEFT_OUTER,
 
 class FusionUnsupported(Exception):
     pass
+
+
+def _passes_through(node: Exec) -> bool:
+    """A coalesce or a broadcast: over one batch, each passes it through."""
+    from ..shuffle.exchange import BroadcastExchangeExec
+    return isinstance(node, (CoalesceBatchesExec, BroadcastExchangeExec))
 
 
 class _Planner:
@@ -77,7 +91,8 @@ class _Planner:
             self.batches.append(batches[0])
             return
         if isinstance(node, (ProjectExec, FilterExec, SortExec,
-                             TakeOrderedAndProjectExec, LocalLimitExec)):
+                             TakeOrderedAndProjectExec, LocalLimitExec)) \
+                or _passes_through(node):
             self.walk(node.children[0])
             return
         if isinstance(node, HashJoinExec):
@@ -192,6 +207,9 @@ class FusedStage:
                    ) -> ColumnarBatch:
         if isinstance(node, InMemoryScanExec):
             return by_scan[id(node)]
+
+        if _passes_through(node):
+            return self._emit(node.children[0], by_scan, flags)
 
         if isinstance(node, ProjectExec):
             b = self._emit(node.children[0], by_scan, flags)

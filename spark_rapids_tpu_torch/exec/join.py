@@ -228,13 +228,19 @@ class _BuildTable:
 class HashJoinExec(BinaryExec):
     """Equi-join; the left child streams, the right child builds."""
 
+    def coalesce_goal_for_child(self, i):
+        # the stream side wants sized batches; the build side is taken
+        # whole (RequireSingleBatch)
+        from .coalesce import RequireSingleBatch, TargetSize
+        return TargetSize() if i == 0 else RequireSingleBatch()
+
     def __init__(self, left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression], join_type: JoinType,
                  left: Exec, right: Exec,
                  condition: Optional[Expression] = None,
                  broadcast_build: bool = True,
                  ctx: Optional[EvalContext] = None,
-                 max_build_rows: int = JOIN_MAX_BUILD_ROWS,
+                 max_build_rows: int = JOIN_MAX_BUILD_ROWS.default,
                  skew_split_rows: Optional[int] = None,
                  broadcast_switch_rows: Optional[int] = None):
         super().__init__(left, right, ctx)
@@ -850,6 +856,10 @@ class BroadcastNestedLoopJoinExec(BinaryExec):
     build row in bounded tiles; the condition keeps pairs. RIGHT and FULL
     outer fold every stream partition into one, so that the build rows no
     pair kept are emitted once, at the end."""
+
+    def coalesce_goal_for_child(self, i):
+        from .coalesce import RequireSingleBatch, TargetSize
+        return TargetSize() if i == 0 else RequireSingleBatch()
 
     def __init__(self, join_type: JoinType, left: Exec, right: Exec,
                  condition: Optional[Expression] = None,

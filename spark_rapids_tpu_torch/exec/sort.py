@@ -74,6 +74,14 @@ class SortExec(UnaryExec):
     """A global sort (one partition out) or, with ``global_sort=False``, a
     sort of each batch of each partition."""
 
+    def coalesce_goal_for_child(self, i):
+        from .coalesce import TargetSize
+        return TargetSize()
+
+    @property
+    def produces_single_batch(self):
+        return self.global_sort
+
     def __init__(self, orders: Sequence[SortOrder], child: Exec,
                  global_sort: bool = True,
                  ctx: Optional[EvalContext] = None,
@@ -153,6 +161,14 @@ class TakeOrderedAndProjectExec(UnaryExec):
     cut to ``limit`` rows, a tournament across batches keeping the best
     ``limit`` of the best so far and the next candidate, and the
     projection over the winners. One partition, one batch."""
+
+    def coalesce_goal_for_child(self, i):
+        from .coalesce import TargetSize
+        return TargetSize()
+
+    @property
+    def produces_single_batch(self):
+        return True
 
     def __init__(self, limit: int, orders: Sequence[SortOrder],
                  project: Optional[Sequence[Expression]], child: Exec,

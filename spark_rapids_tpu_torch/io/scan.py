@@ -9,9 +9,10 @@ whose upload runs out of device memory (``split_host_table``). Decode runs
 on the reader pool and the prefetch thread; the upload and all device work
 run on the consumer's thread, the one iterating the partition.
 
-Not ported here: the cross-query scan share (``share=``), which waits for
-the plan-sharing slice, and the ``read_*`` helpers, which return a
-DataFrame and wait for the planner slice.
+``read_parquet`` returns a DataFrame over a ``ParquetSource``, which the
+planner turns into this exec. Not ported here: the cross-query scan share
+(``share=``), which waits for the plan-sharing slice, and the CSV, JSON and
+Avro readers, which wait for their sources (ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -112,3 +113,16 @@ class FileSourceScanExec(LeafExec):
             # consumer abort (limit early-exit) must cancel the prefetch
             # producer promptly — no decode running past the query
             close_iterator(it)
+
+
+def read_parquet(paths, columns=None, predicate=None, num_slices: int = 1,
+                 **kw):
+    """A DataFrame over Parquet files (``session.read.parquet``): the
+    projection ``columns`` and the ``predicate`` pushed down to the
+    ``ParquetSource`` (``kw``: its other arguments, ``reader_type`` among
+    them), in ``num_slices`` partitions."""
+    from ..plan.logical import DataFrame, LogicalScan
+    from .parquet import ParquetSource
+    src = ParquetSource(paths, columns=columns, predicate=predicate, **kw)
+    return DataFrame(LogicalScan((), source=src, _schema=src.schema(),
+                                 num_slices=num_slices))

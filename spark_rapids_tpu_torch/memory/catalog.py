@@ -91,8 +91,8 @@ class DoubleReleaseError(RuntimeError):
 
 class BufferCatalog:
     def __init__(self, device_limit: int = CPU_DEVICE_LIMIT,
-                 host_limit: int = HOST_SPILL_LIMIT,
-                 spill_dir: str = SPILL_DIR,
+                 host_limit: int = HOST_SPILL_LIMIT.default,
+                 spill_dir: str = SPILL_DIR.default,
                  track_leaks: bool = False):
         self.device_limit = device_limit
         self.host_limit = host_limit
@@ -396,13 +396,15 @@ _BUDGETS: Dict[str, BufferCatalog] = {}
 _BUDGET_LOCK = threading.Lock()
 
 
-def _default_device_limit(dev: torch.device) -> int:
-    """The card's total memory less ``spark.rapids.tpu.memory.hbm.reserve``
-    on CUDA; the JAX package's 8 GiB on the CPU."""
+def default_device_limit(dev: torch.device,
+                         reserve: int = HBM_RESERVE.default) -> int:
+    """The card's total memory less ``reserve``
+    (``spark.rapids.tpu.memory.hbm.reserve``) on CUDA; the JAX package's
+    8 GiB on the CPU."""
     if dev.type != "cuda":
         return CPU_DEVICE_LIMIT
     _, total = torch.cuda.mem_get_info(dev)
-    return max(total - HBM_RESERVE, 0)
+    return max(total - reserve, 0)
 
 
 def device_budget(device: DeviceLike = None,
@@ -420,8 +422,8 @@ def device_budget(device: DeviceLike = None,
         cat = _BUDGETS.get(key)
         if cat is None:
             cat = BufferCatalog(
-                device_limit or _default_device_limit(dev),
-                host_limit or HOST_SPILL_LIMIT,
-                spill_dir or SPILL_DIR)
+                device_limit or default_device_limit(dev),
+                host_limit or HOST_SPILL_LIMIT.default,
+                spill_dir or SPILL_DIR.default)
             _BUDGETS[key] = cat
         return cat

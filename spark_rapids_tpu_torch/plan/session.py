@@ -1,0 +1,270 @@
+"""Session: conf-scoped query execution and plan capture.
+
+Port of the device side of ``spark_rapids_tpu/plan/session.py``: a
+Session holds one conf dict (the JAX package's keys and defaults), plans a
+DataFrame through ``Overrides`` (tagging, conversion, the coalesce pass,
+dynamic partition pruning), fuses an eligible stage (``exec/fuse.py``,
+captured in a CUDA graph on the card), installs the conf's retry and OOM
+injection settings, and collects. ``last_plan`` is the physical tree the
+last query ran; ``explain``, ``metrics``, ``executed_exec_names``,
+``fell_back`` and ``adaptive_decisions`` read it as the JAX package's do.
+
+The device is ``cuda`` unless the caller names another; asking for
+``cuda`` where there is none raises.
+
+What this Session does not have yet raises ``NotImplementedError`` when a
+conf asks for it, naming the ROADMAP item that brings it:
+
+- the CPU side (``sql.enabled=false``, ``sql.mode=explainonly``, the
+  cost-based optimizer): the next slice of item 5. A node that tagging
+  refuses raises ``NotOnDevice``; ``fell_back()`` is ``[]`` by
+  construction;
+- the result cache, work sharing, tracing, cost-fed placement and the
+  MULTITHREADED and CACHED shuffles: item 8;
+- the ICI shuffle and its mesh lowering: item 6.
+
+The plan cache (on by default in the JAX package) changes no result; the
+port plans afresh every time and says so in ``last_cache["plan"]``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import pyarrow as pa
+
+from ..batch import DeviceLike, resolve_device
+from ..config import (ADAPTIVE_COST_ENABLED, CBO_ENABLED, FILECACHE_ENABLED,
+                      FUSION_ENABLED, HBM_RESERVE, HOST_SPILL_LIMIT, MODE,
+                      SERVER_RESULT_CACHE_ENABLED, SHARING_ENABLED,
+                      SPILL_DIR, SQL_ENABLED, TRACE_ENABLED, RapidsTpuConf)
+from ..memory.catalog import BufferCatalog, default_device_limit
+from .logical import DataFrame
+from .overrides import ExplainMode, Overrides
+
+#: the buffer catalog's counters ``metrics`` reports (``catalog.*``)
+_CATALOG_COUNTERS = ("spilled_to_host", "spilled_to_disk", "unspilled")
+
+#: what ``last_cache["plan"]`` says of every query
+PLAN_CACHE_NOTE = "bypass: the port plans afresh (plan cache: ROADMAP item 8)"
+
+
+def unsupported_conf(conf: RapidsTpuConf) -> Optional[str]:
+    """Why the port cannot serve this conf yet (a switch set away from its
+    default for a feature the port does not have), naming the ROADMAP item
+    that brings it; None if it can."""
+    later = [
+        (SQL_ENABLED, "the CPU side of ROADMAP item 5 (the row "
+                      "interpreter)"),
+        (CBO_ENABLED, "the CPU side of ROADMAP item 5 (plan/cbo.py)"),
+        (SERVER_RESULT_CACHE_ENABLED, "ROADMAP item 8 (the result cache)"),
+        (SHARING_ENABLED, "ROADMAP item 8 (cross-query work sharing)"),
+        (TRACE_ENABLED, "ROADMAP item 8 (query tracing)"),
+        (ADAPTIVE_COST_ENABLED, "ROADMAP item 8 (cost-fed placement, with "
+                                "the plan cache's fingerprint)"),
+    ]
+    for entry, item in later:
+        if not conf.is_default(entry):
+            return (f"{entry.key}={conf.get(entry.key)} is not in the port "
+                    f"yet: {item}")
+    mode = str(conf.get(MODE.key)).lower()
+    if mode == "explainonly":
+        return (f"{MODE.key}=explainonly is not in the port yet: the CPU "
+                f"side of ROADMAP item 5 (it executes on the row "
+                f"interpreter)")
+    if mode != MODE.default:
+        return f"{MODE.key} must be executeontpu or explainonly, got {mode!r}"
+    return None
+
+
+def _session_catalog(conf: RapidsTpuConf, device) -> Optional[BufferCatalog]:
+    """A buffer catalog of the Session's own when the conf sets the memory
+    budget's keys; None (the device's process-wide catalog) when it
+    leaves them at their defaults."""
+    if all(conf.is_default(e) for e in (HBM_RESERVE, HOST_SPILL_LIMIT,
+                                        SPILL_DIR)):
+        return None
+    return BufferCatalog(
+        default_device_limit(device, int(conf.get(HBM_RESERVE.key))),
+        int(conf.get(HOST_SPILL_LIMIT.key)), str(conf.get(SPILL_DIR.key)))
+
+
+class Session:
+    def __init__(self, conf: Optional[Dict] = None,
+                 device: DeviceLike = None):
+        self.conf = RapidsTpuConf(conf)
+        why = unsupported_conf(self.conf)
+        if why is not None:
+            raise NotImplementedError(why)
+        from ..shuffle.manager import get_shuffle_manager
+        get_shuffle_manager(self.conf)      # raises for a mode not ported
+        self.device = resolve_device(device)
+        #: the buffer catalog every scan of this Session registers in
+        #: (None: the device's process-wide one)
+        self.catalog = _session_catalog(self.conf, self.device)
+        self.last_plan = None          # captured physical plan (exec tree)
+        #: how the serving caches treated the last query
+        self.last_cache: Dict[str, str] = {}
+        #: host nanoseconds the last ``prepare`` took (tag, convert,
+        #: coalesce pass, fusion)
+        self.last_prepare_ns = 0
+        from .. import adaptive
+        self._adaptive_mark0 = adaptive.reason_mark()
+        self._retry0 = self._adaptive0 = self._catalog0 = None
+
+    def with_conf(self, **kv) -> "Session":
+        settings = dict(self.conf._settings)
+        settings.update({k.replace("_", "."): v for k, v in kv.items()})
+        return Session(settings, device=self.device)
+
+    def _overrides(self) -> Overrides:
+        return Overrides(self.conf, self.device, self.catalog)
+
+    def prepare(self, df: DataFrame):
+        """The planning pipeline: returns ``("exec", plan)``, the physical
+        tree (fused where fusion is on and the stage qualifies). Raises
+        ``NotOnDevice`` when tagging refuses a node."""
+        t0 = time.perf_counter_ns()
+        self.last_cache["plan"] = PLAN_CACHE_NOTE
+        try:
+            return self._plan_fresh(df)
+        finally:
+            self.last_prepare_ns = time.perf_counter_ns() - t0
+
+    def _plan_fresh(self, df: DataFrame):
+        plan = self._overrides().plan(df.plan)
+        self.last_plan = plan
+        if self.conf.get(FUSION_ENABLED.key):
+            # whole-stage fusion: an eligible linear single-batch stage runs
+            # as one program (a CUDA graph on the card); other shapes keep
+            # the iterator path
+            from ..exec.fuse import try_fuse_exec
+            fused = try_fuse_exec(plan)
+            if fused is not None:
+                plan = fused
+                self.last_plan = plan
+        return "exec", plan
+
+    def _catalog_counters(self) -> Dict[str, int]:
+        from ..memory.catalog import device_budget
+        cat = self.catalog or device_budget(self.device)
+        return {k: getattr(cat, k) for k in _CATALOG_COUNTERS}
+
+    def _watermark(self) -> None:
+        """Snapshot the counter groups once per collect: the retry and
+        adaptive ones are process-wide, and the catalog may be shared."""
+        from .. import adaptive
+        from ..memory.retry import metrics as _retry_metrics
+        self._retry0 = _retry_metrics().snapshot()
+        self._adaptive0 = adaptive.metrics().snapshot()
+        self._adaptive_mark0 = adaptive.reason_mark()
+        self._catalog0 = self._catalog_counters()
+
+    def collect(self, df: DataFrame, _prepared=None) -> pa.Table:
+        """Plan (unless ``_prepared``, a ``prepare`` result, is given),
+        install the conf's retry and injection settings, run and pull the
+        result to the host. The plan is closed whatever happens
+        (``exec.collect``)."""
+        self._watermark()
+        _, plan = _prepared if _prepared is not None else self.prepare(df)
+        from ..exec.base import collect as collect_exec
+        from ..memory.retry import apply_session_conf
+        # process-wide, like the reference's per-executor retry state
+        apply_session_conf(self.conf)
+        return collect_exec(plan)
+
+    def cache(self, df: DataFrame) -> DataFrame:
+        """Materialize as parquet-compressed cached partitions (reference:
+        ParquetCachedBatchSerializer behind df.cache())."""
+        if not self.conf.get(FILECACHE_ENABLED.key):
+            return df      # caching disabled: keep the logical plan as-is
+        from ..io.cache import CachedRelation
+        from .logical import LogicalScan
+        plan = self._overrides().plan(df.plan)
+        cached = CachedRelation.build(plan)
+        return DataFrame(LogicalScan((), source=cached,
+                                     _schema=cached.schema))
+
+    def write(self, df: DataFrame, path: str, format: str = "parquet",
+              partition_by=None, bucket_by=None, compression="snappy",
+              header: bool = True):
+        """Execute and write task by task: each plan partition streams its
+        batches into its own part files (``io.writer.write_plan``).
+        ``bucket_by=(cols, n)`` routes rows with the shuffle's murmur3
+        pmod. Returns ``WriteStats``."""
+        from ..io.writer import write_plan
+        plan = self._overrides().plan(df.plan)
+        self.last_plan = plan
+        return write_plan(plan, path, fmt=format, compression=compression,
+                          partition_by=partition_by or (),
+                          bucket_by=bucket_by, header=header)
+
+    def write_parquet(self, df: DataFrame, path: str, partition_by=None,
+                      **kw):
+        return self.write(df, path, "parquet", partition_by=partition_by,
+                          **kw)
+
+    def explain(self, df: DataFrame,
+                mode: ExplainMode = ExplainMode.ALL) -> str:
+        return self._overrides().explain(df.plan, mode)
+
+    # ---- plan capture ----
+    def metrics(self) -> dict:
+        """The last plan's operator metrics (``Exec.name.metric``, summed
+        over the tree), and the retry and adaptive counters and the buffer
+        catalog's spill counters since the last collect opened
+        (``retry.*``, ``adaptive.*``, ``catalog.*``)."""
+        if self.last_plan is None:
+            return {}
+        out: Dict[str, int] = {}
+
+        def walk(e):
+            for name, m in e.metrics.items():
+                v = m.total()
+                if v:
+                    key = f"{e.name}.{name}"
+                    out[key] = out.get(key, 0) + v
+            for c in e.children:
+                walk(c)
+        walk(self.last_plan)
+
+        def emit_deltas(prefix: str, snap: dict, base) -> None:
+            if base is None:
+                return
+            for k, v in snap.items():
+                delta = v - base.get(k, 0)
+                if delta > 0:
+                    out[f"{prefix}.{k}"] = delta
+
+        from .. import adaptive
+        from ..memory.retry import metrics as _retry_metrics
+        emit_deltas("retry", _retry_metrics().snapshot(), self._retry0)
+        emit_deltas("adaptive", adaptive.metrics().snapshot(),
+                    self._adaptive0)
+        emit_deltas("catalog", self._catalog_counters(), self._catalog0)
+        return out
+
+    def executed_exec_names(self) -> List[str]:
+        names: List[str] = []
+
+        def walk(e):
+            names.append(e.name)
+            for c in e.children:
+                walk(c)
+
+        if self.last_plan is not None:
+            walk(self.last_plan)
+        return names
+
+    def fell_back(self) -> List[str]:
+        """The operators of the last plan that ran on the CPU: none, by
+        construction (a refused node raises ``NotOnDevice``)."""
+        return []
+
+    def adaptive_decisions(self) -> List[str]:
+        """Reason tags of every adaptive decision taken since this
+        session's last query opened (runtime coalesce, skew split,
+        broadcast switch)."""
+        from .. import adaptive
+        return adaptive.reasons(since=self._adaptive_mark0)

@@ -46,7 +46,7 @@ import torch
 
 from ..adaptive import record_decision
 from ..batch import ColumnarBatch, Schema, bucket_capacity
-from ..config import ADAPTIVE_TARGET_ROWS
+from ..config import ADAPTIVE_TARGET_ROWS, BROADCAST_LIMIT
 from ..exec.base import Exec, Metric, UnaryExec
 from ..exec.common import (concat_all, concat_batches, gather_column,
                            lexsort, partition_pieces, sort_operands)
@@ -80,11 +80,6 @@ def _coalesce_groups(counts: List[int], target_rows: int) -> List[List[int]]:
     return groups or [[0]]
 
 
-#: default ceiling of one broadcast relation, the JAX package's
-#: ``spark.rapids.tpu.broadcast.maxBytes``
-BROADCAST_MAX_BYTES = 1 << 30
-
-
 class BroadcastTooLargeError(MemoryError):
     """A broadcast relation exceeded its byte ceiling: the build side must
     be shuffled instead. Not retryable."""
@@ -96,8 +91,12 @@ class BroadcastExchangeExec(UnaryExec):
     spillable between reads. Raises ``BroadcastTooLargeError`` when that
     batch passes ``max_bytes``."""
 
+    @property
+    def produces_single_batch(self):
+        return True
+
     def __init__(self, child: Exec, ctx: Optional[EvalContext] = None,
-                 max_bytes: int = BROADCAST_MAX_BYTES):
+                 max_bytes: int = BROADCAST_LIMIT.default):
         super().__init__(child, ctx)
         self.max_bytes = max_bytes
         self._sb: Optional[SpillableBatch] = None
@@ -146,9 +145,13 @@ class ShuffleExchangeExec(UnaryExec):
     held in the buffer catalog; with ``adaptive`` its reader partitions
     coalesce toward ``target_rows`` once the map side has materialized."""
 
+    @property
+    def produces_single_batch(self):
+        return True
+
     def __init__(self, partitioning: Partitioning, child: Exec,
                  ctx: Optional[EvalContext] = None, adaptive: bool = False,
-                 target_rows: int = ADAPTIVE_TARGET_ROWS):
+                 target_rows: int = ADAPTIVE_TARGET_ROWS.default):
         super().__init__(child, ctx)
         self.partitioning = partitioning.bind(child.output_schema)
         self.adaptive = adaptive
