@@ -84,6 +84,27 @@ stage from the SF100 part table in 8 files, exact. Every row group of
 those files must decode through the port's native decoder, and no scan of
 the runs may take the pyarrow fallback.
 
+After Q3 and the range sort comes the fallback phase: CPU fallback
+islands through the port's Session under the same conf. Q1 at SF10 with
+``sql.exec.Sort`` off is a CPU-topped plan (the final sort over the 4
+groups runs on the row interpreter, on the host, with no upload after it),
+and Q3 at SF10 with ``sql.expression.EqualTo`` off turns the customer
+filter alone into an island that reads the card's scan through Arrow and
+uploads its rows back; each equals its oracle (and Q3 the same Session
+without the switch) with the ``fell_back()`` list it must have, murmur3
+held against its plain version at every exchange, and each prints one
+cold and two warm walls, the islands' host time inside
+``CpuFallbackExec.interpret`` with their rows in and out, the peak and the
+idle share. Then the port's own differential on the card: q1_stage,
+hash_agg, join_sort, parquet_scan and the Q16 part stage at 2^16 rows,
+``Session()`` against ``Session({"spark.rapids.tpu.sql.enabled":
+False})`` (the row interpreter), ``window_match`` held against its plain
+version at the Q16 filter, and explain-only mode on q1_stage (the
+interpreter's rows, a planned ``last_plan``, the device bytes it
+allocated). To keep the script's time, the bucketed write has no
+profiled second write, and the SF10 join_sort runs its iterator path
+once.
+
 Right after Q1 and the Q16 part stage comes the Session phase: the port's
 ``plan.Session`` plans Q1 at SF10, the Q16 part stage at 20,000,000 part
 rows and the bench's q1_stage, hash_agg, join_sort and parquet_scan
@@ -99,18 +120,18 @@ a CUDA graph and replays.
 Prints, in order: the card's name and power limit, the build time, each
 kernel check with its times and bound, the join check, the checks of Q1
 and the Q16 part stage, the Session phase, Q3 (AQE off, then on) with
-their times, the range
-sort, the spill copy rate, Q18's checks (AQE off, then on) with their
-times, the catalog's tiers, spilled bytes, retry metrics, grace buckets
-and the allocator's peak, the skew legs, the types exchange, the
-out-of-core check, the injection run, the checks of Q2 and Q11 with their
-times, the captured kernel checks, the hash_agg, operator, new-operator
-and Q1-stage checks, the join_sort modes and the overflow retry, the
-Parquet write, scans, Q1 and Q16 part stage, each phase's wall time, a
-``{"kernels": [...]}`` JSON line (the window_match times are at Q2's
-shape; launches count a graph's replays), and last
-``{"ok": true, "device": ...}``. Any failed phase raises, so the exit code
-is not 0 and no result line is printed. Without CUDA it exits 1 at once.
+their times, the range sort, the fallback phase, the spill copy rate,
+Q18's checks (AQE off, then on) with their times, the catalog's tiers,
+spilled bytes, retry metrics, grace buckets and the allocator's peak,
+the skew legs, the types exchange, the out-of-core check, the injection
+run, the checks of Q2 and Q11 with their times, the captured kernel
+checks, the hash_agg, operator, new-operator and Q1-stage checks, the
+join_sort modes and the overflow retry, the Parquet write, scans, Q1 and
+Q16 part stage, each phase's wall time, a ``{"kernels": [...]}`` JSON
+line (the window_match times are at Q2's shape; launches count a graph's
+replays), and last ``{"ok": true, "device": ...}``. Any failed phase
+raises, so the exit code is not 0 and no result line is printed. Without
+CUDA it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -750,9 +771,15 @@ def check_q3_result(got, expected) -> float:
     return float(rel.max(initial=0.0))
 
 
+def _children(plan) -> list:
+    """An operator's children, and the device children a CPU fallback
+    island keeps."""
+    return list(plan.children) + list(getattr(plan, "child_execs", ()))
+
+
 def _execs(plan, name: str) -> list:
     found = [plan] if plan.name == name else []
-    for c in plan.children:
+    for c in _children(plan):
         found += _execs(c, name)
     return found
 
@@ -1751,6 +1778,9 @@ PROFILER_RANGES = ("SortExec", "HashAggregateExec", "ShuffleExchangeExec",
                    "HashJoinExec.build", "HashJoinExec.count",
                    "HashJoinExec.expand", "HashJoinExec.grace_split",
                    "FileSourceScanExec[parquet]")
+#: the prefix of a CPU fallback island's range (``CpuFallback[Filter]``):
+#: host work, though the profiler mirrors it onto the device timeline
+ISLAND_RANGE = "CpuFallback["
 
 
 def busy_us(intervals) -> float:
@@ -1792,6 +1822,7 @@ def device_events(prof):
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.name not in PROFILER_RANGES and e.name != CALL_RANGE
+            and not e.name.startswith(ISLAND_RANGE)
             and SENTINEL_KERNEL not in e.name]
 
 
@@ -1879,6 +1910,9 @@ def profiled(fn, dev, host: bool = True):
 #: (stream rows, build rows) of the join_sort runs: bench.bench_join_sort's
 #: size, and TPC-H SF10's lineitem probing its orders (the Q3/Q10 shape)
 JOIN_SORT_SIZES = ((1 << 21, 1 << 18), (SF10_LINEITEM_ROWS, 15_000_000))
+#: above this many stream rows the iterator path runs once (its grace join
+#: and out-of-core sort take seconds a run), without warm runs or a profile
+ITERATOR_WARM_MAX_ROWS = 1 << 21
 
 
 def check_join_sort_result(got, want) -> int:
@@ -1972,6 +2006,16 @@ def run_join_sort_phase(dev, n_stream: int, n_build: int) -> dict:
         elif not _same_batch(cold, checked):
             raise AssertionError(f"{name} {mode}: differs from the graph's "
                                  f"rows, which equal pyarrow's")
+        if mode == "iterator" and n_stream > ITERATOR_WARM_MAX_ROWS:
+            # the grace join and the out-of-core sort at SF10: the cold run
+            # is checked and timed, and stands for the wall
+            print(f"{name} {mode}: equal to the graph's rows; one run, "
+                  f"{cold_s:.3f} s, {n_stream / cold_s:,.0f} stream rows/s;"
+                  f" device memory peak "
+                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+            walls[mode] = cold_s
+            del run, cold
+            continue
         warm = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -2569,11 +2613,6 @@ def run_parquet_write_phase(dev, counted, table, out) -> dict:
           f"({batches} batches): every row in its bucket by murmur3_int32"
           f" on the card, equal to its plain version (max_abs_err "
           f"{worst}); the files' rows equal the input as a multiset")
-    again = f"{out}_profiled"
-    profiled_idle("parquet write", lambda: entry.write_lineitem_bucketed(
-        table, again, PARQUET_BUCKETS, PARQUET_WRITE_SLICES, device=dev),
-        dev)
-    shutil.rmtree(again)
     return launches
 
 
@@ -2723,7 +2762,7 @@ def plan_tree(e, depth: int = 0) -> list:
 
 def _walk_plan(e):
     yield e
-    for c in e.children:
+    for c in _children(e):
         yield from _walk_plan(c)
 
 
@@ -3051,6 +3090,251 @@ def run_q16_parquet_phase(dev, counted, tmp) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# CPU fallback islands and the row interpreter (plan/interpreter.py)
+# ---------------------------------------------------------------------------
+
+#: the rows of each path of the on-card differential against the
+#: interpreter (its row loops take about a second a path here)
+DIFF_ROWS = 1 << 16
+#: the keys of the differential's hash_agg table, and its join_sort build
+DIFF_KEYS = 1 << 12
+DIFF_BUILD_ROWS = 1 << 13
+#: the kernels each path of the differential must launch on the card
+DIFF_KERNELS = {"hash_agg": ("murmur3_int32",),
+                "q16_part": ("murmur3_int32", "window_match")}
+#: the interpreter as the oracle: the whole query on the CPU
+ORACLE_CONF = {"spark.rapids.tpu.sql.enabled": False}
+
+
+def island_stats(plan) -> dict:
+    """The host work of a plan's CPU fallback islands in its last run:
+    ``collectTime`` (the device children to Arrow) and ``interpretTime``
+    (the row loop), both inside ``CpuFallbackExec.interpret``, and the
+    rows the islands read from the device."""
+    from spark_rapids_tpu_torch.plan import CpuFallbackExec
+    out = {"collect_s": 0.0, "interpret_s": 0.0, "rows_in": 0}
+    for e in _walk_plan(plan):
+        if isinstance(e, CpuFallbackExec):
+            out["collect_s"] += e.metrics["collectTime"].total() / 1e9
+            out["interpret_s"] += e.metrics["interpretTime"].total() / 1e9
+            out["rows_in"] += e.metrics["numInputRows"].total()
+    return out
+
+
+def run_fallback_path(name: str, dev, counted, table, expected, make_df,
+                      check, conf, fallen, top_island: bool,
+                      rows_out) -> dict:
+    """One path through the port's Session with islands: one cold run
+    (every counted kernel's launches from 0, its result checked, its
+    ``fell_back()`` equal to ``fallen``, a CPU-topped plan interpreted on
+    the host where ``top_island``), two warm runs (each checked), and one
+    profiled warm run. Prints the warm wall, the islands' host time inside
+    ``CpuFallbackExec.interpret`` with their rows in and out
+    (``rows_out(plan, result)``), the allocator's peak and the idle share.
+    Returns the cold run's launches."""
+    import torch
+    from spark_rapids_tpu_torch.plan import CpuFallbackExec, Session
+    ses = Session(conf, device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for wrapper in counted:
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    got = ses.collect(make_df(table))
+    torch.cuda.synchronize(dev)
+    cold_s = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in counted}
+    detail = check(got, expected)
+    if ses.fell_back() != fallen:
+        raise AssertionError(f"fallback {name}: fell back {ses.fell_back()}"
+                             f", not {fallen}")
+    if isinstance(ses.last_plan, CpuFallbackExec) != top_island:
+        raise AssertionError(f"fallback {name}: the plan's root is "
+                             f"{ses.last_plan.name}")
+    for kernel, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{kernel} was not launched by the "
+                                 f"fallback {name} run")
+    print(f"fallback {name}: matches its oracle ({got.num_rows} rows"
+          f"{detail or ''}); fell_back() {ses.fell_back()}, executed "
+          f"{ses.executed_exec_names()}; cold {cold_s:.3f} s; kernel "
+          f"launches in the run: {launches}")
+    warm, host = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = ses.collect(make_df(table))
+        torch.cuda.synchronize(dev)
+        warm.append(time.perf_counter() - t0)
+        check(again, expected)
+        host.append(island_stats(ses.last_plan))
+    peak = torch.cuda.max_memory_allocated(dev)
+    wall = statistics.median(warm)
+    isl = host[-1]
+    total = isl["collect_s"] + isl["interpret_s"]
+    print(f"fallback {name}: warm median {wall:.3f} s of "
+          f"{[round(w, 4) for w in warm]}; island host time in "
+          f"CpuFallbackExec.interpret {total:.3f} s "
+          f"(device children to Arrow {isl['collect_s']:.3f} s, row loop "
+          f"{isl['interpret_s']:.3f} s), rows in {isl['rows_in']:,}, rows "
+          f"out {rows_out(ses.last_plan, again):,}; device memory peak "
+          f"{peak / 2**30:.2f} GiB")
+    profiled_idle(f"fallback {name}", lambda: ses.collect(make_df(table)),
+                  dev)
+    return launches
+
+
+def _sorted_keys(t) -> list:
+    """A table's columns, those that are not floats first: the sort order
+    under which two results compare row by row."""
+    import pyarrow as pa
+    exact = [n for n, f in zip(t.column_names, t.schema)
+             if not pa.types.is_floating(f.type)]
+    return exact + [n for n in t.column_names if n not in exact]
+
+
+def check_against_interpreter(dev, counted) -> list:
+    """The port's differential on the card: q1_stage, hash_agg, join_sort,
+    parquet_scan and the Q16 part stage at DIFF_ROWS rows, each through
+    ``Session`` on the card and through ``Session`` with
+    ``sql.enabled=false`` (the row interpreter): floats within
+    FLOAT_REL_TOL, everything else exact. ``window_match`` is held against
+    its plain version at the Q16 filter. Then explain-only mode on
+    q1_stage: the interpreter's rows, a planned ``last_plan``, and the
+    device bytes it allocated. Returns the device runs' launches."""
+    import torch
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.plan import Session
+    conf = entry.session_conf(HASH_AGG_PARTITIONS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fallback_")
+    runs = []
+    try:
+        lineitem = entry.lineitem_table(DIFF_ROWS, DATA_SEED)
+        paths = entry.parquet_files(lineitem.drop(["l_tax"]),
+                                    f"{tmp}/scan", 4)
+        part = entry.part_table(DIFF_ROWS, PART_SEED)
+        paths_df = [
+            ("q1_stage", lambda: entry.q1_stage_df(lineitem)),
+            ("hash_agg", lambda: entry.hash_agg_df(
+                entry.hash_agg_table(DIFF_ROWS, DIFF_KEYS), HASH_AGG_SLICES)),
+            ("join_sort", lambda: entry.join_sort_df(
+                *entry.join_sort_tables(DIFF_ROWS, DIFF_BUILD_ROWS))),
+            ("parquet_scan", lambda: entry.parquet_scan_df(paths)),
+            ("q16_part", lambda: entry.q16_part_df(part, Q16_SLICES)),
+        ]
+        for name, make in paths_df:
+            for wrapper in counted:
+                wrapper.launches = 0
+            ses = Session(conf, device=dev)
+            got = ses.collect(make())
+            torch.cuda.synchronize(dev)
+            runs.append({w.__name__: w.launches for w in counted})
+            for kernel in DIFF_KERNELS.get(name, ()):
+                if runs[-1][kernel] <= 0:
+                    raise AssertionError(f"interpreter differential {name}"
+                                         f": {kernel} was not launched")
+            if ses.fell_back():
+                raise AssertionError(f"interpreter differential {name}: "
+                                     f"fell back {ses.fell_back()}")
+            t0 = time.perf_counter()
+            want = Session(ORACLE_CONF, device=dev).collect(make())
+            oracle_s = time.perf_counter() - t0
+            worst = check_float_table(got, want, _sorted_keys(want),
+                                      f"interpreter differential {name}")
+            print(f"interpreter differential {name}: the card's "
+                  f"{got.num_rows} rows equal the interpreter's (its run "
+                  f"{oracle_s:.2f} s on the host; float max rel err "
+                  f"{worst:.3g}); launches {runs[-1]}")
+        ses = Session(conf, device=dev)
+        check_window_match_at_session_q16(dev, ses,
+                                          entry.q16_part_df(part, Q16_SLICES))
+        # explain-only: planned for the card, run on the interpreter
+        explain = Session({**conf, "spark.rapids.tpu.sql.mode":
+                           "explainonly"}, device=dev)
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = explain.collect(entry.q1_stage_df(lineitem))
+        torch.cuda.synchronize(dev)
+        grown = torch.cuda.max_memory_allocated(dev) - before
+        want = Session(ORACLE_CONF, device=dev).collect(
+            entry.q1_stage_df(lineitem))
+        if explain.last_plan is None or not got.equals(want):
+            raise AssertionError("explain-only mode: not the interpreter's "
+                                 "rows, or no planned last_plan")
+        print(f"explain-only q1_stage: the interpreter's {got.num_rows} rows"
+              f", last_plan {explain.last_plan.name} with "
+              f"{len(list(_walk_plan(explain.last_plan)))} operators; device"
+              f" bytes allocated while it ran: {grown:,}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
+def run_fallback_phase(dev, args, q3_tables) -> list:
+    """CPU fallback islands on the card, each path through the port's
+    Session under ``entry.session_conf`` (incompatibleOps on, AQE off):
+    Q1 at SF10 with ``sql.exec.Sort`` off (a CPU-topped plan: the final
+    sort over the 4 groups interpreted on the host, no upload after it),
+    Q3 at SF10 with ``sql.expression.EqualTo`` off (the customer filter an
+    island that reads the card's scan through Arrow; both joins, the
+    aggregate, the exchanges, the sort and the limit on the card), each
+    against its oracle and murmur3 held against its plain version at every
+    exchange; then the port's differential against the row interpreter.
+    Returns each run's launches."""
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.kernels.murmur3 import murmur3_int32
+    from spark_rapids_tpu_torch.kernels.string_search import window_match
+    from spark_rapids_tpu_torch.plan import Session
+    runs = []
+
+    def q1_check(got, expected):
+        return f"; float max rel err {check_q1_result(got, expected):.3g}"
+
+    lineitem = entry.lineitem_table(args.rows, DATA_SEED)
+    q1_conf = entry.session_conf(Q1_SHUFFLE_PARTITIONS, **{
+        "spark.rapids.tpu.sql.exec.Sort": False})
+    runs.append(run_fallback_path(
+        "q1 (Sort off)", dev, [murmur3_int32], lineitem,
+        entry.q1_reference(lineitem), lambda t: entry.q1_df(t, Q1_SLICES),
+        q1_check, q1_conf, ["CpuFallback[Sort]"], True,
+        lambda plan, result: result.num_rows))
+    ses = Session(q1_conf, device=dev)
+    ses.prepare(entry.q1_df(lineitem, Q1_SLICES))
+    check_murmur3_at_exchanges("the Sort-off Q1", ses.last_plan, dev)
+    del lineitem, ses
+
+    customer, orders, li = q3_tables
+    expected = entry.q3_reference(customer, orders, li)
+    q3_conf = entry.session_conf(Q3_SHUFFLE_PARTITIONS, **{
+        "spark.rapids.tpu.sql.expression.EqualTo": False})
+    same = Session(entry.session_conf(Q3_SHUFFLE_PARTITIONS),
+                   device=dev).collect(
+        entry.q3_df(customer, orders, li, Q3_SLICES))
+
+    def q3_check(got, want):
+        worst = check_q3_result(got, want)
+        worst = max(worst, check_q3_result(got, same))
+        return (f"; keys exact, revenue max rel err {worst:.3g}, against "
+                f"pyarrow and the same Session without the switch")
+
+    def island_rows_out(plan, _):
+        return sum(e.metrics["numOutputRows"].total()
+                   for e in _execs(plan, "CpuFallback[Filter]"))
+
+    runs.append(run_fallback_path(
+        "q3 (EqualTo off)", dev, [murmur3_int32], (customer, orders, li),
+        expected, lambda t: entry.q3_df(*t, Q3_SLICES), q3_check, q3_conf,
+        ["CpuFallback[Filter]"], False, island_rows_out))
+    ses = Session(q3_conf, device=dev)
+    ses.prepare(entry.q3_df(customer, orders, li, Q3_SLICES))
+    check_murmur3_at_exchanges("the EqualTo-off Q3", ses.last_plan, dev)
+    del ses, same
+
+    runs += check_against_interpreter(dev, [murmur3_int32, window_match])
+    return runs
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, with the phase's wall time printed after it."""
     t0 = time.perf_counter()
@@ -3114,6 +3398,9 @@ def main(argv=None) -> int:
     q3_runs, q3_tables = timed("q3", run_q3_phase, dev, [murmur3_int32])
     runs += q3_runs
     timed("range sort", check_range_sort, dev, q3_tables[2])
+    # CPU fallback islands (Q1 and Q3 at SF10) and the port's differential
+    # against its row interpreter
+    runs += timed("fallback", run_fallback_phase, dev, args, q3_tables)
     del q3_tables
     # before Q18, whose spills would leave pinned buffers in the cache
     timed("spill rates", measure_spill_rates, dev)

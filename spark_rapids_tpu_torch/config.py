@@ -1,18 +1,23 @@
 """Configuration.
 
 Port of the registry of ``spark_rapids_tpu/config.py`` (``ConfEntry`` and
-``RapidsTpuConf``) for the keys the port reads, under the same
+``RapidsTpuConf``): every key of the JAX package, under the same
 ``spark.rapids.tpu.*`` names and defaults, so one conf dict drives both
-packages: the planner's and the Session's switches (``plan/``), the memory
-budget, the retry policy and the OOM injection
+packages. The port reads the planner's and the Session's switches
+(``plan/``), the memory budget, the retry policy and the OOM injection
 (``memory.retry.apply_session_conf``), the adaptive-execution knobs, and
 the file readers' keys (``io.source.FileSource.apply_conf`` and
 ``io.parquet.ParquetSource``). Operators and catalogs take an entry's
 ``default`` where their caller passes nothing; the Session passes the
 conf's value.
 
-Per-exec and per-expression switches (``spark.rapids.tpu.sql.exec.<Name>``
-and ``spark.rapids.tpu.sql.expression.<Name>``) are not registered; they
+A key whose feature the port does not have yet carries ``later``, the
+ROADMAP item that brings it; the Session raises ``NotImplementedError``
+when such a key is set away from its default
+(``plan.session.unsupported_conf``). A key outside the registry raises
+``KeyError`` as the JAX package's does, but for the per-exec and
+per-expression switches (``spark.rapids.tpu.sql.exec.<Name>`` and
+``spark.rapids.tpu.sql.expression.<Name>``), which are not registered and
 default to true (``RapidsTpuConf.is_op_enabled``).
 
 One default differs in form: the spill directory is ``rapids_tpu_spill``
@@ -36,12 +41,15 @@ class ConfEntry:
     default: Any
     doc: str
     conv: Callable[[str], Any]
+    #: the ROADMAP item that brings the feature this key drives, while the
+    #: port lacks it ("": the port honours the key)
+    later: str = ""
 
 
-def _entry(key: str, default, doc: str, conv) -> ConfEntry:
+def _entry(key: str, default, doc: str, conv, later: str = "") -> ConfEntry:
     if key in _REGISTRY:
         raise ValueError(f"duplicate conf {key}")
-    e = ConfEntry(key, default, " ".join(doc.split()), conv)
+    e = ConfEntry(key, default, " ".join(doc.split()), conv, later)
     _REGISTRY[key] = e
     return e
 
@@ -66,13 +74,14 @@ def parse_bytes(s) -> int:
 
 SQL_ENABLED = _entry(
     "spark.rapids.tpu.sql.enabled", True,
-    "Master switch: when false every operator stays on the CPU. The port "
-    "has no CPU side yet: a Session with this false raises.", _bool)
+    "Master switch: when false every operator stays on the CPU, on the row "
+    "interpreter (plan/interpreter.py): the differential tests' "
+    "oracle.", _bool)
 MODE = _entry(
     "spark.rapids.tpu.sql.mode", "executeontpu",
     "executeontpu or explainonly: explainonly plans as if the device were "
-    "present but executes on the CPU. The port has no CPU side yet: a "
-    "Session in explainonly raises.", str)
+    "present (Session.last_plan) but executes on the row interpreter.",
+    str)
 INCOMPATIBLE_OPS = _entry(
     "spark.rapids.tpu.sql.incompatibleOps.enabled", False,
     "Enable operators whose results differ from Spark in corner cases "
@@ -94,8 +103,9 @@ FUSION_ENABLED = _entry(
     "program, captured in a CUDA graph on the card (exec/fuse.py).", _bool)
 CBO_ENABLED = _entry(
     "spark.rapids.tpu.sql.optimizer.enabled", False,
-    "Cost-based optimizer, which moves subtrees to the CPU. The port has "
-    "no CPU side yet: a Session with this true raises.", _bool)
+    "Enable the cost-based optimizer (plan/cbo.py): subtrees whose "
+    "estimated device speedup does not cover the transition cost stay on "
+    "the CPU.", _bool)
 PARQUET_ENABLED = _entry(
     "spark.rapids.tpu.sql.format.parquet.enabled", True,
     "Accelerate parquet scans; a scan with this false is refused.", _bool)
@@ -157,8 +167,9 @@ ADAPTIVE_BROADCAST_MAX_BUILD_ROWS = _entry(
     "switches to broadcast at run time.", int)
 ADAPTIVE_COST_ENABLED = _entry(
     "spark.rapids.tpu.sql.adaptive.costFeedback.enabled", False,
-    "Cost-fed placement from measured wall times. Not in the port yet: a "
-    "Session with this true raises.", _bool)
+    "Cost-fed placement from measured wall times.", _bool,
+    "ROADMAP item 8 (cost-fed placement, with the plan cache's "
+    "fingerprint)")
 
 # ---- the serving keys whose features the port does not have yet ----
 
@@ -168,16 +179,15 @@ SERVER_PLAN_CACHE_ENABLED = _entry(
     "port plans afresh every time (Session.last_cache['plan']).", _bool)
 SERVER_RESULT_CACHE_ENABLED = _entry(
     "spark.rapids.tpu.server.resultCache.enabled", False,
-    "Serve repeated queries from a result cache. Not in the port yet: a "
-    "Session with this true raises.", _bool)
+    "Serve repeated queries from a result cache.", _bool,
+    "ROADMAP item 8 (the result cache)")
 SHARING_ENABLED = _entry(
     "spark.rapids.tpu.server.sharing.enabled", False,
-    "Cross-query work sharing. Not in the port yet: a Session with this "
-    "true raises.", _bool)
+    "Cross-query work sharing.", _bool,
+    "ROADMAP item 8 (cross-query work sharing)")
 TRACE_ENABLED = _entry(
     "spark.rapids.tpu.trace.enabled", False,
-    "Query tracing. Not in the port yet: a Session with this true "
-    "raises.", _bool)
+    "Query tracing.", _bool, "ROADMAP item 8 (query tracing)")
 
 # ---- the memory budget, read where a Session makes its catalog ----
 
@@ -278,13 +288,117 @@ DICT_SCAN_ENABLED = _entry(
     "columns. Only meaningful while dictEncoding.enabled is true.", _bool)
 
 
+# ---- the JAX package's other keys ----
+# Registered under the JAX names and defaults, so a conf written for the
+# JAX Session reads whole here; each names the ROADMAP item that brings its
+# feature. A conf that sets one away from its default is refused by the
+# Session. Five keys have no item: the JAX package reads four of them
+# nowhere (sql.explain, sql.stringMaxBytes, the Parquet reader.type and
+# sql.test.allowedNonTpu), and the plan cache's size changes no result
+# (the port plans afresh).
+
+def _later(item: str, conv, *pairs) -> None:
+    for key, default in pairs:
+        _entry(f"spark.rapids.tpu.{key}", default,
+               f"Not in the port yet: {item}.", conv, item)
+
+
+for _key, _default, _conv in (
+        ("sql.explain", "NONE", str),
+        ("sql.stringMaxBytes", 64, int),
+        ("sql.format.parquet.reader.type", "AUTO", str),
+        ("sql.test.allowedNonTpu", "", str),
+        ("server.planCache.maxEntries", 256, int)):
+    _entry(f"spark.rapids.tpu.{_key}", _default,
+           "Registered as in the JAX package; changes no result.", _conv)
+del _key, _default, _conv
+
+_ITEM6 = "ROADMAP item 6 (the multi-GPU mesh)"
+_ITEM7 = "ROADMAP item 7 (windows, generators, Python and UDFs)"
+_ITEM8_PLUGIN = "ROADMAP item 8 (plugin.py and the metric levels)"
+_ITEM8_NET = "ROADMAP item 8 (the shuffle network plane)"
+_ITEM8_IO = "ROADMAP item 8 (I/O breadth)"
+_ITEM8_SERVE = "ROADMAP item 8 (serving, tracing and the bridge)"
+_later(_ITEM6, int, ("mesh.devices", 0))
+_later(_ITEM7, int, ("sql.batchRowCapacity", 1 << 20),
+       ("python.worker.processes", 4), ("sql.generate.maxRepeat", 64),
+       ("sql.window.batchRows", 1 << 20))
+_later(_ITEM7, _bool, ("sql.udfCompiler.enabled", False))
+_later(_ITEM8_PLUGIN, int, ("sql.concurrentTpuTasks", 2))
+_later(_ITEM8_PLUGIN, float, ("memory.hbm.poolFraction", 0.85))
+_later(_ITEM8_PLUGIN, _bool, ("memory.leakDetection", False))
+_later(_ITEM8_PLUGIN, str, ("sql.metrics.level", "MODERATE"))
+_later(_ITEM8_NET, int, ("shuffle.transport.retries", 3),
+       ("shuffle.transport.windowBytes", 4 << 20),
+       ("shuffle.transport.maxInFlightFetches", 4),
+       ("shuffle.transport.connectTimeoutMs", 30000),
+       ("shuffle.transport.ioTimeoutMs", 30000),
+       ("shuffle.transport.retryBackoffMs", 10),
+       ("shuffle.transport.retryBackoffMaxMs", 1000),
+       ("shuffle.replicas", 0), ("shuffle.multiThreaded.writer.threads", 8),
+       ("shuffle.multiThreaded.reader.threads", 8),
+       ("shuffle.multiThreaded.maxBytesInFlight", 512 << 20),
+       ("executorId", 0), ("shuffle.cached.heartbeatIntervalMs", 5000),
+       ("shuffle.cached.heartbeatTimeoutMs", 30000),
+       ("test.injectNet.seed", 0), ("test.injectNet.skipCount", 0),
+       ("test.injectNet.delayMs", 20))
+_later(_ITEM8_NET, _bool, ("shuffle.lineage.enabled", True))
+_later(_ITEM8_NET, str, ("shuffle.cached.registry", ""),
+       ("shuffle.compression.codec", "lz4"), ("test.injectNet.mode", ""),
+       ("test.injectNet.faultKind", "drop"))
+_later(_ITEM8_IO, _bool, *((f"sql.format.{f}.enabled", True)
+                          for f in ("orc", "csv", "json", "avro",
+                                    "hiveText")))
+_later(_ITEM8_SERVE, int, ("server.maxSessions", 32),
+       ("server.queryTimeoutMs", 0), ("server.retryAfterMs", 1000),
+       ("server.concurrentCollects", 4), ("server.test.collectDelayMs", 0),
+       ("server.fleet.workers", 2), ("server.fleet.vnodes", 64),
+       ("server.fleet.tenant.maxConcurrent", 0),
+       ("server.fleet.maxInflightPerWorker", 0),
+       ("server.fleet.admissionTimeoutMs", 30000),
+       ("server.fleet.drainTimeoutMs", 30000),
+       ("server.fleet.spilloverQueueDepth", 8),
+       ("server.fleet.workerRetries", 2),
+       ("server.fleet.costSync.everyPlans", 0),
+       ("server.sharing.waitTimeoutMs", 600000),
+       ("bridge.defaultStringLen", 64), ("bridge.defaultArrayElems", 256),
+       ("trace.maxSpansPerQuery", 2048),
+       ("trace.costStore.maxFingerprints", 1024),
+       ("server.trace.recorderEntries", 128),
+       ("server.trace.slowQueryMs", 1000),
+       ("sql.adaptive.costFeedback.minObservations", 1),
+       ("sql.adaptive.costFeedback.exploreEvery", 16))
+_later(_ITEM8_SERVE, parse_bytes,
+       ("server.resultCache.maxBytes", 256 << 20),
+       ("server.queryReserveBytes", 0),
+       ("server.fleet.resultStore.maxBytes", 1 << 30),
+       ("server.sharing.subplan.maxBytes", 128 << 20),
+       ("server.sharing.scanShare.maxBytes", 256 << 20))
+_later(_ITEM8_SERVE, _bool, ("server.sharing.inflight.enabled", True),
+       ("server.sharing.subplan.enabled", True),
+       ("server.sharing.scanShare.enabled", True),
+       ("trace.costStore.enabled", True))
+_later(_ITEM8_SERVE, float, ("trace.costStore.alpha", 0.2))
+_later(_ITEM8_SERVE, str, ("server.fleet.tenantId", ""),
+       ("server.fleet.tenant.weights", ""),
+       ("server.fleet.resultStore.path", ""),
+       ("bridge.acceptedSchemaVersions", "1"), ("trace.sink.path", ""))
+
+#: prefixes of the per-operator switches, which are not registered
+OP_SWITCH_PREFIXES = ("spark.rapids.tpu.sql.exec.",
+                      "spark.rapids.tpu.sql.expression.")
+
+
 class RapidsTpuConf:
     """Typed view over a plain dict of settings, with registry defaults.
-    Keys the port does not know yet are kept and ignored, so a conf dict
-    written for the JAX package's Session drives the port too."""
+    A key outside the registry and the per-operator switches raises
+    ``KeyError``, as in the JAX package."""
 
     def __init__(self, settings: Optional[Dict[str, Any]] = None):
         self._settings = dict(settings or {})
+        for k in self._settings:
+            if k not in _REGISTRY and not k.startswith(OP_SWITCH_PREFIXES):
+                raise KeyError(f"unknown config {k}")
 
     def get(self, key: str) -> Any:
         entry = _REGISTRY[key]
@@ -321,3 +435,15 @@ class RapidsTpuConf:
     def is_default(self, entry: ConfEntry) -> bool:
         """Whether the conf leaves ``entry`` at its default."""
         return self.get(entry.key) == entry.default
+
+    def not_ported(self) -> Optional[str]:
+        """Why the port cannot serve this conf (the first key set away from
+        its default for a feature the port does not have yet, with the
+        ROADMAP item that brings it); None if it can."""
+        for key in self._settings:
+            entry = _REGISTRY.get(key)
+            if entry is not None and entry.later and \
+                    not self.is_default(entry):
+                return (f"{key}={self.get(key)} is not in the port yet: "
+                        f"{entry.later}")
+        return None

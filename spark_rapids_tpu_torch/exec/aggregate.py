@@ -44,7 +44,7 @@ from ..batch import (MIN_CAPACITY, ColumnarBatch, DeviceColumn, Field,
 from ..config import AGG_MAX_RESULT_ROWS
 from ..expressions.aggregates import AggregateFunction, FastLanes, LaneResults
 from ..expressions.base import (Alias, BoundReference, EvalContext,
-                                Expression, raw_eval)
+                                Expression, raw_eval, same_node)
 from ..memory.catalog import SpillableBatch
 from ..memory.retry import (acquire_with_retry, register_with_retry,
                             with_retry_no_split)
@@ -229,7 +229,7 @@ class HashAggregateExec(UnaryExec):
         sort_ops = key_ops
         if self.sort_sensitive and not merge:
             values = [flat_vals[i] for i in self._upd_per_agg[
-                self.aggs.index(self.sort_sensitive[0])]]
+                same_node(self.sort_sensitive[0], self.aggs)]]
             n = len(values)
             sort_ops = key_ops + sort_operands(values, [False] * n,
                                                [True] * n, in_live)[1:]

@@ -75,7 +75,11 @@ def _passes_through(node: Exec) -> bool:
 
 class _Planner:
     """Static walk: every node must be fusable, and every leaf scan must
-    supply exactly one batch (uploaded here, once)."""
+    supply exactly one batch (uploaded here, once). A CPU fallback island
+    (``plan.overrides.CpuFallbackExec``) is not fusable, as in the JAX
+    package: a plan that holds one keeps the iterator path whole, and the
+    device subtree under an island, which the island collects through
+    Arrow, is not fused either."""
 
     def __init__(self):
         self.scans: List[InMemoryScanExec] = []

@@ -9,5 +9,6 @@ from .boolean import And, Or  # noqa: F401
 from .comparison import (EqualNullSafe, EqualTo, GreaterThan,  # noqa: F401
                          GreaterThanOrEqual, In, IsNaN, IsNotNull, IsNull,
                          LessThan, LessThanOrEqual, Not)
+from .hashing import Murmur3Hash, XxHash64  # noqa: F401
 from .strings import (StringPredicate, contains, endswith,  # noqa: F401
                       startswith)

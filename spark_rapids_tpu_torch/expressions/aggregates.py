@@ -6,8 +6,9 @@ StddevSamp, StddevPop), First, Last, Percentile and ApproxPercentile. The
 buffer model is Spark's: update turns input rows into per-group buffers,
 merge combines buffers that landed in the same group, ``evaluate`` finishes
 the result. Type widening follows Spark: sum(int) -> bigint, sum(double) ->
-double, avg and the moments -> double, count -> bigint (never null),
-min/max/first/last keep their input's type.
+double, sum(decimal(p, s)) -> decimal(p + 10, s), avg and the moments ->
+double (avg(decimal(p, s)) -> decimal(p + 4, s + 4), on the CPU), count ->
+bigint (never null), min/max/first/last keep their input's type.
 
 Update and merge run as the batched lane contract on the aggregate exec's
 key-sorted layout, grouped or global: ``fast_update``/``fast_merge``
@@ -204,11 +205,26 @@ def _view_ok(col: DeviceColumn, live: torch.Tensor) -> torch.Tensor:
 
 
 class Sum(AggregateFunction):
-    """sum(x): null iff the group has no non-null input; integer sums wrap."""
+    """sum(x): null iff the group has no non-null input; integer sums wrap.
+    A decimal(p, s) sums to Spark's decimal(min(p + 10, 38), s), the JAX
+    package's type: the device sums the unscaled int64 while that type has
+    at most 18 digits (p <= 8); past that tagging refuses the sum, which
+    then runs on the row interpreter (DECIMAL128 is ROADMAP item 7)."""
 
     @property
     def dtype(self) -> SqlType:
-        return T.FLOAT64 if self.child.dtype.is_fractional else T.INT64
+        d = self.child.dtype
+        if d.kind is TypeKind.DECIMAL:
+            return T.host_decimal(min(d.precision + 10, 38), d.scale)
+        return T.FLOAT64 if d.is_fractional else T.INT64
+
+    def device_unsupported_reason(self) -> Optional[str]:
+        d = self.dtype
+        if d.kind is TypeKind.DECIMAL and d.precision > T.MAX_LONG_DIGITS:
+            return (f"sum over {self.child.dtype} returns {d}, past "
+                    f"{T.MAX_LONG_DIGITS} digits: DECIMAL128 comes with "
+                    f"ROADMAP Queue 1 item 7 (decimal128.py)")
+        return None
 
     def buffer_types(self):
         return [self.dtype, T.INT64]       # running sum, non-null count
@@ -284,10 +300,18 @@ class Count(AggregateFunction):
 
 
 class Average(AggregateFunction):
-    """avg(x) -> double; buffers are (sum: double, count: bigint)."""
+    """avg(x) -> double; buffers are (sum: double, count: bigint). Over a
+    decimal(p, s) Spark's type is decimal(min(p + 4, 38), min(s + 4, 38))
+    with HALF_UP rounding, which the double buffer cannot give: tagging
+    refuses it (as the JAX package's does), so it runs on the row
+    interpreter, and the device update raises."""
 
     @property
     def dtype(self):
+        d = self.child.dtype
+        if d.kind is TypeKind.DECIMAL:
+            return T.host_decimal(min(d.precision + 4, 38),
+                                  min(d.scale + 4, 38))
         return T.FLOAT64
 
     def buffer_types(self):
@@ -308,6 +332,10 @@ class Average(AggregateFunction):
 
     def fast_update(self, inputs, live, B):
         col = inputs[0]
+        if col.dtype.kind is TypeKind.DECIMAL:
+            raise NotImplementedError(
+                f"avg over {col.dtype} on the device: its decimal result "
+                f"runs on the row interpreter (a CPU fallback island)")
         ok = _view_ok(col, live)
         sref = B.sum_f64(torch.where(ok, col.data.to(torch.float64), 0.0))
         return self._finisher(sref, B.count(ok))

@@ -51,9 +51,16 @@ class EvalContext:
                 bad.sum(dtype=torch.int64))
 
 
-@dataclass(frozen=True)
+@dataclass(frozen=True, eq=False)
 class Expression:
-    """Base class. Subclasses are frozen dataclasses; trees are immutable."""
+    """Base class. Subclasses are frozen dataclasses; trees are immutable.
+
+    ``==`` and ``!=`` build ``EqualTo`` and ``Not(EqualTo)`` trees, as the
+    JAX package's do, so an expression never compares as a Python value:
+    code that needs to know whether two nodes are the same uses ``is``
+    (``same_node``), and an expression in a boolean context raises, so that
+    a ``==`` or an ``in`` over expressions cannot pass silently. Hashing is
+    by identity: dicts key on nodes."""
 
     @property
     def children(self) -> Tuple["Expression", ...]:
@@ -131,6 +138,19 @@ class Expression:
         from .comparison import Not
         return Not(self)
 
+    def __eq__(self, other):  # type: ignore[override]
+        from .comparison import EqualTo
+        return EqualTo(self, lit_if_needed(other))
+
+    def __ne__(self, other):  # type: ignore[override]
+        from .comparison import EqualTo, Not
+        return Not(EqualTo(self, lit_if_needed(other)))
+
+    def __bool__(self):
+        raise TypeError(
+            f"{type(self).__name__} has no truth value: == builds EqualTo; "
+            f"compare nodes with 'is'")
+
     def __lt__(self, other):
         from .comparison import LessThan
         return LessThan(self, lit_if_needed(other))
@@ -152,6 +172,27 @@ class Expression:
 
     def alias(self, name: str) -> "Alias":
         return Alias(self, name)
+
+    def cast(self, to: SqlType) -> "Expression":
+        from .cast import Cast
+        return Cast(self, to)
+
+    def is_null(self) -> "Expression":
+        from .comparison import IsNull
+        return IsNull(self)
+
+    def is_not_null(self) -> "Expression":
+        from .comparison import IsNotNull
+        return IsNotNull(self)
+
+
+def same_node(a: Expression, seq) -> int:
+    """The position of node ``a`` in ``seq`` by identity (``list.index``
+    would build ``EqualTo`` trees); raises ``ValueError`` if absent."""
+    for i, b in enumerate(seq):
+        if b is a:
+            return i
+    raise ValueError(f"{a!r} is not in the sequence")
 
 
 def lit_if_needed(v: Any) -> Expression:

@@ -163,6 +163,41 @@ def murmur3_batch(cols: Sequence[DeviceColumn],
     return h
 
 
+@dataclass(frozen=True, eq=False)
+class Murmur3Hash(Expression):
+    """hash(cols...): Spark's int row hash, seed 42, never null; the
+    ``hashInt`` of an int32-sized kind runs the ``murmur3_int32`` kernel on
+    the card."""
+
+    exprs: Tuple[Expression, ...]
+    seed: int = DEFAULT_SEED
+
+    @property
+    def children(self):
+        return self.exprs
+
+    def with_children(self, c):
+        return Murmur3Hash(tuple(c), self.seed)
+
+    @property
+    def dtype(self):
+        return T.INT32
+
+    @property
+    def nullable(self):
+        return False
+
+    def eval(self, batch: ColumnarBatch, ctx=EvalContext()):
+        h = murmur3_batch([e.eval(batch, ctx) for e in self.exprs],
+                          self.seed)
+        if not isinstance(h, torch.Tensor):
+            h = _seeds(h, batch.row_mask())
+        return DeviceColumn(h, batch.row_mask(), T.INT32)
+
+    def __repr__(self):
+        return f"murmur3({', '.join(map(repr, self.exprs))})"
+
+
 def partition_ids(cols: Sequence[DeviceColumn],
                   num_partitions: int) -> torch.Tensor:
     """Spark HashPartitioning: pmod(murmur3(row), n), a floor-mod."""

@@ -1,18 +1,19 @@
 """Planner: logical plans, type gating, replacement rules, the Session.
 
-Port of the device side of ``spark_rapids_tpu/plan``: the DataFrame API
-(``logical.py``), type signatures (``typesig.py``), tagging, conversion and
-explain (``overrides.py``) and the Session (``session.py``). The CPU side
-(the row interpreter and its fallback islands, the cost-based optimizer)
-is the next slice of ROADMAP item 5: a node that tagging refuses raises
-``NotOnDevice`` here.
+Port of ``spark_rapids_tpu/plan``: the DataFrame API (``logical.py``),
+type signatures (``typesig.py``), tagging, conversion, CPU fallback
+islands and explain (``overrides.py``), the row interpreter
+(``interpreter.py``), the cost-based optimizer (``cbo.py``) and the
+Session (``session.py``). The plan and result caches, work sharing and
+cost-fed placement come with ROADMAP item 8.
 """
 
 from .logical import (DataFrame, LogicalAggregate, LogicalFilter,
                       LogicalJoin, LogicalLimit, LogicalPlan, LogicalProject,
                       LogicalRange, LogicalScan, LogicalSort, LogicalUnion,
                       range_, table)
-from .overrides import (ExplainMode, NotOnDevice, Overrides, PlanMeta,
+from .interpreter import Interpreter
+from .overrides import (CpuFallbackExec, ExplainMode, Overrides, PlanMeta,
                         plan_query)
 from .session import Session
 

@@ -10,11 +10,15 @@ port's operators, inserting hash exchanges, broadcasts and implicit key
 casts, pruning partitions dynamically, and inserting coalesce transitions
 where an operator declares a batch-size goal.
 
-The port has no CPU side yet (the next slice of ROADMAP item 5 brings the
-row interpreter and ``CpuFallbackExec``). A node that tagging refuses is
-never run somewhere the reader cannot see: ``Overrides.plan`` raises
-``NotOnDevice``, which lists every refused node with its reasons in
-explain's format.
+A node that tagging refuses (or that the cost-based optimizer moves, when
+it is on) becomes a ``CpuFallbackExec`` island: it runs on the row
+interpreter (``plan/interpreter.py``), its device children cross to it
+through Arrow and its result goes back to the device the Session names.
+Only tagging makes an island, and each shows in explain (``!`` lines with
+their reasons), in the Session's ``fell_back()`` and in
+``executed_exec_names()``; a device failure (a kernel that does not build
+or launch, an OOM past the retry loop, an ANSI error) raises and is never
+sent to the interpreter.
 
 Reason strings are the JAX package's word for word, so that explain output
 compares between the packages. Two tagging branches are left out with the
@@ -25,23 +29,27 @@ types have no nested kinds).
 
 from __future__ import annotations
 
+import copy
 import enum
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import pyarrow as pa
 import torch
 
+from ..batch import Schema, empty_batch, from_arrow
 from ..config import (AGG_MAX_RESULT_ROWS, BROADCAST_LIMIT,
-                      BROADCAST_THRESHOLD, COALESCE_MAX_ROWS, DPP_ENABLED,
-                      JOIN_MAX_BUILD_ROWS, PARQUET_ENABLED, REGEXP_ENABLED,
-                      SHUFFLE_PARTITIONS, RapidsTpuConf)
+                      BROADCAST_THRESHOLD, CBO_ENABLED, COALESCE_MAX_ROWS,
+                      DPP_ENABLED, JOIN_MAX_BUILD_ROWS, PARQUET_ENABLED,
+                      REGEXP_ENABLED, SHUFFLE_PARTITIONS, RapidsTpuConf)
 from ..exec import (BroadcastNestedLoopJoinExec, ExpandExec, FilterExec,
                     GlobalLimitExec, HashAggregateExec, HashJoinExec,
                     InMemoryScanExec, ProjectExec, RangeExec, SampleExec,
                     SortExec, UnionExec)
 from ..exec.aggregate import AggregateMode
-from ..exec.base import Exec
+from ..exec.base import Exec, LeafExec, Metric
+from ..exec.base import collect as collect_exec
 from ..exec.join import JoinType
 from ..expressions import base as EB
 from ..expressions.base import Alias, EvalContext, Expression
@@ -57,27 +65,6 @@ class ExplainMode(enum.Enum):
     NONE = "NONE"
     ALL = "ALL"
     NOT_ON_TPU = "NOT_ON_TPU"
-
-
-#: the slice that brings the CPU side (the row interpreter and its
-#: fallback islands), named in every ``NotOnDevice``
-CPU_SIDE_SLICE = ("the CPU side of ROADMAP item 5 (the row interpreter and "
-                  "CpuFallbackExec islands)")
-
-
-class NotOnDevice(RuntimeError):
-    """Tagging refused one or more nodes of a plan. ``refused`` holds each
-    refused node's explain line (``!Name  <-- cannot run on TPU because:
-    ...``), root first; ``explain`` the whole tagged tree."""
-
-    def __init__(self, refused: List[str], explain: str):
-        self.refused = refused
-        self.explain = explain
-        super().__init__(
-            f"{len(refused)} node(s) of the plan cannot run on the device, "
-            f"and the port has no CPU side to run them yet ("
-            f"{CPU_SIDE_SLICE}):\n" + "\n".join(refused)
-            + "\nthe tagged plan:\n" + explain)
 
 
 # ---------------------------------------------------------------------------
@@ -551,12 +538,6 @@ class PlanMeta:
         return "\n".join(lines)
 
 
-def _walk(meta: PlanMeta):
-    yield meta
-    for c in meta.children:
-        yield from _walk(c)
-
-
 EXEC_SIGS: Dict[str, TypeSig] = {
     "Scan": TS.ALL_BASIC + TS.ARRAY + TS.MAP + TS.STRUCT + TS.DECIMAL_128,
     "Project": TS.ALL_BASIC + TS.ARRAY + TS.MAP + TS.STRUCT
@@ -579,6 +560,95 @@ EXEC_SIGS: Dict[str, TypeSig] = {
 
 
 # ---------------------------------------------------------------------------
+# CPU fallback islands
+# ---------------------------------------------------------------------------
+
+class CpuFallbackExec(LeafExec):
+    """Runs one logical node on the row interpreter. Its device children
+    cross to it through Arrow (``collect``); nested islands splice into one
+    logical tree, so no device round trip runs between CPU operators (the
+    reference's GpuColumnarToRowExec / GpuRowToColumnarExec boundary). The
+    result goes back up through ``from_arrow`` onto ``device``, the
+    Session's own.
+
+    ``interpret`` records its host time in two metrics: ``collectTime``
+    (the device children to Arrow) and ``interpretTime`` (the row loop),
+    with ``numInputRows`` beside ``numOutputRows``."""
+
+    def __init__(self, node: L.LogicalPlan, child_execs: List[Exec],
+                 device: Optional[torch.device], ansi: bool = False):
+        super().__init__()
+        self.node = node
+        self.child_execs = list(child_execs)
+        self.ansi = ansi
+        self._device = device
+        self._schema = node.schema()
+        for m in ("collectTime", "interpretTime", "numInputRows"):
+            self.metrics[m] = Metric(m)
+
+    @property
+    def name(self) -> str:
+        return f"CpuFallback[{self.node.name}]"
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def exec_names(self) -> List[str]:
+        return [self.name] + [n for c in self.child_execs
+                              for n in c.exec_names()]
+
+    def spliced_logical(self) -> L.LogicalPlan:
+        """The island as one logical tree: nested islands splice in, and
+        each device child becomes a scan of its collected rows."""
+        children = []
+        for ce in self.child_execs:
+            if isinstance(ce, CpuFallbackExec):
+                children.append(ce.spliced_logical())
+                continue
+            t0 = time.perf_counter_ns()
+            tbl = collect_exec(ce)
+            self.metrics["collectTime"].add(time.perf_counter_ns() - t0)
+            self.metrics["numInputRows"].add(tbl.num_rows)
+            children.append(L.LogicalScan((), data=tbl,
+                                          _schema=ce.output_schema))
+        return _with_children(self.node, children)
+
+    def interpret(self) -> pa.Table:
+        """Run the island on the host; its result as an Arrow table."""
+        from .interpreter import Interpreter
+        logical = self.spliced_logical()
+        t0 = time.perf_counter_ns()
+        out = Interpreter(ansi=self.ansi).execute(logical)
+        self.metrics["interpretTime"].add(time.perf_counter_ns() - t0)
+        return out
+
+    def do_execute_partition(self, p: int):
+        result = self.interpret()
+        if result.num_rows == 0:
+            yield empty_batch(self._schema, self._device)
+            return
+        batch, _ = from_arrow(result, schema=self._schema,
+                              device=self._device)
+        yield batch
+
+    def close(self) -> None:
+        for c in self.child_execs:
+            c.close()
+        self.do_close()
+
+
+def _with_children(node: L.LogicalPlan, children) -> L.LogicalPlan:
+    n = copy.copy(node)
+    n.children = tuple(children)
+    return n
+
+
+# ---------------------------------------------------------------------------
 # Conversion and the coalesce transitions
 # ---------------------------------------------------------------------------
 
@@ -596,6 +666,9 @@ def insert_coalesce_transitions(plan: Exec, target_bytes: int,
     fragmenting = (FilterExec, HashJoinExec, BroadcastNestedLoopJoinExec)
 
     def rewrite(node: Exec) -> Exec:
+        if isinstance(node, CpuFallbackExec):
+            node.child_execs = [rewrite(c) for c in node.child_execs]
+            return node
         new_children = []
         for i, c in enumerate(node.children):
             c = rewrite(c)
@@ -693,11 +766,10 @@ class Overrides:
         meta = PlanMeta(logical, self.conf)
         meta.tag()
         propagate_host_only_data(meta)
+        if self.conf.get(CBO_ENABLED.key):
+            from .cbo import CostBasedOptimizer
+            CostBasedOptimizer(self.conf).optimize(meta)
         self.last_meta = meta
-        refused = [m for m in _walk(meta) if not m.can_run_on_tpu]
-        if refused:
-            raise NotOnDevice([m.explain_line() for m in refused],
-                              meta.explain(ExplainMode.ALL))
         converted = self._convert(meta)
         return insert_coalesce_transitions(
             converted, self.conf.batch_size_bytes,
@@ -713,6 +785,9 @@ class Overrides:
 
     def _convert(self, meta: PlanMeta) -> Exec:
         children = [self._convert(c) for c in meta.children]
+        if not meta.can_run_on_tpu:
+            return CpuFallbackExec(meta.node, children, self.device,
+                                   ansi=self.conf.ansi)
         return self._to_exec(meta.node, children)
 
     def _ctx(self) -> EvalContext:
@@ -806,7 +881,9 @@ class Overrides:
         files whose partition value cannot match. Only join types that drop
         unmatched stream rows are eligible. Returns the build side's
         materialization, which the broadcast reuses, or None."""
-        if not self.conf.get(DPP_ENABLED.key):
+        if not self.conf.get(DPP_ENABLED.key) or \
+                isinstance(build, CpuFallbackExec):
+            # an island's build is not run at plan time
             return None
         if join_type not in (JoinType.INNER, JoinType.LEFT_SEMI,
                              JoinType.RIGHT_OUTER):

@@ -1,27 +1,35 @@
 """Session: conf-scoped query execution and plan capture.
 
-Port of the device side of ``spark_rapids_tpu/plan/session.py``: a
-Session holds one conf dict (the JAX package's keys and defaults), plans a
-DataFrame through ``Overrides`` (tagging, conversion, the coalesce pass,
-dynamic partition pruning), fuses an eligible stage (``exec/fuse.py``,
-captured in a CUDA graph on the card), installs the conf's retry and OOM
-injection settings, and collects. ``last_plan`` is the physical tree the
-last query ran; ``explain``, ``metrics``, ``executed_exec_names``,
-``fell_back`` and ``adaptive_decisions`` read it as the JAX package's do.
+Port of ``spark_rapids_tpu/plan/session.py``: a Session holds one conf dict
+(the JAX package's keys and defaults) and prepares a DataFrame one of three
+ways, as the JAX Session does:
+
+- ``"interpret"``: with ``sql.enabled=false`` the whole query runs on the
+  row interpreter (the differential tests' oracle); with
+  ``sql.mode=explainonly`` it is planned as for the device (``last_plan``)
+  and then runs on the interpreter too;
+- ``"fallback"``: tagging refused the root, so the plan is a
+  ``CpuFallbackExec`` island, interpreted on the host with no device round
+  trip for its result;
+- ``"exec"``: a device plan (fused where fusion is on and the stage
+  qualifies, captured in a CUDA graph on the card), which may hold
+  islands below its root.
+
+``collect`` installs the conf's retry and OOM injection settings and runs
+the plan. ``last_plan`` is the physical tree the last query ran;
+``explain``, ``metrics``, ``executed_exec_names``, ``fell_back`` and
+``adaptive_decisions`` read it as the JAX package's do, islands and the
+device children under them included.
 
 The device is ``cuda`` unless the caller names another; asking for
-``cuda`` where there is none raises.
+``cuda`` where there is none raises. An island's result goes back to that
+device, never to a default one.
 
 What this Session does not have yet raises ``NotImplementedError`` when a
-conf asks for it, naming the ROADMAP item that brings it:
-
-- the CPU side (``sql.enabled=false``, ``sql.mode=explainonly``, the
-  cost-based optimizer): the next slice of item 5. A node that tagging
-  refuses raises ``NotOnDevice``; ``fell_back()`` is ``[]`` by
-  construction;
-- the result cache, work sharing, tracing, cost-fed placement and the
-  MULTITHREADED and CACHED shuffles: item 8;
-- the ICI shuffle and its mesh lowering: item 6.
+conf asks for it, naming the ROADMAP item that brings it
+(``config.ConfEntry.later``): the result cache, work sharing, tracing,
+cost-fed placement and the MULTITHREADED and CACHED shuffles (item 8), and
+the ICI shuffle with its mesh lowering (item 6), among others.
 
 The plan cache (on by default in the JAX package) changes no result; the
 port plans afresh every time and says so in ``last_cache["plan"]``.
@@ -35,13 +43,12 @@ from typing import Dict, List, Optional
 import pyarrow as pa
 
 from ..batch import DeviceLike, resolve_device
-from ..config import (ADAPTIVE_COST_ENABLED, CBO_ENABLED, FILECACHE_ENABLED,
-                      FUSION_ENABLED, HBM_RESERVE, HOST_SPILL_LIMIT, MODE,
-                      SERVER_RESULT_CACHE_ENABLED, SHARING_ENABLED,
-                      SPILL_DIR, SQL_ENABLED, TRACE_ENABLED, RapidsTpuConf)
+from ..config import (FILECACHE_ENABLED, FUSION_ENABLED, HBM_RESERVE,
+                      HOST_SPILL_LIMIT, MODE, SPILL_DIR, RapidsTpuConf)
 from ..memory.catalog import BufferCatalog, default_device_limit
+from .interpreter import Interpreter
 from .logical import DataFrame
-from .overrides import ExplainMode, Overrides
+from .overrides import CpuFallbackExec, ExplainMode, Overrides
 
 #: the buffer catalog's counters ``metrics`` reports (``catalog.*``)
 _CATALOG_COUNTERS = ("spilled_to_host", "spilled_to_disk", "unspilled")
@@ -51,29 +58,14 @@ PLAN_CACHE_NOTE = "bypass: the port plans afresh (plan cache: ROADMAP item 8)"
 
 
 def unsupported_conf(conf: RapidsTpuConf) -> Optional[str]:
-    """Why the port cannot serve this conf yet (a switch set away from its
-    default for a feature the port does not have), naming the ROADMAP item
-    that brings it; None if it can."""
-    later = [
-        (SQL_ENABLED, "the CPU side of ROADMAP item 5 (the row "
-                      "interpreter)"),
-        (CBO_ENABLED, "the CPU side of ROADMAP item 5 (plan/cbo.py)"),
-        (SERVER_RESULT_CACHE_ENABLED, "ROADMAP item 8 (the result cache)"),
-        (SHARING_ENABLED, "ROADMAP item 8 (cross-query work sharing)"),
-        (TRACE_ENABLED, "ROADMAP item 8 (query tracing)"),
-        (ADAPTIVE_COST_ENABLED, "ROADMAP item 8 (cost-fed placement, with "
-                                "the plan cache's fingerprint)"),
-    ]
-    for entry, item in later:
-        if not conf.is_default(entry):
-            return (f"{entry.key}={conf.get(entry.key)} is not in the port "
-                    f"yet: {item}")
+    """Why the port cannot serve this conf yet (a key set away from its
+    default for a feature the port does not have, naming the ROADMAP item
+    that brings it, or a mode it does not know); None if it can."""
+    why = conf.not_ported()
+    if why is not None:
+        return why
     mode = str(conf.get(MODE.key)).lower()
-    if mode == "explainonly":
-        return (f"{MODE.key}=explainonly is not in the port yet: the CPU "
-                f"side of ROADMAP item 5 (it executes on the row "
-                f"interpreter)")
-    if mode != MODE.default:
+    if mode not in (MODE.default, "explainonly"):
         return f"{MODE.key} must be executeontpu or explainonly, got {mode!r}"
     return None
 
@@ -122,12 +114,20 @@ class Session:
         return Overrides(self.conf, self.device, self.catalog)
 
     def prepare(self, df: DataFrame):
-        """The planning pipeline: returns ``("exec", plan)``, the physical
-        tree (fused where fusion is on and the stage qualifies). Raises
-        ``NotOnDevice`` when tagging refuses a node."""
+        """The planning pipeline: ``("interpret", None)`` when the query
+        runs on the row interpreter (``sql.enabled=false``, or explain-only
+        mode, which still plans ``last_plan``), ``("fallback", plan)`` for
+        a plan whose root is a CPU island, else ``("exec", plan)``."""
         t0 = time.perf_counter_ns()
         self.last_cache["plan"] = PLAN_CACHE_NOTE
         try:
+            if not self.conf.sql_enabled:
+                self.last_plan = None
+                return "interpret", None
+            if str(self.conf.get(MODE.key)).lower() == "explainonly":
+                # planned as if the device ran it; executed on the CPU
+                self.last_plan = self._overrides().plan(df.plan)
+                return "interpret", None
             return self._plan_fresh(df)
         finally:
             self.last_prepare_ns = time.perf_counter_ns() - t0
@@ -135,10 +135,14 @@ class Session:
     def _plan_fresh(self, df: DataFrame):
         plan = self._overrides().plan(df.plan)
         self.last_plan = plan
+        if isinstance(plan, CpuFallbackExec):
+            # a CPU-topped plan stays on the host: no device round trip for
+            # the top island's result
+            return "fallback", plan
         if self.conf.get(FUSION_ENABLED.key):
             # whole-stage fusion: an eligible linear single-batch stage runs
-            # as one program (a CUDA graph on the card); other shapes keep
-            # the iterator path
+            # as one program (a CUDA graph on the card); other shapes,
+            # islands among them, keep the iterator path
             from ..exec.fuse import try_fuse_exec
             fused = try_fuse_exec(plan)
             if fused is not None:
@@ -167,11 +171,19 @@ class Session:
         result to the host. The plan is closed whatever happens
         (``exec.collect``)."""
         self._watermark()
-        _, plan = _prepared if _prepared is not None else self.prepare(df)
+        kind, plan = _prepared if _prepared is not None \
+            else self.prepare(df)
+        if kind == "interpret":
+            return Interpreter(ansi=self.conf.ansi).execute(df.plan)
         from ..exec.base import collect as collect_exec
         from ..memory.retry import apply_session_conf
         # process-wide, like the reference's per-executor retry state
         apply_session_conf(self.conf)
+        if kind == "fallback":
+            try:
+                return plan.interpret()
+            finally:
+                plan.close()
         return collect_exec(plan)
 
     def cache(self, df: DataFrame) -> DataFrame:
@@ -194,11 +206,22 @@ class Session:
         ``bucket_by=(cols, n)`` routes rows with the shuffle's murmur3
         pmod. Returns ``WriteStats``."""
         from ..io.writer import write_plan
-        plan = self._overrides().plan(df.plan)
-        self.last_plan = plan
+        plan = self._physical_plan(df)
         return write_plan(plan, path, fmt=format, compression=compression,
                           partition_by=partition_by or (),
                           bucket_by=bucket_by, header=header)
+
+    def _physical_plan(self, df: DataFrame):
+        """The tree a write runs: the device plan, or with ``sql.enabled``
+        false a scan of the interpreter's result."""
+        if not self.conf.sql_enabled:
+            from ..exec import InMemoryScanExec
+            return InMemoryScanExec(
+                Interpreter(ansi=self.conf.ansi).execute(df.plan),
+                device=self.device, catalog=self.catalog)
+        plan = self._overrides().plan(df.plan)
+        self.last_plan = plan
+        return plan
 
     def write_parquet(self, df: DataFrame, path: str, partition_by=None,
                       **kw):
@@ -225,7 +248,7 @@ class Session:
                 if v:
                     key = f"{e.name}.{name}"
                     out[key] = out.get(key, 0) + v
-            for c in e.children:
+            for c in _exec_children(e):
                 walk(c)
         walk(self.last_plan)
 
@@ -246,11 +269,13 @@ class Session:
         return out
 
     def executed_exec_names(self) -> List[str]:
+        """The last plan's operators, root first, the device children of
+        its islands included."""
         names: List[str] = []
 
         def walk(e):
             names.append(e.name)
-            for c in e.children:
+            for c in _exec_children(e):
                 walk(c)
 
         if self.last_plan is not None:
@@ -258,9 +283,10 @@ class Session:
         return names
 
     def fell_back(self) -> List[str]:
-        """The operators of the last plan that ran on the CPU: none, by
-        construction (a refused node raises ``NotOnDevice``)."""
-        return []
+        """The islands of the last plan (``CpuFallback[<node>]``), root
+        first."""
+        return [n for n in self.executed_exec_names()
+                if n.startswith("CpuFallback")]
 
     def adaptive_decisions(self) -> List[str]:
         """Reason tags of every adaptive decision taken since this
@@ -268,3 +294,8 @@ class Session:
         broadcast switch)."""
         from .. import adaptive
         return adaptive.reasons(since=self._adaptive_mark0)
+
+
+def _exec_children(e) -> List:
+    """An operator's children, and the device children an island keeps."""
+    return list(e.children) + list(getattr(e, "child_execs", ()))

@@ -113,7 +113,9 @@ ARRAY = NONE
 MAP = NONE
 STRUCT = NONE
 NESTED = NONE
-#: DECIMAL128 raises a rule's decimal ceiling to 38 digits; the port's
-#: types stop at 18 (``types.decimal``), so no column reaches the ceiling
+#: DECIMAL128 raises a rule's decimal ceiling to 38 digits in the JAX
+#: package. The port's device layout stops at 18 digits until ROADMAP item
+#: 7, so here its ceiling stays at 18: a node with a wider column (a
+#: decimal sum's result, ``types.host_decimal``) runs on the CPU
 DECIMAL_128 = TypeSig(frozenset({TypeKind.DECIMAL}),
-                      max_decimal_precision=38)
+                      max_decimal_precision=18)

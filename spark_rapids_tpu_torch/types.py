@@ -13,7 +13,9 @@ type.
 
 Decimals of more than 18 digits (the JAX package's four 32-bit limbs) and
 the nested kinds (ARRAY, STRUCT, MAP) are later slices: a wide decimal
-raises ``NotImplementedError`` wherever it is made.
+raises ``NotImplementedError`` wherever a column of it would be made. Only
+the result type of a decimal sum or average may be wider
+(``host_decimal``); it lives on the host, in the row interpreter.
 """
 
 from __future__ import annotations
@@ -155,6 +157,19 @@ def decimal(precision: int, scale: int) -> SqlType:
         raise _wide_decimal(precision)
     if not 0 <= scale <= precision:
         raise ValueError(f"decimal({precision},{scale}): scale out of range")
+    return SqlType(TypeKind.DECIMAL, precision=precision, scale=scale)
+
+
+def host_decimal(precision: int, scale: int) -> SqlType:
+    """DECIMAL(precision, scale) as a result type, up to 38 digits: the
+    type of a decimal sum or average (Spark's widening). Past 18 digits it
+    has no device layout, so every operator refuses a column of it
+    (``plan/typesig.py``) and the value lives on the host, in the row
+    interpreter's Arrow tables; the device upload raises for it."""
+    if precision <= MAX_LONG_DIGITS:
+        return decimal(precision, scale)
+    if not 0 <= scale <= precision <= 38:
+        raise ValueError(f"decimal({precision},{scale}) out of range")
     return SqlType(TypeKind.DECIMAL, precision=precision, scale=scale)
 
 

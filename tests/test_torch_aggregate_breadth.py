@@ -490,3 +490,64 @@ def test_int64_minmax_is_exact_beyond_float64():
     got = collect(_port_plan(t, ("k",), aggs, 2, True, 2)).sort_by("k")
     assert got.column("mn").to_pylist() == [3, lo]
     assert got.column("mx").to_pylist() == [hi, lo + 1]
+
+
+# ---------------------------------------------------------------------------
+# decimal sum and average: Spark's result types, against the JAX Session
+# ---------------------------------------------------------------------------
+
+def _decimal_table(precision):
+    from decimal import Decimal
+    top = Decimal(10 ** (precision - 2) - 1) / 100      # the largest value
+    return pa.table({
+        "k": pa.array([0, 0, 1, 1, 2], pa.int32()),
+        "x": pa.array([top, Decimal("-0.01"), Decimal("1.50"), None, None],
+                      pa.decimal128(precision, 2))})
+
+
+@pytest.mark.parametrize("precision", [5, 10])
+@pytest.mark.parametrize("fn", ["Sum", "Average"])
+@pytest.mark.parametrize("grouped", [True, False], ids=["grouped", "global"])
+def test_decimal_sum_and_average_types_match_jax(precision, fn, grouped):
+    """sum(decimal(p, s)) is decimal(p + 10, s) and avg(decimal(p, s))
+    decimal(p + 4, s + 4), as in the JAX Session (the port typed both as
+    int64 and float64 before). A sum up to 18 digits runs on the device;
+    a wider one, and every decimal average, runs as a CPU island."""
+    from spark_rapids_tpu.plan import Session as JSession
+    from spark_rapids_tpu.plan import table as jtable
+    from spark_rapids_tpu_torch.plan import Session, table
+    t = _decimal_table(precision)
+
+    def q(tbl, c, aggs):
+        df = tbl(t)
+        agg = getattr(aggs, fn)(c("x")).alias("r")
+        return (df.group_by("k").agg(agg) if grouped else df.agg(agg))
+    jses = JSession({})
+    want = jses.collect(q(jtable, jcol, jagg))
+    ses = Session({}, device="cpu")
+    got = ses.collect(q(table, col, tagg))
+    assert got.schema.field("r").type == want.schema.field("r").type
+    assert_tables_equal(got, want, ignore_order=True)
+    island = fn == "Average" or precision + 10 > 18
+    assert ses.fell_back() == (["CpuFallback[Aggregate]"] if island else [])
+    if precision + 10 <= 18 or fn == "Average":
+        assert ses.fell_back() == jses.fell_back()
+    else:
+        # the JAX package sums DECIMAL128 limbs on its device; the port's
+        # device layout stops at 18 digits until ROADMAP item 7
+        assert jses.fell_back() == []
+        assert "ROADMAP Queue 1 item 7" in ses.explain(q(table, col, tagg))
+
+
+@pytest.mark.parametrize("fn", ["Sum", "Average"])
+def test_decimal_aggregate_types_are_the_jax_types(fn):
+    """The bound result type alone (the port's Average over a decimal was
+    float64, its Sum int64)."""
+    from spark_rapids_tpu.batch import schema_from_arrow as jschema_of
+    from spark_rapids_tpu_torch.batch import schema_from_arrow
+    t = _decimal_table(5)
+    got = getattr(tagg, fn)(col("x")).bind(schema_from_arrow(t.schema)).dtype
+    want = getattr(jagg, fn)(jcol("x")).bind(jschema_of(t.schema)).dtype
+    assert (got.kind.value, got.precision, got.scale) == \
+        (want.kind.value, want.precision, want.scale) == \
+        ("decimal", 15 if fn == "Sum" else 9, 2 if fn == "Sum" else 6)

@@ -9,10 +9,13 @@ pruning. The same seeded tables go through the JAX Session and
 compare node for node (``test_torch_session.tree``) and the rows exactly
 but for floats (rel 1e-6).
 
-The conf gates: a node that tagging refuses raises ``NotOnDevice`` with
-the reasons the JAX ``explain`` prints, and each switch of a feature the
-port does not have yet raises ``NotImplementedError`` naming its ROADMAP
-item."""
+The conf gates: a node that tagging refuses runs as a CPU fallback
+island with the reasons, ``fell_back()`` and rows of the JAX Session; the
+CPU side's switches (``sql.enabled``, explain-only, the cost-based
+optimizer) work; each switch of a feature the port does not have yet
+raises ``NotImplementedError`` naming its ROADMAP item; a key outside the
+JAX registry raises ``KeyError``. The expression operators (``==``,
+``!=``, ``.cast``, ``.is_null``, ``.is_not_null``) build the JAX trees."""
 
 import pathlib
 import subprocess
@@ -24,6 +27,7 @@ import pyarrow.dataset as ds
 import pytest
 import torch
 
+from spark_rapids_tpu import types as JT
 from spark_rapids_tpu.exec.join import JoinType as JJoinType
 from spark_rapids_tpu.exec.sort import asc as jasc
 from spark_rapids_tpu.exec.sort import desc as jdesc
@@ -50,7 +54,7 @@ from spark_rapids_tpu_torch.expressions.aggregates import (Average, Count,
                                                            Max, Min, Sum)
 from spark_rapids_tpu_torch.expressions.cast import Cast
 from spark_rapids_tpu_torch.io import read_parquet
-from spark_rapids_tpu_torch.plan import NotOnDevice, Session, table
+from spark_rapids_tpu_torch.plan import Session, table
 
 from harness.asserts import assert_tables_equal
 from harness.data_gen import (DoubleGen, IntegerGen, LongGen, StringGen,
@@ -349,16 +353,39 @@ def _refused_lines(explain: str):
      lambda a: a.table(T1).select((a.col("v") + a.col("k")).alias("x"))),
 ], ids=["exec_switch", "float64_sum", "expression_switch"])
 def test_refused_node_raises_with_the_jax_reasons(conf, make):
-    jax_refused = _refused_lines(JSession(conf).explain(make(JAX)))
+    """A refused node no longer raises: it runs as a CPU fallback island,
+    with the JAX explain's reasons, the JAX Session's ``fell_back()`` and
+    its rows."""
+    jses = JSession(conf)
+    jax_refused = _refused_lines(jses.explain(make(JAX)))
     assert jax_refused
     ses = Session(conf, device="cpu")
     assert _refused_lines(ses.explain(make(PORT))) == jax_refused
-    with pytest.raises(NotOnDevice) as err:
-        ses.collect(make(PORT))
-    assert [line.strip() for line in err.value.refused] == jax_refused
-    for line in jax_refused:
-        assert line in str(err.value)
-    assert "the CPU side of ROADMAP item 5" in str(err.value)
+    got = ses.collect(make(PORT))
+    want = jses.collect(make(JAX))
+    assert ses.fell_back() == jses.fell_back()
+    assert len(ses.fell_back()) == len(jax_refused)
+    assert_tables_equal(got, want, ignore_order=True)
+
+
+def _cpu_side_switch_works(key, ses):
+    """The query runs under the switch and gives the interpreter's rows;
+    ``sql.enabled=false`` plans nothing, explain-only plans the device
+    tree, and the cost-based optimizer moves this 300-row plan to the
+    CPU."""
+    df = table(T2).where(col("w") > lit(10)).select(col("k2"))
+    got = ses.collect(df)
+    want = Session({"spark.rapids.tpu.sql.enabled": False},
+                   device="cpu").collect(df)
+    assert_tables_equal(got, want, ignore_order=True)
+    if key.endswith("sql.enabled"):
+        assert ses.last_plan is None and ses.fell_back() == []
+    elif key.endswith("sql.mode"):
+        assert ses.last_plan is not None and ses.fell_back() == []
+    else:
+        assert ses.fell_back() == ["CpuFallback[Project]",
+                                   "CpuFallback[Filter]",
+                                   "CpuFallback[Scan]"]
 
 
 @pytest.mark.parametrize("key,value,item", [
@@ -374,8 +401,60 @@ def test_refused_node_raises_with_the_jax_reasons(conf, make):
     ("spark.rapids.tpu.shuffle.mode", "ICI", "item 6"),
 ])
 def test_switch_of_a_later_feature_raises(key, value, item):
+    """Item 5's switches now work (its CPU side is in); every other one
+    still raises, naming its item."""
+    if item == "item 5":
+        _cpu_side_switch_works(key, Session({key: value}, device="cpu"))
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Session({key: value}, device="cpu")
+
+
+def test_unknown_conf_key_raises_and_jax_keys_are_known():
+    """A key outside the JAX registry raises ``KeyError`` (a typo no
+    longer runs silently); a registered JAX key is known, and set away
+    from its default for a feature the port lacks it names the item."""
+    with pytest.raises(KeyError, match="unknown config"):
+        JSession({"spark.rapids.tpu.sql.metircs.level": "DEBUG"})
+    with pytest.raises(KeyError, match="unknown config"):
+        Session({"spark.rapids.tpu.sql.metircs.level": "DEBUG"},
+                device="cpu")
+    level = "spark.rapids.tpu.sql.metrics.level"
+    for conf in ({level: "MODERATE"},
+                 {"spark.rapids.tpu.shuffle.compression.codec": "lz4",
+                  "spark.rapids.tpu.sql.exec.Whatever": True}):
+        JSession(conf)
+        ses = Session(conf, device="cpu")
+        assert ses.collect(table(T2)).num_rows == T2.num_rows
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        Session({level: "DEBUG"}, device="cpu")
+
+
+def _shape(e):
+    """An expression tree as class names and literal values."""
+    if hasattr(e, "value"):
+        return ("lit", e.value)
+    if type(e).__name__ == "UnresolvedColumn":
+        return ("col", e.name)
+    return (type(e).__name__,) + tuple(_shape(c) for c in e.children)
+
+
+def test_expression_operators_build_the_jax_trees():
+    """``==`` and ``!=`` build ``EqualTo`` and ``Not(EqualTo)``, and the
+    helpers their nodes, as in the JAX package (before, ``==`` was the
+    dataclass comparison and returned a bool)."""
+    def exprs(a):
+        return [a.col("k") == a.lit(3), a.col("k") != 3,
+                a.col("k").cast(T.INT64 if a is PORT else JT.INT64),
+                a.col("s").is_null(), a.col("s").is_not_null()]
+    for p, j in zip(exprs(PORT), exprs(JAX)):
+        assert _shape(p) == _shape(j)
+    assert isinstance(col("k") == col("k"), EqualTo)
+    with pytest.raises(TypeError, match="no truth value"):
+        bool(col("k") == lit(3))
+    both(lambda a: a.table(T1).where((a.col("k") == a.lit(3))
+                                     | (a.col("k") != a.lit(5))
+                                     & a.col("s").is_not_null()))
 
 
 def test_plan_cache_switch_changes_nothing():
@@ -412,6 +491,8 @@ def test_planner_modules_load_no_jax():
                "spark_rapids_tpu_torch.plan.typesig",
                "spark_rapids_tpu_torch.plan.overrides",
                "spark_rapids_tpu_torch.plan.session",
+               "spark_rapids_tpu_torch.plan.interpreter",
+               "spark_rapids_tpu_torch.plan.cbo",
                "spark_rapids_tpu_torch.shuffle.manager",
                "spark_rapids_tpu_torch.expressions.cast",
                "spark_rapids_tpu_torch.io.scan",
