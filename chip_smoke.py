@@ -117,9 +117,27 @@ Q1's and Q16's exchanges and ``window_match`` at the Session Q16's filter,
 and join_sort runs as a fused stage that ``Session.collect`` captures in
 a CUDA graph and replays.
 
+Right after the Session phase, over its SF10 lineitem, comes the mesh
+phase (``spark_rapids_tpu_torch.parallel``, ``shuffle.mode=ICI``), 8
+shards over the visible cards (all 8 on one card where it is alone): Q1
+at SF10 through the Session as one ``MeshStageExec`` whose lowered list
+is the JAX Session's, equal to pyarrow, with a cold and two warm walls,
+the peak, the split of one warm wall between input staging, each shard's
+local kernels and the exchanges (CUDA events), the idle share of one
+profiled warm run, and Session Q1 without ICI beside it; the bench's
+ici_exchange shape (2^20 fact rows, a planned broadcast join and a
+group-by) against pyarrow, with its stage's program timed alone as the
+bench times it; the dryrun's filter, shuffled join, group-by and global
+sort at 2^24 x 2^20 rows with AQE off (four exchanges, the order exact
+against pyarrow); the two-process exchange (two ranks of two shards
+each over ``torch.distributed``: NCCL with a card per rank, gloo through
+host memory on one card); and ``entry.dryrun_multigpu(8)``. murmur3 is
+held against its plain version on every key the stages route.
+
 Prints, in order: the card's name and power limit, the build time, each
 kernel check with its times and bound, the join check, the checks of Q1
-and the Q16 part stage, the Session phase, Q3 (AQE off, then on) with
+and the Q16 part stage, the Session phase, the mesh phase, Q3 (AQE off,
+then on) with
 their times, the range sort, the fallback phase, the spill copy rate,
 Q18's checks (AQE off, then on) with their times, the catalog's tiers,
 spilled bytes, retry metrics, grace buckets and the allocator's peak,
@@ -1777,7 +1795,8 @@ PROFILER_RANGES = ("SortExec", "HashAggregateExec", "ShuffleExchangeExec",
                    "BroadcastNestedLoopJoinExec", "TakeOrderedAndProjectExec",
                    "HashJoinExec.build", "HashJoinExec.count",
                    "HashJoinExec.expand", "HashJoinExec.grace_split",
-                   "FileSourceScanExec[parquet]")
+                   "FileSourceScanExec[parquet]", "MeshStageExec",
+                   "mesh_exchange", "mesh_broadcast")
 #: the prefix of a CPU fallback island's range (``CpuFallback[Filter]``):
 #: host work, though the profiler mirrors it onto the device timeline
 ISLAND_RANGE = "CpuFallback["
@@ -2870,7 +2889,7 @@ def check_window_match_at_session_q16(dev, ses, df) -> int:
     return bad
 
 
-def run_session_phase(dev, args) -> list:
+def run_session_phase(dev, args, lineitem) -> list:
     """The Session (``spark_rapids_tpu_torch.plan.Session``) plans and runs
     the paths from their DataFrames (``entry.*_df``) under the conf the
     port's tests use (incompatibleOps on, AQE off): Q1 at SF10 and the Q16
@@ -2880,7 +2899,8 @@ def run_session_phase(dev, args) -> list:
     hash_agg (2^22 rows, 2^20 keys, 8 slices), join_sort (2^21 x 2^18, a
     fused stage captured in a CUDA graph and replayed) and parquet_scan
     (2^21 rows in 8 files, MULTITHREADED). Each tree equals the hand-built
-    ``entry.*_plan``'s. Returns each path's launches."""
+    ``entry.*_plan``'s. ``lineitem`` is Q1's table. Returns each path's
+    launches."""
     import pyarrow.dataset as ds
     from spark_rapids_tpu_torch import entry
     from spark_rapids_tpu_torch.exec import FusedStageExec
@@ -2892,7 +2912,6 @@ def run_session_phase(dev, args) -> list:
     def q1_check(got, expected):
         return f"; float max rel err {check_q1_result(got, expected):.3g}"
 
-    lineitem = entry.lineitem_table(args.rows, DATA_SEED)
     launches, ses, _ = run_session_path(
         "q1", dev, [murmur3_int32], lineitem, entry.q1_reference,
         lambda t: entry.q1_df(t, Q1_SLICES),
@@ -2902,7 +2921,6 @@ def run_session_phase(dev, args) -> list:
     runs.append(launches)
     ses.prepare(entry.q1_df(lineitem, Q1_SLICES))
     check_murmur3_at_exchanges("the Session's Q1", ses.last_plan, dev)
-    del lineitem
 
     part = entry.part_table(SF100_PART_ROWS, PART_SEED)
     launches, ses, _ = run_session_path(
@@ -2920,8 +2938,9 @@ def run_session_phase(dev, args) -> list:
                                       entry.q16_part_df(part, Q16_SLICES))
     del part
 
-    lineitem = entry.lineitem_table(HASH_AGG_ROWS, DATA_SEED)
-    q1_stage_ref = entry.q1_stage_plan(lineitem, device="cpu").output_schema
+    stage_rows = entry.lineitem_table(HASH_AGG_ROWS, DATA_SEED)
+    q1_stage_ref = entry.q1_stage_plan(stage_rows,
+                                       device="cpu").output_schema
 
     def q1_stage_reference(t):
         import pyarrow as pa
@@ -2948,12 +2967,12 @@ def run_session_phase(dev, args) -> list:
         return check
 
     launches, _, _ = run_session_path(
-        "q1_stage", dev, [], lineitem, q1_stage_reference,
+        "q1_stage", dev, [], stage_rows, q1_stage_reference,
         entry.q1_stage_df, lambda t: entry.q1_stage_plan(t, device=dev),
         keyed_check(entry.Q1_KEYS, "session q1_stage"),
         entry.session_conf(HASH_AGG_PARTITIONS))
     runs.append(launches)
-    del lineitem
+    del stage_rows
 
     sales = entry.hash_agg_table(HASH_AGG_ROWS, HASH_AGG_KEYS)
     launches, _, _ = run_session_path(
@@ -3020,6 +3039,340 @@ def run_session_phase(dev, args) -> list:
         no_fallback("session parquet_scan", ses.last_plan)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# The mesh: shuffle.mode=ICI (spark_rapids_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+#: shards of the mesh phase's stages (all on one card where it is alone)
+MESH_SHARDS = 8
+#: the JAX Session's lowering of TPC-H Q1 (the aggregate's murmur3 routing
+#: and the sort's splitter range exchange)
+Q1_MESH_LOWERED = ["SortExec", "mesh_exchange(all_to_all)",
+                   "HashAggregateExec", "ShuffleExchangeExec",
+                   "HashAggregateExec", "mesh_exchange(all_to_all)",
+                   "CoalesceBatchesExec", "FilterExec", "InMemoryScanExec"]
+#: bench.bench_ici_exchange's fact rows
+ICI_FACT_ROWS = 1 << 20
+#: the chain's fact and dim rows and groups (dryrun_multichip's draws at
+#: scale)
+CHAIN_FACT_ROWS = 1 << 24
+CHAIN_DIM_ROWS = 1 << 20
+CHAIN_GROUPS = 64
+#: ranks of the two-process exchange, shards per rank, and its limit
+MULTIHOST_RANKS = 2
+MULTIHOST_SHARDS = 2
+MULTIHOST_TIMEOUT_S = 180
+
+
+class RoutedKeys:
+    """Collects the key columns of every murmur3 routing of a mesh run (a
+    hash exchange's ``partition_ids``, an aggregate's ``murmur3_batch``,
+    which the lowering module calls by name: they are wrapped there while
+    the block runs), and holds the kernel against its plain version on
+    them afterwards, seeded as the routing seeds them."""
+
+    NAMES = ("partition_ids", "murmur3_batch")
+
+    def __init__(self):
+        self.keys = []
+        self._saved = {}
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.parallel import lowering
+        self.keys.clear()
+
+        def recording(fn):
+            def wrapped(cols, *args, **kwargs):
+                self.keys.append(cols)
+                return fn(cols, *args, **kwargs)
+            return wrapped
+        for name in self.NAMES:
+            self._saved[name] = getattr(lowering, name)
+            setattr(lowering, name, recording(self._saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        from spark_rapids_tpu_torch.parallel import lowering
+        for name, fn in self._saved.items():
+            setattr(lowering, name, fn)
+        self._saved.clear()
+
+    def check(self, what: str, dev) -> int:
+        """Compares every routed key column that reaches the kernel;
+        returns the comparisons. The comparisons' own launches are taken
+        back off the wrapper's count."""
+        import torch
+        from spark_rapids_tpu_torch.expressions.hashing import (
+            DEFAULT_SEED, INT32_HASHED_KINDS, hash_column, int32_words)
+        from spark_rapids_tpu_torch.kernels.murmur3 import (
+            murmur3_int32, murmur3_int32_plain)
+        before = murmur3_int32.launches
+        compared, worst, shapes = 0, 0, set()
+        for cols in self.keys:
+            seed = torch.full((cols[0].capacity,), DEFAULT_SEED,
+                              dtype=torch.int32, device=dev)
+            for c in cols:
+                if c.dtype.kind in INT32_HASHED_KINDS:
+                    args = (int32_words(c), c.validity.contiguous(), seed)
+                    err = int((murmur3_int32(*args).long()
+                               - murmur3_int32_plain(*args).long())
+                              .abs().max())
+                    worst = max(worst, err)
+                    compared += 1
+                    shapes.add(c.capacity)
+                seed = hash_column(c, seed)
+        murmur3_int32.launches = before
+        self.keys.clear()
+        if not compared:
+            raise AssertionError(f"{what}: no routed key reached "
+                                 f"murmur3_int32")
+        if worst:
+            raise AssertionError(f"murmur3_int32 disagrees with its plain "
+                                 f"version at {what}'s routings")
+        print(f"murmur3_int32 against its plain version on {what}'s routed "
+              f"keys: {compared} columns (capacities {sorted(shapes)}), "
+              f"max_abs_err 0")
+        return compared
+
+
+def mesh_run(name: str, dev, counted, ses, make_df, check, expected,
+             rows: int, lowered=None, warm_runs: int = 2) -> dict:
+    """One Session path on the mesh: a cold run (every counted kernel's
+    launches from 0, its tree one ``MeshStageExec`` with ``lowered`` where
+    given, murmur3 held against its plain version on every routed key),
+    ``warm_runs`` warm runs (each checked, murmur3 too), the allocator's
+    peak, and the split of one more warm run's wall between input
+    staging, the shards' local kernels and the exchanges (CUDA events).
+    Returns the cold run's launches, walls and the last stage."""
+    import torch
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for wrapper in counted:
+        wrapper.launches = 0
+    with RoutedKeys() as routed:
+        t0 = time.perf_counter()
+        got = ses.collect(make_df())
+        torch.cuda.synchronize(dev)
+        cold = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in counted}
+        stage = ses.last_plan
+        if ses.executed_exec_names() != ["MeshStageExec"]:
+            raise AssertionError(f"mesh {name}: not one mesh stage: "
+                                 f"{ses.executed_exec_names()}")
+        if lowered is not None and stage.lowered != lowered:
+            raise AssertionError(f"mesh {name}: lowered {stage.lowered}")
+        detail = check(got, expected)
+        routed.check(f"mesh {name}", dev)
+        for kernel, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"{kernel} was not launched by the "
+                                     f"mesh {name} run")
+        print(f"mesh {name}: one MeshStageExec over "
+              f"{stage.num_partitions} shards, lowered {stage.lowered}; "
+              f"matches its oracle ({got.num_rows} rows{detail or ''}); "
+              f"cold {cold:.3f} s, {stage.attempts} attempt(s); kernel "
+              f"launches in the run: {launches}")
+        warm = []
+        for _ in range(warm_runs):
+            t0 = time.perf_counter()
+            again = ses.collect(make_df())
+            torch.cuda.synchronize(dev)
+            warm.append(time.perf_counter() - t0)
+            check(again, expected)
+            routed.check(f"mesh {name} (warm)", dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    wall = statistics.median(warm)
+    _, timed = ses.prepare(make_df())
+    try:
+        split = timed.time_split()
+    finally:
+        timed.close()
+    per_shard = [round(split[k], 1) for k in sorted(split)
+                 if k.startswith("shard ")]
+    print(f"mesh {name}: warm median {wall:.3f} s of "
+          f"{[round(w, 4) for w in warm]}, {rows / wall:,.0f} rows/s; "
+          f"device memory peak {peak / 2**30:.2f} GiB")
+    print(f"mesh {name}: split of one warm run (CUDA events, ms): input "
+          f"staging {split.get('input', 0):.1f}, the shards' local kernels "
+          f"{sum(per_shard):.1f} (per shard {per_shard}), exchanges "
+          f"{split.get('exchange', 0):.1f}, broadcasts "
+          f"{split.get('broadcast', 0):.1f}, splitters "
+          f"{split.get('splitters', 0):.1f}")
+    return {"launches": launches, "cold_s": cold, "warm_s": wall,
+            "peak": peak, "stage": stage}
+
+
+def check_chain_result(got, expected) -> str:
+    """The chain's groups in order of sum(v) descending, every column
+    exact; groups tied on sum(v) compared as sets."""
+    if got.num_rows != expected.num_rows:
+        raise AssertionError(f"{got.num_rows} groups != "
+                             f"{expected.num_rows}")
+    if got.column("sv").to_pylist() != expected.column("sv").to_pylist():
+        raise AssertionError("the chain's order on sum(v) differs from "
+                             "pyarrow's")
+    if sorted(got.to_pylist(), key=str) != sorted(expected.to_pylist(),
+                                                  key=str):
+        raise AssertionError("the chain's groups differ from pyarrow's")
+    ties = got.num_rows - len(set(got.column("sv").to_pylist()))
+    return f"; order exact, {ties} groups in sum(v) ties compared as sets"
+
+
+def run_multihost_exchange(dev) -> dict:
+    """The two-process exchange: ``MULTIHOST_RANKS`` processes, each with
+    ``MULTIHOST_SHARDS`` shards on the card, route int64 rows by value
+    modulo the global shard count through ``torch.distributed`` and check
+    what lands on each shard (``parallel.multihost.routing_check``). NCCL
+    with one card per rank where there are two cards; on one card gloo,
+    which stages each buffer through host memory. Fails if a rank fails or
+    outlives its limit."""
+    import socket
+    import torch
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= MULTIHOST_RANKS else "gloo"
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(MULTIHOST_RANKS):
+        card = f"cuda:{rank if backend == 'nccl' else dev.index or 0}"
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "spark_rapids_tpu_torch.parallel.multihost",
+             str(rank), str(MULTIHOST_RANKS), str(port), "--devices",
+             ",".join([card] * MULTIHOST_SHARDS), "--backend", backend],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=MULTIHOST_TIMEOUT_S)
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or "routed rows correctly OK" not in out:
+            raise AssertionError(f"multihost rank {rank} failed "
+                                 f"(rc {p.returncode}):\n{out[-3000:]}")
+        line = next(l for l in out.splitlines() if "correctly OK" in l)
+        print(f"multihost: {line}")
+    return {"backend": backend}
+
+
+def run_mesh_phase(dev, lineitem) -> list:
+    """The mesh (``shuffle.mode=ICI``, ``parallel/``), MESH_SHARDS shards
+    over the visible cards: TPC-H Q1 at SF10 through the Session as one
+    ``MeshStageExec`` (its lowered list the JAX Session's, equal to
+    pyarrow; walls, peak, the split of a warm wall and the idle share of
+    one profiled warm run, beside Session Q1 without ICI in the same
+    call), the bench's ici_exchange shape (a broadcast join and a group-by,
+    with the stage's program timed alone as the bench times it), the
+    dryrun's chain at 2^24 x 2^20 (four exchanges, exact order against
+    pyarrow), the two-process exchange and ``entry.dryrun_multigpu``;
+    murmur3 held against its plain version on every routed key. Returns
+    each path's launches."""
+    import torch
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.kernels.murmur3 import murmur3_int32
+    from spark_rapids_tpu_torch.plan import Session
+    runs = []
+    counted = [murmur3_int32]
+    rows = lineitem.num_rows
+    t0 = time.perf_counter()
+    q1_expected = entry.q1_reference(lineitem)
+    print(f"mesh q1: {rows} rows; pyarrow oracle "
+          f"{time.perf_counter() - t0:.2f} s; {torch.cuda.device_count()} "
+          f"card(s) for {MESH_SHARDS} shards")
+
+    def q1_check(got, expected):
+        return f"; float max rel err {check_q1_result(got, expected):.3g}"
+
+    # Session Q1 without ICI, in the same call
+    host = Session(entry.session_conf(Q1_SHUFFLE_PARTITIONS), device=dev)
+    host_walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        check_q1_result(host.collect(entry.q1_df(lineitem, Q1_SLICES)),
+                        q1_expected)
+        torch.cuda.synchronize(dev)
+        host_walls.append(time.perf_counter() - t0)
+    print(f"mesh q1: Session Q1 without ICI in this call: cold "
+          f"{host_walls[0]:.3f} s, warm "
+          f"{[round(w, 4) for w in host_walls[1:]]}")
+    del host
+
+    conf = entry.session_conf(Q1_SHUFFLE_PARTITIONS,
+                              **entry.ici_conf(MESH_SHARDS))
+    ses = Session(conf, device=dev)
+    q1 = mesh_run("q1", dev, counted, ses,
+                  lambda: entry.q1_df(lineitem, Q1_SLICES), q1_check,
+                  q1_expected, rows, lowered=Q1_MESH_LOWERED)
+    runs.append(q1["launches"])
+    print(f"mesh q1: warm {q1['warm_s']:.3f} s on the mesh against "
+          f"{statistics.median(host_walls[1:]):.3f} s without ICI")
+    profiled_idle("mesh q1", lambda: ses.collect(
+        entry.q1_df(lineitem, Q1_SLICES)), dev)
+    del ses, q1
+
+    fact, dim = entry.ici_exchange_tables(ICI_FACT_ROWS)
+    ici_expected = entry.ici_exchange_reference(fact, dim)
+    ses = Session(entry.ici_conf(MESH_SHARDS), device=dev)
+
+    def ici_check(got, expected):
+        if not got.sort_by("g").equals(expected):
+            raise AssertionError("ici_exchange differs from pyarrow")
+        return "; every group exact"
+
+    ici = mesh_run("ici_exchange", dev, counted, ses,
+                   lambda: entry.ici_exchange_df(fact, dim), ici_check,
+                   ici_expected, ICI_FACT_ROWS)
+    runs.append(ici["launches"])
+    if "mesh_broadcast(all_gather)" not in ici["stage"].lowered:
+        raise AssertionError("ici_exchange: no broadcast in the stage")
+    # the bench's timing: the stage's program on staged inputs
+    _, plan = ses.prepare(entry.ici_exchange_df(fact, dim))
+    program, staged = plan.prepare()
+    program(staged)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        program(staged)
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    best = statistics.median(times)
+    print(f"mesh ici_exchange: the stage's program on staged inputs "
+          f"(bench.bench_ici_exchange's timing), median of 5 "
+          f"{best * 1e3:.2f} ms, {ICI_FACT_ROWS / best:,.0f} rows/s")
+    plan.close()
+    del ses, plan, program, staged, fact, dim, ici
+
+    t0 = time.perf_counter()
+    fact, dim = entry.mesh_chain_tables(CHAIN_FACT_ROWS, CHAIN_DIM_ROWS,
+                                        CHAIN_GROUPS)
+    chain_expected = entry.mesh_chain_reference(fact, dim)
+    print(f"mesh chain: {CHAIN_FACT_ROWS} x {CHAIN_DIM_ROWS} rows made and "
+          f"pyarrow oracle in {time.perf_counter() - t0:.2f} s")
+    ses = Session(entry.mesh_chain_conf(MESH_SHARDS), device=dev)
+    chain = mesh_run("chain", dev, counted, ses,
+                     lambda: entry.mesh_chain_df(fact, dim),
+                     check_chain_result, chain_expected, CHAIN_FACT_ROWS)
+    runs.append(chain["launches"])
+    lowered = chain["stage"].lowered
+    if lowered.count("mesh_exchange(all_to_all)") != 4 or \
+            "HashJoinExec(masked)" not in lowered:
+        raise AssertionError(f"mesh chain: lowered {lowered}")
+    del ses, fact, dim, chain
+
+    run_multihost_exchange(dev)
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multigpu(MESH_SHARDS, device=dev)
+    print(f"dryrun_multigpu({MESH_SHARDS}): {dry['exchanges']} chained "
+          f"exchanges in one MeshStageExec, {dry['groups']} groups equal "
+          f"to the interpreter's, {time.perf_counter() - t0:.2f} s")
     return runs
 
 
@@ -3392,8 +3745,12 @@ def main(argv=None) -> int:
             timed("q16_part", run_q16_part_phase, dev,
                   [murmur3_int32, window_match])]
     # the same paths and the bench's four shapes planned by the port's
-    # Session from their DataFrames
-    runs += timed("session", run_session_phase, dev, args)
+    # Session from their DataFrames; then the mesh (ICI) over the same
+    # SF10 lineitem
+    lineitem = entry.lineitem_table(args.rows, DATA_SEED)
+    runs += timed("session", run_session_phase, dev, args, lineitem)
+    runs += timed("mesh", run_mesh_phase, dev, lineitem)
+    del lineitem
     # Q3 with AQE off, then on (the JAX Session's default adaptive conf)
     q3_runs, q3_tables = timed("q3", run_q3_phase, dev, [murmur3_int32])
     runs += q3_runs

@@ -122,7 +122,13 @@ SHUFFLE_PARTITIONS = _entry(
 SHUFFLE_MODE = _entry(
     "spark.rapids.tpu.shuffle.mode", "DEFAULT",
     "Shuffle manager mode: DEFAULT, MULTITHREADED, ICI or CACHED. The port "
-    "has DEFAULT; the others raise.", str)
+    "has DEFAULT and ICI (the Session lowers planned queries onto a mesh, "
+    "parallel/lowering.py); the others raise.", str)
+MESH_DEVICES = _entry(
+    "spark.rapids.tpu.mesh.devices", 0,
+    "Shards of the ICI mesh's data axis (0: one per visible device of the "
+    "Session's type). Shards past the visible cards share them, placed "
+    "round-robin.", int)
 BROADCAST_THRESHOLD = _entry(
     "spark.rapids.tpu.sql.autoBroadcastJoinThreshold", 10 << 20,
     "Max estimated build-side bytes for a broadcast hash join; larger (or "
@@ -313,13 +319,11 @@ for _key, _default, _conv in (
            "Registered as in the JAX package; changes no result.", _conv)
 del _key, _default, _conv
 
-_ITEM6 = "ROADMAP item 6 (the multi-GPU mesh)"
 _ITEM7 = "ROADMAP item 7 (windows, generators, Python and UDFs)"
 _ITEM8_PLUGIN = "ROADMAP item 8 (plugin.py and the metric levels)"
 _ITEM8_NET = "ROADMAP item 8 (the shuffle network plane)"
 _ITEM8_IO = "ROADMAP item 8 (I/O breadth)"
 _ITEM8_SERVE = "ROADMAP item 8 (serving, tracing and the bridge)"
-_later(_ITEM6, int, ("mesh.devices", 0))
 _later(_ITEM7, int, ("sql.batchRowCapacity", 1 << 20),
        ("python.worker.processes", 4), ("sql.generate.maxRepeat", 64),
        ("sql.window.batchRows", 1 << 20))

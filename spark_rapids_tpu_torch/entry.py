@@ -118,10 +118,21 @@ written as the JAX tests write them, for ``plan.Session`` under
 ``session_conf()``; the Session gives each the hand-built ``*_plan``'s
 tree (``q1_stage_plan`` for the Q1 stage's query).
 
+On the mesh (``shuffle.mode=ICI``, ``parallel/``): ``ici_conf`` is the
+ICI shuffle and a shard count (add it to a base conf with ``**``), under
+which ``q1_df`` lowers to
+one ``MeshStageExec``; ``ici_exchange_tables`` and ``ici_exchange_df``
+are the bench's fifth shape (``bench.bench_ici_exchange``: a planned
+broadcast join and a group-by); ``mesh_chain_tables`` and
+``mesh_chain_df`` are ``__graft_entry__.dryrun_multichip``'s filter,
+shuffled join, group-by and global sort, which ``dryrun_multigpu`` runs
+on the mesh against the port's row interpreter.
+
 ``q1_reference``, ``q16_part_reference``, ``q3_reference``,
 ``q18_reference``, ``q2_reference``, ``q11_reference``,
-``hash_agg_reference``, ``join_sort_reference`` and ``skew_reference``
-compute the same with pyarrow alone, as independent oracles.
+``hash_agg_reference``, ``join_sort_reference``, ``skew_reference``,
+``ici_exchange_reference`` and ``mesh_chain_reference`` compute the same
+with pyarrow alone, as independent oracles.
 """
 
 from __future__ import annotations
@@ -1721,3 +1732,149 @@ def parquet_scan_df(paths, num_slices: int = 1, reader_type=None):
                         predicate=col("l_shipdate") <= lit(Q1_SHIPDATE_MAX),
                         num_slices=num_slices,
                         reader_type=reader_type or ReaderType.MULTITHREADED)
+
+
+# ---------------------------------------------------------------------------
+# The mesh: shuffle.mode=ICI
+# ---------------------------------------------------------------------------
+
+def ici_conf(n_shards: int = 8, **settings) -> Dict:
+    """The ICI shuffle over ``n_shards`` mesh shards on the JAX Session's
+    defaults; ``settings`` (full ``spark.rapids.tpu.*`` keys) add to it.
+    On another base conf: ``session_conf(p, **ici_conf(n))``."""
+    return {"spark.rapids.tpu.shuffle.mode": "ICI",
+            "spark.rapids.tpu.mesh.devices": n_shards, **settings}
+
+
+#: rows of the ici_exchange shape's dimension table
+ICI_DIM_ROWS = 1 << 12
+
+
+def ici_exchange_tables(n: int = 1 << 20, seed: int = 11
+                        ) -> Tuple[pa.Table, pa.Table]:
+    """``bench.bench_ici_exchange``'s fact and dim tables, the same draws:
+    fact (k in [0, 4096), g in [0, 64), v in [-1000, 1000)), dim (dk =
+    0..4095, w in [0, 10))."""
+    rng = np.random.default_rng(seed)
+    fact = pa.table({
+        "k": rng.integers(0, ICI_DIM_ROWS, n).astype(np.int32),
+        "g": rng.integers(0, 64, n).astype(np.int32),
+        "v": rng.integers(-1000, 1000, n).astype(np.int64),
+    })
+    dim = pa.table({
+        "dk": np.arange(ICI_DIM_ROWS, dtype=np.int32),
+        "w": rng.integers(0, 10, ICI_DIM_ROWS).astype(np.int64),
+    })
+    return fact, dim
+
+
+def _join_group(fact_df, dim_df):
+    return (fact_df.join(dim_df, ["k"], ["dk"], JoinType.INNER)
+            .group_by("g")
+            .agg(Sum(col("v")).alias("sv"), Sum(col("w")).alias("sw"),
+                 Count().alias("c")))
+
+
+def ici_exchange_df(fact: pa.Table, dim: pa.Table):
+    """The bench's ici_exchange query: fact join dim on k = dk, grouped by
+    g with sum(v), sum(w) and count(*); under the JAX default conf the
+    4096-row dim is a planned broadcast build."""
+    from .plan import table
+    return _join_group(table(fact), table(dim))
+
+
+def _join_group_reference(fact: pa.Table, dim: pa.Table) -> pa.Table:
+    j = fact.join(dim, keys="k", right_keys="dk", join_type="inner")
+    g = j.group_by(["g"]).aggregate([("v", "sum"), ("w", "sum"),
+                                     ("g", "count")])
+    return pa.table([g.column("g"), g.column("v_sum"), g.column("w_sum"),
+                     g.column("g_count")], names=["g", "sv", "sw", "c"])
+
+
+def ici_exchange_reference(fact: pa.Table, dim: pa.Table) -> pa.Table:
+    """The ici_exchange query in pyarrow (groups sorted by g)."""
+    return _join_group_reference(fact, dim).sort_by("g")
+
+
+def mesh_chain_tables(n_fact: int = 512, n_dim: int = 40, n_groups: int = 6,
+                      seed: int = 7) -> Tuple[pa.Table, pa.Table]:
+    """``__graft_entry__.dryrun_multichip``'s draws at any size: fact (k in
+    [0, n_dim), g in [0, n_groups), v in [-1000, 1000), ship in
+    [8000, 11000)), dim (dk = 0..n_dim - 1, w in [0, 10)); the defaults
+    are the dryrun's own."""
+    rng = np.random.default_rng(seed)
+    fact = pa.table({
+        "k": pa.array(rng.integers(0, n_dim, n_fact).astype(np.int32)),
+        "g": pa.array(rng.integers(0, n_groups, n_fact).astype(np.int32)),
+        "v": pa.array(rng.integers(-1000, 1000, n_fact).astype(np.int64)),
+        "ship": pa.array(rng.integers(8000, 11000, n_fact)
+                         .astype(np.int32)),
+    })
+    dim = pa.table({
+        "dk": pa.array(np.arange(n_dim, dtype=np.int32)),
+        "w": pa.array(rng.integers(0, 10, n_dim).astype(np.int64)),
+    })
+    return fact, dim
+
+
+def mesh_chain_df(fact: pa.Table, dim: pa.Table):
+    """The q72 shape of the dryrun: ship <= 10471, fact join dim on k =
+    dk, grouped by g with sum(v), sum(w) and count(*), ordered by sum(v)
+    descending."""
+    from .plan import table
+    return _join_group(table(fact).where(col("ship") <= lit(Q1_SHIPDATE_MAX)),
+                       table(dim)).order_by(desc(col("sv")))
+
+
+def mesh_chain_reference(fact: pa.Table, dim: pa.Table) -> pa.Table:
+    """The chain in pyarrow, ordered by sum(v) descending (ties by g)."""
+    f = fact.filter(pc.less_equal(fact.column("ship"), Q1_SHIPDATE_MAX))
+    return _join_group_reference(f, dim).sort_by([("sv", "descending"),
+                                                  ("g", "ascending")])
+
+
+def mesh_chain_conf(n_shards: int) -> Dict:
+    """The chain's conf: ICI over ``n_shards`` shards, every join shuffled
+    (``autoBroadcastJoinThreshold`` 0) and AQE off, so the planned
+    shuffled join reaches the lowering as planned."""
+    return ici_conf(n_shards, **{
+        "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": 0,
+        "spark.rapids.tpu.sql.adaptive.enabled": False})
+
+
+def dryrun_multigpu(n: int, device: DeviceLike = None) -> Dict:
+    """``__graft_entry__.dryrun_multichip`` on the port: the Session
+    (``shuffle.mode=ICI`` over ``n`` shards) plans the filter, shuffled
+    join, group-by and global sort over the dryrun's tables and lowers
+    them onto one ``MeshStageExec`` (both join sides hash-exchanged, the
+    join, partial aggregation, key routing, final merge, the splitter
+    range exchange and local sort), whose rows must equal the port's row
+    interpreter's. Returns the stage's lowered list and the groups.
+
+    The conf adds ``sql.adaptive.enabled=false`` to the JAX dryrun's:
+    under AQE the aggregate's planning reads the shuffled join's
+    partitions, whose runtime broadcast switch turns the 40-row build into
+    a broadcast before lowering, and the lowering refuses a broadcast join
+    without a broadcast exchange child, so the JAX dryrun itself never
+    lowers (ROADMAP Queue 3)."""
+    from .plan import Session
+    fact, dim = mesh_chain_tables()
+    ses = Session(mesh_chain_conf(n), device=device)
+    got = ses.collect(mesh_chain_df(fact, dim))
+    names = ses.executed_exec_names()
+    if names != ["MeshStageExec"]:
+        raise AssertionError(f"the planned query did not lower onto the "
+                             f"mesh: {names}")
+    lowered = ses.last_plan.lowered
+    n_exchanges = lowered.count("mesh_exchange(all_to_all)")
+    if n_exchanges < 3:
+        raise AssertionError(f"{n_exchanges} mesh exchanges: {lowered}")
+    oracle = Session({"spark.rapids.tpu.sql.enabled": False},
+                     device=device or "cpu")
+    want = oracle.collect(mesh_chain_df(fact, dim))
+    if sorted(got.to_pylist(), key=str) != sorted(want.to_pylist(),
+                                                   key=str):
+        raise AssertionError(f"the mesh's {got.num_rows} groups differ "
+                             f"from the interpreter's {want.num_rows}")
+    return {"lowered": lowered, "exchanges": n_exchanges,
+            "groups": got.num_rows, "shards": n}

@@ -1,7 +1,8 @@
 """Shared device primitives used by every operator.
 
 Port of ``spark_rapids_tpu/exec/common.py``: row gathers, stable
-compaction, concatenation (``concat_all``), slicing (``slice_batch``), and
+compaction, concatenation (``concat_columns``, ``concat_batches``,
+``concat_all``), slicing (``slice_batch``), and
 the sort-key normalization with its multi-operand sort. Also
 ``partition_pieces``, the port's one-sort cut of a batch into per-target
 pieces, which the exchange and the grace join share.
@@ -66,6 +67,32 @@ def compact(batch: ColumnarBatch, keep: torch.Tensor) -> ColumnarBatch:
     return gather(batch, indices, count, live)
 
 
+def concat_columns(cols: Sequence[DeviceColumn], counts: Sequence[int],
+                   capacity: int,
+                   device: Optional[torch.device] = None) -> DeviceColumn:
+    """One column of ``capacity`` rows on ``device`` (default: the first
+    piece's): rows ``[0, counts[i])`` of piece i at offset
+    ``sum(counts[:i])``, copied without a host wait (a peer copy for a
+    piece on another card)."""
+    first = cols[0]
+    dev = device or first.data.device
+    data = torch.zeros((capacity,) + tuple(first.data.shape[1:]),
+                       dtype=first.data.dtype, device=dev)
+    validity = torch.zeros(capacity, dtype=torch.bool, device=dev)
+    lengths = (None if first.lengths is None
+               else torch.zeros(capacity, dtype=first.lengths.dtype,
+                                device=dev))
+    off = 0
+    for c, n in zip(cols, counts):
+        if n:
+            data[off:off + n].copy_(c.data[:n], non_blocking=True)
+            validity[off:off + n].copy_(c.validity[:n], non_blocking=True)
+            if lengths is not None:
+                lengths[off:off + n].copy_(c.lengths[:n], non_blocking=True)
+        off += n
+    return DeviceColumn(data, validity, first.dtype, lengths)
+
+
 def concat_batches(batches: Sequence[ColumnarBatch],
                    capacity: int) -> ColumnarBatch:
     """Live rows of each batch, one after another, in ``capacity`` rows."""
@@ -73,22 +100,10 @@ def concat_batches(batches: Sequence[ColumnarBatch],
     total = sum(counts)
     if total > capacity:
         raise ValueError(f"{total} rows exceed capacity {capacity}")
-    cols = []
-    for i, first in enumerate(batches[0].columns):
-        data = first.data.new_zeros((capacity,) + first.data.shape[1:])
-        validity = first.validity.new_zeros(capacity)
-        lengths = (None if first.lengths is None
-                   else first.lengths.new_zeros(capacity))
-        off = 0
-        for b, n in zip(batches, counts):
-            c = b.columns[i]
-            data[off:off + n] = c.data[:n]
-            validity[off:off + n] = c.validity[:n]
-            if lengths is not None:
-                lengths[off:off + n] = c.lengths[:n]
-            off += n
-        cols.append(DeviceColumn(data, validity, first.dtype, lengths))
-    return ColumnarBatch(tuple(cols), rows_scalar(total, batches[0].device))
+    cols = tuple(concat_columns([b.columns[i] for b in batches], counts,
+                                capacity)
+                 for i in range(len(batches[0].columns)))
+    return ColumnarBatch(cols, rows_scalar(total, batches[0].device))
 
 
 def concat_all(batches: Sequence[ColumnarBatch], schema: Schema,

@@ -11,9 +11,19 @@ ways, as the JAX Session does:
 - ``"fallback"``: tagging refused the root, so the plan is a
   ``CpuFallbackExec`` island, interpreted on the host with no device round
   trip for its result;
-- ``"exec"``: a device plan (fused where fusion is on and the stage
-  qualifies, captured in a CUDA graph on the card), which may hold
-  islands below its root.
+- ``"exec"``: a device plan, which may hold islands below its root. Under
+  ``shuffle.mode=ICI`` it is first lowered onto a mesh
+  (``parallel.lowering.try_lower_to_mesh``: one ``MeshStageExec``); a
+  plan that does not lower keeps its host exchanges, and only then is
+  fusion tried (fused where fusion is on and the stage qualifies,
+  captured in a CUDA graph on the card).
+
+The mesh (``_mesh``) has ``mesh.devices`` shards, or one per visible
+device of the Session's type, placed round-robin on those devices from the
+Session's own: on the CPU every shard sits on the CPU. Where the JAX
+package keeps at most the visible devices (``jax.devices()[:n]``), the
+port keeps ``n`` shards and places several on one card when ``n`` exceeds
+the cards, as the JAX tests place 8 virtual devices on one CPU.
 
 ``collect`` installs the conf's retry and OOM injection settings and runs
 the plan. ``last_plan`` is the physical tree the last query ran;
@@ -28,8 +38,8 @@ device, never to a default one.
 What this Session does not have yet raises ``NotImplementedError`` when a
 conf asks for it, naming the ROADMAP item that brings it
 (``config.ConfEntry.later``): the result cache, work sharing, tracing,
-cost-fed placement and the MULTITHREADED and CACHED shuffles (item 8), and
-the ICI shuffle with its mesh lowering (item 6), among others.
+cost-fed placement and the MULTITHREADED and CACHED shuffles (item 8),
+among others.
 
 The plan cache (on by default in the JAX package) changes no result; the
 port plans afresh every time and says so in ``last_cache["plan"]``.
@@ -44,7 +54,8 @@ import pyarrow as pa
 
 from ..batch import DeviceLike, resolve_device
 from ..config import (FILECACHE_ENABLED, FUSION_ENABLED, HBM_RESERVE,
-                      HOST_SPILL_LIMIT, MODE, SPILL_DIR, RapidsTpuConf)
+                      HOST_SPILL_LIMIT, MESH_DEVICES, MODE, SPILL_DIR,
+                      RapidsTpuConf)
 from ..memory.catalog import BufferCatalog, default_device_limit
 from .interpreter import Interpreter
 from .logical import DataFrame
@@ -139,6 +150,16 @@ class Session:
             # a CPU-topped plan stays on the host: no device round trip for
             # the top island's result
             return "fallback", plan
+        from ..shuffle.manager import get_shuffle_manager
+        if get_shuffle_manager(self.conf).wants_mesh_lowering:
+            # ICI: the planned query as one stage over the mesh's shards
+            # (exchanges between shards); a shape the lowering cannot
+            # take keeps the host exchanges
+            from ..parallel.lowering import try_lower_to_mesh
+            lowered = try_lower_to_mesh(plan, self._mesh())
+            if lowered is not None:
+                self.last_plan = lowered
+                return "exec", lowered
         if self.conf.get(FUSION_ENABLED.key):
             # whole-stage fusion: an eligible linear single-batch stage runs
             # as one program (a CUDA graph on the card); other shapes,
@@ -149,6 +170,15 @@ class Session:
                 plan = fused
                 self.last_plan = plan
         return "exec", plan
+
+    def _mesh(self):
+        """The one-axis row mesh: ``mesh.devices`` shards (0: one per
+        visible device of the Session's type), round-robin from the
+        Session's device."""
+        from ..parallel.mesh import Mesh, visible_devices
+        n = (int(self.conf.get(MESH_DEVICES.key))
+             or len(visible_devices(self.device)))
+        return Mesh.round_robin(n, self.device)
 
     def _catalog_counters(self) -> Dict[str, int]:
         from ..memory.catalog import device_budget

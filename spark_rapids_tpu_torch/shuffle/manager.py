@@ -1,11 +1,13 @@
 """Shuffle manager: the one place the planner asks for an exchange.
 
 Port of ``spark_rapids_tpu/shuffle/manager.py`` (``get_shuffle_manager``
-and ``create_exchange``) for its DEFAULT mode: the in-process
-``ShuffleExchangeExec`` of ``shuffle/exchange.py``, adaptive as the conf
-says. The thread-pooled (MULTITHREADED) and device-resident (CACHED) modes
-come with ROADMAP item 8 and the mesh mode (ICI) with item 6; asking for
-one raises ``NotImplementedError``.
+and ``create_exchange``) for its DEFAULT and ICI modes: both plant the
+in-process ``ShuffleExchangeExec`` of ``shuffle/exchange.py``, adaptive as
+the conf says; under ICI the Session then lowers the planned query onto a
+mesh (``parallel/lowering.py``), and a shape the lowering cannot take keeps
+these exchanges. The thread-pooled (MULTITHREADED) and device-resident
+(CACHED) modes come with ROADMAP item 8; asking for one raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,13 +22,14 @@ from .partitioning import Partitioning
 
 #: the modes of the JAX package's manager, and the ROADMAP item that
 #: brings each mode the port does not have yet
-_LATER_MODES = {"MULTITHREADED": 8, "CACHED": 8, "ICI": 6}
+_LATER_MODES = {"MULTITHREADED": 8, "CACHED": 8}
 
 
 class ShuffleManager:
     """Mode facade; construct through ``get_shuffle_manager``."""
 
     DEFAULT = "DEFAULT"
+    ICI = "ICI"
 
     def __init__(self, conf: RapidsTpuConf):
         self.conf = conf
@@ -35,15 +38,16 @@ class ShuffleManager:
             raise NotImplementedError(
                 f"spark.rapids.tpu.shuffle.mode={self.mode} is not in the "
                 f"port yet (ROADMAP item {_LATER_MODES[self.mode]}); the "
-                f"port has DEFAULT")
-        if self.mode != self.DEFAULT:
+                f"port has DEFAULT and ICI")
+        if self.mode not in (self.DEFAULT, self.ICI):
             raise ValueError(
                 f"spark.rapids.tpu.shuffle.mode must be DEFAULT, "
                 f"MULTITHREADED, ICI or CACHED, got {self.mode!r}")
 
     def create_exchange(self, partitioning: Partitioning,
                         child: Exec) -> Exec:
-        """The exchange operator for the configured mode."""
+        """The exchange operator for the configured mode (under ICI too:
+        the Session's mesh lowering replaces it where the plan allows)."""
         return ShuffleExchangeExec(
             partitioning, child,
             adaptive=self.conf.get(ADAPTIVE_ENABLED.key),
@@ -51,7 +55,7 @@ class ShuffleManager:
 
     @property
     def wants_mesh_lowering(self) -> bool:
-        return False
+        return self.mode == self.ICI
 
 
 def get_shuffle_manager(conf: Optional[RapidsTpuConf] = None

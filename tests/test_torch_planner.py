@@ -12,7 +12,7 @@ but for floats (rel 1e-6).
 The conf gates: a node that tagging refuses runs as a CPU fallback
 island with the reasons, ``fell_back()`` and rows of the JAX Session; the
 CPU side's switches (``sql.enabled``, explain-only, the cost-based
-optimizer) work; each switch of a feature the port does not have yet
+optimizer) and the ICI shuffle (a mesh stage) work; each switch of a feature the port does not have yet
 raises ``NotImplementedError`` naming its ROADMAP item; a key outside the
 JAX registry raises ``KeyError``. The expression operators (``==``,
 ``!=``, ``.cast``, ``.is_null``, ``.is_not_null``) build the JAX trees."""
@@ -388,6 +388,19 @@ def _cpu_side_switch_works(key, ses):
                                    "CpuFallback[Scan]"]
 
 
+def _ici_switch_works(conf):
+    """The ICI Session runs a small group-by as one stage over 8 shards,
+    with the JAX ICI Session's lowering and rows."""
+    jses = JSession(conf)
+    want = jses.collect(jtable(T2).group_by("k2").agg(
+        JSum(jcol("w")).alias("s")))
+    ses = Session(conf, device="cpu")
+    got = ses.collect(table(T2).group_by("k2").agg(Sum(col("w")).alias("s")))
+    assert ses.executed_exec_names() == ["MeshStageExec"]
+    assert ses.last_plan.lowered == jses.last_plan.lowered
+    assert_tables_equal(got, want, ignore_order=True)
+
+
 @pytest.mark.parametrize("key,value,item", [
     ("spark.rapids.tpu.sql.enabled", False, "item 5"),
     ("spark.rapids.tpu.sql.mode", "explainonly", "item 5"),
@@ -401,10 +414,13 @@ def _cpu_side_switch_works(key, ses):
     ("spark.rapids.tpu.shuffle.mode", "ICI", "item 6"),
 ])
 def test_switch_of_a_later_feature_raises(key, value, item):
-    """Item 5's switches now work (its CPU side is in); every other one
-    still raises, naming its item."""
+    """Item 5's switches now work (its CPU side is in), and item 6's (the
+    ICI shuffle); every other one still raises, naming its item."""
     if item == "item 5":
         _cpu_side_switch_works(key, Session({key: value}, device="cpu"))
+        return
+    if item == "item 6":
+        _ici_switch_works({key: value, "spark.rapids.tpu.mesh.devices": 8})
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Session({key: value}, device="cpu")
