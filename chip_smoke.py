@@ -6,36 +6,54 @@
 Builds every CUDA kernel of the port from the sources in this checkout (one
 ``nvcc`` per source, all at once) and holds each kernel against its plain
 PyTorch version on the card. Then it holds the hash join on the card
-against the same join on the CPU, for every join type over about 1M stream
-rows, on an exact int64 key, a dense primary-key build and a hashed (int32,
-string) key, broadcast and co-partitioned. Last it runs the port's three
-paths end to end through ``spark_rapids_tpu_torch.entry``: TPC-H Q1 at the
-SF10 lineitem row count (``--rows``; Arrow upload, filter, partial
-aggregate, hash exchange, final aggregate, sort, collect), the part stage of
-TPC-H Q16 at the SF100 part row count, and TPC-H Q3 at SF10 (three scans
-and filters, two shuffled hash joins, the aggregate's exchange, sort and
-limit) and TPC-H Q18 at SF10 (the IN subquery's aggregate and semi join,
-the customer join, the grace join that builds on lineitem, the grouped
-aggregate, sort and limit) under a 1 GiB device budget, so exchange pieces
-spill to pinned host memory. Each result is checked against an independent
-pyarrow oracle, and each path's kernel launch counts, set to 0 just before
-its first run and read just after, show that it went through its kernels.
-Then the out-of-core operators (the windowed and the sort-based aggregate
-merge, the out-of-core global sort, the grace join) run on the card and on
-the CPU at about 4M rows, 0 rows apart, and Q18 at SF1 runs under injected
-OOMs (every third allocation check fails) and must equal its clean run bit
-for bit. Then TPC-H Q2 and Q11 run at SF100 (80,000,000 partsupp rows):
-Q2 (the grouped Min of its subquery, the two-key join, the top 100 by four
-keys) must equal pyarrow in all 100 rows and every column and launch
-``window_match`` once per part slice, which is also held against its plain
-version at Q2's own shape (k = 5); Q11 (the HAVING against its scalar
-subquery as a nested-loop join) must give pyarrow's row set, with its
-smallest margin to the threshold printed. Last come the bench's hash_agg
-shape (4M rows, 1M keys, COMPLETE and PARTIAL -> FINAL) against pyarrow,
-every new operator (the aggregate functions, the top-N, the
-partition-local sort, the nested-loop join in every type) on the card
-against the CPU, and the fused Q1 stage (``entry.q1_stage``) on one SF10
-slice, on CUDA events, against pyarrow.
+against the same join on the CPU, for every join type over 2^17 stream rows
+and 2^15 build rows, on an exact int64 key, a dense primary-key build and a
+hashed (int32, string) key, broadcast and co-partitioned. Last it runs the
+port's three paths end to end through ``spark_rapids_tpu_torch.entry``:
+TPC-H Q1 at the SF10 lineitem row count (``--rows``; Arrow upload, filter,
+partial aggregate, hash exchange, final aggregate, sort, collect), the part
+stage of TPC-H Q16 at the SF100 part row count, and TPC-H Q3 at SF10 (three
+scans and filters, two shuffled hash joins, the aggregate's exchange, sort
+and limit) and TPC-H Q18 at SF10 (the IN subquery's aggregate and semi
+join, the customer join, the grace join that builds on lineitem, the
+grouped aggregate, sort and limit) under a 1 GiB device budget, so exchange
+pieces spill to pinned host memory. Each result is checked against an
+independent pyarrow oracle, and each path's kernel launch counts, set to 0
+just before its first run and read just after, show that it went through
+its kernels. Then the out-of-core operators (the windowed and the
+sort-based aggregate merge, the out-of-core global sort, the grace join)
+run on the card and on the CPU at about 4M rows, 0 rows apart, and Q18 at
+SF1 runs under injected OOMs (every third allocation check fails) and must
+equal its clean run bit for bit. Then TPC-H Q2 and Q11 run at SF100
+(80,000,000 partsupp rows): Q2 (the grouped Min of its subquery, the
+two-key join, the top 100 by four keys) must equal pyarrow in all 100 rows
+and every column and launch ``window_match`` once per part slice, which is
+also held against its plain version at Q2's own shape (k = 5); Q11 (the
+HAVING against its scalar subquery as a nested-loop join) must give
+pyarrow's row set, with its smallest margin to the threshold printed. Last
+come the bench's hash_agg shape (4M rows, 1M keys, COMPLETE and PARTIAL ->
+FINAL) against pyarrow, every new operator (the aggregate functions, the
+top-N, the partition-local sort, the nested-loop join in every type) on the
+card against the CPU, and the fused Q1 stage (``entry.q1_stage``) on one
+SF10 slice, on CUDA events, against pyarrow.
+
+Then TPC-H Q16 whole at SF100 (80,000,000 partsupp, 20,000,000 part and
+1,000,000 supplier rows, ``entry.tpch_q16_tables``) through the port's
+Session (``entry.q16_df``: the part filter, the join with partsupp, the
+LEFT ANTI join with the suppliers whose comment is LIKE
+'%Customer%Complaints%', count(DISTINCT ps_suppkey) as two group-bys, the
+sort), equal to ``entry.q16_reference`` (pyarrow) in every row, nothing
+fallen back, with its warm wall, rows/s, peak and idle share;
+``window_match`` at its k = 15 part filter and murmur3 at its two
+p_size exchanges held against their plain versions, and the Like
+filter's DFA on the card against the CPU over every supplier batch, with
+its device time and launches a batch. Then the string phase: every
+string expression of the port (31, each new class at least once) over
+2^16 rows of S_COMMENT and P_TYPE on the card against the port's row
+interpreter, 0 rows apart (a fused stage, captured), and StringLocate,
+StringReplace and SubstringIndex over the SF100 P_TYPE column in 8
+slices against pyarrow, each ``window_match`` launch held against its
+plain version on the same inputs (24: k = 8, 5 and 1).
 
 Then whole-stage fusion (``exec/fuse.py``): Q2's part filter (one Q2 part
 slice, ``window_match`` at k = 5) and a join on two int32 keys (murmur3)
@@ -135,22 +153,20 @@ host memory on one card); and ``entry.dryrun_multigpu(8)``. murmur3 is
 held against its plain version on every key the stages route.
 
 Prints, in order: the card's name and power limit, the build time, each
-kernel check with its times and bound, the join check, the checks of Q1
-and the Q16 part stage, the Session phase, the mesh phase, Q3 (AQE off,
-then on) with
-their times, the range sort, the fallback phase, the spill copy rate,
-Q18's checks (AQE off, then on) with their times, the catalog's tiers,
-spilled bytes, retry metrics, grace buckets and the allocator's peak,
-the skew legs, the types exchange, the out-of-core check, the injection
-run, the checks of Q2 and Q11 with their times, the captured kernel
-checks, the hash_agg, operator, new-operator and Q1-stage checks, the
-join_sort modes and the overflow retry, the Parquet write, scans, Q1 and
-Q16 part stage, each phase's wall time, a ``{"kernels": [...]}`` JSON
-line (the window_match times are at Q2's shape; launches count a graph's
-replays), and last ``{"ok": true, "device": ...}``. Any failed phase
-raises, so the exit code is not 0 and no result line is printed. Without
-CUDA it exits 1 at once.
-"""
+kernel check with its times and bound, the join check, the checks of Q1 and
+the Q16 part stage, the Session phase, the mesh phase, Q3 (AQE off, then
+on) with their times, the range sort, the fallback phase, the spill copy
+rate, Q18's checks (AQE off, then on) with their times, the catalog's
+tiers, spilled bytes, retry metrics, grace buckets and the allocator's
+peak, the skew legs, the types exchange, the out-of-core check, the
+injection run, the checks of Q2 and Q11 with their times, Q16 whole and the
+string phase, the captured kernel checks, the hash_agg, operator,
+new-operator and Q1-stage checks, the join_sort modes and the overflow
+retry, the Parquet write, scans, Q1 and Q16 part stage, each phase's wall
+time, a ``{"kernels": [...]}`` JSON line (the window_match times are at
+Q2's shape; launches count a graph's replays), and last ``{"ok": true,
+"device": ...}``. Any failed phase raises, so the exit code is not 0 and no
+result line is printed. Without CUDA it exits 1 at once."""
 
 from __future__ import annotations
 
@@ -463,8 +479,8 @@ def check_window_match(dev, part) -> dict:
 # ---------------------------------------------------------------------------
 
 #: stream and build rows of the join check
-JOIN_STREAM_ROWS = 1 << 20
-JOIN_BUILD_ROWS = 1 << 18
+JOIN_STREAM_ROWS = 1 << 17
+JOIN_BUILD_ROWS = 1 << 15
 JOIN_SLICES = 4
 JOIN_PARTITIONS = 8
 
@@ -963,15 +979,17 @@ def q18_memory_report(plan, dev, retry0) -> dict:
             "buckets": buckets, "retry": retry}
 
 
-def check_murmur3_at_exchanges(what: str, plan, dev) -> list:
+def check_murmur3_at_exchanges(what: str, plan, dev, only=None) -> list:
     """murmur3 against its plain version, bit for bit, at the shapes a
     path gives it: for each hash exchange of a fresh, unrun ``plan`` with
-    a key the kernel hashes, the exchange's child runs over each of its
-    partitions, and on each output batch the kernel and its plain version
-    hash that key's int32 words seeded by the running hash of the keys
-    before it (seed 42), as the exchange does. Closes the plan. Returns
-    (key, capacity, max_abs_err) per comparison; raises on a difference or
-    when no key reached the kernel."""
+    a key the kernel hashes (the ``only``-th of them alone, where given:
+    an exchange reads its child's exchanges once, so a plan whose hashed
+    exchanges nest needs a fresh plan for each), the exchange's child runs
+    over each of its partitions, and on each output batch the kernel and
+    its plain version hash that key's int32 words seeded by the running
+    hash of the keys before it (seed 42), as the exchange does. Closes the
+    plan. Returns (key, capacity, max_abs_err) per comparison; raises on a
+    difference or when no key reached the kernel."""
     import torch
     from spark_rapids_tpu_torch.expressions.base import raw_eval
     from spark_rapids_tpu_torch.expressions.hashing import (
@@ -981,11 +999,12 @@ def check_murmur3_at_exchanges(what: str, plan, dev) -> list:
     from spark_rapids_tpu_torch.shuffle import HashPartitioning
     compared = []
     try:
-        for exchange in _execs(plan, "ShuffleExchangeExec"):
+        hashed = [x for x in _execs(plan, "ShuffleExchangeExec")
+                  if isinstance(x.partitioning, HashPartitioning) and any(
+                      e.dtype.kind in INT32_HASHED_KINDS
+                      for e in x.partitioning.exprs)]
+        for exchange in hashed if only is None else hashed[only:only + 1]:
             part = exchange.partitioning
-            if not (isinstance(part, HashPartitioning) and any(
-                    e.dtype.kind in INT32_HASHED_KINDS for e in part.exprs)):
-                continue
             child = exchange.child
             for p in range(child.num_partitions):
                 for batch in child.execute_partition(p):
@@ -1390,6 +1409,300 @@ def run_q11_phase(dev, counted, tables) -> dict:
                                 Q2_SHUFFLE_PARTITIONS, device=dev),
         lambda got, exp: check_q11_result(got, exp, state["margin"]), dev,
         counted, rows_of=lambda t: t[0].num_rows)
+
+
+# ---------------------------------------------------------------------------
+# TPC-H Q16 whole, and the string expressions
+# ---------------------------------------------------------------------------
+
+Q16_SF = 100
+Q16_SEED = 16
+#: Q16's supplier filter: LIKE '%Customer%Complaints%' through the DFA
+Q16_LIKE_PATTERN = "%Customer%Complaints%"
+
+
+def check_like_at_q16(dev, ses, df) -> dict:
+    """The Like filter over the Session's scanned supplier batches: on the
+    card against the same rows on the CPU, then its device time per batch
+    on CUDA events and its launches per batch (the device records of one
+    profiled call). Returns the figures."""
+    import torch
+    from spark_rapids_tpu_torch.batch import from_arrow, to_arrow
+    from spark_rapids_tpu_torch.exec import FilterExec
+    _, plan = ses.prepare(df)
+    try:
+        filt = next(e for e in _walk_plan(plan) if isinstance(e, FilterExec)
+                    and "s_comment" in e.child.output_schema.names)
+        schema = filt.child.output_schema
+        batches = [b for p in range(filt.child.num_partitions)
+                   for b in filt.child.execute_partition(p)]
+        bad, kept = 0, 0
+        for b in batches:
+            on_card = filt.condition.eval(b)
+            cpu_batch, _ = from_arrow(to_arrow(b, schema), schema=schema,
+                                      device="cpu")
+            on_cpu = filt.condition.eval(cpu_batch)
+            live = int(b.num_rows)
+            card = (on_card.data & on_card.validity).cpu()[:live]
+            cpu = (on_cpu.data & on_cpu.validity)[:live]
+            bad += int((card != cpu).sum())
+            kept += int(cpu.sum())
+        first = batches[0]
+        ms = time_cuda_ms(lambda: filt.condition.eval(first), 5, 2)
+        _, _, _, events = profiled(lambda: filt.condition.eval(first), dev,
+                                   host=False)
+        torch.cuda.synchronize(dev)
+    finally:
+        plan.close()
+    n, ml = first.columns[schema.index_of("s_comment")].data.shape
+    out = {"batches": len(batches), "ms_per_batch": ms,
+           "launches_per_batch": len(events), "kept": kept, "bad": bad}
+    print(f"q16 Like filter: {len(batches)} supplier batches of capacity {n}"
+          f", max_len {ml}; keeps {kept} rows, {bad} rows apart from the "
+          f"CPU; {ms:.3f} ms of device time a batch (CUDA events, "
+          f"{ms * len(batches):.3f} ms a run), {len(events)} device "
+          f"launches a batch")
+    if bad:
+        raise AssertionError("the Like filter disagrees between the card "
+                             "and the CPU")
+    return out
+
+
+def run_q16_phase(dev, counted, tables) -> dict:
+    """TPC-H Q16 at SF100 through the port's Session (``entry.q16_df``
+    under ``entry.session_conf``): equal to ``q16_reference``, nothing
+    fallen back, window_match at its k = 15 prefix and murmur3 at the
+    exchanges held against their plain versions, the Like filter's device
+    time and launches, and the idle share of one profiled warm run."""
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.plan import Session
+    conf = entry.session_conf(Q16_SHUFFLE_PARTITIONS)
+    ses = Session(conf, device=dev)
+
+    def run(t):
+        out = ses.collect(entry.q16_df(*t, Q16_SLICES))
+        if ses.fell_back():
+            raise AssertionError(f"q16 fell back: {ses.fell_back()}")
+        return out
+
+    def check(got, expected):
+        if not got.equals(expected):
+            raise AssertionError(f"Q16 differs from the pyarrow oracle:\n"
+                                 f"{got.slice(0, 3)}\n{expected.slice(0, 3)}")
+        return (f"; all {got.num_rows} groups equal in every column and "
+                f"position")
+
+    part, supplier, partsupp = tables
+    print(f"q16: SF{Q16_SF} ({part.num_rows} part, {supplier.num_rows} "
+          f"supplier, {partsupp.num_rows} partsupp rows), {Q16_SLICES} "
+          f"slices, {Q16_SHUFFLE_PARTITIONS} shuffle partitions, supplier "
+          f"strings at {entry.SUPPLIER_STRING_MAX_LEN} bytes; rows/s counts "
+          f"partsupp")
+    stats = {}
+    launches = run_path(
+        "q16", lambda: tables, lambda t: entry.q16_reference(*t), run, check,
+        dev, counted, rows_of=lambda t: t[2].num_rows, stats=stats)
+    print(f"q16: the Session's operators {ses.executed_exec_names()}")
+    df = entry.q16_df(*tables, Q16_SLICES)
+    profiled_idle("q16", lambda: run(tables), dev, host=False)
+    check_window_match_at_session_q16(dev, ses, df)
+    like = check_like_at_q16(dev, ses, df)
+    # its two aggregate exchanges hash p_size; the outer one reads the
+    # inner one, so each is checked on a fresh plan
+    for i in range(2):
+        ses.prepare(df)
+        check_murmur3_at_exchanges(f"Q16 (hashed exchange {i})",
+                                   ses.last_plan, dev, only=i)
+    stats.update(like)
+    return launches
+
+
+#: rows of the strings phase's card-against-interpreter check
+STRINGS_ROWS = 1 << 16
+
+
+def rows_apart(a, b) -> int:
+    """Positions where two columns differ (nulls equal to nulls)."""
+    import pyarrow.compute as pc
+    same = pc.or_kleene(pc.fill_null(pc.equal(a, b), False),
+                        pc.and_(pc.is_null(a), pc.is_null(b)))
+    return int(pc.sum(pc.invert(same)).as_py() or 0)
+
+
+def strings_table(supplier, part, n: int):
+    """``n`` rows for the string expressions: S_COMMENT (25-100 letters,
+    some with 'Customer ... Complaints'), P_TYPE with a twentieth null,
+    and an int32 in [-5, 300]."""
+    import numpy as np
+    import pyarrow as pa
+    rng = np.random.default_rng(31)
+    ptype = part.column("p_type").slice(0, n).combine_chunks()
+    return pa.table({
+        "c": supplier.column("s_comment").slice(0, n),
+        "t": pa.array(ptype.to_pylist(), pa.string(),
+                      mask=rng.random(n) < 0.05),
+        "n": pa.array(rng.integers(-5, 301, n).astype(np.int32)),
+    })
+
+
+def strings_exprs():
+    """Every string expression of the port's expression-breadth slice
+    (each new class at least once), over ``strings_table``'s columns."""
+    from spark_rapids_tpu_torch.expressions import (
+        Ascii, Chr, Levenshtein, Like, OctetLength, Reverse, RLike, Soundex,
+        StringLocate, StringPad, StringRepeat, StringReplace, StringTrim,
+        SubstringIndex, Translate, col, concat, length, lit, lower,
+        substring, upper)
+    c, t, n = col("c"), col("t"), col("n")
+    return [
+        length(t), OctetLength(c), OctetLength(t, bits=True), upper(c),
+        lower(t), substring(c, 3, 7), substring(t, -5, 3),
+        concat(t, lit("/"), substring(c, 1, 6)),
+        StringLocate(c, lit("Customer")), StringLocate(t, lit("PLATED")),
+        StringTrim(concat(lit("  "), t, lit(" ")), "both"),
+        StringTrim(concat(lit("  "), t), "leading"),
+        StringTrim(concat(t, lit("   ")), "trailing"),
+        StringPad(t, lit(30), lit("*-"), True),
+        StringPad(substring(t, 1, 5), n % lit(12), lit("."), False),
+        StringRepeat(substring(t, 1, 3), n % lit(5)),
+        StringReplace(t, lit("BRASS"), lit("BRONZE")),
+        StringReplace(c, lit("a"), lit("")),
+        Translate(t, "AEIOU ", "aeiou"), Reverse(t), Ascii(c), Chr(n),
+        Levenshtein(substring(t, 1, 8), lit("PROMO BR")), Soundex(c),
+        Soundex(t), SubstringIndex(t, lit(" "), lit(2)),
+        SubstringIndex(t, lit(" "), lit(-1)),
+        Like(c, Q16_LIKE_PATTERN), Like(t, "%POLISHED%"),
+        RLike(t, "^(?:SMALL|LARGE) [A-Z]+ (?:TIN|STEEL)$"),
+        RLike(c, "[aeiou]{3}"),
+    ]
+
+
+def checked_window_match(record):
+    """``window_match`` with each launch held against its plain version on
+    the same inputs: (pattern length, rows, mismatches) appended to
+    ``record``."""
+    import torch
+    from spark_rapids_tpu_torch.kernels.string_search import (
+        window_match, window_match_plain)
+
+    def checked(data, lengths, pat):
+        got = window_match(data, lengths, pat)
+        if not torch.cuda.is_current_stream_capturing():
+            # a fused stage's capture reads nothing back; its eager
+            # planning run before it is checked
+            ref = window_match_plain(data, lengths, pat)
+            record.append((len(pat), data.shape[0],
+                           int((got != ref).sum())))
+        return got
+    return checked
+
+
+def run_strings_phase(dev, tables) -> dict:
+    """Each string expression of the slice on the card against the port's
+    row interpreter at 2^16 rows, 0 rows apart; then StringLocate,
+    StringReplace and SubstringIndex over the SF100 P_TYPE column (8
+    slices of the part table) against pyarrow, each window_match launch
+    held against its plain version on the same inputs, with each of the
+    three expressions' device time on one slice. Returns the
+    window_match launches of the p_type run."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import torch
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.expressions import (
+        StringLocate, StringReplace, SubstringIndex, col, lit)
+    from spark_rapids_tpu_torch.expressions import strings as S
+    from spark_rapids_tpu_torch.kernels.string_search import window_match
+    from spark_rapids_tpu_torch.plan import Session, table
+    part, supplier, _ = tables
+    conf = {"spark.rapids.tpu.sql.incompatibleOps.enabled": True}
+    t = strings_table(supplier, part, STRINGS_ROWS)
+    exprs = strings_exprs()
+    df = entry._df(t, 1, entry.SUPPLIER_STRING_MAX_LEN).select(
+        *[e.alias(f"e{i}") for i, e in enumerate(exprs)])
+    record = []
+    plain_wm = S.window_match
+    S.window_match = checked_window_match(record)
+    try:
+        ses = Session(conf, device=dev)
+        t0 = time.perf_counter()
+        got = ses.collect(df)
+        torch.cuda.synchronize(dev)
+        card_s = time.perf_counter() - t0
+    finally:
+        S.window_match = plain_wm
+    if ses.fell_back():
+        raise AssertionError(f"strings: fell back {ses.fell_back()}")
+    t0 = time.perf_counter()
+    want = Session({**conf, **ORACLE_CONF}, device=dev).collect(df)
+    cpu_s = time.perf_counter() - t0
+    bad = {name: rows_apart(got.column(name), want.column(name))
+           for name in want.column_names}
+    wrong = {k: v for k, v in bad.items() if v}
+    print(f"strings: {len(exprs)} expressions over {t.num_rows} rows on the "
+          f"card ({card_s:.2f} s, cold) against the interpreter "
+          f"({cpu_s:.2f} s): rows apart {wrong or 0}; window_match launches "
+          f"{len(record)}, each against its plain version: "
+          f"{sum(r[2] for r in record)} mismatches")
+    if wrong or any(r[2] for r in record) or not record:
+        raise AssertionError(f"strings: the card differs from the "
+                             f"interpreter {wrong} or window_match from its "
+                             f"plain version")
+
+    # the three window_match callers over the SF100 p_type column
+    ptype = part.select(["p_type"])
+    three = {"locate": StringLocate(col("p_type"), lit("POLISHED")),
+             "replace": StringReplace(col("p_type"), lit("BRASS"),
+                                      lit("BRONZE")),
+             "index": SubstringIndex(col("p_type"), lit(" "), lit(2))}
+    calls = table(ptype, num_slices=Q16_SLICES,
+                  batch_rows=-(-ptype.num_rows // Q16_SLICES)).select(
+        *[e.alias(name) for name, e in three.items()])
+    p = ptype.column("p_type")
+    words = pc.split_pattern(p, " ")
+    want = pa.table({
+        "locate": pc.add(pc.find_substring(p, "POLISHED"), 1),
+        "replace": pc.replace_substring(p, "BRASS", "BRONZE"),
+        "index": pc.binary_join(pc.list_slice(words, 0, 2), " ")})
+    record.clear()
+    S.window_match = checked_window_match(record)
+    try:
+        ses = Session(conf, device=dev)
+        window_match.launches = 0
+        t0 = time.perf_counter()
+        got = ses.collect(calls)
+        torch.cuda.synchronize(dev)
+        cold_s = time.perf_counter() - t0
+        launches = window_match.launches
+    finally:
+        S.window_match = plain_wm
+    bad = {name: rows_apart(pc.cast(got.column(name),
+                                    want.column(name).type),
+                            want.column(name))
+           for name in want.column_names}
+    shapes = sorted({(k, n) for k, n, _ in record})
+    print(f"strings over SF100 p_type ({ptype.num_rows} rows, "
+          f"{Q16_SLICES} slices): rows apart from pyarrow {bad}; "
+          f"window_match launched {launches} times at (k, rows) {shapes}, "
+          f"{sum(r[2] for r in record)} mismatches against its plain "
+          f"version; the collect (upload, three expressions, Arrow out) "
+          f"{cold_s:.3f} s cold")
+    if any(bad.values()) or any(r[2] for r in record) or \
+            launches != 3 * Q16_SLICES:
+        raise AssertionError("strings over p_type: differs from pyarrow, "
+                             "or window_match from its plain version, or "
+                             f"{launches} launches, not {3 * Q16_SLICES}")
+    # each expression's device time on one scanned slice
+    from spark_rapids_tpu_torch.batch import from_arrow
+    batch, schema = from_arrow(
+        ptype.slice(0, -(-ptype.num_rows // Q16_SLICES)),
+        string_max_len=entry.STRING_MAX_LEN, device=dev)
+    times = {name: time_cuda_ms(lambda b=e.bind(schema): b.eval(batch), 5, 1)
+             for name, e in three.items()}
+    print(f"strings over one p_type slice (capacity {batch.capacity}): "
+          f"device ms per expression (CUDA events) "
+          f"{ {k: round(v, 3) for k, v in times.items()} }")
+    return {"window_match": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2720,9 +3033,10 @@ def run_parquet_scan_phase(dev, table, tmp) -> list:
     return paths
 
 
-def profiled_idle(what: str, run, dev) -> float:
-    """The idle share of one profiled warm run of ``run()``."""
-    _, wall_us, busy, _ = profiled(run, dev)
+def profiled_idle(what: str, run, dev, host: bool = True) -> float:
+    """The idle share of one profiled warm run of ``run()`` (``host``:
+    as ``capture``'s)."""
+    _, wall_us, busy, _ = profiled(run, dev, host)
     idle = 1 - busy / wall_us
     print(f"{what}: profiled warm run {wall_us / 1e3:.1f} ms, device busy "
           f"{busy / 1e3:.1f} ms, idle share {idle:.1%}")
@@ -2849,7 +3163,7 @@ def run_session_path(name: str, dev, counted, table, reference, make_df,
 
 def check_window_match_at_session_q16(dev, ses, df) -> int:
     """``window_match`` against its plain version on the batch the
-    Session's Q16 filter sees (its scan's first batch), at k = 15 as
+    Session's Q16 part filter sees (its scan's first batch), at k = 15 as
     ``NOT startswith 'MEDIUM POLISHED'`` runs it: the match matrix, and the
     filter's predicate on the card against the same rows on the CPU.
     Returns the mismatches (0)."""
@@ -2861,7 +3175,8 @@ def check_window_match_at_session_q16(dev, ses, df) -> int:
         window_match, window_match_plain)
     _, plan = ses.prepare(df)
     try:
-        filt = next(e for e in _walk_plan(plan) if isinstance(e, FilterExec))
+        filt = next(e for e in _walk_plan(plan) if isinstance(e, FilterExec)
+                    and "p_type" in e.child.output_schema.names)
         schema = filt.child.output_schema
         batch = next(iter(filt.child.execute_partition(0)))
         ptype = batch.columns[schema.index_of("p_type")]
@@ -3777,6 +4092,19 @@ def main(argv=None) -> int:
     runs.append(timed("captured window_match", check_captured_window_match,
                       dev, q2_tables[0]))
     del q2_tables
+    # TPC-H Q16 whole through the Session (window_match at its k = 15
+    # part filter, murmur3 at its p_size exchange keys, the Like DFA on
+    # the supplier side), then the string expressions (window_match at
+    # locate, replace and substring_index over its p_type column)
+    t0 = time.perf_counter()
+    q16_tables = entry.tpch_q16_tables(Q16_SF, Q16_SEED)
+    print(f"q16 tables at SF{Q16_SF}: "
+          f"{[t.num_rows for t in q16_tables]} rows (part, supplier, "
+          f"partsupp) made in {time.perf_counter() - t0:.2f} s")
+    runs.append(timed("q16", run_q16_phase, dev,
+                      [murmur3_int32, window_match], q16_tables))
+    runs.append(timed("strings", run_strings_phase, dev, q16_tables))
+    del q16_tables
     runs.append(timed("captured murmur3", check_captured_murmur3, dev))
     timed("hash_agg", check_hash_agg, dev)
     timed("operators", check_operators, dev)

@@ -1,7 +1,8 @@
-"""TPC-H Q1, the part stage of TPC-H Q16, TPC-H Q3, Q18, Q2 and Q11 and the
-repo's skewed join through the port, end to end, Q1 and the Q16 part stage
-read from Parquet files, a bucketed Parquet write, and the bench's fused
-Q1 stage and its hash_agg, join_sort and parquet_scan shapes.
+"""TPC-H Q1, the part stage of TPC-H Q16 and Q16 whole, TPC-H Q3, Q18, Q2
+and Q11 and the repo's skewed join through the port, end to end, Q1 and
+the Q16 part stage read from Parquet files, a bucketed Parquet write, and
+the bench's fused Q1 stage and its hash_agg, join_sort and parquet_scan
+shapes.
 
 ``q1_plan`` and ``q16_part_plan`` build the physical tree the JAX
 package's planner gives each query (``plan/overrides.py``
@@ -30,9 +31,18 @@ The Q16 part stage is TPC-H Q16 (spec 2.4.16) up to its join::
 with the LIKE as Spark's LikeSimplification leaves it, ``NOT
 StartsWith(p_type, 'MEDIUM POLISHED')``, and strings at the JAX Session's
 scan width of 64 bytes. It counts parts per group where Q16 counts distinct
-suppliers over ``partsupp`` less the complained-of ones: full Q16 waits for
-``Like`` and ``count(DISTINCT)``. ``part_table`` makes dbgen-shaped ``part``
-columns (spec 4.2.3) from a numpy seed.
+suppliers. ``part_table`` makes dbgen-shaped ``part`` columns (spec 4.2.3)
+from a numpy seed.
+
+Q16 whole (spec 2.4.16 with its validation parameters) runs through the
+port's Session: ``q16_df`` is the part filter above, the join with
+``partsupp``, ``ps_suppkey NOT IN`` the suppliers whose comment is
+``LIKE '%Customer%Complaints%'`` (a LEFT ANTI join: the key is never
+null), and count(DISTINCT ps_suppkey) as Spark rewrites it (a group-by on
+the keys and ps_suppkey, then a count per key), sorted by the count
+descending and the keys; ``run_q16`` collects it. ``tpch_q16_tables``
+makes its ``part``, ``supplier`` and ``partsupp`` columns as dbgen draws
+them.
 
 Q3 is TPC-H Q3 (spec 2.4.3) with its validation parameters::
 
@@ -128,7 +138,8 @@ broadcast join and a group-by); ``mesh_chain_tables`` and
 shuffled join, group-by and global sort, which ``dryrun_multigpu`` runs
 on the mesh against the port's row interpreter.
 
-``q1_reference``, ``q16_part_reference``, ``q3_reference``,
+``q1_reference``, ``q16_part_reference``, ``q16_reference``,
+``q3_reference``,
 ``q18_reference``, ``q2_reference``, ``q11_reference``,
 ``hash_agg_reference``, ``join_sort_reference``, ``skew_reference``,
 ``ici_exchange_reference`` and ``mesh_chain_reference`` compute the same
@@ -161,6 +172,7 @@ from .expressions import (And, BoundReference, EqualTo, Expression,
                           startswith)
 from .expressions.aggregates import Average, Count, Min, Sum
 from .expressions.base import epoch_days
+from .expressions.regex import Like
 from .memory.catalog import BufferCatalog
 from .shuffle import (BroadcastExchangeExec, HashPartitioning,
                       ShuffleExchangeExec, SinglePartitioning)
@@ -1343,6 +1355,122 @@ def run_q11(partsupp: pa.Table, supplier: pa.Table, nation: pa.Table,
 
 
 # ---------------------------------------------------------------------------
+# TPC-H Q16, whole
+# ---------------------------------------------------------------------------
+
+#: Q16's supplier pattern (spec 2.4.16: NOT IN the suppliers with
+#: complaints) and the words dbgen writes into S_COMMENT for it
+Q16_COMMENT = "%Customer%Complaints%"
+Q16_SELECT = ("p_brand", "p_type", "p_size", "supplier_cnt")
+_CUSTOMER, _COMPLAINTS, _RECOMMENDS = b"Customer", b"Complaints", \
+    b"Recommends"
+
+
+def _comments_with(rng, rows: np.ndarray, first: bytes, second: bytes,
+                   mat: np.ndarray, lengths: np.ndarray) -> None:
+    """Write ``first`` and, later in the comment, ``second`` into each of
+    ``rows`` of the letter matrix ``mat`` at random positions (spec
+    4.2.3's S_COMMENT rule), all rows at once."""
+    span = len(first) + len(second)
+    free = lengths[rows] - span
+    p1 = (rng.random(len(rows)) * (free + 1)).astype(np.int64)
+    p2 = p1 + len(first) + (rng.random(len(rows))
+                            * (free - p1 + 1)).astype(np.int64)
+    for word, at in ((first, p1), (second, p2)):
+        cols = at[:, None] + np.arange(len(word))[None, :]
+        mat[rows[:, None], cols] = np.frombuffer(word, np.uint8)[None, :]
+
+
+def tpch_q16_tables(sf: float, seed: int = 16
+                    ) -> Tuple[pa.Table, pa.Table, pa.Table]:
+    """``(part, supplier, partsupp)``: every column Q16 reads at scale
+    factor ``sf``, drawn as dbgen draws them (TPC-H spec 4.2.3) from one
+    numpy generator, with no Python loop per row:
+
+    - part: SF x 200,000 rows, P_PARTKEY 1..n, P_BRAND, P_TYPE and P_SIZE
+      as ``part_table`` draws them;
+    - supplier: SF x 10,000 rows, S_SUPPKEY 1..n, S_COMMENT 25 to 100
+      random letters; in ``max(round(SF * 5), 1)`` random rows 'Customer'
+      is followed later by 'Complaints', in as many others by
+      'Recommends', at random positions;
+    - partsupp: four rows per part, PS_SUPPKEY by dbgen's formula (as
+      ``tpch_q2_tables``).
+
+    Keys are int64."""
+    rng = np.random.default_rng(seed)
+    n_part = max(int(round(200_000 * sf)), 1)
+    n_supp = max(int(round(10_000 * sf)), 1)
+    partkey = np.arange(1, n_part + 1, dtype=np.int64)
+    brand = rng.integers(0, len(P_BRANDS), n_part)
+    ptype = rng.integers(0, len(P_TYPES), n_part)
+    size = rng.integers(1, 51, n_part).astype(np.int32)
+    part = pa.table({
+        "p_partkey": partkey,
+        "p_brand": pa.array(P_BRANDS).take(pa.array(brand)),
+        "p_type": pa.array(P_TYPES).take(pa.array(ptype)),
+        "p_size": size,
+    })
+    lengths = rng.integers(25, 101, n_supp)
+    mat = _LETTERS[rng.integers(0, len(_LETTERS), (n_supp, 100),
+                                dtype=np.uint8)]
+    k = max(int(round(sf * 5)), 1)
+    picked = rng.permutation(n_supp)[:2 * k]
+    _comments_with(rng, picked[:k], _CUSTOMER, _COMPLAINTS, mat, lengths)
+    _comments_with(rng, picked[k:], _CUSTOMER, _RECOMMENDS, mat, lengths)
+    supplier = pa.table({
+        "s_suppkey": np.arange(1, n_supp + 1, dtype=np.int64),
+        "s_comment": _strings(mat, lengths),
+    })
+    ps_partkey = np.repeat(partkey, 4)
+    i = np.tile(np.arange(4, dtype=np.int64), n_part)
+    partsupp = pa.table({
+        "ps_partkey": ps_partkey,
+        "ps_suppkey": (ps_partkey + i * (n_supp // 4
+                                         + (ps_partkey - 1) // n_supp))
+        % n_supp + 1,
+    })
+    return part, supplier, partsupp
+
+
+def q16_reference(part: pa.Table, supplier: pa.Table, partsupp: pa.Table
+                  ) -> pa.Table:
+    """TPC-H Q16 computed by pyarrow alone (``pc.match_like``,
+    ``pc.starts_with``, Acero joins and ``group_by`` with a distinct
+    count), in ``run_q16``'s column order."""
+    keep = pc.and_kleene(
+        pc.and_kleene(
+            pc.not_equal(part.column("p_brand"), Q16_BRAND),
+            pc.invert(pc.starts_with(part.column("p_type"),
+                                     Q16_TYPE_PREFIX))),
+        pc.is_in(part.column("p_size"),
+                 value_set=pa.array(Q16_SIZES, pa.int32())))
+    p = part.filter(keep)
+    j = partsupp.join(p, keys="ps_partkey", right_keys="p_partkey",
+                      join_type="inner")
+    bad = supplier.filter(pc.match_like(supplier.column("s_comment"),
+                                        Q16_COMMENT))
+    j = j.join(bad.select(["s_suppkey"]), keys="ps_suppkey",
+               right_keys="s_suppkey", join_type="left anti")
+    g = j.group_by(list(Q16_KEYS)).aggregate(
+        [("ps_suppkey", "count_distinct")])
+    g = g.sort_by([("ps_suppkey_count_distinct", "descending")]
+                  + [(k, "ascending") for k in Q16_KEYS])
+    return pa.table([g.column(k) for k in Q16_KEYS]
+                    + [g.column("ps_suppkey_count_distinct")],
+                    names=list(Q16_SELECT))
+
+
+def run_q16(part: pa.Table, supplier: pa.Table, partsupp: pa.Table,
+            num_slices: int = 8, shuffle_partitions: int = 8,
+            device: DeviceLike = None) -> pa.Table:
+    """Q16 through the port's Session (``q16_df`` under
+    ``session_conf``), collected to the host."""
+    from .plan.session import Session
+    return Session(session_conf(shuffle_partitions), device=device).collect(
+        q16_df(part, supplier, partsupp, num_slices))
+
+
+# ---------------------------------------------------------------------------
 # The skewed join (tools/skew_bench.py's shape)
 # ---------------------------------------------------------------------------
 
@@ -1597,6 +1725,28 @@ def q16_part_df(table: pa.Table, num_slices: int = 8):
             .group_by(*Q16_KEYS)
             .agg(*q16_part_aggregates())
             .order_by(desc(col("part_cnt")),
+                      *[asc(col(k)) for k in Q16_KEYS]))
+
+
+def q16_df(part: pa.Table, supplier: pa.Table, partsupp: pa.Table,
+           num_slices: int = 8):
+    """TPC-H Q16 as a DataFrame: the part filter of ``q16_part_df``, the
+    NOT IN subquery over a non-null key as a LEFT ANTI join with the
+    suppliers whose comment is LIKE '%Customer%Complaints%', and
+    count(DISTINCT ps_suppkey) as Spark rewrites it: a group-by on the
+    keys and ps_suppkey, then a count per key. ``supplier`` scans at 128
+    bytes a string."""
+    complaints = (_df(supplier, num_slices, SUPPLIER_STRING_MAX_LEN)
+                  .where(Like(col("s_comment"), Q16_COMMENT))
+                  .select("s_suppkey"))
+    return (_df(partsupp, num_slices)
+            .join(_df(part, num_slices).where(q16_part_condition()),
+                  ["ps_partkey"], ["p_partkey"])
+            .join(complaints, ["ps_suppkey"], ["s_suppkey"],
+                  JoinType.LEFT_ANTI)
+            .group_by(*Q16_KEYS, "ps_suppkey").agg()
+            .group_by(*Q16_KEYS).agg(Count().alias("supplier_cnt"))
+            .order_by(desc(col("supplier_cnt")),
                       *[asc(col(k)) for k in Q16_KEYS]))
 
 

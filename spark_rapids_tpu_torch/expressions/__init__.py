@@ -10,5 +10,10 @@ from .comparison import (EqualNullSafe, EqualTo, GreaterThan,  # noqa: F401
                          GreaterThanOrEqual, In, IsNaN, IsNotNull, IsNull,
                          LessThan, LessThanOrEqual, Not)
 from .hashing import Murmur3Hash, XxHash64  # noqa: F401
-from .strings import (StringPredicate, contains, endswith,  # noqa: F401
-                      startswith)
+from .regex import Like, RegexUnsupported, RLike, rlike  # noqa: F401
+from .strings import (Ascii, Chr, Concat, Length, Levenshtein,  # noqa: F401
+                      Lower, OctetLength, Reverse, Soundex, StringLocate,
+                      StringPad, StringPredicate, StringRepeat,
+                      StringReplace, StringTrim, Substring, SubstringIndex,
+                      Translate, Upper, concat, contains, endswith, length,
+                      lower, startswith, substring, upper)

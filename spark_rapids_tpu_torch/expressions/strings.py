@@ -1,26 +1,134 @@
-"""String predicates over fixed-width padded byte matrices.
+"""String expressions over fixed-width padded byte matrices.
 
-Port of ``_window_match``, ``StringPredicate`` (contains, startswith,
-endswith with a literal pattern) and the ``contains``/``startswith``/
-``endswith`` helpers of ``spark_rapids_tpu/expressions/strings.py``. A
-string column is ``uint8[rows, max_len]`` plus byte lengths, so search is a
-shifted-window compare over every (row, start) pair at once: on a CUDA
-tensor the hand-written kernel of ``kernels/string_search.py`` for every
-pattern of 1 to ``max_len`` bytes, on a CPU tensor its plain version. The
-rest of ``strings.py`` (substring, case mapping, concat, trim, locate,
-replace, ...) comes with the expression-breadth slice.
+Port of ``spark_rapids_tpu/expressions/strings.py`` (reference:
+stringFunctions.scala): char length and octet length, simple case mapping,
+substring, concat, locate, trim, pad, repeat, replace, translate, reverse,
+ascii, chr, levenshtein, soundex, substring_index, and the string
+predicates contains / startswith / endswith with a literal pattern. A
+string column is ``uint8[rows, max_len]`` plus int32 byte lengths, so every
+expression is a rectangular torch program:
+
+- per-row byte COMPACTION (substring, trim, translate, and the codepoint
+  helpers) is a gather: the source of output byte j is the first position
+  whose running count of kept bytes passes j (a row-wise searchsorted),
+  where the JAX package scatters into a drop slot. A gather has one writer
+  per output byte, so it is deterministic on CUDA;
+- SEARCH (contains, startswith, endswith, locate, replace,
+  substring_index) is the window-match matrix: on a CUDA tensor the
+  hand-written kernel of ``kernels/string_search.py`` for every pattern of
+  1 to ``max_len`` bytes, on a CPU tensor its plain version.
+
+Loops that the JAX package runs as ``lax.scan`` / ``fori_loop`` (the greedy
+matches of replace, soundex's state, levenshtein's DP rows) are Python
+loops of torch ops over byte positions, with no host read, so a fused stage
+can capture them in a CUDA graph.
+
+Unicode: lengths and substring positions count CODEPOINTS (UTF-8 lead
+bytes), as Spark does. upper/lower map ASCII bytewise plus simple
+(single-char, length-preserving) case tables for the 2-byte and 3-byte
+UTF-8 ranges; ß -> SS, cross-width mappings and 4-byte scripts pass
+through unchanged, which is why the planner's rule is ``incompat``.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import types as T
+from ..batch import DeviceColumn
 from ..kernels.string_search import window_match
-from .base import (EvalContext, Expression, Literal, lit_if_needed,
-                   numeric_column)
+from .base import (EvalContext, Expression, Literal, _device_row,
+                   and_validity, lit_if_needed, numeric_column)
+
+
+# ---------------------------------------------------------------------------
+# Shared helpers
+# ---------------------------------------------------------------------------
+
+def _is_lead(data: torch.Tensor) -> torch.Tensor:
+    """True for UTF-8 lead bytes (not 10xxxxxx continuations)."""
+    return (data & 0xC0) != 0x80
+
+
+def _in_str(col: DeviceColumn) -> torch.Tensor:
+    ml = col.data.shape[1]
+    return torch.arange(ml, device=col.data.device)[None, :] \
+        < col.lengths[:, None]
+
+
+def _char_count(col: DeviceColumn) -> torch.Tensor:
+    return (_is_lead(col.data) & _in_str(col)).sum(
+        dim=1, dtype=torch.int32)
+
+
+def _compact_index(keep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(source column of each output slot, kept count per row): output slot
+    j of a row takes the row's (j+1)-th kept position. Slots past the
+    count point at the last column and must be masked by the caller."""
+    n, ml = keep.shape
+    running = keep.to(torch.int32).cumsum(dim=1, dtype=torch.int32)
+    want = (torch.arange(ml, dtype=torch.int32, device=keep.device) + 1
+            ).expand(n, ml).contiguous()
+    src = torch.searchsorted(running, want)
+    return src.clamp_(max=ml - 1), running[:, -1]
+
+
+def _compact_bytes(data: torch.Tensor, keep: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Left-pack kept bytes per row; returns (packed, new_lengths)."""
+    n, ml = data.shape
+    if ml == 0:
+        return data, torch.zeros(n, dtype=torch.int32, device=data.device)
+    src, counts = _compact_index(keep)
+    packed = data.gather(1, src)
+    live = torch.arange(ml, device=data.device)[None, :] < counts[:, None]
+    return torch.where(live, packed, torch.zeros_like(packed)), counts
+
+
+def _string_column(data, lengths, validity, max_len: int) -> DeviceColumn:
+    """Zero bytes past each row's length and every byte of an invalid row
+    (the canonical padding), lengths 0 on invalid rows."""
+    mask = (torch.arange(data.shape[1], device=data.device)[None, :]
+            < lengths[:, None]) & validity[:, None]
+    data = torch.where(mask, data, torch.zeros((), dtype=data.dtype,
+                                               device=data.device))
+    lengths = torch.where(validity, lengths.to(torch.int32),
+                          torch.zeros((), dtype=torch.int32,
+                                      device=lengths.device))
+    return DeviceColumn(data, validity, T.string(max_len), lengths)
+
+
+def _widen(data: torch.Tensor, width: int) -> torch.Tensor:
+    """The byte matrix zero-padded (or cut) to ``width`` columns."""
+    ml = data.shape[1]
+    if ml < width:
+        return F.pad(data, (0, width - ml))
+    return data[:, :width]
+
+
+def _literal_bytes(e: Expression, what: str) -> bytes:
+    if not isinstance(e, Literal):
+        raise TypeError(f"{what} must be a literal")
+    return str(e.value).encode("utf-8")
+
+
+@functools.lru_cache(maxsize=256)
+def _device_table(values: bytes, dtype: str,
+                  device: torch.device) -> torch.Tensor:
+    """A lookup table (the bytes of a numpy array of ``dtype``) on the
+    device, copied there once per table and device: safe inside a CUDA
+    graph capture."""
+    return torch.from_numpy(np.frombuffer(values, dtype).copy()).to(device)
+
+
+def _table(arr: np.ndarray, device) -> torch.Tensor:
+    return _device_table(arr.tobytes(), arr.dtype.str, torch.device(device))
 
 
 def _window_match(data: torch.Tensor, lengths: torch.Tensor,
@@ -35,6 +143,282 @@ def _window_match(data: torch.Tensor, lengths: torch.Tensor,
         return torch.zeros((n, ml), dtype=torch.bool, device=data.device)
     return window_match(data.contiguous(), lengths.contiguous(), pat)
 
+
+def _first_true(m: torch.Tensor) -> torch.Tensor:
+    """Index of the first True per row (0 where none)."""
+    return m.to(torch.uint8).argmax(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Length, OctetLength
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class Length(Expression):
+    """char_length: CODEPOINTS, not bytes (Spark length)."""
+
+    child: Expression
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return Length(c[0])
+
+    @property
+    def dtype(self):
+        return T.INT32
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        return numeric_column(_char_count(c), c.validity, T.INT32)
+
+
+@dataclass(frozen=True, eq=False)
+class OctetLength(Expression):
+    """octet_length / bit_length: BYTES, unlike char length."""
+
+    child: Expression
+    bits: bool = False
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return OctetLength(c[0], self.bits)
+
+    @property
+    def dtype(self):
+        return T.INT32
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        v = c.lengths.to(torch.int32)
+        if self.bits:
+            v = v * 8
+        return numeric_column(v, c.validity, T.INT32)
+
+
+# ---------------------------------------------------------------------------
+# Upper / Lower
+# ---------------------------------------------------------------------------
+
+def _case_tables():
+    """Single-char case maps for the 2-byte UTF-8 range (U+0080-U+07FF:
+    Latin-1 Supplement, Latin Extended, Greek, Cyrillic, ...): codepoint ->
+    codepoint, identity where the mapping changes char count or leaves the
+    2-byte range."""
+    up = np.arange(0x800, dtype=np.int32)
+    lo = np.arange(0x800, dtype=np.int32)
+    for cp in range(0x80, 0x800):
+        u = chr(cp).upper()
+        if len(u) == 1 and 0x80 <= ord(u) < 0x800:
+            up[cp] = ord(u)
+        low = chr(cp).lower()
+        if len(low) == 1 and 0x80 <= ord(low) < 0x800:
+            lo[cp] = ord(low)
+    return up, lo
+
+
+_UPPER_2B, _LOWER_2B = _case_tables()
+
+
+def _case_tables_3b():
+    """Single-char case maps for the 3-byte UTF-8 range (U+0800-U+FFFF:
+    Georgian, Cherokee, full-width Latin, Greek Extended, ...): identity
+    where the mapping changes char count or leaves the 3-byte range."""
+    up = np.arange(0x10000, dtype=np.int32)
+    lo = np.arange(0x10000, dtype=np.int32)
+    for cp in range(0x800, 0x10000):
+        ch = chr(cp)
+        u = ch.upper()
+        if len(u) == 1 and 0x800 <= ord(u) < 0x10000:
+            up[cp] = ord(u)
+        low = ch.lower()
+        if len(low) == 1 and 0x800 <= ord(low) < 0x10000:
+            lo[cp] = ord(low)
+    return up, lo
+
+
+_UPPER_3B, _LOWER_3B = _case_tables_3b()
+
+
+def _ahead(a: torch.Tensor, k: int) -> torch.Tensor:
+    """``a`` shifted left by k columns (the byte at position +k)."""
+    return torch.cat([a[:, k:], torch.zeros_like(a[:, :k])], dim=1)
+
+
+def _behind(a: torch.Tensor, k: int) -> torch.Tensor:
+    """``a`` shifted right by k columns (the value from position -k)."""
+    return torch.cat([torch.zeros_like(a[:, :k]), a[:, :-k]], dim=1)
+
+
+def _cont(b: torch.Tensor) -> torch.Tensor:
+    return (b >= 0x80) & (b < 0xC0)
+
+
+@dataclass(frozen=True, eq=False)
+class Upper(Expression):
+    """upper/lower: ASCII bytewise plus SIMPLE case mapping for every
+    2-byte codepoint whose counterpart is also 2-byte and every 3-byte
+    codepoint whose counterpart is also 3-byte. Length-changing mappings
+    (ß -> SS), cross-width mappings and 4-byte scripts pass through."""
+
+    child: Expression
+    _upper = True
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return type(self)(c[0])
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        d = c.data
+        dev = d.device
+        if self._upper:
+            is_lo = (d >= ord("a")) & (d <= ord("z"))
+            out = torch.where(is_lo, d - 32, d)
+            table2, table3 = _UPPER_2B, _UPPER_3B
+        else:
+            is_up = (d >= ord("A")) & (d <= ord("Z"))
+            out = torch.where(is_up, d + 32, d)
+            table2, table3 = _LOWER_2B, _LOWER_3B
+        table2 = _table(table2, dev)
+        table3 = _table(table3, dev)
+        di = d.to(torch.int32)
+        nxt = _ahead(di, 1)
+        n2 = _ahead(di, 2)
+        # 2-byte sequences: lead 0xC2-0xDF followed by a continuation
+        lead2 = (di >= 0xC2) & (di <= 0xDF) & _cont(nxt)
+        cp = ((di & 0x1F) << 6) | (nxt & 0x3F)
+        mapped = table2[cp.clamp(0, 0x7FF).long()]
+        bytes2 = [(0xC0 | (mapped >> 6)).to(d.dtype),
+                  (0x80 | (mapped & 0x3F)).to(d.dtype)]
+        # 3-byte sequences: lead 0xE0-0xEF + two continuations
+        lead3 = (di >= 0xE0) & (di <= 0xEF) & _cont(nxt) & _cont(n2)
+        cp3 = ((di & 0x0F) << 12) | ((nxt & 0x3F) << 6) | (n2 & 0x3F)
+        m3 = table3[cp3.clamp(0, 0xFFFF).long()]
+        bytes3 = [(0xE0 | (m3 >> 12)).to(d.dtype),
+                  (0x80 | ((m3 >> 6) & 0x3F)).to(d.dtype),
+                  (0x80 | (m3 & 0x3F)).to(d.dtype)]
+        # byte k of a sequence whose LEAD sat k columns back
+        for lead, seq in ((lead2, bytes2), (lead3, bytes3)):
+            out = torch.where(lead, seq[0], out)
+            for k in range(1, len(seq)):
+                out = torch.where(_behind(lead, k), _behind(seq[k], k), out)
+        return DeviceColumn(out, c.validity, c.dtype, c.lengths)
+
+
+class Lower(Upper):
+    _upper = False
+
+
+# ---------------------------------------------------------------------------
+# Substring, Concat
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class Substring(Expression):
+    """substring(str, pos, len): 1-based, negative pos counts from the end,
+    pos=0 treated as 1 (Spark). Character-indexed."""
+
+    child: Expression
+    pos: Expression
+    length: Optional[Expression] = None
+
+    @property
+    def children(self):
+        return (self.child, self.pos) + (
+            (self.length,) if self.length is not None else ())
+
+    def with_children(self, c):
+        return Substring(c[0], c[1], c[2] if len(c) > 2 else None)
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        p = self.pos.eval(batch, ctx)
+        parts = [c, p]
+        if self.length is not None:
+            ln = self.length.eval(batch, ctx)
+            parts.append(ln)
+            want = ln.data.to(torch.int32)
+        else:
+            want = torch.full((c.capacity,), 1 << 30, dtype=torch.int32,
+                              device=c.data.device)
+        validity = and_validity(parts)
+        nchars = _char_count(c)
+        pos = p.data.to(torch.int32)
+        zero = torch.zeros_like(pos)
+        start = torch.where(pos > 0, pos - 1,
+                            torch.where(pos < 0, nchars + pos, zero))
+        start = torch.maximum(start, torch.where(pos < 0, zero, start))
+        start = torch.where((pos < 0) & (nchars + pos < 0), nchars, start)
+        end = start + want.clamp(min=0)
+        in_str = _in_str(c)
+        lead = _is_lead(c.data) & in_str
+        # char ordinal of each byte (0-based, continuation bytes inherit)
+        char_ix = lead.to(torch.int32).cumsum(dim=1, dtype=torch.int32) - 1
+        keep = in_str & (char_ix >= start[:, None]) & \
+            (char_ix < end[:, None])
+        data, lengths = _compact_bytes(c.data, keep)
+        return _string_column(data, lengths, validity, self.dtype.max_len)
+
+
+@dataclass(frozen=True, eq=False)
+class Concat(Expression):
+    """concat(s1, s2, ...): null if ANY input is null (Spark concat)."""
+
+    exprs: Tuple[Expression, ...]
+
+    @property
+    def children(self):
+        return self.exprs
+
+    def with_children(self, c):
+        return Concat(tuple(c))
+
+    @property
+    def dtype(self):
+        total = sum(e.dtype.max_len for e in self.exprs)
+        return T.string(max(total, 1))
+
+    def eval(self, batch, ctx=EvalContext()):
+        cols = [e.eval(batch, ctx) for e in self.exprs]
+        validity = and_validity(cols)
+        out_ml = self.dtype.max_len
+        n = batch.capacity
+        dev = batch.device
+        j = torch.arange(out_ml, device=dev)[None, :]
+        out = torch.zeros((n, out_ml), dtype=torch.uint8, device=dev)
+        offset = torch.zeros(n, dtype=torch.int32, device=dev)
+        for c in cols:
+            # output byte j comes from this input's byte j - offset
+            src = j - offset[:, None]
+            here = (src >= 0) & (src < c.lengths[:, None])
+            g = _widen(c.data, out_ml).gather(
+                1, src.clamp(0, out_ml - 1).long())
+            out = torch.where(here, g, out)
+            offset = offset + c.lengths
+        return _string_column(out, offset.clamp(max=out_ml), validity,
+                              out_ml)
+
+
+# ---------------------------------------------------------------------------
+# Search: the predicates, locate
+# ---------------------------------------------------------------------------
 
 @dataclass(frozen=True, eq=False)
 class StringPredicate(Expression):
@@ -82,6 +466,694 @@ class StringPredicate(Expression):
 
     def __repr__(self):
         return f"{self.op}({self.child!r}, {self.pattern!r})"
+
+
+@dataclass(frozen=True, eq=False)
+class StringLocate(Expression):
+    """instr/locate: 1-based position of first occurrence, 0 if absent."""
+
+    child: Expression
+    pattern: Expression
+
+    @property
+    def children(self):
+        return (self.child, self.pattern)
+
+    def with_children(self, c):
+        return StringLocate(c[0], c[1])
+
+    @property
+    def dtype(self):
+        return T.INT32
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        p = self.pattern.eval(batch, ctx)
+        pat = _literal_bytes(self.pattern, "locate's pattern")
+        m = _window_match(c.data, c.lengths, pat)
+        first = _first_true(m)
+        found = m.any(dim=1)
+        # byte position -> char position (count leads up to it)
+        char_before = _is_lead(c.data).to(torch.int32).cumsum(
+            dim=1, dtype=torch.int32)
+        pos = char_before.gather(1, first[:, None])[:, 0]
+        r = torch.where(found, pos, torch.zeros_like(pos))
+        if len(pat) == 0:
+            r = torch.ones_like(r)
+        return numeric_column(r, c.validity & p.validity, T.INT32)
+
+
+# ---------------------------------------------------------------------------
+# Trim, pad, repeat, replace
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class StringTrim(Expression):
+    """trim/ltrim/rtrim of ASCII spaces (Spark default trim set)."""
+
+    child: Expression
+    side: str = "both"    # both | leading | trailing
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return StringTrim(c[0], self.side)
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        ml = c.data.shape[1]
+        in_str = _in_str(c)
+        nonspace = in_str & (c.data != 32)
+        any_ns = nonspace.any(dim=1)
+        first_ns = _first_true(nonspace)
+        last_ns = ml - 1 - _first_true(nonspace.flip(1))
+        zero = torch.zeros_like(first_ns)
+        lengths = c.lengths.long()
+        lo = torch.where(any_ns, first_ns, zero) \
+            if self.side != "trailing" else zero
+        if self.side == "leading":
+            hi = torch.where(any_ns, lengths, zero)
+        else:
+            hi = torch.where(any_ns, last_ns + 1, zero)
+        j = torch.arange(ml, device=c.data.device)[None, :]
+        keep = in_str & (j >= lo[:, None]) & (j < hi[:, None])
+        data, lengths = _compact_bytes(c.data, keep)
+        return _string_column(data, lengths, c.validity, self.dtype.max_len)
+
+
+@dataclass(frozen=True, eq=False)
+class StringPad(Expression):
+    """lpad/rpad(str, len, pad): CHARACTER-counted (ASCII pad assumed)."""
+
+    child: Expression
+    target_len: Expression
+    pad: Expression
+    left: bool = True
+
+    @property
+    def children(self):
+        return (self.child, self.target_len, self.pad)
+
+    def with_children(self, c):
+        return StringPad(c[0], c[1], c[2], self.left)
+
+    @property
+    def dtype(self):
+        return T.string(max(self.child.dtype.max_len, 64))
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        tl = self.target_len.eval(batch, ctx)
+        pd = self.pad.eval(batch, ctx)
+        validity = and_validity([c, tl, pd])
+        pad_bytes = _literal_bytes(self.pad, "the pad")
+        out_ml = self.dtype.max_len
+        n = batch.capacity
+        dev = c.data.device
+        want = tl.data.to(torch.int32).clamp(0, out_ml)
+        cur = _char_count(c)  # == byte count for ASCII content
+        deficit = (want - cur).clamp(min=0)
+        if len(pad_bytes) == 0:
+            deficit = torch.zeros_like(deficit)
+        # truncation case: want < cur -> keep the first `want` chars
+        in_str = _in_str(c)
+        lead = _is_lead(c.data) & in_str
+        char_ix = lead.to(torch.int32).cumsum(dim=1, dtype=torch.int32) - 1
+        keep = in_str & (char_ix < want[:, None])
+        body, body_len = _compact_bytes(c.data, keep)
+        reps = -(-out_ml // max(len(pad_bytes), 1))
+        pad_row = _device_row((pad_bytes * reps)[:out_ml], out_ml, dev)
+        total = (body_len + deficit).clamp(max=out_ml)
+        j = torch.arange(out_ml, device=dev)[None, :]
+        wide_body = _widen(body, out_ml)
+        pad_mat = pad_row.expand(n, out_ml)
+        if self.left:
+            # pad occupies [0, deficit), the body shifts right
+            from_body = j >= deficit[:, None]
+            body_g = wide_body.gather(
+                1, (j - deficit[:, None]).clamp(0, out_ml - 1).long())
+            out = torch.where(from_body, body_g, pad_mat)
+        else:
+            in_body = j < body_len[:, None]
+            pad_g = pad_mat.gather(
+                1, (j - body_len[:, None]).clamp(0, out_ml - 1).long())
+            out = torch.where(in_body, wide_body, pad_g)
+        return _string_column(out, total, validity, out_ml)
+
+
+@dataclass(frozen=True, eq=False)
+class StringRepeat(Expression):
+    child: Expression
+    times: Expression
+
+    @property
+    def children(self):
+        return (self.child, self.times)
+
+    def with_children(self, c):
+        return StringRepeat(c[0], c[1])
+
+    @property
+    def dtype(self):
+        return T.string(max(self.child.dtype.max_len * 4, 64))
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        t = self.times.eval(batch, ctx)
+        validity = c.validity & t.validity
+        out_ml = self.dtype.max_len
+        reps = t.data.to(torch.int32).clamp(0, out_ml)
+        total = (c.lengths * reps).clamp(max=out_ml)
+        j = torch.arange(out_ml, device=c.data.device)[None, :]
+        src = j % c.lengths.clamp(min=1)[:, None]
+        g = _widen(c.data, out_ml).gather(1, src.clamp(0, out_ml - 1).long())
+        out = torch.where(j < total[:, None], g, torch.zeros_like(g))
+        return _string_column(out, total, validity, out_ml)
+
+
+@dataclass(frozen=True, eq=False)
+class StringReplace(Expression):
+    """replace(str, search, replace) with LITERAL search/replace
+    (reference: GpuStringReplace has the same literal restriction). The
+    output is ``string(max(2 * max_len, 64))`` and a longer result is cut
+    at that width, as in the JAX package."""
+
+    child: Expression
+    search: Expression
+    replacement: Expression
+
+    @property
+    def children(self):
+        return (self.child, self.search, self.replacement)
+
+    def with_children(self, c):
+        return StringReplace(c[0], c[1], c[2])
+
+    @property
+    def dtype(self):
+        return T.string(max(self.child.dtype.max_len * 2, 64))
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        pat = _literal_bytes(self.search, "replace's search")
+        rep = _literal_bytes(self.replacement, "replace's replacement")
+        out_ml = self.dtype.max_len
+        n, ml = c.data.shape
+        dev = c.data.device
+        if len(pat) == 0:
+            return _string_column(_widen(c.data, out_ml),
+                                  c.lengths.clamp(max=out_ml),
+                                  c.validity, out_ml)
+        m = _window_match(c.data, c.lengths, pat)
+        k = len(pat)
+        # greedy left-to-right non-overlapping matches: a match at s is
+        # real iff no real match before it covers s (the JAX lax.scan)
+        blocked = torch.zeros(n, dtype=torch.int32, device=dev)
+        reals = []
+        for s in range(ml):
+            real_s = m[:, s] & (blocked <= s)
+            blocked = torch.where(real_s, torch.full_like(blocked, s + k),
+                                  blocked)
+            reals.append(real_s)
+        real = torch.stack(reals, dim=1) if reals else m
+        ri = real.to(torch.int32)
+        # bytes covered by a real match (its start included)
+        cover = ri.cumsum(dim=1, dtype=torch.int32) - \
+            F.pad(ri, (k, 0))[:, :ml].cumsum(dim=1, dtype=torch.int32)
+        inside = cover > 0
+        in_str = _in_str(c)
+        emit_copy = in_str & ~inside
+        # each input byte emits itself, or (a real start) the replacement
+        unit = emit_copy.to(torch.int32) + ri * len(rep)
+        upto = unit.cumsum(dim=1, dtype=torch.int32)
+        offs = upto - unit
+        total = upto[:, -1] if ml else torch.zeros(n, dtype=torch.int32,
+                                                   device=dev)
+        out_len = total.clamp(max=out_ml)
+        # output byte t comes from the first input byte whose emitted run
+        # passes t: itself, or byte t - offs of the replacement
+        t = torch.arange(out_ml, device=dev).to(torch.int32)[None, :] \
+            .expand(n, out_ml).contiguous()
+        src = torch.searchsorted(upto, t, right=True).clamp(max=ml - 1)
+        from_rep = real.gather(1, src)
+        copied = c.data.gather(1, src)
+        rep_row = _device_row(rep, max(len(rep), 1), dev)
+        rep_ix = (t - offs.gather(1, src)).clamp(0, max(len(rep) - 1, 0))
+        rep_byte = rep_row[rep_ix.long()]
+        out = torch.where(from_rep, rep_byte, copied)
+        return _string_column(out, out_len, c.validity, out_ml)
+
+
+# ---------------------------------------------------------------------------
+# Translate
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class Translate(Expression):
+    """translate(str, from, to): per-byte substitution through one
+    256-entry lookup table built at bind time; bytes mapped to "delete"
+    (from chars beyond len(to)) are compacted out. ASCII from/to only: a
+    non-ASCII mapping needs char-level re-encoding, so the planner sends it
+    to the CPU."""
+
+    child: Expression = None
+    from_str: str = ""
+    to_str: str = ""
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return Translate(c[0], self.from_str, self.to_str)
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def device_unsupported_reason(self):
+        try:
+            self.from_str.encode("ascii")
+            self.to_str.encode("ascii")
+        except UnicodeEncodeError:
+            return "translate: non-ASCII mapping needs char re-encoding"
+        return None
+
+    def _tables(self):
+        table = np.arange(256, dtype=np.uint8)
+        delete = np.zeros(256, bool)
+        seen = set()
+        for i, ch in enumerate(self.from_str):
+            b = ord(ch)
+            if b in seen:       # Spark: the first occurrence wins
+                continue
+            seen.add(b)
+            if i < len(self.to_str):
+                table[b] = ord(self.to_str[i])
+            else:
+                delete[b] = True
+        return table, delete
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        dev = c.data.device
+        table, delete = self._tables()
+        ix = c.data.long()
+        mapped = _table(table, dev)[ix]
+        keep = _in_str(c) & ~_table(delete, dev)[ix]
+        out, lengths = _compact_bytes(mapped, keep)
+        return _string_column(out, lengths, c.validity, c.dtype.max_len)
+
+
+# ---------------------------------------------------------------------------
+# Codepoint decode / encode (UTF-8 bytes <-> int32 codepoint matrices)
+# ---------------------------------------------------------------------------
+
+def _decode_cp(b0, b1, b2, b3):
+    """UTF-8 unit bytes (int32) -> codepoint (every decode site's)."""
+    return torch.where(
+        b0 < 0x80, b0,
+        torch.where(b0 < 0xE0, ((b0 & 0x1F) << 6) | (b1 & 0x3F),
+                    torch.where(b0 < 0xF0,
+                                ((b0 & 0x0F) << 12) | ((b1 & 0x3F) << 6)
+                                | (b2 & 0x3F),
+                                ((b0 & 0x07) << 18) | ((b1 & 0x3F) << 12)
+                                | ((b2 & 0x3F) << 6) | (b3 & 0x3F))))
+
+
+def _codepoints(col: DeviceColumn) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(codepoints [n, ml] int32 left-packed, char counts [n]). Slots past
+    a row's character count are 0."""
+    n, ml = col.data.shape
+    dev = col.data.device
+    lead = _is_lead(col.data) & _in_str(col)
+    starts, nchars = _compact_index(lead)       # each char's first byte
+
+    def byte_at(off):
+        at = starts + off
+        b = col.data.gather(1, at.clamp(0, ml - 1)).to(torch.int32)
+        return torch.where(at < col.lengths[:, None], b,
+                           torch.zeros_like(b))
+
+    cp = _decode_cp(byte_at(0), byte_at(1), byte_at(2), byte_at(3))
+    live = torch.arange(ml, device=dev)[None, :] < nchars[:, None]
+    return torch.where(live, cp, torch.zeros_like(cp)), nchars
+
+
+def _encode_utf8(cps: torch.Tensor, counts: torch.Tensor, out_ml: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode left-packed codepoints back to a padded UTF-8 byte matrix;
+    returns (bytes [n, out_ml], byte lengths [n])."""
+    n, ml = cps.shape
+    dev = cps.device
+    live = torch.arange(ml, device=dev)[None, :] < counts[:, None]
+    one = torch.ones_like(cps)
+    ulen = torch.where(cps < 0x80, one,
+                       torch.where(cps < 0x800, one * 2,
+                                   torch.where(cps < 0x10000, one * 3,
+                                               one * 4)))
+    ulen = torch.where(live, ulen, torch.zeros_like(ulen))
+    upto = ulen.cumsum(dim=1, dtype=torch.int32)
+    offs = upto - ulen                           # exclusive prefix
+    lengths = upto[:, -1]
+    # output byte t belongs to the char whose run of bytes passes t
+    t = torch.arange(out_ml, device=dev).to(torch.int32)[None, :] \
+        .expand(n, out_ml).contiguous()
+    ch = torch.searchsorted(upto, t, right=True).clamp(max=ml - 1)
+    cp = cps.gather(1, ch)
+    k = t - offs.gather(1, ch)
+    u = ulen.gather(1, ch)
+    cont = 0x80 | ((cp >> (6 * (u - 1 - k).clamp(min=0))) & 0x3F)
+    lead_mark = torch.where(u == 2, one[:, :1] * 0xC0,
+                            torch.where(u == 3, one[:, :1] * 0xE0,
+                                        one[:, :1] * 0xF0))
+    lead = torch.where(u == 1, cp, lead_mark | (cp >> (6 * (u - 1))))
+    out = torch.where(k == 0, lead, cont).to(torch.uint8)
+    return out, lengths
+
+
+@dataclass(frozen=True, eq=False)
+class Reverse(Expression):
+    """reverse(str): CODEPOINT order reversed (Spark reverse)."""
+
+    child: Expression
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return Reverse(c[0])
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        ml = c.data.shape[1]
+        cps, nchars = _codepoints(c)
+        pos = torch.arange(ml, device=c.data.device)[None, :]
+        src = (nchars[:, None] - 1 - pos).clamp(0, ml - 1)
+        rev = torch.where(pos < nchars[:, None], cps.gather(1, src),
+                          torch.zeros_like(cps))
+        data, lengths = _encode_utf8(rev, nchars, ml)
+        return _string_column(data, lengths, c.validity, c.dtype.max_len)
+
+
+@dataclass(frozen=True, eq=False)
+class Ascii(Expression):
+    """ascii(str): codepoint of the first character; 0 for empty."""
+
+    child: Expression
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return Ascii(c[0])
+
+    @property
+    def dtype(self):
+        return T.INT32
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        # the first character starts at byte 0: decode its (up to 4) bytes
+        ml = c.data.shape[1]
+        zero = torch.zeros(c.capacity, dtype=torch.int32,
+                           device=c.data.device)
+
+        def byte_at(k):
+            if k >= ml:
+                return zero
+            return torch.where(k < c.lengths, c.data[:, k].to(torch.int32),
+                               zero)
+
+        cp = _decode_cp(byte_at(0), byte_at(1), byte_at(2), byte_at(3))
+        # Spark's Ascii is charAt(0): the first UTF-16 CODE UNIT, the high
+        # surrogate for a supplementary-plane character
+        cp = torch.where(cp > 0xFFFF, 0xD800 + ((cp - 0x10000) >> 10), cp)
+        first = torch.where(c.lengths > 0, cp, zero)
+        return numeric_column(first, c.validity, T.INT32)
+
+
+@dataclass(frozen=True, eq=False)
+class Chr(Expression):
+    """chr(n): character with codepoint n % 256; negative n -> empty
+    (Spark chr semantics; 128-255 encode as two UTF-8 bytes)."""
+
+    child: Expression
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return Chr(c[0])
+
+    @property
+    def dtype(self):
+        return T.string(2)
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        v = c.data.to(torch.int64)
+        cp = torch.where(v < 0, torch.full_like(v, -1),
+                         torch.remainder(v, 256)).to(torch.int32)
+        counts = (cp >= 0).to(torch.int32)
+        data, lengths = _encode_utf8(cp.clamp(min=0)[:, None], counts, 2)
+        return _string_column(data, lengths, c.validity, 2)
+
+
+# ---------------------------------------------------------------------------
+# Levenshtein, Soundex
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class Levenshtein(Expression):
+    """levenshtein(a, b): edit distance over CODEPOINTS.
+
+    One loop step per DP row; the insertion chain inside a row, normally a
+    sequential scan over j, is a prefix-min of (cand[j] - j) (min-plus
+    algebra): ``torch.cummin``."""
+
+    left: Expression
+    right: Expression
+
+    @property
+    def children(self):
+        return (self.left, self.right)
+
+    def with_children(self, c):
+        return Levenshtein(c[0], c[1])
+
+    @property
+    def dtype(self):
+        return T.INT32
+
+    def eval(self, batch, ctx=EvalContext()):
+        a = self.left.eval(batch, ctx)
+        b = self.right.eval(batch, ctx)
+        cpa, la = _codepoints(a)
+        cpb, lb = _codepoints(b)
+        n, mla = cpa.shape
+        mlb = cpb.shape[1]
+        dev = cpa.device
+        jpos = torch.arange(mlb + 1, device=dev).to(torch.int32)[None, :]
+        row = jpos.expand(n, mlb + 1)
+        ans = row               # rows with la == 0
+        for i in range(mla):
+            cost = (cpb != cpa[:, i:i + 1]).to(torch.int32)
+            delete = row[:, 1:] + 1
+            sub = row[:, :-1] + cost
+            cand = torch.cat([torch.full((n, 1), i + 1, dtype=torch.int32,
+                                         device=dev),
+                              torch.minimum(delete, sub)], dim=1)
+            # insertion chain new[j] = min_k<=j cand[k] + (j - k)
+            row = torch.cummin(cand - jpos, dim=1).values + jpos
+            ans = torch.where((la == i + 1)[:, None], row, ans)
+        out = ans.gather(1, lb.clamp(0, mlb)[:, None].long())[:, 0]
+        return numeric_column(out, a.validity & b.validity, T.INT32)
+
+
+_SOUNDEX_CODE = np.zeros(128, np.int32)
+for _letters, _code in (("BFPV", 1), ("CGJKQSXZ", 2), ("DT", 3), ("L", 4),
+                        ("MN", 5), ("R", 6), ("HW", 7)):
+    for _ch in _letters:
+        _SOUNDEX_CODE[ord(_ch)] = _code
+
+
+@dataclass(frozen=True, eq=False)
+class Soundex(Expression):
+    """soundex(str): first letter + 3 digits (Spark's UTF8String.soundex:
+    H/W do not separate duplicate codes, vowels and non-letters do; a
+    non-letter first character returns the input unchanged)."""
+
+    child: Expression
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return Soundex(c[0])
+
+    @property
+    def dtype(self):
+        return T.string(max(self.child.dtype.max_len, 4))
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        n, ml = c.data.shape
+        dev = c.data.device
+        in_str = _in_str(c)
+        d = c.data.to(torch.int32)
+        up = torch.where((d >= ord("a")) & (d <= ord("z")), d - 32, d)
+        is_letter = (up >= ord("A")) & (up <= ord("Z")) & in_str
+        table = _table(_SOUNDEX_CODE, dev)
+        codes = torch.where(is_letter, table[up.clamp(0, 127).long()],
+                            torch.full_like(up, -1))
+        first = up[:, 0]
+        first_is_letter = is_letter[:, 0]
+        none = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        emitted = torch.zeros(n, dtype=torch.int32, device=dev)
+        last = torch.where(first_is_letter, codes[:, 0], none)
+        digits = torch.zeros((n, 3), dtype=torch.int32, device=dev)
+        for i in range(1, ml):
+            code = codes[:, i]
+            is_l = is_letter[:, i]
+            digit = is_l & (code >= 1) & (code <= 6)
+            emit = digit & (code != last) & (emitted < 3)
+            slot = emitted.clamp(0, 2)[:, None].long()
+            digits = digits.scatter(
+                1, slot, torch.where(emit, code,
+                                     digits.gather(1, slot)[:, 0])[:, None])
+            emitted = emitted + emit.to(torch.int32)
+            # vowels and non-letters inside the string reset the duplicate
+            # tracker; H/W (7) keep it; consonants set it
+            reset = (is_l & (code == 0)) | (in_str[:, i] & ~is_l)
+            last = torch.where(digit, code, torch.where(reset, none, last))
+        out_ml = self.dtype.max_len
+        k = torch.arange(3, device=dev)[None, :]
+        shown = torch.where(k < emitted[:, None], digits,
+                            torch.zeros_like(digits)) + ord("0")
+        sx = torch.cat([first[:, None], shown], dim=1).to(torch.uint8)
+        sx = _widen(sx, out_ml)
+        # a non-letter first char: the input passes through unchanged
+        orig = _widen(c.data, out_ml)
+        data = torch.where(first_is_letter[:, None], sx, orig)
+        lengths = torch.where(first_is_letter, torch.full_like(c.lengths, 4),
+                              c.lengths)
+        return _string_column(data, lengths, c.validity, out_ml)
+
+
+# ---------------------------------------------------------------------------
+# SubstringIndex
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class SubstringIndex(Expression):
+    """substring_index(str, delim, count): prefix before the count-th
+    delimiter (count < 0: the suffix after the |count|-th from the right).
+    Literal delimiter and count (reference: GpuSubstringIndex, the same
+    restriction). Occurrences are the window matches, so a delimiter that
+    overlaps itself ('aa' in 'aaa') counts each start, as in the JAX
+    package (ROADMAP Queue 3 records it against Spark)."""
+
+    child: Expression
+    delim: Expression
+    count: Expression
+
+    @property
+    def children(self):
+        return (self.child, self.delim, self.count)
+
+    def with_children(self, c):
+        return SubstringIndex(c[0], c[1], c[2])
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def device_unsupported_reason(self):
+        if not (isinstance(self.delim, Literal)
+                and isinstance(self.count, Literal)):
+            return "substring_index delimiter/count must be literals"
+        return None
+
+    def _parts(self):
+        if not (isinstance(self.delim, Literal)
+                and isinstance(self.count, Literal)):
+            raise TypeError("substring_index delimiter/count must be "
+                            "literals")
+        return str(self.delim.value).encode("utf-8"), int(self.count.value)
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        delim, cnt = self._parts()
+        ml = c.data.shape[1]
+        if cnt == 0 or not delim:
+            return _string_column(torch.zeros_like(c.data),
+                                  torch.zeros_like(c.lengths), c.validity,
+                                  ml)
+        m = _window_match(c.data, c.lengths, delim)
+        occ = m.to(torch.int32).cumsum(dim=1, dtype=torch.int32)
+        total = occ[:, -1]
+        k = len(delim)
+        idx = torch.arange(ml, device=c.data.device)[None, :]
+        if cnt > 0:
+            # end = start of the cnt-th occurrence (whole string if fewer)
+            hit = m & (occ == cnt)
+            pos = torch.where(hit.any(dim=1),
+                              _first_true(hit).to(torch.int32), c.lengths)
+            data = torch.where(idx < pos[:, None], c.data,
+                               torch.zeros_like(c.data))
+            return _string_column(data, pos, c.validity, ml)
+        # negative: start after the (total + cnt + 1)-th occurrence's end
+        want = total + cnt
+        hit = m & (occ == want.clamp(min=0)[:, None] + 1)
+        has = (want >= 0) & hit.any(dim=1)
+        start = torch.where(has, _first_true(hit).to(torch.int32) + k,
+                            torch.zeros_like(want))
+        new_len = (c.lengths - start).clamp(min=0)
+        # shift left by start (a per-row roll as a gather)
+        data = c.data.gather(1, (idx + start[:, None]).clamp(0, ml - 1))
+        data = torch.where(idx < new_len[:, None], data,
+                           torch.zeros_like(data))
+        return _string_column(data, new_len, c.validity, ml)
+
+
+# ---------------------------------------------------------------------------
+# Helpers
+# ---------------------------------------------------------------------------
+
+def upper(e):
+    return Upper(e)
+
+
+def lower(e):
+    return Lower(e)
+
+
+def length(e):
+    return Length(e)
+
+
+def substring(e, pos, ln=None):
+    return Substring(e, lit_if_needed(pos),
+                     lit_if_needed(ln) if ln is not None else None)
+
+
+def concat(*es):
+    return Concat(tuple(es))
 
 
 def contains(e, pat):

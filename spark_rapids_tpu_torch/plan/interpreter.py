@@ -43,6 +43,7 @@ from __future__ import annotations
 import datetime as _dt
 import decimal as _dec
 import math
+import re
 import struct
 from typing import Any, Dict, List
 
@@ -63,6 +64,12 @@ _INT_BITS = {TypeKind.INT8: 8, TypeKind.INT16: 16, TypeKind.INT32: 32,
 
 _EPOCH = _dt.date(1970, 1, 1)
 _EPOCH_TS = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
+
+
+#: Soundex's digit of each letter (Spark's UTF8String.soundex)
+_SOUNDEX_CODES = {ch: code for letters, code in (
+    ("BFPV", "1"), ("CGJKQSXZ", "2"), ("DT", "3"), ("L", "4"), ("MN", "5"),
+    ("R", "6"), ("HW", "7")) for ch in letters}
 
 
 def _later(what: str) -> NotImplementedError:
@@ -555,7 +562,7 @@ class RowEvaluator:
     def _eval_Cast(self, e, row):
         return self.eval(e.child, row)
 
-    # ---- strings ----
+    # ---- strings (independent str-based implementations) ----
     def _eval_StringPredicate(self, e, row):
         v = self.eval(e.child, row)
         p = self.eval(e.pattern, row)
@@ -566,6 +573,206 @@ class RowEvaluator:
         if e.op == "startswith":
             return v.startswith(p)
         return v.endswith(p)
+
+    def _eval_Length(self, e, row):
+        v = self.eval(e.children[0], row)
+        return None if v is None else len(v)
+
+    def _eval_OctetLength(self, e, row):
+        s = self.eval(e.children[0], row)
+        if s is None:
+            return None
+        nbytes = len(s.encode("utf-8"))
+        return nbytes * 8 if e.bits else nbytes
+
+    @staticmethod
+    def _simple_case(v, upper: bool):
+        """The device contract: simple single-char mapping where the
+        counterpart stays in the same UTF-8 byte-length class (1/2/3
+        bytes); everything else passes through."""
+        out = []
+        for ch in v:
+            m = ch.upper() if upper else ch.lower()
+            if len(m) == 1:
+                c, r = ord(ch), ord(m)
+                same = any(lo <= c < hi and lo <= r < hi for lo, hi in
+                           ((0, 0x80), (0x80, 0x800), (0x800, 0x10000)))
+                out.append(m if same else ch)
+            else:
+                out.append(ch)
+        return "".join(out)
+
+    def _eval_Upper(self, e, row):
+        v = self.eval(e.children[0], row)
+        return None if v is None else self._simple_case(v, True)
+
+    def _eval_Lower(self, e, row):
+        v = self.eval(e.children[0], row)
+        return None if v is None else self._simple_case(v, False)
+
+    def _eval_Substring(self, e, row):
+        v = self.eval(e.child, row)
+        p = self.eval(e.pos, row)
+        ln = self.eval(e.length, row) if e.length is not None else None
+        if v is None or p is None or (e.length is not None and ln is None):
+            return None
+        n = len(v)
+        if p > 0:
+            start = p - 1
+        elif p < 0:
+            start = max(n + p, 0) if n + p >= 0 else n
+        else:
+            start = 0
+        want = ln if ln is not None else n
+        return v[start: start + max(want, 0)]
+
+    def _eval_Concat(self, e, row):
+        parts = [self.eval(c, row) for c in e.children]
+        if any(p is None for p in parts):
+            return None
+        return "".join(parts)
+
+    def _eval_StringLocate(self, e, row):
+        v = self.eval(e.child, row)
+        p = self.eval(e.pattern, row)
+        if v is None or p is None:
+            return None
+        return v.find(p) + 1
+
+    def _eval_StringTrim(self, e, row):
+        v = self.eval(e.children[0], row)
+        if v is None:
+            return None
+        if e.side == "leading":
+            return v.lstrip(" ")
+        if e.side == "trailing":
+            return v.rstrip(" ")
+        return v.strip(" ")
+
+    def _eval_StringPad(self, e, row):
+        v = self.eval(e.child, row)
+        t = self.eval(e.target_len, row)
+        p = self.eval(e.pad, row)
+        if v is None or t is None or p is None:
+            return None
+        t = max(t, 0)
+        if len(v) >= t or not p:
+            return v[:t] if len(v) > t else v
+        fill = (p * t)[: t - len(v)]
+        return fill + v if e.left else v + fill
+
+    def _eval_StringRepeat(self, e, row):
+        v = self.eval(e.child, row)
+        t = self.eval(e.times, row)
+        if v is None or t is None:
+            return None
+        return v * max(t, 0)
+
+    def _eval_StringReplace(self, e, row):
+        v = self.eval(e.child, row)
+        s = self.eval(e.search, row)
+        r = self.eval(e.replacement, row)
+        if v is None or s is None or r is None:
+            return None
+        return v.replace(s, r) if s else v
+
+    def _eval_Translate(self, e, row):
+        s = self.eval(e.child, row)
+        if s is None:
+            return None
+        mapping = {}
+        for i, ch in enumerate(e.from_str):
+            if ch in mapping:
+                continue        # the first occurrence wins (Spark)
+            mapping[ch] = e.to_str[i] if i < len(e.to_str) else None
+        return "".join(mapping.get(ch, ch) for ch in s
+                       if mapping.get(ch, ch) is not None)
+
+    def _eval_Reverse(self, e, row):
+        s = self.eval(e.children[0], row)
+        return None if s is None else s[::-1]
+
+    def _eval_Ascii(self, e, row):
+        s = self.eval(e.children[0], row)
+        if s is None:
+            return None
+        if not s:
+            return 0
+        cp = ord(s[0])
+        if cp > 0xFFFF:     # Spark: the first UTF-16 code unit (surrogate)
+            return 0xD800 + ((cp - 0x10000) >> 10)
+        return cp
+
+    def _eval_Chr(self, e, row):
+        n = self.eval(e.children[0], row)
+        if n is None:
+            return None
+        return "" if n < 0 else chr(int(n) % 256)
+
+    def _eval_Levenshtein(self, e, row):
+        a = self.eval(e.children[0], row)
+        b = self.eval(e.children[1], row)
+        if a is None or b is None:
+            return None
+        prev = list(range(len(b) + 1))
+        for i, ca in enumerate(a):
+            cur = [i + 1]
+            for j, cb in enumerate(b):
+                cur.append(min(prev[j + 1] + 1, cur[j] + 1,
+                               prev[j] + (ca != cb)))
+            prev = cur
+        return prev[len(b)]
+
+    def _eval_Soundex(self, e, row):
+        s = self.eval(e.children[0], row)
+        if s is None:
+            return None
+        if not s or not s[0].isascii() or not s[0].isalpha():
+            return s
+        out = s[0].upper()
+        last = _SOUNDEX_CODES.get(out, "0")
+        digits = []
+        for ch in s[1:]:
+            u = ch.upper()
+            if not ("A" <= u <= "Z"):
+                last = "-"      # non-letters reset the duplicate tracker
+                continue
+            code = _SOUNDEX_CODES.get(u, "0")
+            if code in "123456" and code != last:
+                digits.append(code)
+                if len(digits) == 3:
+                    break
+            if code in "123456":
+                last = code
+            elif code == "0":       # vowels reset; H/W (7) keep last
+                last = "-"
+        return out + "".join(digits).ljust(3, "0")
+
+    def _eval_SubstringIndex(self, e, row):
+        v = self.eval(e.child, row)
+        d = self.eval(e.delim, row)
+        c = self.eval(e.count, row)
+        if v is None or d is None or c is None:
+            return None
+        if c == 0 or not d:
+            return ""
+        parts = v.split(d)
+        if c > 0:
+            return d.join(parts[:c]) if len(parts) > c else v
+        return d.join(parts[c:]) if len(parts) > -c else v
+
+    def _eval_RLike(self, e, row):
+        v = self.eval(e.children[0], row)
+        if v is None:
+            return None
+        return re.search(e.pattern, v) is not None
+
+    def _eval_Like(self, e, row):
+        from ..expressions.regex import like_to_regex
+        v = self.eval(e.children[0], row)
+        if v is None:
+            return None
+        return re.search(like_to_regex(e.pattern), v, re.DOTALL) is not None
 
     # ---- hashes ----
     def _hash_row(self, e, row, int_fn, long_fn, bytes_fn, to_signed):

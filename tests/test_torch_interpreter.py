@@ -516,7 +516,7 @@ def test_unported_expression_raises_naming_item_7():
     from spark_rapids_tpu_torch.expressions.base import Expression
 
     @dataclass(frozen=True, eq=False)
-    class Upper(Expression):
+    class InitCap(Expression):
         child: Expression
 
         @property
@@ -524,7 +524,7 @@ def test_unported_expression_raises_naming_item_7():
             return (self.child,)
 
         def with_children(self, c):
-            return Upper(c[0])
+            return InitCap(c[0])
 
         @property
         def dtype(self):
@@ -540,8 +540,8 @@ def test_unported_expression_raises_naming_item_7():
             return self.children[0].schema()
 
     t = PORT.table(D)
-    with pytest.raises(NotImplementedError, match="Upper.*ROADMAP item 7"):
-        I.Interpreter().execute(t.select(Upper(PORT.col("w")).alias("u"))
+    with pytest.raises(NotImplementedError, match="InitCap.*ROADMAP item 7"):
+        I.Interpreter().execute(t.select(InitCap(PORT.col("w")).alias("u"))
                                 .plan)
     with pytest.raises(NotImplementedError,
                        match="CollectList.*ROADMAP item 7"):
@@ -557,4 +557,4 @@ def test_row_evaluator_dispatch_is_the_jax_ones():
     port = {n for n in dir(I.RowEvaluator) if n.startswith("_eval_")}
     jax = {n for n in dir(JRowEvaluator) if n.startswith("_eval_")}
     assert port <= jax
-    assert len(port) == 32
+    assert len(port) == 52

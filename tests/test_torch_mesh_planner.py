@@ -2,16 +2,17 @@
 cases of ``test_mesh_planner.py`` through
 ``Session({"spark.rapids.tpu.shuffle.mode": "ICI"}, device="cpu")`` and
 the JAX Session under the same conf, 8 shards on each side (the port's
-all on the CPU, the JAX package's on its 8 virtual CPU devices). Each
-case's rows must equal the JAX Session's (floats within rel 1e-6) and its
-lowering decision too: the same ``MeshStageExec.lowered`` list, or the
-host path in both.
+all on the CPU, the JAX package's planned over its 8 virtual CPU
+devices). Each case's rows must equal the JAX Session's (floats within
+rel 1e-6) and its lowering decision too: the same
+``MeshStageExec.lowered`` list, or the host path in both.
 
 Besides: the join -> aggregate -> sort chain under AQE off, lowered in
 both with four exchanges, and TPC-H Q1 at SF 0.01 lowered whole under
-``entry.session_conf`` (the JAX ICI Session plans it; its rows come from
-the JAX host path, see the case). Each JAX Session runs once per case: a
-JAX ICI collect compiles its program, for seconds."""
+``entry.session_conf``. In every case the JAX ICI Session plans and
+lowers the query (``prepare``) and the JAX rows come from the JAX host
+path under the same conf: no JAX ICI program is collected here (see
+``both``)."""
 
 import pyarrow as pa
 
@@ -79,12 +80,26 @@ def assert_sorted_equal(got, want, keys):
     assert_rows_equal(g, w, ignore_order=True)
 
 
+def host_conf(conf):
+    """``conf`` with the host exchanges (``shuffle.mode=DEFAULT``)."""
+    host = dict(conf)
+    host["spark.rapids.tpu.shuffle.mode"] = "DEFAULT"
+    return host
+
+
 def both(make, conf, mesh: bool, sort_keys=None):
     """``make(api)`` through the JAX ICI Session and the port's under
     ``conf``: equal rows, and the same lowered list (``mesh``) or the host
-    path in both. Returns (port Session, JAX Session)."""
+    path in both. Returns (port Session, JAX Session).
+
+    The JAX ICI Session plans and lowers (``prepare``); its rows come from
+    the JAX Session under the same conf on the host exchanges, as in the
+    Q1 case below: a JAX ICI collect on 8 virtual CPU devices can stall in
+    XLA's CPU collective rendezvous when other processes load the host
+    (pytest-xdist workers), and abort its worker."""
     jses = JSession(conf)
-    want = jses.collect(make(JAX))
+    jses.prepare(make(JAX))
+    want = JSession(host_conf(conf)).collect(make(JAX))
     ses = Session(conf, device="cpu")
     got = ses.collect(make(PORT))
     assert lowered(ses) == lowered(jses)
@@ -242,9 +257,7 @@ def test_q1_lowers_whole_onto_the_mesh():
     conf = entry.session_conf(8, **ICI)
     jses = JSession(conf)
     jses.prepare(_jax_q1(t, 8))
-    host = dict(conf)
-    host["spark.rapids.tpu.shuffle.mode"] = "DEFAULT"
-    want = JSession(host).collect(_jax_q1(t, 8))
+    want = JSession(host_conf(conf)).collect(_jax_q1(t, 8))
     ses = Session(conf, device="cpu")
     got = ses.collect(entry.q1_df(t, 8))
     assert isinstance(ses.last_plan, MeshStageExec)
