@@ -55,6 +55,24 @@ StringReplace and SubstringIndex over the SF100 P_TYPE column in 8
 slices against pyarrow, each ``window_match`` launch held against its
 plain version on the same inputs (24: k = 8, 5 and 1).
 
+Then the scalar slice. TPC-H Q14 at SF10 (``entry.q14_df``: September
+1995's lines by ``add_months``, the join with 2,000,000 part rows, a CASE
+WHEN over ``startswith(p_type, 'PROMO')`` in a global sum) and TPC-H Q9 at
+SF10 (``entry.q9_df``: the green part filter, five joins, the partsupp one
+on two keys, ``year(o_orderdate)``, profit summed by nation and year)
+through the port's Session, each equal to its pyarrow reference (floats
+within rel 1e-6), nothing fallen back, with cold and warm walls, rows/s,
+peak and idle share, ``window_match`` (k = 5) held against its plain
+version at every launch of one run, and murmur3 at Q9's o_year exchange;
+then every expression of ``conditional.py``, ``math.py``, ``cast.py`` and
+``datetime.py`` (107: every math function, cast pair, date part, format,
+level and zone the columns reach) over 2^16 rows of dates, timestamps,
+strings and doubles with NaN, the infinities, -0.0, MIN and MAX and nulls,
+on the card as one fused stage captured in a CUDA graph, against the row
+interpreter (0 rows apart, floats within rel 1e-12) and ``Rand`` against
+the same Session on the CPU, bit for bit; and raise_error failing a query
+on the card and on the interpreter.
+
 Then whole-stage fusion (``exec/fuse.py``): Q2's part filter (one Q2 part
 slice, ``window_match`` at k = 5) and a join on two int32 keys (murmur3)
 each run as a fused stage captured in a CUDA graph and replayed, every run
@@ -77,9 +95,10 @@ must leave no catalog entry); the range exchange plus a partition-local
 sort over 2^24 rows of Q3's lineitem must equal pyarrow's global sort;
 the skew bench's query (``tools/skew_bench.py``) at 67,108,864 fact rows
 and 2,097,152 dim rows runs in its three legs, each equal to pyarrow and
-bit for bit to the others, with its decisions, warm wall, rows/s, peak
-and idle share; and a column of each new kind (int8, int16, float,
-DECIMAL(15,2), timestamp, NULL) at the SF10 lineitem row count is
+bit for bit to the others, with its decisions, the wall of one warm run,
+rows/s and peak, and the idle share of the last leg; and a column of each
+new kind (int8, int16, float, DECIMAL(15,2), timestamp, NULL) at the SF10
+lineitem row count is
 hash-partitioned alone, its partition counts over a 2^22-row prefix equal
 on the card and the CPU, murmur3 launched for the int8, int16 and float
 keys.
@@ -111,7 +130,7 @@ filter alone into an island that reads the card's scan through Arrow and
 uploads its rows back; each equals its oracle (and Q3 the same Session
 without the switch) with the ``fell_back()`` list it must have, murmur3
 held against its plain version at every exchange, and each prints one
-cold and two warm walls, the islands' host time inside
+cold and one warm wall, the islands' host time inside
 ``CpuFallbackExec.interpret`` with their rows in and out, the peak and the
 idle share. Then the port's own differential on the card: q1_stage,
 hash_agg, join_sort, parquet_scan and the Q16 part stage at 2^16 rows,
@@ -160,13 +179,14 @@ rate, Q18's checks (AQE off, then on) with their times, the catalog's
 tiers, spilled bytes, retry metrics, grace buckets and the allocator's
 peak, the skew legs, the types exchange, the out-of-core check, the
 injection run, the checks of Q2 and Q11 with their times, Q16 whole and the
-string phase, the captured kernel checks, the hash_agg, operator,
-new-operator and Q1-stage checks, the join_sort modes and the overflow
-retry, the Parquet write, scans, Q1 and Q16 part stage, each phase's wall
-time, a ``{"kernels": [...]}`` JSON line (the window_match times are at
-Q2's shape; launches count a graph's replays), and last ``{"ok": true,
-"device": ...}``. Any failed phase raises, so the exit code is not 0 and no
-result line is printed. Without CUDA it exits 1 at once."""
+string phase, Q14, Q9 and the scalar phase, the captured kernel checks, the
+hash_agg, operator, new-operator and Q1-stage checks, the join_sort modes
+and the overflow retry, the Parquet write, scans, Q1 and Q16 part stage,
+each phase's wall time, a ``{"kernels": [...]}`` JSON line (the
+window_match times are at Q2's shape; launches count a graph's replays),
+and last ``{"ok": true, "device": ...}``. Any failed phase raises, so the
+exit code is not 0 and no result line is printed. Without CUDA it exits 1
+at once."""
 
 from __future__ import annotations
 
@@ -1706,6 +1726,386 @@ def run_strings_phase(dev, tables) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# TPC-H Q14 and Q9 at SF10, and the scalar expressions, through the Session
+# ---------------------------------------------------------------------------
+
+#: TPC-H Q14 and Q9: scale factor, input slices, shuffle partitions, seed
+#: (the lineitem and orders draws of Q3's seed, with the part keys)
+SCALAR_Q_SF = 10
+SCALAR_Q_SLICES = 8
+SCALAR_Q_PARTITIONS = 8
+SCALAR_Q_SEED = 3
+
+
+def checked_run(run, record):
+    """``run()`` with every ``window_match`` launch held against its plain
+    version on the same inputs (``checked_window_match``)."""
+    from spark_rapids_tpu_torch.expressions import strings as S
+    plain = S.window_match
+    S.window_match = checked_window_match(record)
+    try:
+        return run()
+    finally:
+        S.window_match = plain
+
+
+def report_window_match(what: str, record) -> None:
+    shapes = sorted({(k, n) for k, n, _ in record})
+    bad = sum(r[2] for r in record)
+    print(f"{what}: window_match launched {len(record)} times at (k, rows) "
+          f"{shapes}, each against its plain version: {bad} mismatches")
+    if not record or bad:
+        raise AssertionError(f"{what}: window_match was not launched or "
+                             f"disagrees with its plain version")
+
+
+def run_q14_phase(dev, counted, tables) -> dict:
+    """TPC-H Q14 at SF10 through the port's Session (``entry.q14_df``:
+    September 1995's lines by ``add_months``, the join with part, the
+    CASE WHEN over ``startswith(p_type, 'PROMO')`` in a global sum): its
+    promo_revenue within rel 1e-6 of pyarrow's, nothing fallen back, cold
+    and warm walls, rows/s, peak and idle share; then one run with each
+    ``window_match`` launch (k = 5) held against its plain version."""
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.plan import Session
+    ses = Session(entry.session_conf(SCALAR_Q_PARTITIONS), device=dev)
+
+    def run(t):
+        out = ses.collect(entry.q14_df(*t, SCALAR_Q_SLICES))
+        if ses.fell_back():
+            raise AssertionError(f"q14 fell back: {ses.fell_back()}")
+        return out
+
+    def check(got, expected):
+        (v,) = got.column("promo_revenue").to_pylist()
+        (w,) = expected.column("promo_revenue").to_pylist()
+        rel = abs(v - w) / abs(w)
+        if not rel <= FLOAT_REL_TOL:
+            raise AssertionError(f"Q14 promo_revenue {v!r}, pyarrow {w!r}")
+        return f"; promo_revenue {v!r} against {w!r}, rel err {rel:.3g}"
+
+    t0 = time.perf_counter()
+    expected = entry.q14_reference(*tables)
+    print(f"q14: SF{SCALAR_Q_SF} ({tables[0].num_rows} lineitem, "
+          f"{tables[1].num_rows} part rows), {SCALAR_Q_SLICES} slices, "
+          f"{SCALAR_Q_PARTITIONS} shuffle partitions; pyarrow oracle "
+          f"{time.perf_counter() - t0:.2f} s; rows/s counts lineitem")
+    launches = run_path("q14", lambda: tables, lambda _: expected, run,
+                        check, dev, counted,
+                        rows_of=lambda t: t[0].num_rows)
+    print(f"q14: the Session's operators {ses.executed_exec_names()}")
+    profiled_idle("q14", lambda: run(tables), dev, host=False)
+    record = []
+    check(checked_run(lambda: run(tables), record), expected)
+    report_window_match("q14", record)
+    return launches
+
+
+def run_q9_phase(dev, counted, tables) -> dict:
+    """TPC-H Q9 at SF10 through the port's Session (``entry.q9_df``: the
+    green part filter, five joins, ``year(o_orderdate)``, the sum of
+    profit by nation and year): equal to pyarrow in every group and
+    position (profit within rel 1e-6), nothing fallen back, cold and warm
+    walls, rows/s, peak and idle share; then one run with each
+    ``window_match`` launch (k = 5) held against its plain version, and
+    murmur3 against its plain version at the group-by's exchange (it
+    hashes the int32 o_year)."""
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.plan import Session
+    ses = Session(entry.session_conf(SCALAR_Q_PARTITIONS), device=dev)
+
+    def run(t):
+        out = ses.collect(entry.q9_df(*t, SCALAR_Q_SLICES))
+        if ses.fell_back():
+            raise AssertionError(f"q9 fell back: {ses.fell_back()}")
+        return out
+
+    def check(got, expected):
+        if got.num_rows != expected.num_rows or any(
+                not got.column(k).equals(expected.column(k))
+                for k in entry.Q9_KEYS):
+            raise AssertionError(f"Q9's groups differ from pyarrow:\n"
+                                 f"{got.slice(0, 3)}\n{expected.slice(0, 3)}")
+        g = got.column("sum_profit").to_pylist()
+        w = expected.column("sum_profit").to_pylist()
+        worst = max(abs(a - b) / abs(b) for a, b in zip(g, w))
+        if not worst <= FLOAT_REL_TOL:
+            raise AssertionError(f"Q9 profit max rel err {worst:.3g}")
+        return (f"; all {got.num_rows} groups in order, profit max rel err "
+                f"{worst:.3g}")
+
+    t0 = time.perf_counter()
+    expected = entry.q9_reference(*tables)
+    print(f"q9: SF{SCALAR_Q_SF} ({[t.num_rows for t in tables]} rows of "
+          f"part, supplier, partsupp, lineitem, orders, nation), "
+          f"{SCALAR_Q_SLICES} slices, {SCALAR_Q_PARTITIONS} shuffle "
+          f"partitions; pyarrow oracle {time.perf_counter() - t0:.2f} s; "
+          f"rows/s counts lineitem")
+    launches = run_path("q9", lambda: tables, lambda _: expected, run, check,
+                        dev, counted, rows_of=lambda t: t[3].num_rows)
+    print(f"q9: the Session's operators {ses.executed_exec_names()}")
+    profiled_idle("q9", lambda: run(tables), dev, host=False)
+    record = []
+    check(checked_run(lambda: run(tables), record), expected)
+    report_window_match("q9", record)
+    ses.prepare(entry.q9_df(*tables, SCALAR_Q_SLICES))
+    check_murmur3_at_exchanges("Q9", ses.last_plan, dev)
+    return launches
+
+
+#: rows of the scalar phase's card-against-interpreter check
+SCALAR_ROWS = 1 << 16
+#: float tolerance of the scalar phase: both sides are IEEE libraries
+SCALAR_REL_TOL = 1e-12
+
+
+def scalar_table(n: int):
+    """``n`` rows for the scalar expressions, from a numpy seed: dates
+    (1700-2300, and the days around 1970), timestamps (1901-2099, where
+    the zone tables hold; a microsecond before the epoch among them),
+    strings (integers, dates, timestamps, garbage, empty), doubles with
+    NaN, the infinities, -0.0, 1e300, MIN and MAX of int64, int64 with MIN
+    and MAX, a boolean and an int32, each with nulls."""
+    import datetime as dt
+    import numpy as np
+    import pyarrow as pa
+    rng = np.random.default_rng(47)
+
+    def nulls(frac=0.05):
+        return rng.random(n) < frac
+
+    d0 = (dt.date(1700, 1, 1) - dt.date(1970, 1, 1)).days
+    d1 = (dt.date(2300, 1, 1) - dt.date(1970, 1, 1)).days
+    days = rng.integers(d0, d1, n)
+    days[:6] = [-1, 0, 1, -365, 11016, -25567]
+    us = rng.integers(-2177452800 * 10**6, 4102444800 * 10**6, n)
+    us[:4] = [-1, 0, 1, -31536000 * 10**6 + 500000]
+    specials = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e300, -1e300,
+                         9.223372036854776e18, -9.223372036854776e18, 2.5,
+                         -2.5, 0.5, 1.0, -1.0])
+    x = rng.standard_normal(n) * np.exp(rng.uniform(-5, 12, n))
+    x[:len(specials)] = specials
+    pick = rng.random(n) < 0.05
+    x[pick] = specials[rng.integers(0, len(specials), pick.sum())]
+    y = rng.standard_normal(n) * np.exp(rng.uniform(-3, 3, n))
+    y[rng.random(n) < 0.03] = np.nan
+    i64 = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64,
+                       endpoint=True)
+    i64[:6] = [-2**63, 2**63 - 1, 0, -1, 1, 2**31]
+    small = rng.random(n) < 0.5
+    i64[small] = rng.integers(-100000, 100000, small.sum())
+    words = np.array(["42", "-7", "+013", "  88  ", "12.9", "", "abc", "1 2",
+                      "9223372036854775807", "-9223372036854775808",
+                      "9223372036854775808", ".5", "-", "\t-5\n",
+                      "2024-02-29", "2023-02-29", "1999-1-5", "2024-13-01",
+                      "2020-03-04 05:06:07", "1969-12-31 23:59:59",
+                      "00000000000000000001", "0001-01-01"], dtype=object)
+    strs = words[rng.integers(0, len(words), n)]
+    dated = rng.random(n) < 0.4
+    fmt = (np.datetime64("1970-01-01") + days[dated]).astype(str)
+    strs[dated] = fmt
+    return pa.table({
+        "d": pa.array(days.astype(np.int32), pa.int32(),
+                      mask=nulls()).view(pa.date32()),
+        "t": pa.array(us, pa.int64(), mask=nulls()).view(
+            pa.timestamp("us", tz="UTC")),
+        "s": pa.array(list(strs), pa.string(), mask=nulls()),
+        "w": pa.array(list(words[rng.integers(0, len(words), n)]),
+                      pa.string(), mask=nulls(0.3)),
+        "x": pa.array(x, pa.float64(), mask=nulls()),
+        "y": pa.array(y, pa.float64(), mask=nulls()),
+        "i": pa.array(i64, pa.int64(), mask=nulls()),
+        "b": pa.array(rng.random(n) < 0.5, pa.bool_(), mask=nulls()),
+        "n": pa.array(rng.integers(-1200, 1201, n).astype(np.int32),
+                      pa.int32(), mask=nulls()),
+    })
+
+
+def scalar_exprs():
+    """Every expression of conditional.py, math.py, cast.py and
+    datetime.py (each class, and every function, format and level the
+    scalar_table's columns reach), as (expression, held against): "interp"
+    for the port's row interpreter, "cpu" for the same Session on the
+    CPU, bit for bit (Rand: the interpreter draws another sequence)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expressions import (
+        AddMonths, Atan2, CaseWhen, Cast, Coalesce, FloorCeil, Hypot, If,
+        LastDay, LeastGreatest, Logarithm, NaNvl, Pow, RaiseError, Rand,
+        Round, Signum, UnaryMath, UnixTimestampConv, UTCTimestampConv, col,
+        date_add, date_format, date_sub, date_trunc, datediff, dayofmonth,
+        dayofweek, dayofyear, from_unixtime, hour, lit, minute, month,
+        months_between, next_day, quarter, second, to_date, to_timestamp,
+        trunc, unix_timestamp, weekofyear, year)
+    d, t, s, w, x, y, i, b, n = (col(c) for c in "dtswxyibn")
+    interp = [
+        If(b, x, y), If(x > lit(0.0), i, Cast(n, T.INT64)), If(b, s, w),
+        CaseWhen(((x > lit(1.0), x), (x < lit(-1.0), y)), lit(0.0)),
+        CaseWhen(((b, s),), None), Coalesce((x, y, lit(0.0))),
+        Coalesce((s, w)), LeastGreatest((x, y)),
+        LeastGreatest((x, y), True), LeastGreatest((d, date_add(d, n))),
+        LeastGreatest((i, Cast(n, T.INT64)), True),
+        *[UnaryMath(x, f) for f in (
+            "sqrt", "exp", "expm1", "sin", "cos", "tan", "asin", "acos",
+            "atan", "sinh", "cosh", "tanh", "asinh", "acosh", "atanh",
+            "cbrt", "rint", "degrees", "radians", "cot", "sec", "csc", "log",
+            "log10", "log2", "log1p")],
+        Pow(x, y), Atan2(x, y), Hypot(x, y), Logarithm(y, x), NaNvl(x, y),
+        FloorCeil(x), FloorCeil(x, True), FloorCeil(i), Round(x, 2),
+        Round(x, 0, True), Round(x, -2), Round(n, -1), Signum(x),
+        RaiseError(lit(None, T.string(8))),
+        Cast(x, T.INT64), Cast(x, T.INT32), Cast(x, T.INT8),
+        Cast(i, T.INT32), Cast(i, T.INT8), Cast(i, T.INT16),
+        Cast(x, T.FLOAT32), Cast(i, T.FLOAT64), Cast(x, T.BOOLEAN),
+        Cast(t, T.DATE), Cast(d, T.TIMESTAMP), Cast(t, T.INT64),
+        Cast(n, T.TIMESTAMP), Cast(s, T.INT64), Cast(s, T.INT32),
+        Cast(s, T.DATE), Cast(i, T.string(20)), Cast(d, T.string(10)),
+        Cast(n, T.decimal(10, 2)),
+        year(d), month(t), dayofmonth(d), quarter(d), dayofweek(t),
+        dayofyear(d), weekofyear(d), hour(t), minute(t), second(t),
+        date_add(d, n), date_sub(d, 30), datediff(d, date_add(d, n)),
+        AddMonths(d, n), LastDay(d), UnixTimestampConv(t),
+        UnixTimestampConv(d), UnixTimestampConv(n, to_unix=False),
+        date_format(t, "yyyy-MM-dd HH:mm:ss.SSS"),
+        date_format(d, "dd/MM/yyyy"), to_date(s),
+        to_timestamp(s, "yyyy-MM-dd HH:mm:ss"), unix_timestamp(s),
+        from_unixtime(UnixTimestampConv(t)), trunc(d, "quarter"),
+        trunc(d, "week"), date_trunc("hour", t), date_trunc("month", t),
+        months_between(t, d), months_between(d, AddMonths(d, n)),
+        next_day(d, "tu"), next_day(t, "sunday"),
+        UTCTimestampConv(t, "America/Los_Angeles"),
+        UTCTimestampConv(t, "Europe/Berlin", to_utc=True),
+        UTCTimestampConv(t, "Asia/Kolkata"),
+    ]
+    return [(e, "interp") for e in interp] + [(Rand(seed=17), "cpu"),
+                                              (Rand(seed=2**31 + 3), "cpu")]
+
+
+def float_rows_apart(a, b, rel: float) -> int:
+    """Positions where two columns of one type differ: nulls equal nulls,
+    NaN equals NaN, floats within ``rel`` (``math.isclose``), everything
+    else exact; dates and timestamps compare as their stored integers.
+    Vectorized: no value becomes a Python object (a zoned timestamp's
+    conversion costs a module search a value on some hosts)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    a, b = a.combine_chunks(), b.combine_chunks()
+    t = a.type
+    if pa.types.is_timestamp(t):
+        a, b = a.cast(pa.int64()), b.cast(pa.int64())
+    elif pa.types.is_date32(t):
+        a, b = a.cast(pa.int32()), b.cast(pa.int32())
+    na = np.asarray(a.is_null())
+    nb = np.asarray(b.is_null())
+    both = ~na & ~nb
+    bad = int((na != nb).sum())
+    if pa.types.is_null(a.type) or not both.any():
+        return bad
+    if pa.types.is_floating(a.type):
+        u = np.asarray(a.fill_null(0.0), dtype=np.float64)[both]
+        v = np.asarray(b.fill_null(0.0), dtype=np.float64)[both]
+        with np.errstate(invalid="ignore"):
+            same = (u == v) | (np.isnan(u) & np.isnan(v)) | (
+                np.isfinite(u) & np.isfinite(v) &
+                (np.abs(u - v) <= np.maximum(
+                    rel * np.maximum(np.abs(u), np.abs(v)), 1e-300)))
+        return bad + int((~same).sum())
+    eq = np.asarray(pc.fill_null(pc.equal(a, b), False))
+    return bad + int((~eq & both).sum())
+
+
+def run_scalar_phase(dev) -> dict:
+    """Every expression of the scalar slice (``scalar_exprs``) over
+    ``SCALAR_ROWS`` rows of ``scalar_table`` on the card through the
+    Session, as one fused stage captured in a CUDA graph, against the
+    port's row interpreter (0 rows apart, floats within rel 1e-12), Rand
+    against the same Session on the CPU bit for bit; and raise_error
+    raising on the card and on the interpreter for a row that evaluates
+    it."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.exec import FusedStageExec
+    from spark_rapids_tpu_torch.expressions import RaiseError, col
+    from spark_rapids_tpu_torch.plan import Session
+    conf = {"spark.rapids.tpu.sql.incompatibleOps.enabled": True}
+    t = scalar_table(SCALAR_ROWS)
+    exprs = scalar_exprs()
+    df = entry._df(t, 1).select(*[e.alias(f"e{k}")
+                                  for k, (e, _) in enumerate(exprs)])
+    ses = Session(conf, device=dev)
+    t0 = time.perf_counter()
+    got = ses.collect(df)
+    torch.cuda.synchronize(dev)
+    cold_s = time.perf_counter() - t0
+    print(f"scalar: the card's cold run {cold_s:.2f} s", flush=True)
+    if ses.fell_back():
+        raise AssertionError(f"scalar: fell back {ses.fell_back()}")
+    fused = isinstance(ses.last_plan, FusedStageExec)
+    t0 = time.perf_counter()
+    again = ses.collect(df)
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    second = sum(float_rows_apart(again.column(k), got.column(k), 0.0)
+                 for k in got.column_names)
+    if second:
+        raise AssertionError(f"scalar: a second run on the card differs in "
+                             f"{second} values")
+    print(f"scalar: the card's runs: cold {cold_s:.2f} s, warm "
+          f"{warm_s:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    want = Session({**conf, **ORACLE_CONF}, device=dev).collect(df)
+    interp_s = time.perf_counter() - t0
+    print(f"scalar: the interpreter {interp_s:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    cpu_ses = Session(conf, device="cpu")
+    cpu = cpu_ses.collect(df)
+    print(f"scalar: the CPU {time.perf_counter() - t0:.2f} s", flush=True)
+    if cpu_ses.executed_exec_names() != ses.executed_exec_names():
+        raise AssertionError(f"scalar: the CPU's plan "
+                             f"{cpu_ses.executed_exec_names()} is not the "
+                             f"card's {ses.executed_exec_names()}")
+    apart = {}
+    for k, (e, held) in enumerate(exprs):
+        name = f"e{k}"
+        if held == "cpu":
+            a = np.asarray(got.column(name).to_numpy(zero_copy_only=False))
+            c = np.asarray(cpu.column(name).to_numpy(zero_copy_only=False))
+            bad = int((a.view(np.int64) != c.view(np.int64)).sum())
+        else:
+            bad = float_rows_apart(got.column(name), want.column(name),
+                                   SCALAR_REL_TOL)
+        if bad:
+            apart[f"{name} {e!r}"[:80]] = bad
+    n_cpu = sum(held == "cpu" for _, held in exprs)
+    print(f"scalar: {len(exprs)} expressions over {t.num_rows} rows on the "
+          f"card ({'a fused stage' if fused else ses.executed_exec_names()}"
+          f", cold {cold_s:.2f} s, warm {warm_s:.3f} s); "
+          f"{len(exprs) - n_cpu} against the interpreter ({interp_s:.2f} "
+          f"s), {n_cpu} (Rand) against the CPU bit for bit: rows apart "
+          f"{apart or 0}")
+    if apart:
+        raise AssertionError(f"scalar: the card differs {apart}")
+    # raise_error fails the query on the card and on the interpreter
+    bad_rows = pa.table({"s": pa.array([None, "boom", None])})
+    for what, c in (("card", conf), ("interpreter", {**conf,
+                                                      **ORACLE_CONF})):
+        print(f"scalar: raise_error on the {what}", flush=True)
+        try:
+            Session(c, device=dev).collect(entry._df(bad_rows, 1).select(
+                RaiseError(col("s")).alias("e")))
+        except Exception as ex:           # the error each side raises
+            if "USER_RAISED_ERROR" not in str(ex):
+                raise
+        else:
+            raise AssertionError(f"raise_error did not fail on the {what}")
+    print("scalar: raise_error('boom') fails the query on the card and on "
+          "the interpreter ([USER_RAISED_ERROR])")
+    return {}
+
+
+# ---------------------------------------------------------------------------
 # The bench's hash_agg shape, the new operators, the fused Q1 stage
 # ---------------------------------------------------------------------------
 
@@ -2559,10 +2959,11 @@ SKEW_SPLIT_ROWS = SKEW_ROWS // 8
 def run_skew_phase(dev, counted) -> list:
     """The skew bench's query at 67,108,864 x 2,097,152 rows in its three
     legs: each leg's cold run (launch counts from 0) equal to pyarrow and
-    bit for bit to the other legs, its decisions, warm median wall of three,
-    rows/s, allocator peak, and the device idle share of one profiled warm
-    run; then murmur3 against its plain version at each leg's aggregate
-    exchange. Returns the launches of each leg's cold run."""
+    bit for bit to the other legs, its decisions, the wall of one warm
+    run, rows/s and allocator peak, and the device idle share of one
+    profiled warm run of the last leg; then murmur3 against its plain
+    version at each leg's aggregate exchange. Returns the launches of each
+    leg's cold run."""
     import torch
     from spark_rapids_tpu_torch import adaptive, entry
     t0 = time.perf_counter()
@@ -2602,24 +3003,26 @@ def run_skew_phase(dev, counted) -> list:
                                      f"skew {leg} run")
         if (leg == "static") != (not decisions):
             raise AssertionError(f"skew {leg}: decisions {decisions}")
-        warm = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            if not run().equals(want):
-                raise AssertionError(f"skew {leg}: a warm run differs")
-            warm.append(time.perf_counter() - t0)
+        # one warm run a leg, and the profiled run on the last leg only,
+        # within the script's time limit (three warm runs and a profile of
+        # each leg gave 66-76% idle in every leg)
+        t0 = time.perf_counter()
+        if not run().equals(want):
+            raise AssertionError(f"skew {leg}: the warm run differs")
+        wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev)
-        wall = statistics.median(warm)
-        _, prof_us, busy, events = profiled(run, dev, host=False)
         print(f"skew {leg}: equal to pyarrow and to the static leg, bit for "
               f"bit; kernel launches {counts}; decisions {decisions}")
-        print(f"skew {leg}: cold {cold_s:.3f} s, warm median {wall:.3f} s of "
-              f"{[round(w, 4) for w in warm]}, {SKEW_ROWS / wall:,.0f} fact "
-              f"rows/s; device memory peak {peak / 2**30:.2f} GiB; profiled "
-              f"run: {len(events)} device kernels and copies, wall "
-              f"{prof_us / 1e6:.3f} s, busy {busy / 1e6:.3f} s, idle share "
-              f"{1 - busy / prof_us:.1%} (against the warm wall "
-              f"{1 - busy / (wall * 1e6):.1%})")
+        print(f"skew {leg}: cold {cold_s:.3f} s, warm {wall:.3f} s, "
+              f"{SKEW_ROWS / wall:,.0f} fact rows/s; device memory peak "
+              f"{peak / 2**30:.2f} GiB")
+        if leg == entry.SKEW_LEGS[-1]:
+            _, prof_us, busy, events = profiled(run, dev, host=False)
+            print(f"skew {leg}: profiled run: {len(events)} device kernels "
+                  f"and copies, wall {prof_us / 1e6:.3f} s, busy "
+                  f"{busy / 1e6:.3f} s, idle share {1 - busy / prof_us:.1%}"
+                  f" (against the warm wall "
+                  f"{1 - busy / (wall * 1e6):.1%})")
         launches.append(counts)
     for leg in entry.SKEW_LEGS:
         check_murmur3_at_exchanges(
@@ -3796,7 +4199,7 @@ def run_fallback_path(name: str, dev, counted, table, expected, make_df,
     """One path through the port's Session with islands: one cold run
     (every counted kernel's launches from 0, its result checked, its
     ``fell_back()`` equal to ``fallen``, a CPU-topped plan interpreted on
-    the host where ``top_island``), two warm runs (each checked), and one
+    the host where ``top_island``), one warm run (checked), and one
     profiled warm run. Prints the warm wall, the islands' host time inside
     ``CpuFallbackExec.interpret`` with their rows in and out
     (``rows_out(plan, result)``), the allocator's peak and the idle share.
@@ -3828,20 +4231,16 @@ def run_fallback_path(name: str, dev, counted, table, expected, make_df,
           f"{detail or ''}); fell_back() {ses.fell_back()}, executed "
           f"{ses.executed_exec_names()}; cold {cold_s:.3f} s; kernel "
           f"launches in the run: {launches}")
-    warm, host = [], []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        again = ses.collect(make_df(table))
-        torch.cuda.synchronize(dev)
-        warm.append(time.perf_counter() - t0)
-        check(again, expected)
-        host.append(island_stats(ses.last_plan))
+    # one warm run, within the script's time limit
+    t0 = time.perf_counter()
+    again = ses.collect(make_df(table))
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    check(again, expected)
+    isl = island_stats(ses.last_plan)
     peak = torch.cuda.max_memory_allocated(dev)
-    wall = statistics.median(warm)
-    isl = host[-1]
     total = isl["collect_s"] + isl["interpret_s"]
-    print(f"fallback {name}: warm median {wall:.3f} s of "
-          f"{[round(w, 4) for w in warm]}; island host time in "
+    print(f"fallback {name}: warm {wall:.3f} s; island host time in "
           f"CpuFallbackExec.interpret {total:.3f} s "
           f"(device children to Arrow {isl['collect_s']:.3f} s, row loop "
           f"{isl['interpret_s']:.3f} s), rows in {isl['rows_in']:,}, rows "
@@ -4105,6 +4504,22 @@ def main(argv=None) -> int:
                       [murmur3_int32, window_match], q16_tables))
     runs.append(timed("strings", run_strings_phase, dev, q16_tables))
     del q16_tables
+    # TPC-H Q14 and Q9 at SF10 through the Session (CaseWhen, add_months
+    # and year(); window_match at k = 5 in each, murmur3 at Q9's o_year
+    # exchange), then every scalar expression on the card against the
+    # row interpreter
+    t0 = time.perf_counter()
+    q14_tables, q9_tables = entry.tpch_q14_q9_tables(SCALAR_Q_SF,
+                                                     SCALAR_Q_SEED)
+    print(f"q14/q9 tables at SF{SCALAR_Q_SF} made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    runs.append(timed("q14", run_q14_phase, dev, [window_match],
+                      q14_tables))
+    del q14_tables
+    runs.append(timed("q9", run_q9_phase, dev, [murmur3_int32, window_match],
+                      q9_tables))
+    del q9_tables
+    timed("scalar", run_scalar_phase, dev)
     runs.append(timed("captured murmur3", check_captured_murmur3, dev))
     timed("hash_agg", check_hash_agg, dev)
     timed("operators", check_operators, dev)

@@ -1,8 +1,8 @@
-"""TPC-H Q1, the part stage of TPC-H Q16 and Q16 whole, TPC-H Q3, Q18, Q2
-and Q11 and the repo's skewed join through the port, end to end, Q1 and
-the Q16 part stage read from Parquet files, a bucketed Parquet write, and
-the bench's fused Q1 stage and its hash_agg, join_sort and parquet_scan
-shapes.
+"""TPC-H Q1, the part stage of TPC-H Q16 and Q16 whole, TPC-H Q3, Q18, Q2,
+Q11, Q14 and Q9 and the repo's skewed join through the port, end to end,
+Q1 and the Q16 part stage read from Parquet files, a bucketed Parquet
+write, and the bench's fused Q1 stage and its hash_agg, join_sort and
+parquet_scan shapes.
 
 ``q1_plan`` and ``q16_part_plan`` build the physical tree the JAX
 package's planner gives each query (``plan/overrides.py``
@@ -83,6 +83,17 @@ partitions is past ``max_build_rows`` and takes the grace join. Its
 ``device_limit`` gives the tree a buffer catalog of its own with that
 budget (else the device's process-wide one). ``tpch_q18_tables`` makes the
 columns Q18 reads from the same draws as ``tpch_q3_tables``.
+
+Q14 and Q9 (spec 2.4.14 and 2.4.9, with their validation parameters) run
+through the port's Session: ``q14_df`` is September 1995's lineitem (the
+upper bound ``add_months``), joined with part, and 100 times a CASE WHEN sum
+over ``startswith(p_type, 'PROMO')`` over the whole sum; ``q9_df`` joins
+lineitem with the parts whose name holds 'green' (``contains``), supplier,
+partsupp on two keys, orders and nation, and sums the profit by nation and
+``year(o_orderdate)``. ``tpch_q14_tables`` and ``tpch_q9_tables`` make
+their columns from the draws of ``tpch_q3_tables`` with the part keys
+drawn last (``tpch_q14_q9_tables``: both from one draw); ``run_q14``,
+``run_q9``, ``q14_reference`` and ``q9_reference``.
 
 Q2 and Q11 (spec 2.4.2 and 2.4.11) run over ``tpch_q2_tables``: ``q2_plan``
 decorrelates Q2's Min subquery into a grouped Min joined on two keys, and
@@ -167,9 +178,9 @@ from .exec import (AggregateMode, BroadcastNestedLoopJoinExec,
 from .exec.common import concat_all
 from .exec.fuse import try_fuse
 from .exec.sort import SortOrder
-from .expressions import (And, BoundReference, EqualTo, Expression,
-                          GreaterThan, In, Not, col, endswith, lit,
-                          startswith)
+from .expressions import (And, BoundReference, CaseWhen, EqualTo,
+                          Expression, GreaterThan, In, Not, add_months, col,
+                          contains, endswith, lit, startswith, year)
 from .expressions.aggregates import Average, Count, Min, Sum
 from .expressions.base import epoch_days
 from .expressions.regex import Like
@@ -597,7 +608,8 @@ def _date_column(days: np.ndarray) -> pa.Array:
     return pa.array(days.astype(np.int32), pa.int32()).view(pa.date32())
 
 
-def _tpch_columns(sf: float, seed: int) -> Dict[str, object]:
+def _tpch_columns(sf: float, seed: int, part_keys: bool = False
+                  ) -> Dict[str, object]:
     """Every column Q3 and Q18 read at scale factor ``sf``, drawn as dbgen
     draws them (TPC-H spec 4.2.3), in one fixed order of draws from one
     numpy generator; columns only Q18 reads are drawn after those of Q3,
@@ -614,6 +626,11 @@ def _tpch_columns(sf: float, seed: int) -> Dict[str, object]:
       the quantity times a price in [900.00, 2099.99], L_DISCOUNT in
       0.00..0.10 and L_TAX in 0.00..0.08 by 0.01, L_SHIPDATE the order date
       plus 1 to 121 days.
+
+    With ``part_keys``, L_PARTKEY (uniform over SF x 200,000 parts) and
+    L_SUPPKEY (one of its part's four suppliers, dbgen's PART_SUPP_BRIDGE,
+    the formula of ``tpch_q2_tables``' PS_SUPPKEY) are drawn last, so
+    that no earlier column changes.
 
     Money and L_QUANTITY are float64, the repo's stand-in for
     DECIMAL(15,2)."""
@@ -649,7 +666,30 @@ def _tpch_columns(sf: float, seed: int) -> Dict[str, object]:
     out["o_totalprice"] = np.bincount(np.repeat(i, lines), weights=charge,
                                       minlength=n_ord)
     out["c_name"] = _numbered(b"Customer#", out["c_custkey"])
+    if part_keys:
+        # Q14's and Q9's own columns, drawn after every other
+        n_part, n_supp = _part_rows(sf), _supplier_rows(sf)
+        partkey = rng.integers(1, n_part + 1, n_line)
+        out["l_partkey"] = partkey
+        out["l_suppkey"] = _supplier_of(partkey, rng.integers(0, 4, n_line),
+                                        n_supp)
     return out
+
+
+def _part_rows(sf: float) -> int:
+    return max(int(round(200_000 * sf)), 1)
+
+
+def _supplier_rows(sf: float) -> int:
+    return max(int(round(10_000 * sf)), 1)
+
+
+def _supplier_of(partkey: np.ndarray, i: np.ndarray, n_supp: int
+                 ) -> np.ndarray:
+    """The ``i``-th of the four suppliers of each part (dbgen's
+    PART_SUPP_BRIDGE: ``(p + i * (S / 4 + (p - 1) / S)) % S + 1``)."""
+    return ((partkey + i * (n_supp // 4 + (partkey - 1) // n_supp))
+            % n_supp + 1).astype(np.int64)
 
 
 def _digits(values: np.ndarray, width: int) -> np.ndarray:
@@ -1468,6 +1508,262 @@ def run_q16(part: pa.Table, supplier: pa.Table, partsupp: pa.Table,
     from .plan.session import Session
     return Session(session_conf(shuffle_partitions), device=device).collect(
         q16_df(part, supplier, partsupp, num_slices))
+
+
+# ---------------------------------------------------------------------------
+# TPC-H Q14 and Q9: CASE WHEN, add_months, year() and the string
+# predicates through the Session
+# ---------------------------------------------------------------------------
+
+#: Q14's validation DATE (spec 2.4.14.3) and the P_TYPE prefix it sums
+Q14_DATE = datetime.date(1995, 9, 1)
+Q14_TYPE_PREFIX = "PROMO"
+Q14_SELECT = ("promo_revenue",)
+#: Q9's validation COLOR (spec 2.4.9.3), its group keys and select list
+Q9_COLOR = "green"
+Q9_KEYS = ("nation", "o_year")
+Q9_SELECT = ("nation", "o_year", "sum_profit")
+#: TPC-H spec 4.2.3: the 92 words of P_NAME
+P_NAME_WORDS = (
+    "almond", "antique", "aquamarine", "azure", "beige", "bisque", "black",
+    "blanched", "blue", "blush", "brown", "burlywood", "burnished",
+    "chartreuse", "chiffon", "chocolate", "coral", "cornflower", "cornsilk",
+    "cream", "cyan", "dark", "deep", "dim", "dodger", "drab", "firebrick",
+    "floral", "forest", "frosted", "gainsboro", "ghost", "goldenrod",
+    "green", "grey", "honeydew", "hot", "indian", "ivory", "khaki", "lace",
+    "lavender", "lawn", "lemon", "light", "lime", "linen", "magenta",
+    "maroon", "medium", "metallic", "midnight", "mint", "misty", "moccasin",
+    "navajo", "navy", "olive", "orange", "orchid", "pale", "papaya",
+    "peach", "peru", "pink", "plum", "powder", "puff", "purple", "red",
+    "rose", "rosy", "royal", "saddle", "salmon", "sandy", "seashell",
+    "sienna", "sky", "slate", "smoke", "snow", "spring", "steel", "tan",
+    "thistle", "tomato", "turquoise", "violet", "wheat", "white", "yellow")
+
+
+def _part_names(rng, n: int) -> pa.Array:
+    """P_NAME: five distinct words of ``P_NAME_WORDS`` joined by spaces,
+    drawn for every row at once (the k-th draw takes the r-th word not yet
+    taken)."""
+    picked = np.empty((n, 5), np.int64)
+    for k in range(5):
+        r = rng.integers(0, len(P_NAME_WORDS) - k, n)
+        taken = np.sort(picked[:, :k], axis=1)
+        for j in range(k):
+            r += r >= taken[:, j]
+        picked[:, k] = r
+    words = pa.array(P_NAME_WORDS)
+    return pc.binary_join_element_wise(
+        *[words.take(pa.array(picked[:, k])) for k in range(5)], " ")
+
+
+def tpch_q14_tables(sf: float, seed: int = 3
+                    ) -> Tuple[pa.Table, pa.Table]:
+    """``(lineitem, part)``: the columns Q14 reads at scale factor ``sf``.
+    ``lineitem`` is ``_tpch_columns``' with its part keys (L_SHIPDATE and
+    the money of Q3's draws); ``part`` is SF x 200,000 rows, P_PARTKEY
+    1..n and P_TYPE as ``part_table`` draws it, from a generator of its
+    own."""
+    return _q14_tables(_tpch_columns(sf, seed, part_keys=True), sf, seed)
+
+
+def tpch_q9_tables(sf: float, seed: int = 3) -> Tuple[pa.Table, ...]:
+    """``(part, supplier, partsupp, lineitem, orders, nation)``: the columns
+    Q9 reads at scale factor ``sf``. ``lineitem`` and ``orders`` are
+    ``_tpch_columns``' (with the part keys; L_QUANTITY is Q18's draw);
+    from a generator of their own:
+
+    - part: SF x 200,000 rows, P_PARTKEY 1..n, P_NAME five distinct words
+      of the spec's 92 (at most 55 bytes);
+    - supplier: SF x 10,000 rows, S_SUPPKEY 1..n, S_NATIONKEY uniform in
+      0..24;
+    - partsupp: four rows per part, PS_SUPPKEY by dbgen's formula (the
+      suppliers L_SUPPKEY picks from), PS_SUPPLYCOST in [1.00, 1000.00] by
+      0.01;
+    - nation: the spec's 25 rows.
+
+    Keys are int64, money float64."""
+    return _q9_tables(_tpch_columns(sf, seed, part_keys=True), sf, seed)
+
+
+def tpch_q14_q9_tables(sf: float, seed: int = 3):
+    """``(tpch_q14_tables(sf, seed), tpch_q9_tables(sf, seed))`` from one
+    draw of ``_tpch_columns``."""
+    c = _tpch_columns(sf, seed, part_keys=True)
+    return _q14_tables(c, sf, seed), _q9_tables(c, sf, seed)
+
+
+def _q14_tables(c: Dict[str, object], sf: float, seed: int):
+    rng = np.random.default_rng((seed, 14))
+    n_part = _part_rows(sf)
+    part = pa.table({
+        "p_partkey": np.arange(1, n_part + 1, dtype=np.int64),
+        "p_type": pa.array(P_TYPES).take(
+            pa.array(rng.integers(0, len(P_TYPES), n_part))),
+    })
+    return (_tpch_table(c, ("l_partkey", "l_extendedprice", "l_discount",
+                            "l_shipdate")), part)
+
+
+def _q9_tables(c: Dict[str, object], sf: float, seed: int):
+    rng = np.random.default_rng((seed, 9))
+    n_part, n_supp = _part_rows(sf), _supplier_rows(sf)
+    partkey = np.arange(1, n_part + 1, dtype=np.int64)
+    part = pa.table({"p_partkey": partkey,
+                     "p_name": _part_names(rng, n_part)})
+    supplier = pa.table({
+        "s_suppkey": np.arange(1, n_supp + 1, dtype=np.int64),
+        "s_nationkey": rng.integers(0, len(NATIONS), n_supp).astype(np.int64),
+    })
+    ps_partkey = np.repeat(partkey, 4)
+    partsupp = pa.table({
+        "ps_partkey": ps_partkey,
+        "ps_suppkey": _supplier_of(ps_partkey,
+                                   np.tile(np.arange(4), n_part), n_supp),
+        "ps_supplycost": rng.integers(100, 100_001, 4 * n_part) / 100.0,
+    })
+    nation = pa.table({
+        "n_nationkey": np.arange(len(NATIONS), dtype=np.int64),
+        "n_name": [name for name, _ in NATIONS],
+    })
+    return (part, supplier, partsupp,
+            _tpch_table(c, ("l_orderkey", "l_partkey", "l_suppkey",
+                            "l_quantity", "l_extendedprice", "l_discount")),
+            _tpch_table(c, ("o_orderkey", "o_orderdate")), nation)
+
+
+def _revenue() -> Expression:
+    return col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+
+
+def q14_df(lineitem: pa.Table, part: pa.Table, num_slices: int = 8):
+    """TPC-H Q14 as a DataFrame (spec 2.4.14)::
+
+        SELECT 100.00 * sum(CASE WHEN p_type LIKE 'PROMO%'
+                                 THEN l_extendedprice * (1 - l_discount)
+                                 ELSE 0 END)
+               / sum(l_extendedprice * (1 - l_discount)) AS promo_revenue
+        FROM lineitem, part
+        WHERE l_partkey = p_partkey AND l_shipdate >= date '1995-09-01'
+          AND l_shipdate < date '1995-09-01' + interval '1' month
+
+    with the LIKE as Spark's LikeSimplification leaves it (StartsWith),
+    the month as ``add_months`` and the CASE as ``CaseWhen``."""
+    start = lit(Q14_DATE)
+    promo = CaseWhen(((startswith(col("p_type"), Q14_TYPE_PREFIX),
+                       _revenue()),), lit(0.0))
+    return (_df(lineitem, num_slices)
+            .where(And(col("l_shipdate") >= start,
+                       col("l_shipdate") < add_months(lit(Q14_DATE), 1)))
+            .join(_df(part, num_slices), ["l_partkey"], ["p_partkey"])
+            .agg(Sum(promo).alias("promo"), Sum(_revenue()).alias("total"))
+            .select((lit(100.0) * col("promo") / col("total"))
+                    .alias("promo_revenue")))
+
+
+def run_q14(lineitem: pa.Table, part: pa.Table, num_slices: int = 8,
+            shuffle_partitions: int = 8,
+            device: DeviceLike = None) -> pa.Table:
+    """Q14 through the port's Session (``q14_df`` under
+    ``session_conf``), collected to the host."""
+    from .plan.session import Session
+    return Session(session_conf(shuffle_partitions), device=device).collect(
+        q14_df(lineitem, part, num_slices))
+
+
+def q14_reference(lineitem: pa.Table, part: pa.Table) -> pa.Table:
+    """TPC-H Q14 computed by pyarrow alone: the month's lines, an Acero
+    join with part, and the two sums."""
+    lo = pa.scalar(Q14_DATE, pa.date32())
+    hi = pa.scalar(Q14_DATE.replace(month=Q14_DATE.month + 1), pa.date32())
+    d = lineitem.column("l_shipdate")
+    li = lineitem.filter(pc.and_(pc.greater_equal(d, lo), pc.less(d, hi)))
+    j = li.join(part, keys="l_partkey", right_keys="p_partkey",
+                join_type="inner")
+    rev = pc.multiply(j.column("l_extendedprice"),
+                      pc.subtract(1.0, j.column("l_discount")))
+    promo = pc.if_else(pc.starts_with(j.column("p_type"), Q14_TYPE_PREFIX),
+                       rev, 0.0)
+    value = 100.0 * pc.sum(promo).as_py() / pc.sum(rev).as_py()
+    return pa.table({"promo_revenue": pa.array([value], pa.float64())})
+
+
+def q9_df(part: pa.Table, supplier: pa.Table, partsupp: pa.Table,
+          lineitem: pa.Table, orders: pa.Table, nation: pa.Table,
+          num_slices: int = 8):
+    """TPC-H Q9 as a DataFrame (spec 2.4.9)::
+
+        SELECT nation, o_year, sum(amount) AS sum_profit
+        FROM (SELECT n_name AS nation, year(o_orderdate) AS o_year,
+                     l_extendedprice * (1 - l_discount)
+                       - ps_supplycost * l_quantity AS amount
+              FROM part, supplier, lineitem, partsupp, orders, nation
+              WHERE s_suppkey = l_suppkey AND ps_suppkey = l_suppkey
+                AND ps_partkey = l_partkey AND p_partkey = l_partkey
+                AND o_orderkey = l_orderkey AND s_nationkey = n_nationkey
+                AND p_name LIKE '%green%')
+        GROUP BY nation, o_year ORDER BY nation, o_year DESC
+
+    with the LIKE as Spark leaves it (Contains) and five joins from
+    lineitem, the partsupp one on two keys."""
+    green = (_df(part, num_slices)
+             .where(contains(col("p_name"), Q9_COLOR))
+             .select("p_partkey"))
+    amount = _revenue() - col("ps_supplycost") * col("l_quantity")
+    return (_df(lineitem, num_slices)
+            .join(green, ["l_partkey"], ["p_partkey"])
+            .join(_df(supplier, num_slices), ["l_suppkey"], ["s_suppkey"])
+            .join(_df(partsupp, num_slices), ["l_suppkey", "l_partkey"],
+                  ["ps_suppkey", "ps_partkey"])
+            .join(_df(orders, num_slices), ["l_orderkey"], ["o_orderkey"])
+            .join(_df(nation, num_slices), ["s_nationkey"], ["n_nationkey"])
+            .select(col("n_name").alias("nation"),
+                    year(col("o_orderdate")).alias("o_year"),
+                    amount.alias("amount"))
+            .group_by(*Q9_KEYS)
+            .agg(Sum(col("amount")).alias("sum_profit"))
+            .order_by(asc(col("nation")), desc(col("o_year"))))
+
+
+def run_q9(part: pa.Table, supplier: pa.Table, partsupp: pa.Table,
+           lineitem: pa.Table, orders: pa.Table, nation: pa.Table,
+           num_slices: int = 8, shuffle_partitions: int = 8,
+           device: DeviceLike = None) -> pa.Table:
+    """Q9 through the port's Session (``q9_df`` under ``session_conf``),
+    collected to the host."""
+    from .plan.session import Session
+    return Session(session_conf(shuffle_partitions), device=device).collect(
+        q9_df(part, supplier, partsupp, lineitem, orders, nation,
+              num_slices))
+
+
+def q9_reference(part: pa.Table, supplier: pa.Table, partsupp: pa.Table,
+                 lineitem: pa.Table, orders: pa.Table, nation: pa.Table
+                 ) -> pa.Table:
+    """TPC-H Q9 computed by pyarrow alone (``pc.match_substring``, Acero
+    joins, ``pc.year``, ``group_by``), in ``run_q9``'s order."""
+    green = part.filter(pc.match_substring(part.column("p_name"), Q9_COLOR))
+    j = lineitem.join(green.select(["p_partkey"]), keys="l_partkey",
+                      right_keys="p_partkey", join_type="inner")
+    j = j.join(supplier, keys="l_suppkey", right_keys="s_suppkey",
+               join_type="inner")
+    j = j.join(partsupp, keys=["l_suppkey", "l_partkey"],
+               right_keys=["ps_suppkey", "ps_partkey"], join_type="inner")
+    j = j.join(orders, keys="l_orderkey", right_keys="o_orderkey",
+               join_type="inner")
+    j = j.join(nation, keys="s_nationkey", right_keys="n_nationkey",
+               join_type="inner")
+    amount = pc.subtract(
+        pc.multiply(j.column("l_extendedprice"),
+                    pc.subtract(1.0, j.column("l_discount"))),
+        pc.multiply(j.column("ps_supplycost"), j.column("l_quantity")))
+    t = pa.table({"nation": j.column("n_name"),
+                  "o_year": pc.cast(pc.year(j.column("o_orderdate")),
+                                    pa.int32()),
+                  "amount": amount})
+    g = t.group_by(list(Q9_KEYS)).aggregate([("amount", "sum")]).sort_by(
+        [("nation", "ascending"), ("o_year", "descending")])
+    return pa.table([g.column("nation"), g.column("o_year"),
+                     g.column("amount_sum")], names=list(Q9_SELECT))
 
 
 # ---------------------------------------------------------------------------

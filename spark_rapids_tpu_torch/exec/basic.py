@@ -155,8 +155,11 @@ class ProjectExec(UnaryExec):
         return self._schema
 
     def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
-        for batch in self.child.execute_partition(p):
-            ctx = EvalContext(self.ctx.ansi, {})
+        for i, batch in enumerate(self.child.execute_partition(p)):
+            # the JAX package's seed: from the position, so that a
+            # re-execution draws the same values
+            ctx = EvalContext(self.ctx.ansi, {},
+                              batch_seed=(p << 16) ^ (i & 0xFFFF))
             cols = tuple(raw_eval(e, batch, ctx) for e in self.exprs)
             _raise_ansi(_sum_errors(ctx))
             yield ColumnarBatch(cols, batch.num_rows)

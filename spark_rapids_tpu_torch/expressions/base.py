@@ -40,6 +40,11 @@ class EvalContext:
     ansi: bool = False
     #: kind -> device counts of the rows reported; None collects nothing
     errors: Optional[Dict[str, List[torch.Tensor]]] = None
+    #: a host int per (partition, batch) that stateless random expressions
+    #: (``Rand``) fold into their key, so that batches draw different
+    #: values while a re-execution draws the same; None where the operator
+    #: gives none (as in the JAX package, only ``ProjectExec`` does)
+    batch_seed: Optional[int] = None
 
     def report(self, bad: torch.Tensor, kind: str = "ARITHMETIC_OVERFLOW",
                always: bool = False) -> None:

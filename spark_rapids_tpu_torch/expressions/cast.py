@@ -1,31 +1,70 @@
-"""Cast, as far as the planner inserts it.
+"""Cast with Spark's non-ANSI semantics, the whole device matrix.
 
-Port of ``Cast`` from ``spark_rapids_tpu/expressions/cast.py`` for the one
-use the planner makes of it: a join whose key pair mixes integral widths
-casts the narrower key to the wider type (``plan/overrides.py``
-``_convert_join``), as Spark's analysis does. Widening an integral value
-is exact: the value keeps its sign and magnitude, and nulls stay null.
+Port of ``spark_rapids_tpu/expressions/cast.py`` (reference: GpuCast.scala):
 
-Every other source and target pair (narrowing, floating point, decimal,
-dates, timestamps, strings) raises ``NotImplementedError`` when the cast is
-bound; the rest of the cast matrix comes with ROADMAP item 7.
+- an integral value to a narrower integral type wraps in two's complement
+  (Java's ``(int) long``);
+- float or double to an integral type truncates toward zero, saturates at
+  the type's range and maps NaN to 0 (``math.float_to_int``: torch's own
+  conversion of NaN, an infinity or a value out of range is undefined on
+  CUDA and differs from the CPU's);
+- numeric to boolean is ``x != 0``, boolean to numeric 1 or 0;
+- timestamp (us) to date (days) floors, so a time before the epoch lands on
+  the day before; a long to a timestamp counts seconds;
+- string to an integral type parses ``[+-]digits[.digits]`` with the
+  surrounding whitespace trimmed (out of range or malformed: null), string
+  to date ``yyyy[-M[-d]]``; an integral type to a string of at least 20
+  bytes, a date to one of at least 10.
+
+``cast_supported`` names the pairs the device runs; any other pair (string
+to double, double to string, ...) gets the JAX package's reason from
+``device_unsupported_reason``, and tagging runs the cast on the row
+interpreter. Under ANSI a string that does not parse reports
+``CAST_INVALID_INPUT`` on the error channel.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import types as T
 from ..types import SqlType, TypeKind
 from .base import EvalContext, Expression, numeric_column
+from .math import float_to_int
+from .strings import _first_true, _string_column, _table
 
-_INTEGRAL_ORDER = {TypeKind.INT8: 0, TypeKind.INT16: 1, TypeKind.INT32: 2,
-                   TypeKind.INT64: 3}
+_INT_RANGE = {
+    TypeKind.INT8: (-(2**7), 2**7 - 1),
+    TypeKind.INT16: (-(2**15), 2**15 - 1),
+    TypeKind.INT32: (-(2**31), 2**31 - 1),
+    TypeKind.INT64: (-(2**63), 2**63 - 1),
+}
+
+MICROS_PER_DAY = 86400_000_000
+
+_I32, _I64, _F64 = torch.int32, torch.int64, torch.float64
 
 
-def is_integral_widening(src: SqlType, dst: SqlType) -> bool:
-    """``src`` to ``dst`` is an integral type to one at least as wide."""
-    return (src.kind in _INTEGRAL_ORDER and dst.kind in _INTEGRAL_ORDER
-            and _INTEGRAL_ORDER[src.kind] <= _INTEGRAL_ORDER[dst.kind])
+def cast_supported(src: SqlType, dst: SqlType) -> bool:
+    ok = {TypeKind.BOOLEAN, TypeKind.INT8, TypeKind.INT16, TypeKind.INT32,
+          TypeKind.INT64, TypeKind.FLOAT32, TypeKind.FLOAT64,
+          TypeKind.DATE, TypeKind.TIMESTAMP, TypeKind.DECIMAL}
+    if src.kind in ok and dst.kind in ok:
+        return True
+    integral = {TypeKind.INT8, TypeKind.INT16, TypeKind.INT32,
+                TypeKind.INT64}
+    if src.kind is TypeKind.STRING:
+        # the device parses integrals and dates (a float parse needs a
+        # correctly rounded strtod: the CPU)
+        return dst.kind in integral or dst.kind is TypeKind.DATE
+    if dst.kind is TypeKind.STRING:
+        return (src.kind in integral and dst.max_len >= 20) or \
+            (src.kind is TypeKind.DATE and dst.max_len >= 10)
+    return False
 
 
 @dataclass(frozen=True, eq=False)
@@ -40,31 +79,286 @@ class Cast(Expression):
     def with_children(self, c):
         return Cast(c[0], self.to)
 
-    def bind(self, schema) -> "Cast":
-        bound = Cast(self.child.bind(schema), self.to)
-        src = bound.child.dtype
-        if not is_integral_widening(src, self.to):
-            raise NotImplementedError(
-                f"cast {src} -> {self.to} is not in the port yet: it "
-                f"casts integral types to wider ones (ROADMAP item 7 "
-                f"brings the rest of the cast matrix)")
-        return bound
-
     @property
     def dtype(self):
         return self.to
 
     @property
     def nullable(self):
-        # declared as the JAX package declares every cast
+        # a fallible conversion nulls the rows it cannot convert (non-ANSI);
+        # declared statically, as the JAX package does
         return True
+
+    def device_unsupported_reason(self):
+        if not self.child.resolved:
+            return None
+        if not cast_supported(self.child.dtype, self.to):
+            return (f"cast {self.child.dtype} → {self.to} has no device "
+                    f"kernel")
+        return None
 
     def eval(self, batch, ctx=EvalContext()):
         c = self.child.eval(batch, ctx)
-        if self.child.dtype.kind is self.to.kind:
+        src, dst = self.child.dtype, self.to
+        if src.kind == dst.kind and src.kind is not TypeKind.DECIMAL:
             return c
-        return numeric_column(c.data.to(self.to.storage_dtype), c.validity,
-                              self.to)
+        if src.kind is TypeKind.STRING:
+            if dst.kind is TypeKind.DATE:
+                days, ok = string_to_date(c.data, c.lengths, c.validity)
+                if ctx.ansi:
+                    ctx.report(c.validity & ~ok, "CAST_INVALID_INPUT")
+                return numeric_column(days, ok, dst)
+            v, ok = string_to_long(c.data, c.lengths, c.validity)
+            if dst.kind is not TypeKind.INT64:
+                # Spark nulls an out-of-range string cast
+                # (UTF8String.toInt); it never wraps
+                lo, hi = _INT_RANGE[dst.kind]
+                ok = ok & (v >= lo) & (v <= hi)
+            if ctx.ansi:
+                ctx.report(c.validity & ~ok, "CAST_INVALID_INPUT")
+            v = torch.where(ok, v, torch.zeros_like(v))
+            return numeric_column(v.to(dst.storage_dtype), ok, dst)
+        if dst.kind is TypeKind.STRING:
+            if src.kind is TypeKind.DATE:
+                mat, lengths = date_to_string(c.data, c.validity)
+            else:
+                mat, lengths = long_to_string(c.data.to(_I64), c.validity)
+            ml = dst.max_len
+            if mat.shape[1] < ml:
+                mat = F.pad(mat, (0, ml - mat.shape[1]))
+            return _string_column(mat, lengths, c.validity, ml)
+        data, validity = _cast_data(c.data, c.validity, src, dst)
+        return numeric_column(data, validity, dst)
 
     def __repr__(self):
         return f"cast({self.child!r} as {self.to})"
+
+
+def _cast_data(x, validity, src: SqlType, dst: SqlType):
+    sk, dk = src.kind, dst.kind
+
+    # a decimal source: its unscaled value to float or to another scale
+    if sk is TypeKind.DECIMAL:
+        if dk is TypeKind.DECIMAL:
+            shift = dst.scale - src.scale
+            y = x * (10 ** shift) if shift >= 0 else \
+                _div_half_up(x, 10 ** (-shift))
+            return y, validity
+        as_f = x.to(_F64) / (10.0 ** src.scale)
+        return _cast_data(as_f, validity, T.FLOAT64, dst)
+
+    if dk is TypeKind.DECIMAL:
+        if src.is_fractional:
+            # half to even, as jnp.round
+            y = torch.round(x.to(_F64) * (10.0 ** dst.scale))
+            return float_to_int(y, _I64), validity & torch.isfinite(x)
+        return x.to(_I64) * (10 ** dst.scale), validity
+
+    if dk is TypeKind.BOOLEAN:
+        return x != 0, validity
+    if sk is TypeKind.BOOLEAN:
+        return x.to(dst.storage_dtype), validity
+
+    if sk is TypeKind.TIMESTAMP and dk is TypeKind.DATE:
+        return torch.div(x, MICROS_PER_DAY, rounding_mode="floor").to(_I32), \
+            validity
+    if sk is TypeKind.DATE and dk is TypeKind.TIMESTAMP:
+        return x.to(_I64) * MICROS_PER_DAY, validity
+    if dk in (TypeKind.DATE, TypeKind.TIMESTAMP) or \
+            sk in (TypeKind.DATE, TypeKind.TIMESTAMP):
+        # numeric <-> temporal: Spark reads a timestamp as seconds here
+        if sk is TypeKind.TIMESTAMP:
+            return _cast_data(torch.div(x, 1000_000, rounding_mode="floor"),
+                              validity, T.INT64, dst)
+        if dk is TypeKind.TIMESTAMP:
+            return _convert(x, _I64) * 1000_000, validity
+    if src.is_fractional and dk is TypeKind.INT64:
+        # the JAX package clips below 2^63 (at 2^63 - 2^33) before it
+        # converts, and saturates at 2^63 and above
+        xf = x.to(_F64)
+        x = torch.where(xf >= 2.0 ** 63, xf,
+                        xf.clamp(max=2.0 ** 63 - 2.0 ** 33))
+    return _convert(x, dst.storage_dtype), validity
+
+
+def _convert(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as ``dtype``, as XLA converts: a float to an integral type
+    through the saturating ``float_to_int``, an integer narrowed with a
+    two's-complement wrap, anything else by ``Tensor.to``."""
+    if x.dtype.is_floating_point and not dtype.is_floating_point:
+        return float_to_int(x, dtype)
+    return x.to(dtype)
+
+
+def _div_half_up(x: torch.Tensor, divisor: int) -> torch.Tensor:
+    mag = torch.abs(x)
+    q = torch.div(mag, divisor, rounding_mode="floor")
+    r = mag - q * divisor
+    q = q + (2 * r >= divisor).to(x.dtype)
+    return torch.sign(x) * q
+
+
+# ---------------------------------------------------------------------------
+# String casts (reference: GpuCast.scala castStringToInt, castStringToDate,
+# castToString): the padded byte matrix makes both directions rectangular
+# ---------------------------------------------------------------------------
+
+_MAX_INT_DIGITS = 19
+_P10_I64 = np.asarray([10 ** i for i in range(_MAX_INT_DIGITS)], np.int64)
+
+
+def _argmax_first(m: torch.Tensor) -> torch.Tensor:
+    return _first_true(m).to(_I32)
+
+
+def _trim_bounds(data, lengths):
+    """(first, last, any_content, is_space, b, pos, in_str) for whitespace
+    trimming over byte rows (UTF8String.trimAll's whitespace set)."""
+    n, ml = data.shape
+    pos = torch.arange(ml, dtype=_I32, device=data.device)[None, :]
+    in_str = pos < lengths[:, None]
+    b = torch.where(in_str, data, torch.zeros((), dtype=data.dtype,
+                                              device=data.device))
+    is_space = (b == 32) | ((b >= 9) & (b <= 13))    # \t \n \v \f \r
+    content = in_str & ~is_space
+    any_content = content.any(dim=1)
+    first = _argmax_first(content)
+    last = ml - 1 - _argmax_first(content.flip(1))
+    return first, last, any_content, is_space, b, pos, in_str
+
+
+def _byte_at(b, idx):
+    return b.gather(1, idx.clamp(0, b.shape[1] - 1).to(_I64)[:, None])[:, 0]
+
+
+def string_to_long(data, lengths, validity):
+    """Parse ``[+-]?digits(.digits)?`` from byte rows (Spark's non-ANSI
+    string to integral cast: whitespace around trimmed, the fraction
+    truncated, anything else null). Returns (int64 values, ok)."""
+    first, last, any_content, is_space, b, pos, in_str = \
+        _trim_bounds(data, lengths)
+    interior = (pos >= first[:, None]) & (pos <= last[:, None])
+    ok = any_content & ~(interior & is_space).any(dim=1)
+    first_b = _byte_at(b, first)
+    has_sign = (first_b == ord("+")) | (first_b == ord("-"))
+    neg = first_b == ord("-")
+    digits_start = first + has_sign.to(_I32)
+    # one optional '.': the digits after it are checked, then dropped
+    is_dot = interior & (b == ord("."))
+    n_dots = is_dot.sum(dim=1, dtype=_I32)
+    dot_pos = torch.where(n_dots > 0, _argmax_first(is_dot), last + 1)
+    int_end = torch.minimum(dot_pos - 1, last)       # last integer digit
+    is_digit = (b >= ord("0")) & (b <= ord("9"))
+    span = (pos >= digits_start[:, None]) & (pos <= last[:, None])
+    has_frac_digits = (n_dots == 1) & (dot_pos < last)
+    ok = ok & (n_dots <= 1) & ~(span & ~is_digit & ~is_dot).any(dim=1) & \
+        ((int_end >= digits_start) | has_frac_digits)    # '.5' -> 0
+    # at most 19 significant integer digits (leading zeros do not count)
+    in_int_span = (pos >= digits_start[:, None]) & (pos <= int_end[:, None])
+    nonzero = in_int_span & (b != ord("0"))
+    any_nz = nonzero.any(dim=1)
+    first_nz = _argmax_first(nonzero)
+    n_digits = torch.where(any_nz, int_end - first_nz + 1,
+                           torch.zeros_like(int_end))
+    ok = ok & (n_digits <= _MAX_INT_DIGITS)
+    exp = int_end[:, None] - pos
+    in_int = span & (pos <= int_end[:, None]) & (exp < _MAX_INT_DIGITS)
+    weight = _table(_P10_I64, data.device)[
+        exp.clamp(0, _MAX_INT_DIGITS - 1).to(_I64)]
+    dig = (b.to(_I64) - ord("0"))
+    v = torch.where(in_int, dig * weight, torch.zeros_like(weight)).sum(dim=1)
+    # a 19-digit magnitude can pass int64: the sum wraps negative exactly
+    # then (every 19-digit value is below 2^64). Spark nulls it;
+    # '-9223372036854775808' wraps onto itself and is valid
+    i64_min = torch.iinfo(_I64).min
+    ok = ok & ((v >= 0) | (neg & (v == i64_min)))
+    v = torch.where(neg, -v, v)
+    return v, ok & validity
+
+
+def long_to_string(x, validity, max_len: int = 20):
+    """int64 -> decimal digits and sign as padded byte rows and lengths.
+    The digits come from the value's non-positive magnitude, which holds
+    INT64_MIN, by truncating division: each output byte is a formula of
+    its column, with no scatter."""
+    neg = x < 0
+    nm = torch.where(neg, x, -x)                 # -|x|, never overflows
+    p10 = _table(_P10_I64, x.device)
+    n_digits = (nm[:, None] <= -p10[None, :]).sum(dim=1, dtype=_I32)
+    n_digits = n_digits.clamp(min=1)
+    total = n_digits + neg.to(_I32)
+    j = torch.arange(max_len, dtype=_I32, device=x.device)[None, :]
+    pfr = total[:, None] - 1 - j                 # the digit's power
+    w = p10[pfr.clamp(0, _MAX_INT_DIGITS - 1).to(_I64)]
+    q = torch.div(nm[:, None], w, rounding_mode="trunc")
+    dig = (-torch.fmod(q, 10)).to(torch.uint8) + ord("0")
+    in_digits = (j >= neg.to(_I32)[:, None]) & (pfr >= 0)
+    zero = torch.zeros((), dtype=torch.uint8, device=x.device)
+    out = torch.where(in_digits, dig, zero)
+    minus = torch.full((), ord("-"), dtype=torch.uint8, device=x.device)
+    out = torch.where((j == 0) & neg[:, None], minus, out)
+    return out, torch.where(validity, total, torch.zeros_like(total))
+
+
+def string_to_date(data, lengths, validity):
+    """Parse ``yyyy[-M[-d]]`` (Spark's string to date subset; anything
+    after it: null). Returns (epoch days int32, ok)."""
+    from .datetime import civil_from_days, days_from_civil
+    first, last, any_content, is_space, b, pos, in_str = \
+        _trim_bounds(data, lengths)
+    in_str = in_str & (pos >= first[:, None]) & (pos <= last[:, None])
+    b = torch.where(in_str, b, torch.zeros_like(b))
+    start = first
+    end = last + 1                              # exclusive
+    is_digit = (b >= ord("0")) & (b <= ord("9"))
+    is_dash = in_str & (b == ord("-")) & (pos > start[:, None])
+    ok = validity & any_content
+    dash_count = is_dash.sum(dim=1, dtype=_I32)
+    d1 = torch.where(dash_count >= 1, _argmax_first(is_dash), end)
+    after1 = is_dash & (pos > d1[:, None])
+    d2 = torch.where(dash_count >= 2, _argmax_first(after1), end)
+    p10 = _table(np.asarray([1, 10, 100, 1000, 10000], np.int32),
+                 data.device)
+
+    def field(lo, hi):          # the digits in [lo, hi)
+        inside = (pos >= lo[:, None]) & (pos < hi[:, None])
+        exp = hi[:, None] - 1 - pos
+        w = p10[exp.clamp(0, 4).to(_I64)]
+        v = torch.where(inside & (exp < 5), (b.to(_I32) - ord("0")) * w,
+                        torch.zeros_like(w)).sum(dim=1, dtype=_I32)
+        return v, hi - lo
+
+    # every byte a digit but the (at most 2) separating dashes
+    sep = (pos == d1[:, None]) | (pos == d2[:, None])
+    ok = ok & ~(in_str & ~is_digit & ~sep).any(dim=1)
+    y, yw = field(start, d1)
+    m, mw = field(d1 + 1, d2)
+    d, dw = field(d2 + 1, end)
+    m = torch.where(dash_count >= 1, m, torch.ones_like(m))
+    d = torch.where(dash_count >= 2, d, torch.ones_like(d))
+    true = torch.ones_like(ok)
+    # year 1 on only: Python's datetime.date has no year 0
+    ok = ok & (dash_count <= 2) & (yw == 4) & (y >= 1) & \
+        torch.where(dash_count >= 1, (mw >= 1) & (mw <= 2), true) & \
+        torch.where(dash_count >= 2, (dw >= 1) & (dw <= 2), true) & \
+        (m >= 1) & (m <= 12) & (d >= 1) & (d <= 31)
+    days = days_from_civil(y, m, d)
+    # the round trip rejects impossible dates (Feb 31 -> Mar 3)
+    y2, m2, dd2 = civil_from_days(days.to(_I64))
+    ok = ok & (y2 == y) & (m2 == m) & (dd2 == d)
+    return torch.where(ok, days, torch.zeros_like(days)), ok
+
+
+def date_to_string(days, validity):
+    """Epoch days -> 'yyyy-MM-dd' byte rows (10 bytes)."""
+    from .datetime import civil_from_days
+    y, m, d = civil_from_days(days.to(_I64))
+
+    def digit(v, p):
+        return torch.remainder(torch.div(v, p, rounding_mode="floor"), 10)
+    dash = torch.full_like(y, ord("-") - ord("0"))
+    cols = [digit(y, 1000), digit(y, 100), digit(y, 10), digit(y, 1), dash,
+            digit(m, 10), digit(m, 1), dash, digit(d, 10), digit(d, 1)]
+    out = (torch.stack(cols, dim=1) + ord("0")).to(torch.uint8)
+    ten = torch.full_like(y, 10)
+    return out, torch.where(validity, ten, torch.zeros_like(ten))

@@ -33,6 +33,23 @@ types its scalar hash does not know, and raises); ``XxHash64`` is a scalar
 Python XXH64, where the JAX handler calls its device kernel per value.
 ``tests/test_torch_interpreter.py`` pins each with both outputs.
 
+The scalar handlers (conditionals, math, the cast, dates and times) follow
+the device the same way: ``least``/``greatest`` keep the first of two
+values that compare false both ways (a NaN), where the JAX handler orders
+NaN above every double; the log of NaN is null and exp, sinh and cosh
+overflow to infinity (the JAX handler gives NaN for both); a double cast
+to an integral type saturates (the JAX handler wraps it) and a string
+parses as the device's parser does (ASCII digits, its whitespace set). The
+math functions go through numpy's scalar functions, which give IEEE
+results. Three departures of both devices from Spark stay with the
+device, not here: a decimal in floor, ceil and round is read as its
+unscaled integer; round of a double is HALF_UP on the double scaled by
+10^s, where Spark rounds its decimal string (1.005 rounds to 1.0 there,
+to 1.01 here); a double cast to a decimal rounds half to even without the
+precision check. ``tests/test_torch_conditional_math.py`` and
+``tests/test_torch_cast.py`` pin them. ``Rand`` draws the JAX
+interpreter's one value per seed, not the device's sequence.
+
 Sample draws its rows with numpy from the seed, as the JAX interpreter
 does; the device's Bernoulli draw is another sequence, so a sampled query
 compares on its shape, not its rows.
@@ -40,6 +57,7 @@ compares on its shape, not its rows.
 
 from __future__ import annotations
 
+import calendar
 import datetime as _dt
 import decimal as _dec
 import math
@@ -47,6 +65,7 @@ import re
 import struct
 from typing import Any, Dict, List
 
+import numpy as np
 import pyarrow as pa
 
 from .. import types as T
@@ -558,9 +577,307 @@ class RowEvaluator:
             return True
         return None if l is None or r is None else False
 
-    # ---- cast: the integral widening the port's Cast binds ----
+    # ---- conditionals ----
+    def _eval_If(self, e, row):
+        c = self.eval(e.predicate, row)
+        return self.eval(e.true_value if c is True else e.false_value, row)
+
+    def _eval_CaseWhen(self, e, row):
+        for cond, val in e.branches:
+            if self.eval(cond, row) is True:
+                return self.eval(val, row)
+        return None if e.else_value is None else self.eval(e.else_value, row)
+
+    def _eval_Coalesce(self, e, row):
+        for c in e.exprs:
+            v = self.eval(c, row)
+            if v is not None:
+                return v
+        return None
+
+    def _eval_LeastGreatest(self, e, row):
+        # left to right, a value replacing the best only where it compares
+        # strictly better: NaN never wins and never loses, as on the device
+        best = None
+        for c in e.exprs:
+            v = self.eval(c, row)
+            if v is None:
+                continue
+            if best is None or (v > best if e.greatest else v < best):
+                best = v
+        return best
+
+    # ---- cast ----
     def _eval_Cast(self, e, row):
-        return self.eval(e.child, row)
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        src, to = e.child.dtype, e.to
+        try:
+            return _cast_value(v, src, to)
+        except (ValueError, OverflowError, ArithmeticError):
+            return None
+
+    # ---- math (IEEE results through numpy's scalar functions) ----
+    def _eval_UnaryMath(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        x = float(v)
+        if e.fn in _LOG_EDGE:
+            if not x > _LOG_EDGE[e.fn]:
+                return None          # at or below the edge, and NaN: null
+        return _np_call(_UNARY_MATH[e.fn], x)
+
+    def _eval_Pow(self, e, row):
+        return self._double2(e, row, np.power)
+
+    def _eval_Atan2(self, e, row):
+        return self._double2(e, row, np.arctan2)
+
+    def _eval_Hypot(self, e, row):
+        return self._double2(e, row, np.hypot)
+
+    def _double2(self, e, row, fn):
+        l, r = self._two(e, row)
+        if l is None or r is None:
+            return None
+        return _np_call(fn, float(l), float(r))
+
+    def _eval_FloorCeil(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        if e.child.dtype.is_integral:
+            return v
+        x = float(v)
+        if not math.isfinite(x):
+            return None
+        return _saturate(math.ceil(x) if e.is_ceil else math.floor(x), 64)
+
+    def _eval_Signum(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        x = float(v)
+        if math.isnan(x) or x == 0:
+            return x
+        return math.copysign(1.0, x)
+
+    def _eval_Round(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        if isinstance(v, float) and not math.isfinite(v):
+            return v
+        d = _dec.Decimal(repr(v) if isinstance(v, float) else v)
+        mode = _dec.ROUND_HALF_EVEN if e.half_even else _dec.ROUND_HALF_UP
+        with _dec.localcontext() as cx:
+            cx.prec = 400           # every double's digits, and the scale's
+            q = d.quantize(_dec.Decimal(1).scaleb(-e.scale), rounding=mode)
+        if isinstance(v, float):
+            return math.copysign(float(q), v) if q == 0 else float(q)
+        if isinstance(v, _dec.Decimal):
+            return q
+        return _saturate(int(q), _INT_BITS[e.dtype.kind])
+
+    def _eval_Logarithm(self, e, row):
+        b = self.eval(e.base, row)
+        x = self.eval(e.child, row)
+        if b is None or x is None:
+            return None
+        b = float(b)
+        x = float(x)
+        if not (b > 0 and x > 0):
+            return None
+        return _np_call(lambda xs, bs: np.log(xs) / np.log(bs), x, b)
+
+    def _eval_NaNvl(self, e, row):
+        a = self.eval(e.left, row)
+        if a is None:
+            return None
+        if not math.isnan(float(a)):
+            return float(a)
+        b = self.eval(e.right, row)
+        return None if b is None else float(b)
+
+    def _eval_Rand(self, e, row):
+        # the JAX interpreter's: one value per seed, not the device's
+        # threefry sequence (a documented incompat); the card's values are
+        # held against the same torch code on the CPU instead
+        import random
+        return random.Random(e.seed).random()
+
+    def _eval_RaiseError(self, e, row):
+        v = self.eval(e.child, row)
+        if v is not None:
+            raise RuntimeError(f"[USER_RAISED_ERROR] {v}")
+        return None
+
+    # ---- datetime (independent: Python's datetime and calendar) ----
+    def _eval_ExtractDatePart(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        p = e.part
+        if p in ("hour", "minute", "second"):
+            return getattr(v, p)
+        d = v.date() if isinstance(v, _dt.datetime) else v
+        if p == "year":
+            return d.year
+        if p == "month":
+            return d.month
+        if p == "day":
+            return d.day
+        if p == "quarter":
+            return (d.month - 1) // 3 + 1
+        if p == "dayofweek":
+            return d.isoweekday() % 7 + 1   # Sunday = 1 ... Saturday = 7
+        if p == "dayofyear":
+            return d.timetuple().tm_yday
+        if p == "weekofyear":
+            return d.isocalendar()[1]
+        raise ValueError(p)
+
+    def _eval_DateAddSub(self, e, row):
+        v = self.eval(e.child, row)
+        n = self.eval(e.days, row)
+        if v is None or n is None:
+            return None
+        return v + _dt.timedelta(days=-n if e.negate else n)
+
+    def _eval_DateDiff(self, e, row):
+        a = self.eval(e.end, row)
+        b = self.eval(e.start, row)
+        if a is None or b is None:
+            return None
+        return (a - b).days
+
+    def _eval_AddMonths(self, e, row):
+        v = self.eval(e.child, row)
+        n = self.eval(e.months, row)
+        if v is None or n is None:
+            return None
+        total = v.year * 12 + (v.month - 1) + n
+        y, m = total // 12, total % 12 + 1
+        return _dt.date(y, m, min(v.day, calendar.monthrange(y, m)[1]))
+
+    def _eval_LastDay(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        return _dt.date(v.year, v.month,
+                        calendar.monthrange(v.year, v.month)[1])
+
+    def _eval_UnixTimestampConv(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        if not e.to_unix:
+            return _EPOCH_TS + _dt.timedelta(seconds=v)
+        if isinstance(v, _dt.datetime):
+            return _micros(v) // 1_000_000          # floors, as the device
+        return (v - _EPOCH).days * 86400
+
+    def _eval_DateFormat(self, e, row):
+        v = self.eval(e.child, row)
+        return None if v is None else _format_datetime(v, e.fmt)
+
+    def _eval_ParseDateTime(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        return _parse_datetime(v, e.fmt, e.out)
+
+    def _eval_FromUnixtime(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        try:
+            ts = _EPOCH_TS + _dt.timedelta(seconds=int(v))
+        except OverflowError:
+            return None     # outside years 1-9999: the device nulls too
+        return _format_datetime(ts, e.fmt)
+
+    def _eval_TruncDateTime(self, e, row):
+        from ..expressions.datetime import _TRUNC_DATE_LEVELS, \
+            _TRUNC_TS_LEVELS
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        levels = _TRUNC_TS_LEVELS if e.to_timestamp else _TRUNC_DATE_LEVELS
+        lvl = levels.get(e.level.lower())
+        if lvl is None:
+            return None
+        d = v.date() if isinstance(v, _dt.datetime) else v
+        if lvl == "year":
+            out = _dt.date(d.year, 1, 1)
+        elif lvl == "quarter":
+            out = _dt.date(d.year, ((d.month - 1) // 3) * 3 + 1, 1)
+        elif lvl == "month":
+            out = _dt.date(d.year, d.month, 1)
+        elif lvl == "week":
+            out = d - _dt.timedelta(days=d.weekday())
+        else:
+            out = d
+        if not e.to_timestamp:
+            return out
+        if lvl in ("hour", "minute", "second") and \
+                isinstance(v, _dt.datetime):
+            ts = v.replace(microsecond=0)
+            if lvl in ("hour", "minute"):
+                ts = ts.replace(second=0)
+            if lvl == "hour":
+                ts = ts.replace(minute=0)
+            return ts
+        return _dt.datetime(out.year, out.month, out.day,
+                            tzinfo=_dt.timezone.utc)
+
+    def _eval_MonthsBetween(self, e, row):
+        a = self.eval(e.end, row)
+        b = self.eval(e.start, row)
+        if a is None or b is None:
+            return None
+        ya, ma, da, ha, mia, sa, _ = _civil_tuple(a)
+        yb, mb, db, hb, mib, sb, _ = _civil_tuple(b)
+        months = (ya - yb) * 12 + (ma - mb)
+        la = calendar.monthrange(ya, ma)[1]
+        lb = calendar.monthrange(yb, mb)[1]
+        # matching days of the month give whole months, the time of day
+        # ignored (Spark's DateTimeUtils.monthsBetween)
+        if da == db or (da == la and db == lb):
+            v = float(months)
+        else:
+            v = months + ((da - db) + ((ha * 3600 + mia * 60 + sa)
+                                       - (hb * 3600 + mib * 60 + sb))
+                          / 86400.0) / 31.0
+        return round(v * 1e8) / 1e8 if e.round_off else v
+
+    def _eval_NextDay(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        t = e._target()
+        if t is None:
+            return None
+        if isinstance(v, _dt.datetime):
+            v = v.date()            # the result is a DATE, as on the device
+        return v + _dt.timedelta(days=(t - v.weekday() + 7) % 7 or 7)
+
+    def _eval_UTCTimestampConv(self, e, row):
+        from zoneinfo import ZoneInfo
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        tz = ZoneInfo(e.tz)
+        wall = v.replace(tzinfo=None)
+        if not e.to_utc:
+            # the UTC instant's wall clock in the zone
+            local = v.astimezone(tz).replace(tzinfo=None)
+            return local.replace(tzinfo=_dt.timezone.utc)
+        # the zone's wall clock to its UTC instant (fold 0: the earlier
+        # offset in an overlap, shifted forward through a gap)
+        return wall.replace(tzinfo=tz).astimezone(_dt.timezone.utc)
 
     # ---- strings (independent str-based implementations) ----
     def _eval_StringPredicate(self, e, row):
@@ -794,6 +1111,401 @@ class RowEvaluator:
 
 
 # ---------------------------------------------------------------------------
+# Scalar helpers of the cast, math and datetime handlers
+# ---------------------------------------------------------------------------
+
+#: the whitespace the device's string casts trim (UTF8String.trimAll)
+_CAST_SPACE = " \t\n\x0b\x0c\r"
+_LONG_RE = re.compile(r"([+-]?)(\d*)(?:\.(\d*))?", re.ASCII)
+_DATE_RE = re.compile(r"(\d{4})(?:-(\d{1,2})(?:-(\d{1,2}))?)?", re.ASCII)
+
+
+def _saturate(v: int, bits: int) -> int:
+    lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+    return max(lo, min(hi, v))
+
+
+def _trunc_saturate(v: float, bits: int) -> int:
+    """A double to an integral type as the device converts it: truncated,
+    NaN to 0, saturated at the type's range."""
+    if math.isnan(v):
+        return 0
+    if math.isinf(v):
+        return _saturate(1 << 64 if v > 0 else -(1 << 64), bits)
+    return _saturate(math.trunc(v), bits)
+
+
+def _float_to_int(v: float, bits: int) -> int:
+    """A double cast to an integral type: into bigint the value is first
+    held below 2^63 - 2^33, as the JAX package's cast clips it."""
+    if bits == 64 and v < 2.0 ** 63:
+        v = min(v, 2.0 ** 63 - 2.0 ** 33)
+    return _trunc_saturate(v, bits)
+
+
+def _f32(v: float) -> float:
+    """The float32 nearest ``v`` (an infinity past float32's range)."""
+    with np.errstate(all="ignore"):
+        return float(np.float32(v))
+
+
+def _micros(v: _dt.datetime) -> int:
+    if v.tzinfo is None:
+        v = v.replace(tzinfo=_dt.timezone.utc)
+    return (v - _EPOCH_TS) // _dt.timedelta(microseconds=1)
+
+
+def _decimal_float(v: _dec.Decimal, src: T.SqlType) -> float:
+    """A decimal as the device makes it a double: its unscaled value over
+    10^scale, in floating point."""
+    return float(int(v.scaleb(src.scale))) / (10.0 ** src.scale)
+
+
+def _parse_long(s: str):
+    """Spark's non-ANSI string to bigint, as the device parses it:
+    ``[+-]digits[.digits]`` (ASCII digits) inside the trimmed
+    whitespace, the fraction dropped, at most 19 significant digits, in
+    range; else None."""
+    m = _LONG_RE.fullmatch(s.strip(_CAST_SPACE))
+    if m is None:
+        return None
+    sign, whole, frac = m.groups()
+    if not whole and not frac:
+        return None
+    if len(whole.lstrip("0")) > 19:
+        return None
+    n = int(whole or "0")
+    n = -n if sign == "-" else n
+    return n if -(1 << 63) <= n < (1 << 63) else None
+
+
+def _parse_date(s: str):
+    """Spark's string to date, ``yyyy[-M[-d]]``, as the device parses it."""
+    m = _DATE_RE.fullmatch(s.strip(_CAST_SPACE))
+    if m is None:
+        return None
+    y, mo, d = (int(g) if g else 1 for g in m.groups())
+    if y < 1:
+        return None
+    try:
+        return _dt.date(y, mo, d)
+    except ValueError:
+        return None
+
+
+def _parse_ts_string(s: str):
+    """Spark's string to timestamp (the JAX interpreter's; the device has
+    none): ``yyyy-M-d[ T][H:m:s[.fraction]][zone]``, the zone Z, UTC or
+    ±HH[:MM], the result on the UTC timeline."""
+    if not s:
+        return None
+    offset_min = 0
+    zm = re.search(r"(Z|UTC|[+-]\d{1,2}(?::?\d{2})?)\s*$", s)
+    # a numeric offset is a zone only after a time: else "-04" is the
+    # day field of a bare date
+    if zm and (zm.group(1) in ("Z", "UTC") or ":" in s[:zm.start()]):
+        z = zm.group(1)
+        if z not in ("Z", "UTC"):
+            m2 = re.fullmatch(r"([+-])(\d{1,2})(?::?(\d{2}))?", z)
+            sign = -1 if m2.group(1) == "-" else 1
+            offset_min = sign * (int(m2.group(2)) * 60
+                                 + int(m2.group(3) or 0))
+        s = s[:zm.start()].strip()
+    sep = "T" if "T" in s else " "
+    date_part, _, time_part = s.partition(sep)
+    parts = date_part.split("-")
+    if not 1 <= len(parts) <= 3 or len(parts[0]) != 4 or \
+            any(not p.isdigit() for p in parts):
+        return None
+    try:
+        base = _dt.datetime(int(parts[0]),
+                            int(parts[1]) if len(parts) > 1 else 1,
+                            int(parts[2]) if len(parts) > 2 else 1,
+                            tzinfo=_dt.timezone.utc)
+    except ValueError:
+        return None
+    shift = _dt.timedelta(minutes=offset_min)
+    if not time_part:
+        return base - shift
+    frac = 0
+    if "." in time_part:
+        time_part, _, fs = time_part.partition(".")
+        if not fs.isdigit() or len(fs) > 9:
+            return None
+        frac = int(fs.ljust(6, "0")[:6])
+    tp = time_part.split(":")
+    if not 1 <= len(tp) <= 3 or any(not x.isdigit() for x in tp):
+        return None
+    try:
+        return base.replace(hour=int(tp[0]),
+                            minute=int(tp[1]) if len(tp) > 1 else 0,
+                            second=int(tp[2]) if len(tp) > 2 else 0,
+                            microsecond=frac) - shift
+    except ValueError:
+        return None
+
+
+def _spark_string_of(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, float):
+        if math.isnan(v):
+            return "NaN"
+        if math.isinf(v):
+            return "Infinity" if v > 0 else "-Infinity"
+        return repr(v)
+    if isinstance(v, _dt.date) and not isinstance(v, _dt.datetime):
+        return v.isoformat()
+    return str(v)
+
+
+def _cast_value(v, src: T.SqlType, to: T.SqlType):
+    """One non-null value cast from ``src`` to ``to``. The pairs the device
+    casts give the device's answer (floats to integers saturate, integers
+    wrap, strings parse as ``_parse_long`` and ``_parse_date``); the pairs
+    only the CPU casts (a string to a double, timestamp or decimal; a
+    double, boolean or timestamp to a string) follow the JAX
+    interpreter."""
+    k = to.kind
+    if k in _INT_BITS:
+        bits = _INT_BITS[k]
+        if isinstance(v, bool):
+            return int(v)
+        if isinstance(v, str):
+            n = _parse_long(v)
+            # out of the target's range: null, never wrapped
+            return n if n is not None and \
+                -(1 << (bits - 1)) <= n < 1 << (bits - 1) else None
+        if isinstance(v, _dt.datetime):
+            return _wrap(_micros(v) // 1_000_000, bits)
+        if isinstance(v, _dt.date):
+            return _wrap((v - _EPOCH).days, bits)
+        if isinstance(v, _dec.Decimal):
+            v = _decimal_float(v, src)
+        if isinstance(v, float):
+            return _float_to_int(v, bits)
+        return _wrap(int(v), bits)
+    if k in (TypeKind.FLOAT64, TypeKind.FLOAT32):
+        if isinstance(v, str):
+            f = float(v.strip())
+        elif isinstance(v, _dt.datetime):
+            f = float(_micros(v) // 1_000_000)
+        elif isinstance(v, _dt.date):
+            f = float((v - _EPOCH).days)
+        elif isinstance(v, _dec.Decimal):
+            f = _decimal_float(v, src)
+        elif isinstance(v, int) and not isinstance(v, bool) and \
+                k is TypeKind.FLOAT32:
+            return float(np.float32(np.int64(v)))     # one rounding
+        else:
+            f = float(v)
+        return _f32(f) if k is TypeKind.FLOAT32 else f
+    if k is TypeKind.BOOLEAN:
+        if isinstance(v, _dt.datetime):
+            return _micros(v) != 0
+        if isinstance(v, _dt.date):
+            return v != _EPOCH
+        if isinstance(v, str):
+            return bool(v)          # the JAX interpreter's
+        return v != 0
+    if k is TypeKind.DATE:
+        if isinstance(v, _dt.datetime):
+            return _EPOCH + _dt.timedelta(days=_micros(v) // 86_400_000_000)
+        if isinstance(v, _dt.date):
+            return v
+        if isinstance(v, str):
+            return _parse_date(v)
+        return _EPOCH + _dt.timedelta(days=_cast_value(v, src, T.INT32))
+    if k is TypeKind.TIMESTAMP:
+        if isinstance(v, _dt.datetime):
+            return v
+        if isinstance(v, _dt.date):
+            return _dt.datetime(v.year, v.month, v.day,
+                                tzinfo=_dt.timezone.utc)
+        if isinstance(v, bool):
+            # Spark's booleanToTimestamp: 1 microsecond for true
+            return _EPOCH_TS + _dt.timedelta(microseconds=int(v))
+        if isinstance(v, str):
+            return _parse_ts_string(v.strip())
+        if isinstance(v, _dec.Decimal):
+            v = _decimal_float(v, src)
+        # a number counts seconds; a double truncates to whole seconds
+        secs = _trunc_saturate(v, 64) if isinstance(v, float) else int(v)
+        return _EPOCH_TS + _dt.timedelta(
+            microseconds=_wrap(secs * 1_000_000, 64))
+    if k is TypeKind.DECIMAL:
+        if isinstance(v, str):
+            d = _dec.Decimal(v.strip())
+        elif isinstance(v, float):
+            d = _dec.Decimal(repr(v))
+        elif isinstance(v, _dec.Decimal):
+            d = v
+        elif isinstance(v, _dt.datetime):
+            d = _dec.Decimal(_micros(v))
+        elif isinstance(v, _dt.date):
+            d = _dec.Decimal((v - _EPOCH).days)
+        else:
+            d = _dec.Decimal(int(v))
+        q = d.quantize(_dec.Decimal(1).scaleb(-to.scale),
+                       rounding=_dec.ROUND_HALF_UP)
+        # Spark nulls a value past the target's precision
+        if abs(q) >= _dec.Decimal(10) ** (to.precision - to.scale):
+            return None
+        return q
+    if k is TypeKind.STRING:
+        return _spark_string_of(v)
+    raise _later(f"cast to {to}")
+
+
+def _np_call(fn, *args) -> float:
+    """``fn`` of doubles through numpy's scalar functions, IEEE results
+    (infinities, NaN) and no warnings."""
+    with np.errstate(all="ignore"):
+        return float(fn(*[np.float64(a) for a in args]))
+
+
+_UNARY_MATH = {
+    "sqrt": np.sqrt, "exp": np.exp, "expm1": np.expm1, "sin": np.sin,
+    "cos": np.cos, "tan": np.tan, "asin": np.arcsin, "acos": np.arccos,
+    "atan": np.arctan, "sinh": np.sinh, "cosh": np.cosh, "tanh": np.tanh,
+    "asinh": np.arcsinh, "acosh": np.arccosh, "atanh": np.arctanh,
+    "cbrt": np.cbrt, "rint": np.rint, "degrees": np.degrees,
+    "radians": np.radians,
+    "cot": lambda x: 1.0 / np.tan(x), "sec": lambda x: 1.0 / np.cos(x),
+    "csc": lambda x: 1.0 / np.sin(x),
+    "log": np.log, "log10": np.log10, "log2": np.log2, "log1p": np.log1p,
+}
+#: the logarithms' domain edges: input at or below is null (Spark)
+_LOG_EDGE = {"log": 0.0, "log10": 0.0, "log2": 0.0, "log1p": -1.0}
+
+
+def _civil_tuple(v):
+    if isinstance(v, _dt.datetime):
+        return (v.year, v.month, v.day, v.hour, v.minute, v.second,
+                v.microsecond // 1000)
+    return (v.year, v.month, v.day, 0, 0, 0, 0)
+
+
+_MONTH_NAMES = ["January", "February", "March", "April", "May", "June",
+                "July", "August", "September", "October", "November",
+                "December"]
+_WEEKDAY_NAMES = ["Monday", "Tuesday", "Wednesday", "Thursday", "Friday",
+                  "Saturday", "Sunday"]
+
+
+def _format_datetime(v, fmt: str):
+    """A Java SimpleDateFormat-style formatter over more directives than
+    the device's fixed-width set (EEEE, a single d or M, AM/PM), so that a
+    pattern the device refuses still formats on the CPU."""
+    y, m, d, hh, mi, ss, ms = _civil_tuple(v)
+    if not 1 <= y <= 9999:
+        return None
+    day = v.date() if isinstance(v, _dt.datetime) else v
+    wd, doy = day.weekday(), day.timetuple().tm_yday
+    out = []
+    i = 0
+    while i < len(fmt):
+        ch = fmt[i]
+        if ch == "'":
+            j = fmt.find("'", i + 1)
+            if j < 0:
+                return None
+            out.append("'" if j == i + 1 else fmt[i + 1:j])
+            i = j + 1
+            continue
+        if not ch.isalpha():
+            out.append(ch)
+            i += 1
+            continue
+        j = i
+        while j < len(fmt) and fmt[j] == ch:
+            j += 1
+        w = j - i
+        if ch == "y":
+            out.append(str(y % 100).zfill(2) if w == 2 else str(y).zfill(w))
+        elif ch == "M":
+            out.append(_MONTH_NAMES[m - 1] if w >= 4
+                       else _MONTH_NAMES[m - 1][:3] if w == 3
+                       else str(m).zfill(w))
+        elif ch in "dHmsDQ":
+            val = {"d": d, "H": hh, "m": mi, "s": ss, "D": doy,
+                   "Q": (m - 1) // 3 + 1}[ch]
+            out.append(str(val).zfill(w))
+        elif ch == "h":
+            out.append(str((hh % 12) or 12).zfill(w))
+        elif ch == "S":
+            out.append(str(ms * 1000).zfill(6)[:w])
+        elif ch == "E":
+            out.append(_WEEKDAY_NAMES[wd] if w >= 4
+                       else _WEEKDAY_NAMES[wd][:3])
+        elif ch == "a":
+            out.append("AM" if hh < 12 else "PM")
+        else:
+            raise _later(f"datetime pattern directive {ch * w!r}")
+        i = j
+    return "".join(out)
+
+
+def _parse_datetime(v: str, fmt: str, out: str):
+    """to_date / to_timestamp / unix_timestamp on one string: a regex from
+    the pattern, numeric directives of width 1 matching 1-2 digits and
+    wider ones exactly that many (Spark's CORRECTED parser), so a pattern
+    the device refuses still parses on the CPU."""
+    pat, fields = [], []
+    i = 0
+    while i < len(fmt):
+        ch = fmt[i]
+        if ch == "'":
+            j = fmt.find("'", i + 1)
+            if j < 0:
+                return None
+            pat.append(re.escape("'" if j == i + 1 else fmt[i + 1:j]))
+            i = j + 1
+            continue
+        if not ch.isalpha():
+            pat.append(re.escape(ch))
+            i += 1
+            continue
+        j = i
+        while j < len(fmt) and fmt[j] == ch:
+            j += 1
+        w = j - i
+        if ch in "yMdHms":
+            pat.append(r"(\d{1,2})" if w == 1 else r"(\d{%d})" % w)
+            fields.append(ch)
+        elif ch == "S":
+            pat.append(r"(\d{%d})" % w)
+            fields.append(("S", w))
+        else:
+            raise _later(f"datetime parse directive {ch * w!r}")
+        i = j
+    mt = re.fullmatch("".join(pat), v, re.ASCII)
+    if not mt:
+        return None
+    vals = {"y": 1970, "M": 1, "d": 1, "H": 0, "m": 0, "s": 0}
+    micros = 0
+    for gi, ch in enumerate(fields):
+        raw = int(mt.group(gi + 1))
+        if isinstance(ch, tuple):       # a fraction of w digits
+            w = ch[1]
+            micros = raw * 10 ** (6 - w) if w <= 6 else raw // 10 ** (w - 6)
+        else:
+            vals[ch] = raw
+    y, m, d = vals["y"], vals["M"], vals["d"]
+    if y < 1 or not (1 <= m <= 12 and 1 <= d <= calendar.monthrange(y, m)[1]):
+        return None
+    if vals["H"] > 23 or vals["m"] > 59 or vals["s"] > 59:
+        return None
+    if out == "date":
+        return _dt.date(y, m, d)
+    ts = _dt.datetime(y, m, d, vals["H"], vals["m"], vals["s"], micros,
+                      tzinfo=_dt.timezone.utc)
+    if out == "unix":
+        return _micros(ts) // 1_000_000
+    return ts
+
+
+# ---------------------------------------------------------------------------
 # Aggregates
 # ---------------------------------------------------------------------------
 
@@ -867,8 +1579,16 @@ def _agg_value(a, xs: List, n_rows: int):
 
 def _pylist(c: pa.ChunkedArray) -> list:
     """A column's values as Python objects; a null-free integer, float or
-    string column goes through numpy, which makes the same values faster."""
+    string column goes through numpy, which makes the same values faster.
+    A timestamp with a zone is built here, on the UTC timeline, from its
+    microseconds: pyarrow's own conversion looks the zone up for every
+    value, which on some hosts costs a module search each time."""
     t = c.type
+    if pa.types.is_timestamp(t) and t.tz is not None:
+        us = c.cast(pa.timestamp("us", tz=t.tz)).cast(pa.int64())
+        return [None if v is None else
+                _EPOCH_TS + _dt.timedelta(microseconds=v)
+                for v in _pylist(us)]
     if c.null_count == 0 and (pa.types.is_integer(t) or
                               pa.types.is_floating(t) or
                               pa.types.is_string(t)):

@@ -20,6 +20,7 @@ import pyarrow as pa
 import pytest
 import torch
 
+import spark_rapids_tpu.plan.cbo  # noqa: F401 (registers its conf key)
 from spark_rapids_tpu.expressions.aggregates import Average as JAverage
 from spark_rapids_tpu.plan import Session as JSession
 from spark_rapids_tpu.plan import table as jtable
@@ -71,8 +72,32 @@ def oracle(make, conf=None):
 
 
 # ---------------------------------------------------------------------------
-# the five cases ROADMAP item 5 names
+# the five cases ROADMAP item 5 names, and the two that waited for Pow
 # ---------------------------------------------------------------------------
+
+def _pow(a):
+    from spark_rapids_tpu.expressions.math import Pow as JPow
+    from spark_rapids_tpu_torch.expressions import Pow
+    p = JPow if a is JAX else Pow
+    return a.table(T1).select(p(a.col("d"), a.lit(2.0)).alias("p"))
+
+
+def test_incompat_op_falls_back():
+    """Pow is ``incompat`` (CUDA's libdevice, like XLA, differs from the
+    JVM's StrictMath in the last ULPs): without incompatibleOps its
+    Project runs on the interpreter, with the right rows."""
+    ses, got = against_jax(_pow, {})
+    assert ses.fell_back() == ["CpuFallback[Project]"]
+    assert_tables_equal(got, oracle(_pow), ignore_order=True)
+
+
+def test_incompat_op_runs_when_enabled():
+    on = {"spark.rapids.tpu.sql.incompatibleOps.enabled": True}
+    ses, got = against_jax(_pow, on)
+    assert ses.fell_back() == []
+    assert got.num_rows == T1.num_rows
+    assert_tables_equal(got, oracle(_pow, on), ignore_order=True)
+
 
 def test_exec_disabled_by_conf_falls_back():
     def q(a):

@@ -557,4 +557,14 @@ def test_row_evaluator_dispatch_is_the_jax_ones():
     port = {n for n in dir(I.RowEvaluator) if n.startswith("_eval_")}
     jax = {n for n in dir(JRowEvaluator) if n.startswith("_eval_")}
     assert port <= jax
-    assert len(port) == 52
+    # 52 before the scalar slice, which adds the 22 handlers of
+    # conditional.py, math.py and datetime.py, and Hypot, Logarithm,
+    # NaNvl, Rand, RaiseError and UTCTimestampConv
+    assert len(port) == 80
+    for name in ("If", "CaseWhen", "Coalesce", "LeastGreatest", "UnaryMath",
+                 "Pow", "Atan2", "FloorCeil", "Round", "Signum",
+                 "ExtractDatePart", "DateAddSub", "DateDiff", "AddMonths",
+                 "LastDay", "UnixTimestampConv", "DateFormat",
+                 "ParseDateTime", "FromUnixtime", "TruncDateTime",
+                 "MonthsBetween", "NextDay"):
+        assert f"_eval_{name}" in port

@@ -296,10 +296,24 @@ def test_mismatched_integral_keys_widen():
 
 
 def test_cast_outside_integral_widening_names_its_item():
-    t = pa.table({"x": np.arange(4, dtype=np.int64)})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        Session(device="cpu").collect(
-            table(t).select(Cast(col("x"), T.INT32).alias("y")))
+    """Past integral widening the port now casts the JAX device matrix;
+    a pair ``cast_supported`` refuses (double to string) tags its node to
+    an island and names the JAX package's reason, as the JAX Session
+    does."""
+    from spark_rapids_tpu.expressions.cast import Cast as JCast
+    t = pa.table({"x": np.arange(4, dtype=np.int64),
+                  "f": np.arange(4, dtype=np.float64) / 2})
+    ses = Session(device="cpu")
+    got = ses.collect(table(t).select(Cast(col("x"), T.INT32).alias("y")))
+    assert got.column("y").to_pylist() == [0, 1, 2, 3]
+    assert ses.fell_back() == []
+    jdf = jtable(t).select(JCast(jcol("f"), JT.string(24)).alias("s"))
+    df = table(t).select(Cast(col("f"), T.string(24)).alias("s"))
+    reason = "cast double → string[24] has no device kernel"
+    assert reason in ses.explain(df)
+    assert ses.explain(df) == JSession({}).explain(jdf)
+    assert ses.collect(df).equals(JSession({}).collect(jdf))
+    assert ses.fell_back() == ["CpuFallback[Project]"]
 
 
 def _walk(e):
