@@ -48,12 +48,26 @@ fallen back, with its warm wall, rows/s, peak and idle share;
 p_size exchanges held against their plain versions, and the Like
 filter's DFA on the card against the CPU over every supplier batch, with
 its device time and launches a batch. Then the string phase: every
-string expression of the port (31, each new class at least once) over
-2^16 rows of S_COMMENT and P_TYPE on the card against the port's row
+string expression of the port (53, each class at least once; hex, bin and
+conv at INT64_MIN, -1, 0 and INT64_MAX) over 2^16 rows of S_COMMENT,
+P_TYPE, an int64 and a decimal on the card against the port's row
 interpreter, 0 rows apart (a fused stage, captured), and StringLocate,
 StringReplace and SubstringIndex over the SF100 P_TYPE column in 8
 slices against pyarrow, each ``window_match`` launch held against its
-plain version on the same inputs (24: k = 8, 5 and 1).
+plain version on the same inputs (24: k = 8, 5 and 1). Then the catalog
+phase: the part-catalogue roll-up (``entry.catalog_df``: regexp_extract,
+find_in_set, initcap over regexp_replace and regexp_replace over P_TYPE
+and P_BRAND, a group-by, then concat_ws, bin, format_number, hex, conv
+and empty2null over the groups) over the 20,000,000 SF100 part rows
+through the Session, cold and twice warm, equal to
+``entry.catalog_reference`` in all 3,750 groups in order, nothing fallen
+back, with its warm wall, rows/s, peak and idle share, murmur3 at its
+exchange against its plain version and each span expression's device
+time and launches on one slice; and the comment leg
+(``entry.comment_spans_df``: regexp_extract and regexp_replace over the
+1,000,000 SF100 S_COMMENT rows at 128 bytes), 0 rows apart from
+pyarrow's RE2, with each expression's device time on one 125,000-row
+batch.
 
 Then the scalar slice. TPC-H Q14 at SF10 (``entry.q14_df``: September
 1995's lines by ``add_months``, the join with 2,000,000 part rows, a CASE
@@ -66,7 +80,7 @@ peak and idle share, ``window_match`` (k = 5) held against its plain
 version at every launch of one run, and murmur3 at Q9's o_year exchange;
 then every expression of ``conditional.py``, ``math.py``, ``cast.py`` and
 ``datetime.py`` (107: every math function, cast pair, date part, format,
-level and zone the columns reach) over 2^16 rows of dates, timestamps,
+level and zone the columns reach) over 2^14 rows of dates, timestamps,
 strings and doubles with NaN, the infinities, -0.0, MIN and MAX and nulls,
 on the card as one fused stage captured in a CUDA graph, against the row
 interpreter (0 rows apart, floats within rel 1e-12) and ``Rand`` against
@@ -178,8 +192,8 @@ on) with their times, the range sort, the fallback phase, the spill copy
 rate, Q18's checks (AQE off, then on) with their times, the catalog's
 tiers, spilled bytes, retry metrics, grace buckets and the allocator's
 peak, the skew legs, the types exchange, the out-of-core check, the
-injection run, the checks of Q2 and Q11 with their times, Q16 whole and the
-string phase, Q14, Q9 and the scalar phase, the captured kernel checks, the
+injection run, the checks of Q2 and Q11 with their times, Q16 whole, the
+string phase and the catalog phase, Q14, Q9 and the scalar phase, the captured kernel checks, the
 hash_agg, operator, new-operator and Q1-stage checks, the join_sort modes
 and the overflow retry, the Parquet write, scans, Q1 and Q16 part stage,
 each phase's wall time, a ``{"kernels": [...]}`` JSON line (the
@@ -682,13 +696,14 @@ def check_q16_part_result(got, expected) -> None:
 
 def run_path(name: str, make_table, reference, run, check, dev, counted,
              rows_of=lambda table: table.num_rows,
-             stats: dict = None) -> dict:
+             stats: dict = None, warm_runs: int = 3) -> dict:
     """One path end to end: make its data and its oracle's answer, run it
     cold with every kernel's launch count set to 0 just before, check it and
-    read the counts, then three warm runs. ``rows_of`` gives the input rows
-    that rows/s counts; ``stats``, where given, gets the cold and warm
-    seconds and the allocator's peak. Returns the launches per kernel of
-    the cold run; fails if a kernel of the path was not launched."""
+    read the counts, then ``warm_runs`` warm runs. ``rows_of`` gives the
+    input rows that rows/s counts; ``stats``, where given, gets the cold
+    and warm seconds and the allocator's peak. Returns the launches per
+    kernel of the cold run; fails if a kernel of the path was not
+    launched."""
     import torch
     t0 = time.perf_counter()
     table = make_table()
@@ -718,7 +733,7 @@ def run_path(name: str, make_table, reference, run, check, dev, counted,
                                  f"run")
 
     warm = []
-    for _ in range(3):
+    for _ in range(warm_runs):
         t0 = time.perf_counter()
         again = run(table)
         torch.cuda.synchronize(dev)
@@ -1552,28 +1567,47 @@ def rows_apart(a, b) -> int:
 def strings_table(supplier, part, n: int):
     """``n`` rows for the string expressions: S_COMMENT (25-100 letters,
     some with 'Customer ... Complaints'), P_TYPE with a twentieth null,
-    and an int32 in [-5, 300]."""
+    an int32 in [-5, 300], an int64 over its whole range (INT64_MIN, -1,
+    0 and INT64_MAX first) with a twentieth null, and a decimal(12, 4)."""
+    import decimal
     import numpy as np
     import pyarrow as pa
     rng = np.random.default_rng(31)
     ptype = part.column("p_type").slice(0, n).combine_chunks()
+    wide = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64, endpoint=True)
+    wide[:6] = [-2**63, -1, 0, 2**63 - 1, 1, 36]
+    small = rng.random(n) < 0.3
+    wide[small] = rng.integers(-10**6, 10**6, small.sum())
+    null = rng.random(n) < 0.05
+    null[:6] = False
+    cents = rng.integers(-10**11, 10**11, n)
+    cents[:4] = [5000, -5000, 15000, 25000]     # halves at scale 4 > 2
     return pa.table({
         "c": supplier.column("s_comment").slice(0, n),
         "t": pa.array(ptype.to_pylist(), pa.string(),
                       mask=rng.random(n) < 0.05),
         "n": pa.array(rng.integers(-5, 301, n).astype(np.int32)),
+        "i": pa.array(wide, pa.int64(), mask=null),
+        "d": pa.array([decimal.Decimal(int(v)).scaleb(-4) for v in cents],
+                      pa.decimal128(12, 4)),
     })
 
 
 def strings_exprs():
-    """Every string expression of the port's expression-breadth slice
-    (each new class at least once), over ``strings_table``'s columns."""
+    """Every string expression of the port's string slices (each class at
+    least once), over ``strings_table``'s columns: hex, bin and conv at
+    INT64_MIN, -1, 0 and INT64_MAX, conv to bases 2, 36 and -10, and
+    format_number over a decimal whose scale is above d."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.entry import CATALOG_CLASSES, COMMENT_EXTRACT
     from spark_rapids_tpu_torch.expressions import (
-        Ascii, Chr, Levenshtein, Like, OctetLength, Reverse, RLike, Soundex,
-        StringLocate, StringPad, StringRepeat, StringReplace, StringTrim,
-        SubstringIndex, Translate, col, concat, length, lit, lower,
-        substring, upper)
-    c, t, n = col("c"), col("t"), col("n")
+        Ascii, Bin, Cast, Chr, ConcatWs, Conv, Empty2Null, FindInSet,
+        FormatNumber, Hex, InitCap, Levenshtein, Like, OctetLength,
+        RegexpExtract, RegexpReplace, Reverse, RLike, Soundex, StringLocate,
+        StringPad, StringRepeat, StringReplace, StringTrim, SubstringIndex,
+        Translate, col, concat, length, lit, lower, substring, upper)
+    c, t, n, i, d = col("c"), col("t"), col("n"), col("i"), col("d")
+    digits = Cast(i, T.string(20))
     return [
         length(t), OctetLength(c), OctetLength(t, bits=True), upper(c),
         lower(t), substring(c, 3, 7), substring(t, -5, 3),
@@ -1594,6 +1628,21 @@ def strings_exprs():
         Like(c, Q16_LIKE_PATTERN), Like(t, "%POLISHED%"),
         RLike(t, "^(?:SMALL|LARGE) [A-Z]+ (?:TIN|STEEL)$"),
         RLike(c, "[aeiou]{3}"),
+        InitCap(t), InitCap(lower(substring(c, 1, 30))),
+        FormatNumber(i, 2), FormatNumber(n, 0), FormatNumber(d, 2),
+        FormatNumber(d, 6),
+        ConcatWs(lit(" | "), (t, substring(c, 1, 5), t)),
+        Hex(i), Hex(substring(t, 1, 6)), Bin(i), Bin(n),
+        Conv(digits, lit(10), lit(2)), Conv(digits, lit(10), lit(36)),
+        Conv(digits, lit(10), lit(-10)), Conv(substring(t, 1, 5), lit(36),
+                                              lit(16)),
+        FindInSet(RegexpExtract(t, "^([A-Z]+) ", 1), lit(CATALOG_CLASSES)),
+        Empty2Null(RegexpExtract(c, COMMENT_EXTRACT, 1)),
+        RegexpExtract(t, "^([A-Z]+) ([A-Z]+) ([A-Z]+)$", 3),
+        RegexpExtract(c, "([a-z]+)([A-Z]+)", 2),
+        RegexpReplace(t, " [A-Z]+$", ""), RegexpReplace(c, "[aeiou][aeiou]+",
+                                                        "_"),
+        RegexpReplace(substring(c, 1, 12), "x*", "-"),
     ]
 
 
@@ -1726,6 +1775,155 @@ def run_strings_phase(dev, tables) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The part-catalogue roll-up and the comment leg (the span programs)
+# ---------------------------------------------------------------------------
+
+#: the roll-up's input slices and shuffle partitions, and the comment
+#: leg's slices of the SF100 supplier table (125,000 rows each)
+CATALOG_SLICES = 8
+CATALOG_PARTITIONS = 8
+COMMENT_SLICES = 8
+
+
+def span_expression_times(what: str, dev, table, width: int, exprs) -> dict:
+    """Each expression's device time on the first of ``CATALOG_SLICES``
+    slices of ``table`` scanned at ``width`` bytes a string (CUDA events,
+    median of 3) and its device launches (the records of one profiled
+    call)."""
+    from spark_rapids_tpu_torch.batch import from_arrow
+    rows = -(-table.num_rows // CATALOG_SLICES)
+    batch, schema = from_arrow(table.slice(0, rows), string_max_len=width,
+                               device=dev)
+    out = {}
+    for name, e in exprs.items():
+        bound = e.bind(schema)
+        ms = time_cuda_ms(lambda: bound.eval(batch), 3, 1)
+        _, _, _, events = profiled(lambda: bound.eval(batch), dev,
+                                   host=False)
+        out[name] = (ms, len(events))
+    print(f"{what}: device ms and launches per expression on one slice "
+          f"({rows} rows, capacity {batch.capacity}, {width} bytes a "
+          f"string; CUDA events): "
+          f"{ {k: (round(ms, 3), n) for k, (ms, n) in out.items()} }")
+    return out
+
+
+def run_catalog_phase(dev, counted, tables) -> dict:
+    """The part-catalogue roll-up over the SF100 part table (20,000,000
+    rows, ``entry.catalog_df`` through the port's Session, 8 slices): one
+    cold and two warm runs, each equal to ``entry.catalog_reference`` in
+    all 3,750 groups, in order, nothing fallen back; its warm wall, rows/s,
+    peak and idle share; murmur3 at its exchange and every window_match
+    launch held against their plain versions in every checked run; each
+    per-row span expression's device time and launches on one slice. Then
+    the comment leg (``entry.comment_spans_df`` over the SF100 S_COMMENT,
+    1,000,000
+    rows at 128 bytes): one cold and one warm run, 0 rows apart from
+    pyarrow's RE2, and each expression's device time on one 125,000-row
+    batch."""
+    import pyarrow.compute as pc
+    import torch
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.expressions import (RegexpExtract,
+                                                    RegexpReplace, col)
+    from spark_rapids_tpu_torch.plan import Session
+    from spark_rapids_tpu_torch.expressions import hashing
+    part, supplier, _ = tables
+    conf = entry.session_conf(CATALOG_PARTITIONS)
+    ses = Session(conf, device=dev)
+    record, hashed = [], []
+
+    def run(p, checked=True):
+        # every launch of both kernels held against its plain version,
+        # but in the profiled run
+        df = entry.catalog_df(p, CATALOG_SLICES)
+        if not checked:
+            return ses.collect(df)
+        plain = hashing.murmur3_int32
+        hashing.murmur3_int32 = checked_murmur3(hashed)
+        try:
+            out = checked_run(lambda: ses.collect(df), record)
+        finally:
+            hashing.murmur3_int32 = plain
+        if ses.fell_back():
+            raise AssertionError(f"catalog fell back: {ses.fell_back()}")
+        return out
+
+    def check(got, expected):
+        if not got.equals(expected):
+            raise AssertionError(
+                f"the catalog roll-up differs from the pyarrow oracle:\n"
+                f"{got.slice(0, 3)}\n{expected.slice(0, 3)}")
+        if got.num_rows != len(entry.P_TYPES) * len(entry.P_BRANDS):
+            raise AssertionError(f"catalog: {got.num_rows} groups")
+        return (f"; all {got.num_rows} groups equal in every column and "
+                f"position")
+
+    print(f"catalog: SF{Q16_SF} part ({part.num_rows} rows), "
+          f"{CATALOG_SLICES} slices, {CATALOG_PARTITIONS} shuffle "
+          f"partitions, strings at {entry.CATALOG_STRING_MAX_LEN} bytes")
+    launches = run_path("catalog", lambda: part, entry.catalog_reference,
+                        run, check, dev, counted, warm_runs=2)
+    print(f"catalog: the Session's operators {ses.executed_exec_names()}")
+    profiled_idle("catalog", lambda: run(part, checked=False), dev,
+                  host=False)
+    bad = sum(r[2] for r in record)
+    worst = max((err for _, err in hashed), default=0)
+    print(f"catalog: over the checked runs, murmur3_int32 launched "
+          f"{len(hashed)} times at rows "
+          f"{sorted({n for n, _ in hashed})} (class_no at the group-by's "
+          f"exchange), max_abs_err against its plain version {worst}; "
+          f"window_match launched {len(record)} times (no string search on "
+          f"this path), {bad} mismatches")
+    if bad or worst or not hashed:
+        raise AssertionError("catalog: a kernel differs from its plain "
+                             "version, or murmur3 was not launched")
+    p_type, p_brand = col("p_type"), col("p_brand")
+    span_expression_times("catalog", dev, part.select(
+        ["p_type", "p_brand"]), entry.CATALOG_STRING_MAX_LEN, {
+        "material": RegexpExtract(p_type, "^([A-Z]+) ([A-Z]+) ([A-Z]+)$", 3),
+        "class_word": RegexpExtract(p_type, "^([A-Z]+) ", 1),
+        "line": RegexpReplace(p_type, " [A-Z]+$", ""),
+        "brand_no": RegexpReplace(p_brand, "[^0-9]+", "")})
+
+    # the comment leg: the span scans over 128-byte strings
+    sup = supplier.select(["s_suppkey", "s_comment"])
+    t0 = time.perf_counter()
+    want = entry.comment_spans_reference(sup)
+    oracle_s = time.perf_counter() - t0
+    cses = Session(conf, device=dev)
+    df = entry.comment_spans_df(sup, COMMENT_SLICES)
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        got = cses.collect(df)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+        if cses.fell_back():
+            raise AssertionError(f"comments fell back: {cses.fell_back()}")
+        apart = {k: rows_apart(got.column(k), want.column(k))
+                 for k in want.column_names}
+        if any(apart.values()):
+            raise AssertionError(f"comments: rows apart from pyarrow "
+                                 f"{apart}")
+    found = int(pc.sum(pc.greater(pc.utf8_length(got.column("complaint")),
+                                  0)).as_py() or 0)
+    print(f"comments: {sup.num_rows} S_COMMENT rows in {COMMENT_SLICES} "
+          f"slices at {entry.SUPPLIER_STRING_MAX_LEN} bytes: 0 rows apart "
+          f"from pyarrow (oracle {oracle_s:.2f} s; {found} rows extract a "
+          f"non-empty complaint); cold {walls[0]:.3f} s, warm "
+          f"{walls[1]:.3f} s")
+    c = col("s_comment")
+    span_expression_times("comments", dev, sup,
+                          entry.SUPPLIER_STRING_MAX_LEN, {
+                              "extract": RegexpExtract(
+                                  c, entry.COMMENT_EXTRACT, 1),
+                              "replace": RegexpReplace(
+                                  c, entry.COMMENT_REPLACE, "_")})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # TPC-H Q14 and Q9 at SF10, and the scalar expressions, through the Session
 # ---------------------------------------------------------------------------
 
@@ -1735,6 +1933,23 @@ SCALAR_Q_SF = 10
 SCALAR_Q_SLICES = 8
 SCALAR_Q_PARTITIONS = 8
 SCALAR_Q_SEED = 3
+
+
+def checked_murmur3(record):
+    """``murmur3_int32`` with each launch held against its plain version on
+    the same inputs: (rows, max_abs_err) appended to ``record``."""
+    import torch
+    from spark_rapids_tpu_torch.kernels.murmur3 import (murmur3_int32,
+                                                        murmur3_int32_plain)
+
+    def checked(data, validity, seeds):
+        got = murmur3_int32(data, validity, seeds)
+        if not torch.cuda.is_current_stream_capturing():
+            ref = murmur3_int32_plain(data, validity, seeds)
+            record.append((data.shape[0],
+                           int((got.long() - ref.long()).abs().max())))
+        return got
+    return checked
 
 
 def checked_run(run, record):
@@ -1853,8 +2068,11 @@ def run_q9_phase(dev, counted, tables) -> dict:
     return launches
 
 
-#: rows of the scalar phase's card-against-interpreter check
-SCALAR_ROWS = 1 << 16
+#: rows of the scalar phase's card-against-interpreter check: cut from
+#: 2^16 to make room for [phase catalog], since the interpreter's row loop
+#: took about 30 s of the phase's 34 s; every expression and every edge row
+#: of scalar_table (its first rows) stays, only the random rows shrink
+SCALAR_ROWS = 1 << 14
 #: float tolerance of the scalar phase: both sides are IEEE libraries
 SCALAR_REL_TOL = 1e-12
 
@@ -4503,6 +4721,11 @@ def main(argv=None) -> int:
     runs.append(timed("q16", run_q16_phase, dev,
                       [murmur3_int32, window_match], q16_tables))
     runs.append(timed("strings", run_strings_phase, dev, q16_tables))
+    # the part-catalogue roll-up over the same SF100 part table (the span
+    # programs and the rest of strings.py; murmur3 at its class_no key),
+    # and the span scans over the SF100 S_COMMENT
+    runs.append(timed("catalog", run_catalog_phase, dev, [murmur3_int32],
+                      q16_tables))
     del q16_tables
     # TPC-H Q14 and Q9 at SF10 through the Session (CaseWhen, add_months
     # and year(); window_match at k = 5 in each, murmur3 at Q9's o_year

@@ -149,6 +149,15 @@ broadcast join and a group-by); ``mesh_chain_tables`` and
 shuffled join, group-by and global sort, which ``dryrun_multigpu`` runs
 on the mesh against the port's row interpreter.
 
+The part-catalogue roll-up: ``catalog_df`` (``run_catalog``) cleans
+TPC-H part's P_TYPE and P_BRAND with ``regexp_extract``,
+``regexp_replace``, ``find_in_set`` and ``initcap``, groups by the cleaned
+columns and formats the groups with ``concat_ws``, ``bin``,
+``format_number``, ``hex``, ``conv`` and ``empty2null``;
+``comment_spans_df`` runs the span scans over S_COMMENT.
+``catalog_reference`` and ``comment_spans_reference`` compute the same
+with pyarrow and Python.
+
 ``q1_reference``, ``q16_part_reference``, ``q16_reference``,
 ``q3_reference``,
 ``q18_reference``, ``q2_reference``, ``q11_reference``,
@@ -1764,6 +1773,198 @@ def q9_reference(part: pa.Table, supplier: pa.Table, partsupp: pa.Table,
         [("nation", "ascending"), ("o_year", "descending")])
     return pa.table([g.column("nation"), g.column("o_year"),
                      g.column("amount_sum")], names=list(Q9_SELECT))
+
+
+# ---------------------------------------------------------------------------
+# The part-catalogue roll-up: the rest of strings.py and the span programs
+# ---------------------------------------------------------------------------
+
+#: the catalogue's class words, in find_in_set's order (P_TYPE's first
+#: syllables, TPC-H spec 4.2.2.13)
+CATALOG_CLASSES = "STANDARD,SMALL,MEDIUM,LARGE,ECONOMY,PROMO"
+#: the roll-up's output columns
+CATALOG_SELECT = ("label", "class_no", "class_bits", "parts_fmt",
+                  "first_hex", "brand_b36", "promo", "parts", "size_sum")
+#: the roll-up scans part at 32 bytes a string: P_TYPE is VARCHAR(25) and
+#: P_BRAND CHAR(10) (TPC-H spec 1.4.1), and a span scan's cost grows with
+#: the square of the width
+CATALOG_STRING_MAX_LEN = 32
+#: the comment leg's patterns: the words between 'Customer' and
+#: 'Complaints' (19 segments), and every run of two or more vowels
+COMMENT_EXTRACT = "Customer([A-Za-z]*)Complaints"
+COMMENT_REPLACE = "[aeiou][aeiou]+"
+COMMENT_SELECT = ("s_suppkey", "complaint", "squeezed")
+
+
+def catalog_df(part: pa.Table, num_slices: int = 8,
+               string_max_len: int = CATALOG_STRING_MAX_LEN):
+    """A product catalogue's clean-up and roll-up over TPC-H ``part``::
+
+        SELECT concat_ws(' / ', line, material, brand_no) AS label,
+               class_no, bin(class_no) AS class_bits,
+               format_number(parts, 0) AS parts_fmt,
+               hex(first_key) AS first_hex,
+               conv(brand_no, 10, 36) AS brand_b36,
+               empty2null(regexp_extract(line, 'Promo', 0)) AS promo,
+               parts, size_sum
+        FROM (SELECT material, class_no, line, brand_no, count(*) AS parts,
+                     sum(p_size) AS size_sum, min(p_partkey) AS first_key
+              FROM (SELECT
+                      regexp_extract(p_type,
+                          '^([A-Z]+) ([A-Z]+) ([A-Z]+)$', 3) AS material,
+                      find_in_set(regexp_extract(p_type, '^([A-Z]+) ', 1),
+                          'STANDARD,SMALL,MEDIUM,LARGE,ECONOMY,PROMO')
+                          AS class_no,
+                      initcap(regexp_replace(p_type, ' [A-Z]+$', ''))
+                          AS line,
+                      regexp_replace(p_brand, '[^0-9]+', '') AS brand_no,
+                      p_size, p_partkey
+                    FROM part)
+              GROUP BY material, class_no, line, brand_no)
+        ORDER BY parts DESC, label
+
+    One group per P_TYPE and P_BRAND pair (3,750 over the 150 types and
+    25 brands); every column an integer or a string."""
+    from .expressions import (Bin, ConcatWs, Conv, Empty2Null, FindInSet,
+                              FormatNumber, Hex, InitCap, RegexpExtract,
+                              RegexpReplace)
+    rows = (_df(part, num_slices, string_max_len)
+            .select(RegexpExtract(col("p_type"),
+                                  "^([A-Z]+) ([A-Z]+) ([A-Z]+)$",
+                                  3).alias("material"),
+                    FindInSet(RegexpExtract(col("p_type"), "^([A-Z]+) ", 1),
+                              lit(CATALOG_CLASSES)).alias("class_no"),
+                    InitCap(RegexpReplace(col("p_type"), " [A-Z]+$",
+                                          "")).alias("line"),
+                    RegexpReplace(col("p_brand"), "[^0-9]+",
+                                  "").alias("brand_no"),
+                    col("p_size"), col("p_partkey")))
+    groups = (rows.group_by("material", "class_no", "line", "brand_no")
+              .agg(Count().alias("parts"), Sum(col("p_size")).alias(
+                  "size_sum"), Min(col("p_partkey")).alias("first_key")))
+    return (groups.select(
+        ConcatWs(lit(" / "), (col("line"), col("material"),
+                              col("brand_no"))).alias("label"),
+        col("class_no"), Bin(col("class_no")).alias("class_bits"),
+        FormatNumber(col("parts"), 0).alias("parts_fmt"),
+        Hex(col("first_key")).alias("first_hex"),
+        Conv(col("brand_no"), lit(10), lit(36)).alias("brand_b36"),
+        Empty2Null(RegexpExtract(col("line"), "Promo", 0)).alias("promo"),
+        col("parts"), col("size_sum"))
+        .order_by(desc(col("parts")), asc(col("label"))))
+
+
+def run_catalog(part: pa.Table, num_slices: int = 8,
+                shuffle_partitions: int = 8,
+                device: DeviceLike = None) -> pa.Table:
+    """The roll-up through the port's Session (``catalog_df`` under
+    ``session_conf``), collected to the host."""
+    from .plan.session import Session
+    return Session(session_conf(shuffle_partitions), device=device).collect(
+        catalog_df(part, num_slices))
+
+
+def _initcap(s: str) -> str:
+    """Spark's initcap over ASCII text: each space-separated word's first
+    letter upper, the rest lower."""
+    return " ".join(w[:1].upper() + w[1:].lower() for w in s.split(" "))
+
+
+def _base36(s: str) -> str:
+    digits = "0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+    v, out = int(s) if s else 0, ""
+    while v:
+        v, d = divmod(v, 36)
+        out = digits[d] + out
+    return out or "0"
+
+
+def _per_value(column, fn) -> pa.Array:
+    """``fn`` over each distinct value of ``column``, taken back per row
+    (P_TYPE has 150 values and P_BRAND 25, so RE2 runs once a value)."""
+    codes = pc.dictionary_encode(column).combine_chunks()
+    return pc.take(fn(codes.dictionary), codes.indices)
+
+
+def catalog_reference(part: pa.Table) -> pa.Table:
+    """The roll-up computed by pyarrow and Python alone: the per-row
+    columns with ``pc.extract_regex`` (no match gives '', as in Spark),
+    ``pc.replace_substring_regex`` and the class list's index + 1, a
+    pyarrow group-by, then each of the groups formatted in Python; in
+    ``catalog_df``'s column types and order."""
+    classes = pa.array(CATALOG_CLASSES.split(","))
+
+    def material(v):
+        words = pc.extract_regex(
+            v, r"^(?P<c>[A-Z]+) (?P<f>[A-Z]+) (?P<m>[A-Z]+)$")
+        return pc.fill_null(pc.struct_field(words, "m"), "")
+
+    def class_no(v):
+        first = pc.struct_field(pc.extract_regex(v, r"^(?P<w>[A-Z]+) "),
+                                "w")
+        return pc.add(pc.fill_null(pc.index_in(first, classes), -1),
+                      1).cast(pa.int32())
+
+    ptype = part.column("p_type")
+    rows = pa.table({
+        "material": _per_value(ptype, material),
+        "class_no": _per_value(ptype, class_no),
+        "line": _per_value(ptype, lambda v: pc.replace_substring_regex(
+            v, r" [A-Z]+$", "")),
+        "brand_no": _per_value(
+            part.column("p_brand"),
+            lambda v: pc.replace_substring_regex(v, r"[^0-9]+", "")),
+        "p_size": part.column("p_size").cast(pa.int64()),
+        "p_partkey": part.column("p_partkey"),
+    })
+    g = rows.group_by(["material", "class_no", "line", "brand_no"]
+                      ).aggregate([([], "count_all"), ("p_size", "sum"),
+                                   ("p_partkey", "min")])
+    out = []
+    for r in g.to_pylist():
+        line = _initcap(r["line"])
+        out.append({
+            "label": f"{line} / {r['material']} / {r['brand_no']}",
+            "class_no": r["class_no"],
+            "class_bits": format(r["class_no"], "b"),
+            "parts_fmt": f"{r['count_all']:,}",
+            "first_hex": format(r["p_partkey_min"] & ((1 << 64) - 1), "X"),
+            "brand_b36": _base36(r["brand_no"]),
+            "promo": "Promo" if "Promo" in line else None,
+            "parts": r["count_all"], "size_sum": r["p_size_sum"]})
+    out.sort(key=lambda r: (-r["parts"], r["label"].encode()))
+    types = {"class_no": pa.int32(), "parts": pa.int64(),
+             "size_sum": pa.int64()}
+    return pa.table({k: pa.array([r[k] for r in out],
+                                 types.get(k, pa.string()))
+                     for k in CATALOG_SELECT})
+
+
+def comment_spans_df(supplier: pa.Table, num_slices: int = 8):
+    """The span scans over long strings: S_COMMENT (25-100 letters, 128
+    bytes a string) through ``regexp_extract(s_comment,
+    'Customer([A-Za-z]*)Complaints', 1)`` and ``regexp_replace(s_comment,
+    '[aeiou][aeiou]+', '_')``."""
+    from .expressions import RegexpExtract, RegexpReplace
+    return _df(supplier, num_slices, SUPPLIER_STRING_MAX_LEN).select(
+        col("s_suppkey"),
+        RegexpExtract(col("s_comment"), COMMENT_EXTRACT, 1).alias(
+            "complaint"),
+        RegexpReplace(col("s_comment"), COMMENT_REPLACE, "_").alias(
+            "squeezed"))
+
+
+def comment_spans_reference(supplier: pa.Table) -> pa.Table:
+    """``comment_spans_df`` by pyarrow's RE2 (greedy, no alternation:
+    there RE2 and Java agree); a row with no match extracts ''."""
+    c = supplier.column("s_comment")
+    pattern = COMMENT_EXTRACT.replace("(", "(?P<g>", 1)
+    return pa.table({
+        "s_suppkey": supplier.column("s_suppkey"),
+        "complaint": pc.fill_null(pc.struct_field(
+            pc.extract_regex(c, pattern), "g"), ""),
+        "squeezed": pc.replace_substring_regex(c, COMMENT_REPLACE, "_"),
+    })
 
 
 # ---------------------------------------------------------------------------

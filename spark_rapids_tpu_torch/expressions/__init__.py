@@ -24,10 +24,13 @@ from .datetime import (AddMonths, DateAddSub, DateDiff,  # noqa: F401
 from .hashing import Murmur3Hash, XxHash64  # noqa: F401
 from .math import (Atan2, FloorCeil, Hypot, Logarithm, NaNvl,  # noqa: F401
                    Pow, RaiseError, Rand, Round, Signum, UnaryMath)
-from .regex import Like, RegexUnsupported, RLike, rlike  # noqa: F401
-from .strings import (Ascii, Chr, Concat, Length, Levenshtein,  # noqa: F401
-                      Lower, OctetLength, Reverse, Soundex, StringLocate,
-                      StringPad, StringPredicate, StringRepeat,
-                      StringReplace, StringTrim, Substring, SubstringIndex,
-                      Translate, Upper, concat, contains, endswith, length,
-                      lower, startswith, substring, upper)
+from .regex import (Like, RegexpExtract, RegexpReplace,  # noqa: F401
+                    RegexUnsupported, RLike, rlike)
+from .strings import (Ascii, Bin, Chr, Concat, ConcatWs,  # noqa: F401
+                      Conv, Empty2Null, FindInSet, FormatNumber, Hex,
+                      InitCap, Length, Levenshtein, Lower, OctetLength,
+                      Reverse, Soundex, StringLocate, StringPad,
+                      StringPredicate, StringRepeat, StringReplace,
+                      StringTrim, Substring, SubstringIndex, Translate,
+                      Upper, concat, contains, endswith, length, lower,
+                      startswith, substring, upper)

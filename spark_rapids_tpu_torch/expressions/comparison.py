@@ -194,7 +194,8 @@ class IsNotNull(IsNull):
 
 @dataclass(frozen=True, eq=False)
 class IsNaN(Expression):
-    """isnan(x): true for a NaN double; null where x is null."""
+    """isnan(x): true for a NaN double, false for any other value and for
+    null (Spark's ``IsNaN`` is never null; the JAX device gives null)."""
 
     child: Expression
 
@@ -209,9 +210,14 @@ class IsNaN(Expression):
     def dtype(self):
         return T.BOOLEAN
 
+    @property
+    def nullable(self):
+        return False
+
     def eval(self, batch, ctx=EvalContext()):
         c = self.child.eval(batch, ctx)
-        return _bool_col(torch.isnan(c.data.to(torch.float64)), c.validity)
+        nan = torch.isnan(c.data.to(torch.float64)) & c.validity
+        return DeviceColumn(nan, batch.row_mask(), T.BOOLEAN)
 
     def __repr__(self):
         return f"isnan({self.child!r})"

@@ -2,8 +2,10 @@
 scan over byte positions.
 
 Port of ``RegexUnsupported``, the parser, ``CompiledRegex`` /
-``compile_regex``, ``rlike_device``, ``RLike``, ``like_to_regex`` and
-``Like`` of ``spark_rapids_tpu/expressions/regex.py`` (reference:
+``compile_regex``, ``rlike_device``, ``RLike``, ``like_to_regex``,
+``Like``, and the span programs (``compile_spans``, the span scans,
+``RegexpExtract``, ``RegexpReplace``) of
+``spark_rapids_tpu/expressions/regex.py`` (reference:
 RegexParser.scala, which transpiles Java regex to cudf's dialect and falls
 back to the CPU for what it cannot). A supported SUBSET of Java regex is
 parsed on the host at plan time, compiled Thompson NFA -> subset DFA over
@@ -24,9 +26,9 @@ CPU (``plan/overrides.py``).
 Semantics: RLIKE = Java Matcher.find() (unanchored substring search) over
 UTF-8 BYTES. Positive matching units are ASCII, but '.' and negated classes
 match one full NON-ASCII character through a UTF-8 lead + continuation
-submachine, so counting characters holds over multi-byte text. The span
-programs (regexp_extract, regexp_replace, split) come with a later slice
-(ROADMAP item 7).
+submachine, so counting characters holds over multi-byte text.
+``StringSplit`` waits for the ARRAY type (ROADMAP item 7,
+``collections.py``).
 """
 
 from __future__ import annotations
@@ -36,10 +38,12 @@ from typing import Dict, FrozenSet, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import types as T
 from ..batch import ColumnarBatch, DeviceColumn
-from .base import EvalContext, Expression, numeric_column
+from .base import EvalContext, Expression, _device_row, numeric_column
+from .strings import _first_true, _string_column
 
 
 class RegexUnsupported(ValueError):
@@ -362,8 +366,27 @@ class CompiledRegex:
     #: device -> (transition table, byte classes, accepting flags) in the
     #: scan's layout, each copied there once: a later scan makes no host
     #: copy
-    _on: Dict[torch.device, Tuple[torch.Tensor, ...]] = field(
+    _on: Dict[object, Tuple[torch.Tensor, ...]] = field(
         default_factory=dict, repr=False, compare=False)
+
+    def scan_tables(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
+        """The span scans' tables on ``device`` (``on``'s layout in int32,
+        read where the grids are widest): ``step[s * C + c] = next(s, c) *
+        C``, the byte classes, and ``hits[s * C + c] = accepting(next(s,
+        c))``, so one index into a row's (state + class) gives the next
+        state and whether it accepts."""
+        key = ("scan", device)
+        t = self._on.get(key)
+        if t is None:
+            c = self.table.shape[1]
+            nxt = self.table.astype(np.int64).ravel()
+            t = (torch.from_numpy((nxt * c).astype(np.int32)).to(device),
+                 torch.from_numpy(self.byte_class.astype(np.int32)
+                                  ).to(device),
+                 torch.from_numpy(self.accepting[nxt].astype(np.bool_)
+                                  ).to(device))
+            self._on[key] = t
+        return t
 
     def on(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
         """The tables on ``device``, with each state premultiplied by the
@@ -605,3 +628,536 @@ class Like(Expression):
 
     def __repr__(self):
         return f"{self.child!r} LIKE {self.pattern!r}"
+
+
+# ---------------------------------------------------------------------------
+# Match spans + capture groups (regexp_extract / regexp_replace)
+#
+# Java's backtracking order for a greedy concatenation picks, left to
+# right, the LONGEST prefix for each segment such that the rest of the
+# pattern can still match. That is computed here without backtracking: the
+# pattern is split into a top-level concatenation of SEGMENTS (quantified
+# atoms and groups), and for segment i at position p, end_i = max q where
+# (segment i matches [p, q)) AND (suffix i+1 is feasible from q). Each test
+# is one scan of a DFA over the byte positions.
+#
+# Subset: concatenations of quantified character classes and groups.
+# Alternation ('|') and lazy quantifiers change Java's search order in ways
+# a longest-feasible rule cannot reproduce -> RegexUnsupported (CPU
+# fallback). The compiler is the JAX package's, copied; each machine comes
+# from this module's compile_regex.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _Segment:
+    src: str                    # pattern source for this segment
+    compiled: CompiledRegex     # anchored-start machine for the segment
+
+
+@dataclass
+class SpanProgram:
+    """Compiled form for span/group queries."""
+
+    segments: List[_Segment]
+    suffixes: List[Optional[CompiledRegex]]   # machine for segments[i:]
+    group_bounds: Dict[int, Tuple[int, int]]  # group -> (first, last excl)
+    n_groups: int
+    anchored_start: bool
+    anchored_end: bool
+
+
+def _compile_anchored(pattern: str) -> CompiledRegex:
+    """Compile with NO unanchored-find start loop (the machine starts
+    exactly at its activation position)."""
+    return compile_regex("^" + pattern if not pattern.startswith("^")
+                         else pattern)
+
+
+class _SegmentParser:
+    """Source-level splitter: top-level concatenation -> segment sources.
+
+    An unquantified group is flattened into its inner segments (capturing
+    groups record which segment range they cover, so nesting of
+    unquantified captures is fine). A QUANTIFIED group must have a
+    fixed-shape body (a plain unit sequence): its greedy repetition is then
+    longest-feasible, which matches Java.
+    """
+
+    def __init__(self, pattern: str):
+        self.p = pattern
+        self.i = 0
+        self.group_bounds: Dict[int, Tuple[int, int]] = {}
+        self.n_groups = 0
+        self.anchored_start = False
+        self.anchored_end = False
+        self._segs_emitted = 0
+
+    def parse(self) -> List[str]:
+        if self.p.startswith("(?s)"):
+            self.i = 4
+        if self._peek() == "^":
+            self.i += 1
+            self.anchored_start = True
+        segs = self._concat(top=True)
+        if self.i < len(self.p):
+            raise RegexUnsupported(
+                f"spans: trailing input at {self.i}: {self.p}")
+        return segs
+
+    def _peek(self):
+        return self.p[self.i] if self.i < len(self.p) else None
+
+    def _concat(self, top: bool) -> List[str]:
+        segs: List[str] = []
+        while True:
+            c = self._peek()
+            if c is None or c == ")":
+                return segs
+            if c == "|":
+                raise RegexUnsupported(
+                    "spans: alternation changes Java's search order; "
+                    "longest-feasible cannot reproduce it")
+            if c == "$":
+                nxt = self.i + 1
+                if top and nxt == len(self.p):
+                    self.anchored_end = True
+                    self.i += 1
+                    return segs
+                raise RegexUnsupported("spans: inner $")
+            if c == "(":
+                segs.extend(self._group())
+            else:
+                segs.append(self._unit_with_quant())
+                self._segs_emitted += 1
+
+    def _unit_src(self) -> str:
+        """One class/escape/char/dot unit; returns its source slice."""
+        start = self.i
+        c = self.p[self.i]
+        self.i += 1
+        if c == "\\":
+            if self.i >= len(self.p):
+                raise RegexUnsupported("spans: trailing backslash")
+            self.i += 1
+        elif c == "[":
+            self.i -= 1
+            self._skip_class()
+        elif c in "*+?{}()|^$":
+            raise RegexUnsupported(f"spans: unexpected metachar {c!r}")
+        return self.p[start:self.i]
+
+    def _quant_src(self) -> str:
+        c = self._peek()
+        if c in ("*", "+", "?"):
+            self.i += 1
+            if self._peek() == "?":
+                raise RegexUnsupported("lazy quantifiers")
+            return c
+        if c == "{":
+            start = self.i
+            while self._peek() not in (None, "}"):
+                self.i += 1
+            if self._peek() != "}":
+                raise RegexUnsupported("spans: malformed {m,n}")
+            self.i += 1
+            if self._peek() == "?":
+                raise RegexUnsupported("lazy quantifiers")
+            return self.p[start:self.i]
+        return ""
+
+    def _unit_with_quant(self) -> str:
+        u = self._unit_src()
+        return u + self._quant_src()
+
+    def _fixed_body(self, body: str) -> bool:
+        """True if body is a plain unit sequence (no quantifiers, groups,
+        alternation): safe under an outer quantifier."""
+        sub = _SegmentParser(body)
+        try:
+            segs = sub._concat(top=False)
+        except RegexUnsupported:
+            return False
+        if sub.i < len(body) or sub.group_bounds:
+            return False
+        return all(not s or s[-1] not in "*+?}" for s in segs)
+
+    def _group(self) -> List[str]:
+        self.i += 1                      # consume '('
+        capturing = True
+        if self._peek() == "?":
+            self.i += 1
+            if self._peek() != ":":
+                raise RegexUnsupported("lookaround / named groups")
+            self.i += 1
+            capturing = False
+        gidx = 0
+        if capturing:
+            self.n_groups += 1
+            gidx = self.n_groups
+        body_start = self.i
+        depth = 1
+        while depth:
+            c = self._peek()
+            if c is None:
+                raise RegexUnsupported("spans: unbalanced group")
+            if c == "\\":
+                self.i += 2
+                continue
+            if c == "[":
+                self._skip_class()
+                continue
+            if c == "(":
+                depth += 1
+            elif c == ")":
+                depth -= 1
+            self.i += 1
+        body = self.p[body_start:self.i - 1]
+        quant = self._quant_src()
+        if quant:
+            if capturing:
+                # Java binds a quantified capture group to its LAST
+                # iteration; a segment span covers all of them
+                raise RegexUnsupported(
+                    "spans: quantified capturing group binds the last "
+                    "iteration in Java")
+            if not self._fixed_body(body):
+                raise RegexUnsupported(
+                    "spans: quantified group with variable-shape body")
+            self._segs_emitted += 1
+            return [f"(?:{body}){quant}"]
+        # unquantified group: flatten its body into segments
+        sub = _SegmentParser(body)
+        inner = sub._concat(top=False)
+        if sub.i < len(body):
+            raise RegexUnsupported("spans: bad group body")
+        first = self._segs_emitted
+        # renumber nested groups relative to ours
+        for g, (a, b) in sub.group_bounds.items():
+            self.group_bounds[self.n_groups + g] = (first + a, first + b)
+        self.n_groups += sub.n_groups
+        if capturing:
+            self.group_bounds[gidx] = (first, first + len(inner))
+        self._segs_emitted += len(inner)
+        return inner
+
+    def _skip_class(self):
+        self.i += 1                      # consume '['
+        if self._peek() == "^":
+            self.i += 1
+        first = True
+        while True:
+            c = self._peek()
+            if c is None:
+                raise RegexUnsupported("spans: unterminated class")
+            if c == "]" and not first:
+                self.i += 1
+                return
+            first = False
+            if c == "\\":
+                self.i += 1
+            self.i += 1
+
+
+def compile_spans(pattern: str) -> SpanProgram:
+    """Compile for span/group queries; RegexUnsupported -> CPU fallback."""
+    sp = _SegmentParser(pattern)
+    seg_srcs = sp.parse()
+    if not seg_srcs:
+        raise RegexUnsupported("spans: empty pattern")
+    segments = [_Segment(s, _compile_anchored(s)) for s in seg_srcs]
+    suffixes = []
+    for i in range(len(seg_srcs) + 1):
+        rest = "".join(seg_srcs[i:])
+        suffixes.append(_compile_anchored(rest) if rest else None)
+    return SpanProgram(segments, suffixes, sp.group_bounds, sp.n_groups,
+                       sp.anchored_start, sp.anchored_end)
+
+
+def _try_compile_spans(pattern: str):
+    try:
+        return compile_spans(pattern), None
+    except RegexUnsupported as ex:
+        return None, str(ex)
+
+
+# ---- the scans: a Python loop of torch ops over the byte positions, with
+# no host read, so a fused stage can capture them. Machines that have not
+# started yet sit in the start state; a byte past a row's length never
+# counts, so the state it leaves is never read.
+
+def _classes(col: DeviceColumn, rx: CompiledRegex):
+    """(step, hits, the byte class of every byte [n, ml], in_str [n, ml])
+    in ``CompiledRegex.scan_tables``' layout."""
+    data = col.data
+    step, bclass, hits = rx.scan_tables(data.device)
+    cls = bclass[data.long()]
+    return step, hits, cls, _positions(col, data.shape[1]) \
+        < col.lengths[:, None]
+
+
+def _positions(col: DeviceColumn, count: int) -> torch.Tensor:
+    return torch.arange(count, dtype=torch.int32,
+                        device=col.data.device)[None, :]
+
+
+def feasible_starts(col: DeviceColumn, rx: Optional[CompiledRegex],
+                    anchored_end: bool) -> torch.Tensor:
+    """bool [n, ml+1]: can ``rx`` (anchored at q) match starting at byte
+    position q? One parallel-machine scan: machine q sits in the start
+    state until step q, then consumes; step j advances machines 0..j only
+    (the grid's lower triangle). ``rx=None`` is the empty suffix."""
+    n, ml = col.data.shape
+    lengths = col.lengths
+    q_idx = _positions(col, ml + 1)
+    live = q_idx <= lengths[:, None]
+    at_len = q_idx == lengths[:, None]
+    if rx is None:
+        return live & at_len if anchored_end else live
+    step, hits, cls, in_str = _classes(col, rx)
+    # byte j may end a match: inside the row, and its last byte under $
+    ends = in_str & at_len[:, 1:] if anchored_end else in_str
+    if bool(rx.accepting[rx.start_state]):
+        ever = live & at_len if anchored_end else live.clone()
+    else:
+        ever = torch.zeros((n, ml + 1), dtype=torch.bool,
+                           device=col.data.device)
+    state = torch.full((n, ml + 1), rx.start_state * rx.table.shape[1],
+                       dtype=torch.int32, device=col.data.device)
+    for j in range(ml):
+        idx = state[:, :j + 1] + cls[:, j:j + 1]
+        state[:, :j + 1] = step[idx]
+        ever[:, :j + 1] |= hits[idx] & ends[:, j:j + 1]
+    return ever
+
+
+def greedy_seg_ends(col: DeviceColumn, seg: CompiledRegex, p: torch.Tensor,
+                    feas_next: torch.Tensor,
+                    triangular: bool = False) -> torch.Tensor:
+    """Greedy end per machine: max q such that ``seg`` matches [p, q) AND
+    the remaining pattern is feasible at q. ``p`` is int32 [n, S] (S start
+    hypotheses; S = 1 for first-match queries); returns int32 [n, S], -1
+    if the segment cannot match under feasibility. ``triangular``: column
+    s never starts before position s (every start of ``all_match_spans``),
+    so step j advances columns 0..j only."""
+    n, ml = col.data.shape
+    step, hits, cls, in_str = _classes(col, seg)
+    S = p.shape[1]
+    alive = p >= 0
+    safe_p = p.clamp(0, ml)
+    # empty-segment match at p itself
+    empty = alive & feas_next.gather(1, safe_p.long())
+    if not bool(seg.accepting[seg.start_state]):
+        empty = torch.zeros_like(empty)
+    best = torch.where(empty, safe_p, torch.full_like(safe_p, -1))
+    # the step each machine starts at; never (ml + 1) for a dead one
+    begin = torch.where(alive, safe_p, torch.full_like(safe_p, ml + 1))
+    state = torch.full((n, S), seg.start_state * seg.table.shape[1],
+                       dtype=torch.int32, device=col.data.device)
+    for j in range(ml):
+        w = min(j + 1, S) if triangular else S
+        st = state[:, :w]
+        can = (begin[:, :w] <= j) & in_str[:, j:j + 1]
+        idx = st + cls[:, j:j + 1]
+        state[:, :w] = torch.where(can, step[idx], st)
+        best[:, :w].masked_fill_(hits[idx] & can & feas_next[:, j + 1:j + 2],
+                                 j + 1)
+    return best
+
+
+def _feasible(col: DeviceColumn, prog: SpanProgram) -> List[torch.Tensor]:
+    return [feasible_starts(col, prog.suffixes[i], prog.anchored_end)
+            for i in range(len(prog.segments) + 1)]
+
+
+def first_match_bounds(col: DeviceColumn, prog: SpanProgram
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Left-most match, Java-greedy. Returns (matched: bool[n], bounds:
+    int32[n, k+1]); bounds[:, i] is the byte position where segment i
+    starts (bounds[:, k] = match end)."""
+    n = col.data.shape[0]
+    feas = _feasible(col, prog)
+    f0 = feas[0]
+    if prog.anchored_start:
+        matched = f0[:, 0]
+        start = torch.zeros(n, dtype=torch.int32, device=col.data.device)
+    else:
+        matched = f0.any(dim=1)
+        start = _first_true(f0).to(torch.int32)
+    p = torch.where(matched, start, torch.full_like(start, -1))[:, None]
+    bounds = [p]
+    for i, seg in enumerate(prog.segments):
+        p = greedy_seg_ends(col, seg.compiled, p, feas[i + 1])
+        bounds.append(p)
+    return matched, torch.cat(bounds, dim=1)
+
+
+def all_match_spans(col: DeviceColumn, prog: SpanProgram
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All non-overlapping Java-greedy matches (replaceAll order). Returns
+    (sel_start: bool[n, ml+1], match_end: int32[n, ml+1])."""
+    n, ml = col.data.shape
+    feas = _feasible(col, prog)
+    q_idx = _positions(col, ml + 1)
+    p = torch.where(feas[0], q_idx, torch.full_like(q_idx, -1))
+    for i, seg in enumerate(prog.segments):
+        p = greedy_seg_ends(col, seg.compiled, p, feas[i + 1],
+                            triangular=True)
+    end_q = p                                    # [n, ml+1]; -1: no match
+    if prog.anchored_start:
+        end_q[:, 1:] = -1
+    # leftmost non-overlapping selection (Matcher.find's loop): the next
+    # search resumes at the match end, +1 after a zero-length match
+    nxt = torch.zeros(n, dtype=torch.int32, device=col.data.device)
+    sels = []
+    for s in range(ml + 1):
+        e = end_q[:, s]
+        can = (e >= 0) & (nxt <= s) & (col.lengths >= s)
+        nxt = torch.where(can, torch.where(e > s, e, s + 1), nxt)
+        sels.append(can)
+    return torch.stack(sels, dim=1), end_q
+
+
+def extract_group_device(col: DeviceColumn, prog: SpanProgram, idx: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(bytes [n, ml], lengths [n]) of capture group ``idx`` of the first
+    match (idx 0 = the whole match); no match -> the empty string
+    (Spark)."""
+    ml = col.data.shape[1]
+    matched, bounds = first_match_bounds(col, prog)
+    if idx == 0:
+        a, b = 0, bounds.shape[1] - 1
+    else:
+        a, b = prog.group_bounds[idx]
+    zero = torch.zeros_like(bounds[:, a])
+    s = torch.where(matched, bounds[:, a], zero)
+    e = torch.where(matched, bounds[:, b], zero)
+    glen = (e - s).clamp(min=0)
+    pos = _positions(col, ml)
+    data = col.data.gather(1, (s[:, None] + pos).clamp(0, ml - 1).long())
+    keep = pos < glen[:, None]
+    return torch.where(keep, data, torch.zeros_like(data)), glen
+
+
+def replace_all_device(col: DeviceColumn, prog: SpanProgram, repl: bytes
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Java replaceAll with a literal replacement. Returns (bytes [n,
+    out_ml], lengths [n]), out_ml = ml + R * (ml + 1).
+
+    Each position q in [0, ml] emits the replacement if a match is
+    selected there, then byte q if no nonzero-length match covers it. The
+    output is a row-wise ``searchsorted`` gather over the running count of
+    emitted bytes (one reader per output byte), where the JAX package
+    scatters into a drop slot."""
+    n, ml = col.data.shape
+    dev = col.data.device
+    R = len(repl)
+    out_ml = ml + R * (ml + 1)
+    sel, end_q = all_match_spans(col, prog)       # [n, ml+1]
+    pos = _positions(col, ml + 1)
+    nonzero = sel & (end_q > pos)
+    # the selected matches do not overlap, so the latest one to start at
+    # or before byte j has the largest end: j is covered iff it is past j
+    reach = torch.where(nonzero, end_q, torch.zeros_like(end_q)
+                        ).cummax(dim=1).values[:, :ml]
+    keep = (pos[:, :ml] < col.lengths[:, None]) & ~(reach > pos[:, :ml])
+    unit = R * sel.to(torch.int32)
+    unit[:, :ml] += keep.to(torch.int32)
+    upto = unit.cumsum(dim=1, dtype=torch.int32)
+    offs = upto - unit
+    t = _positions(col, out_ml).expand(n, out_ml).contiguous()
+    src = torch.searchsorted(upto, t, right=True).clamp(max=ml)
+    k = t - offs.gather(1, src)
+    from_rep = sel.gather(1, src) & (k < R)
+    copied = F.pad(col.data, (0, 1)).gather(1, src)
+    if R:
+        rep = _device_row(repl, R, dev)[k.clamp(0, R - 1).long()]
+        copied = torch.where(from_rep, rep, copied)
+    total = upto[:, -1]
+    out = torch.where(t < total[:, None], copied, torch.zeros_like(copied))
+    return out, total
+
+
+@dataclass(frozen=True, eq=False)
+class RegexpExtract(Expression):
+    """regexp_extract(str, pattern, idx): capture group of the first
+    Java-greedy match; '' when there is no match (Spark semantics)."""
+
+    child: Expression = None
+    pattern: str = ""
+    idx: int = 1
+
+    def __post_init__(self):
+        prog, reason = _try_compile_spans(self.pattern)
+        if prog is not None and self.idx > prog.n_groups:
+            prog, reason = None, (f"group {self.idx} > "
+                                  f"{prog.n_groups} groups")
+        object.__setattr__(self, "_prog", prog)
+        object.__setattr__(self, "_reason", reason)
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return RegexpExtract(c[0], self.pattern, self.idx)
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def device_unsupported_reason(self):
+        return self._reason and f"regexp_extract: {self._reason}"
+
+    def eval(self, batch, ctx=EvalContext()):
+        if self._prog is None:
+            raise RegexUnsupported(self._reason)
+        c = self.child.eval(batch, ctx)
+        data, lengths = extract_group_device(c, self._prog, self.idx)
+        return _string_column(data, lengths, c.validity,
+                              self.child.dtype.max_len)
+
+
+@dataclass(frozen=True, eq=False)
+class RegexpReplace(Expression):
+    """regexp_replace(str, pattern, replacement): Java replaceAll with a
+    LITERAL replacement ($n backrefs -> CPU fallback)."""
+
+    child: Expression = None
+    pattern: str = ""
+    replacement: str = ""
+
+    def __post_init__(self):
+        prog, reason = _try_compile_spans(self.pattern)
+        if "$" in self.replacement or "\\" in self.replacement:
+            prog, reason = None, "replacement backrefs"
+        try:
+            self.replacement.encode("ascii")
+        except UnicodeEncodeError:
+            prog, reason = None, "non-ASCII replacement"
+        object.__setattr__(self, "_prog", prog)
+        object.__setattr__(self, "_reason", reason)
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return RegexpReplace(c[0], self.pattern, self.replacement)
+
+    @property
+    def dtype(self):
+        ml = self.child.dtype.max_len
+        return T.string(ml + len(self.replacement) * (ml + 1))
+
+    def device_unsupported_reason(self):
+        return self._reason and f"regexp_replace: {self._reason}"
+
+    def eval(self, batch, ctx=EvalContext()):
+        if self._prog is None:
+            raise RegexUnsupported(self._reason)
+        c = self.child.eval(batch, ctx)
+        data, lengths = replace_all_device(c, self._prog,
+                                           self.replacement.encode())
+        return _string_column(data, lengths, c.validity,
+                              self.dtype.max_len)

@@ -2,9 +2,11 @@
 
 Port of ``spark_rapids_tpu/expressions/strings.py`` (reference:
 stringFunctions.scala): char length and octet length, simple case mapping,
-substring, concat, locate, trim, pad, repeat, replace, translate, reverse,
-ascii, chr, levenshtein, soundex, substring_index, and the string
-predicates contains / startswith / endswith with a literal pattern. A
+initcap, substring, concat, concat_ws, locate, trim, pad, repeat, replace,
+translate, format_number, reverse, ascii, chr, levenshtein, soundex,
+substring_index, hex, bin, conv, find_in_set, empty2null, and the string
+predicates contains / startswith / endswith with a literal pattern
+(``StringToMap`` waits for the MAP type). A
 string column is ``uint8[rows, max_len]`` plus int32 byte lengths, so every
 expression is a rectangular torch program:
 
@@ -16,7 +18,11 @@ expression is a rectangular torch program:
 - SEARCH (contains, startswith, endswith, locate, replace,
   substring_index) is the window-match matrix: on a CUDA tensor the
   hand-written kernel of ``kernels/string_search.py`` for every pattern of
-  1 to ``max_len`` bytes, on a CPU tensor its plain version.
+  1 to ``max_len`` bytes, on a CPU tensor its plain version;
+- UNSIGNED 64-bit math (hex, bin, conv, format_number of INT64_MIN) keeps
+  the bits in int64, which torch computes on CUDA where uint64 has no
+  arithmetic: arithmetic shifts masked to the bits read, an unsigned
+  division that halves first, and digits of the negated magnitude.
 
 Loops that the JAX package runs as ``lax.scan`` / ``fori_loop`` (the greedy
 matches of replace, soundex's state, levenshtein's DP rows) are Python
@@ -42,6 +48,7 @@ import torch.nn.functional as F
 
 from .. import types as T
 from ..batch import DeviceColumn
+from ..types import TypeKind
 from ..kernels.string_search import window_match
 from .base import (EvalContext, Expression, Literal, _device_row,
                    and_validity, lit_if_needed, numeric_column)
@@ -771,6 +778,144 @@ class Translate(Expression):
         return _string_column(out, lengths, c.validity, c.dtype.max_len)
 
 
+@dataclass(frozen=True, eq=False)
+class InitCap(Expression):
+    """initcap(str): first letter of each space-separated word upper, the
+    rest lower. ASCII case mapping (the Upper/Lower policy)."""
+
+    child: Expression = None
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return InitCap(c[0])
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        d = c.data
+        is_up = (d >= ord("A")) & (d <= ord("Z"))
+        lowered = torch.where(is_up, d + 32, d)
+        # a word starts at position 0 or after a space
+        prev_space = torch.cat(
+            [torch.ones_like(d[:, :1], dtype=torch.bool),
+             d[:, :-1] == ord(" ")], dim=1)
+        is_lo = (lowered >= ord("a")) & (lowered <= ord("z"))
+        out = torch.where(prev_space & is_lo, lowered - 32, lowered)
+        return DeviceColumn(out, c.validity, c.dtype, c.lengths)
+
+
+@dataclass(frozen=True, eq=False)
+class FormatNumber(Expression):
+    """format_number(x, d): fixed decimals and thousands separators, over
+    an integral or decimal ``x`` (a float falls back: exact HALF_UP on its
+    decimal expansion needs arbitrary precision). Integer math on the
+    device: a decimal rounds HALF_EVEN to d places, the digits come most
+    significant first, a ',' every 3 integer digits. The integer part's
+    digits are those of its NEGATED magnitude (truncating division), so
+    |INT64_MIN| needs no unsigned type."""
+
+    child: Expression = None
+    decimals: int = 2
+
+    _MAX_DIGITS = 19     # int64 decimal digits
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return FormatNumber(c[0], self.decimals)
+
+    @property
+    def _d(self) -> int:
+        """d, given as an int or an integer literal."""
+        d = self.decimals
+        return int(d.value) if isinstance(d, Literal) else d
+
+    @property
+    def dtype(self):
+        # digits + separators + sign + point + decimals
+        n = self._MAX_DIGITS
+        return T.string(n + (n - 1) // 3 + 2 + max(self._d, 0))
+
+    def device_unsupported_reason(self):
+        if self._d < 0:
+            return "format_number: negative d"
+        if self._d > 9:
+            return "format_number: d > 9 overflows the int64 scaling"
+        if self.child.resolved and \
+                self.child.dtype.kind in (TypeKind.FLOAT32,
+                                          TypeKind.FLOAT64):
+            return ("format_number over floats: exact HALF_UP on the "
+                    "decimal expansion needs arbitrary precision")
+        return None
+
+    def _parts(self, x: torch.Tensor):
+        """(integer part negated, fraction scaled to d digits), without
+        scaling the whole value up: x * 10**d overflows int64."""
+        d = self._d
+        v = x.to(torch.int64)
+        if self.child.dtype.kind is not TypeKind.DECIMAL:
+            # integral kinds: the fraction is exactly zero
+            return torch.where(v < 0, v, -v), torch.zeros_like(v)
+        scale = self.child.dtype.scale
+        if scale > d:
+            # rescale to d decimals, HALF_EVEN (DecimalFormat's default);
+            # floor division keeps r in [0, div)
+            div = 10 ** (scale - d)
+            q = torch.div(v, div, rounding_mode="floor")
+            r = v - q * div
+            up = (2 * r > div) | ((2 * r == div) & (q % 2 != 0))
+            mag = (q + up.to(torch.int64)).abs()
+            return -(mag // 10 ** d), mag % 10 ** d
+        mag = v.abs()
+        return -(mag // 10 ** scale), (mag % 10 ** scale) * 10 ** (d - scale)
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        d = self._d
+        nd = self._MAX_DIGITS
+        out_ml = self.dtype.max_len
+        dev = c.data.device
+        neg_int, frac = self._parts(c.data)
+        neg = c.data < 0     # the input's sign: -0.004 formats "-0.00"
+        # the integer digits, least significant first: digit k of the
+        # negated value is -(v / 10^k truncated, mod 10)
+        digits = torch.stack(
+            [-torch.fmod(torch.div(neg_int, 10 ** k, rounding_mode="trunc"),
+                         10) for k in range(nd)], dim=1)          # [n, nd]
+        nz = digits > 0
+        n_int = torch.where(nz.any(dim=1),
+                            nd - _first_true(nz.flip(1)), 1)
+        n_commas = (n_int - 1) // 3
+        int_len = n_int + n_commas
+        sign = neg.to(torch.int64)
+        total = sign + int_len + (1 + d if d > 0 else 0)
+        # output byte t: '-', then the integer part (from its right end, a
+        # ',' after every third digit), then '.' and the fraction
+        t = torch.arange(out_ml, device=dev)[None, :]
+        u = t - sign[:, None]
+        r = int_len[:, None] - 1 - u           # place from the right
+        dig = digits.gather(1, (r - r // 4).clamp(0, nd - 1))
+        out = torch.where(r % 4 == 3, ord(","), dig + ord("0"))
+        if d > 0:
+            f = u - int_len[:, None] - 1        # fraction digit index
+            fdig = torch.stack([(frac // 10 ** (d - 1 - i)) % 10
+                                for i in range(d)], dim=1)
+            fch = fdig.gather(1, f.clamp(0, d - 1)) + ord("0")
+            out = torch.where(f >= 0, fch, torch.where(f == -1, ord("."),
+                                                       out))
+        out = torch.where(u < 0, ord("-"), out)
+        return _string_column(out.to(torch.uint8), total.to(torch.int32),
+                              c.validity, out_ml)
+
+
 # ---------------------------------------------------------------------------
 # Codepoint decode / encode (UTF-8 bytes <-> int32 codepoint matrices)
 # ---------------------------------------------------------------------------
@@ -1056,6 +1201,91 @@ class Soundex(Expression):
 
 
 # ---------------------------------------------------------------------------
+# ConcatWs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class ConcatWs(Expression):
+    """concat_ws(sep, s1, s2, ...): skips NULL inputs (unlike concat);
+    null only when the separator is null. Literal separator (reference:
+    GpuOverrides' concat_ws rule). Output byte j comes from the input or
+    separator whose run of bytes covers j, a gather as in ``Concat``."""
+
+    sep: Expression
+    exprs: Tuple[Expression, ...]
+
+    @property
+    def children(self):
+        return (self.sep,) + self.exprs
+
+    def with_children(self, c):
+        return ConcatWs(c[0], tuple(c[1:]))
+
+    @property
+    def nullable(self):
+        return self.sep.nullable
+
+    def device_unsupported_reason(self):
+        if not isinstance(self.sep, Literal):
+            return "concat_ws separator must be a literal"
+        return None
+
+    def _sep(self) -> Optional[bytes]:
+        if not isinstance(self.sep, Literal):
+            raise TypeError("concat_ws separator must be a literal")
+        if self.sep.value is None:
+            return None          # a null separator: an all-null result
+        return str(self.sep.value).encode("utf-8")
+
+    @property
+    def dtype(self):
+        total = sum(e.dtype.max_len for e in self.exprs)
+        if isinstance(self.sep, Literal):
+            sep_len = len(self._sep() or b"")
+        else:
+            sep_len = self.sep.dtype.max_len   # the planner needs a type
+        total += sep_len * max(len(self.exprs) - 1, 0)
+        return T.string(max(total, 1))
+
+    def eval(self, batch, ctx=EvalContext()):
+        sep = self._sep()
+        out_ml = self.dtype.max_len
+        n = batch.capacity
+        dev = batch.device
+        out = torch.zeros((n, out_ml), dtype=torch.uint8, device=dev)
+        if sep is None:
+            return _string_column(out, torch.zeros(n, dtype=torch.int32,
+                                                   device=dev),
+                                  torch.zeros(n, dtype=torch.bool,
+                                              device=dev), out_ml)
+        j = torch.arange(out_ml, device=dev)[None, :]
+        offset = torch.zeros(n, dtype=torch.int32, device=dev)
+        seen = torch.zeros(n, dtype=torch.bool, device=dev)  # a value is out
+        sep_row = _device_row(sep, len(sep), dev) if sep else None
+        for e in self.exprs:
+            c = e.eval(batch, ctx)
+            if sep_row is not None:
+                # the separator before this value when something precedes
+                put_sep = seen & c.validity
+                src = j - offset[:, None]
+                here = put_sep[:, None] & (src >= 0) & (src < len(sep))
+                g = sep_row[src.clamp(0, len(sep) - 1)]
+                out = torch.where(here, g, out)
+                offset = offset + put_sep.to(torch.int32) * len(sep)
+            lengths = torch.where(c.validity, c.lengths,
+                                  torch.zeros_like(c.lengths))
+            src = j - offset[:, None]
+            here = (src >= 0) & (src < lengths[:, None])
+            g = _widen(c.data, out_ml).gather(
+                1, src.clamp(0, out_ml - 1).long())
+            out = torch.where(here, g, out)
+            offset = offset + lengths
+            seen = seen | c.validity
+        return _string_column(out, offset.clamp(max=out_ml),
+                              batch.row_mask(), out_ml)
+
+
+# ---------------------------------------------------------------------------
 # SubstringIndex
 # ---------------------------------------------------------------------------
 
@@ -1129,6 +1359,302 @@ class SubstringIndex(Expression):
         data = torch.where(idx < new_len[:, None], data,
                            torch.zeros_like(data))
         return _string_column(data, new_len, c.validity, ml)
+
+
+# ---------------------------------------------------------------------------
+# Hex, Bin, Conv
+# ---------------------------------------------------------------------------
+
+#: the digit characters of bases up to 36
+_DIGITS = np.frombuffer(b"0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ", np.uint8)
+
+
+def _digit_string(mat: torch.Tensor, width: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(bytes [n, width], lengths): the digit matrix ``mat`` (most
+    significant first, values < 36) as characters with its leading zeros
+    dropped; a zero value keeps one '0'."""
+    nz = mat != 0
+    first = torch.where(nz.any(dim=1), _first_true(nz),
+                        torch.full_like(nz[:, 0], mat.shape[1] - 1,
+                                        dtype=torch.int64))
+    chars = _table(_DIGITS, mat.device)[mat.long()]
+    pos = torch.arange(width, device=mat.device)[None, :]
+    shifted = F.pad(chars, (0, width - mat.shape[1] + 1)).gather(
+        1, (pos + first[:, None]).clamp(max=width))
+    length = (mat.shape[1] - first).to(torch.int32)
+    return torch.where(pos < length[:, None], shifted,
+                       torch.zeros_like(shifted)), length
+
+
+@dataclass(frozen=True, eq=False)
+class Hex(Expression):
+    """hex(bigint) / hex(string): uppercase hex, no leading zeros for
+    numbers (two's complement for negatives), two digits a byte for
+    strings. A number's nibbles come from arithmetic shifts of its int64
+    bits (the low four bits of ``v >> 4k`` are nibble k either way)."""
+
+    child: Expression
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return Hex(c[0])
+
+    @property
+    def dtype(self):
+        if self.child.dtype.kind is TypeKind.STRING:
+            return T.string(max(self.child.dtype.max_len * 2, 1))
+        return T.string(16)
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        if self.child.dtype.kind is TypeKind.STRING:
+            n, ml = c.data.shape
+            digits = _table(_DIGITS, c.data.device)
+            hi = digits[(c.data >> 4).long()]
+            lo = digits[(c.data & 15).long()]
+            out = torch.stack([hi, lo], dim=2).reshape(n, 2 * ml)
+            return _string_column(out, c.lengths * 2, c.validity, 2 * ml)
+        v = c.data.to(torch.int64)
+        mat = torch.stack([(v >> (4 * (15 - d))) & 15 for d in range(16)],
+                          dim=1)
+        out, length = _digit_string(mat, 16)
+        return _string_column(out, length, c.validity, 16)
+
+
+@dataclass(frozen=True, eq=False)
+class Bin(Expression):
+    """bin(bigint): binary string, no leading zeros (two's complement)."""
+
+    child: Expression
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return Bin(c[0])
+
+    @property
+    def dtype(self):
+        return T.string(64)
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        v = c.data.to(torch.int64)
+        mat = torch.stack([(v >> (63 - d)) & 1 for d in range(64)], dim=1)
+        out, length = _digit_string(mat, 64)
+        return _string_column(out, length, c.validity, 64)
+
+
+def _unsigned_digits(v: torch.Tensor, base: int) -> torch.Tensor:
+    """The 64 base-``base`` digits of the UNSIGNED value of the int64 bits
+    ``v`` (torch has no uint64 arithmetic on CUDA), most significant
+    first. The first division halves: with v = 2h + l (h = v >>> 1, which
+    is non-negative), v // b = 2 (h // b) + carry, and every later
+    quotient is a non-negative int64."""
+    h = (v >> 1) & ((1 << 63) - 1)
+    q1 = h // base
+    r2 = 2 * (h - q1 * base) + (v & 1)
+    carry = (r2 >= base).to(torch.int64)
+    q = 2 * q1 + carry                       # v // b, below 2^63
+    # digit k + 1 of v is digit k of q; a power past 2^63 leaves a 0
+    powers = [base ** k for k in range(63)]
+    fits = _table(np.array([p < 1 << 63 for p in powers]), v.device)
+    p = _table(np.array([p if p < 1 << 63 else 1 for p in powers],
+                        np.int64), v.device)
+    upper = torch.where(fits, (q[:, None] // p) % base,
+                        torch.zeros((), dtype=torch.int64, device=v.device))
+    return torch.cat([upper.flip(1), (r2 - carry * base)[:, None]], dim=1)
+
+
+@dataclass(frozen=True, eq=False)
+class Conv(Expression):
+    """conv(numstr, from_base, to_base): base conversion with LITERAL
+    bases 2..36 (reference: GpuConv, the same literal restriction). Parses
+    the longest valid prefix (an empty or invalid one gives "0") with no
+    trimming; a negative input wraps as unsigned 64-bit when to_base > 0.
+    The accumulation ``v * from_base + digit`` wraps mod 2^64 in int64, as
+    the JAX package's uint64 does (Spark saturates instead)."""
+
+    child: Expression
+    from_base: Expression
+    to_base: Expression
+
+    @property
+    def children(self):
+        return (self.child, self.from_base, self.to_base)
+
+    def with_children(self, c):
+        return Conv(c[0], c[1], c[2])
+
+    @property
+    def dtype(self):
+        return T.string(65)
+
+    def device_unsupported_reason(self):
+        if not (isinstance(self.from_base, Literal)
+                and isinstance(self.to_base, Literal)):
+            return "conv bases must be literals"
+        return None
+
+    def _bases(self):
+        if not (isinstance(self.from_base, Literal)
+                and isinstance(self.to_base, Literal)):
+            raise TypeError("conv bases must be literals")
+        return int(self.from_base.value), int(self.to_base.value)
+
+    def eval(self, batch, ctx=EvalContext()):
+        fb, tb = self._bases()
+        c = self.child.eval(batch, ctx)
+        n = batch.capacity
+        dev = batch.device
+        if not (2 <= fb <= 36 and 2 <= abs(tb) <= 36):
+            return _string_column(
+                torch.zeros((n, 65), dtype=torch.uint8, device=dev),
+                torch.zeros(n, dtype=torch.int32, device=dev),
+                torch.zeros(n, dtype=torch.bool, device=dev), 65)
+        data, lengths = c.data, c.lengths
+        ml = data.shape[1]
+        # an optional '-', then the digits of from_base (longest prefix)
+        neg = (lengths > 0) & (data[:, 0] == ord("-"))
+        d = data.to(torch.int64)
+        up = torch.where((d >= ord("a")) & (d <= ord("z")), d - 32, d)
+        digit = torch.where((up >= ord("0")) & (up <= ord("9")),
+                            up - ord("0"),
+                            torch.where((up >= ord("A")) & (up <= ord("Z")),
+                                        up - ord("A") + 10,
+                                        torch.full_like(up, 99)))
+        idx = torch.arange(ml, device=dev)[None, :]
+        in_range = (idx >= neg.to(torch.int64)[:, None]) & \
+            (idx < lengths[:, None])
+        ok = digit < fb
+        bad_before = (in_range & ~ok).to(torch.int32).cumsum(
+            dim=1, dtype=torch.int32)
+        use = in_range & ok & (bad_before == 0)
+        v = torch.zeros(n, dtype=torch.int64, device=dev)
+        for j in range(ml):
+            v = torch.where(use[:, j], v * fb + digit[:, j], v)
+        any_digit = use.any(dim=1)
+        v = torch.where(neg & any_digit, (~v) + 1, v)
+        if tb < 0:
+            out_neg = v < 0
+            v = torch.where(out_neg, -v, v)   # -MIN keeps 2^63's bits
+        else:
+            out_neg = torch.zeros(n, dtype=torch.bool, device=dev)
+        body, length = _digit_string(_unsigned_digits(v, abs(tb)), 65)
+        out = torch.where(out_neg[:, None],
+                          F.pad(body[:, :-1], (1, 0), value=ord("-")), body)
+        out_len = length + out_neg.to(torch.int32)
+        zero = F.pad(torch.full((n, 1), ord("0"), dtype=torch.uint8,
+                                device=dev), (0, 64))
+        out = torch.where(any_digit[:, None], out, zero)
+        out_len = torch.where(any_digit, out_len, torch.ones_like(out_len))
+        return _string_column(out, out_len, c.validity, 65)
+
+
+# ---------------------------------------------------------------------------
+# FindInSet, Empty2Null
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class FindInSet(Expression):
+    """find_in_set(str, set): 1-based index of ``str`` within the
+    comma-separated ``set``, 0 when absent or when ``str`` contains a
+    comma (reference: GpuStringFindInSet)."""
+
+    child: Expression = None
+    set: Expression = None
+
+    @property
+    def children(self):
+        return (self.child, self.set)
+
+    def with_children(self, c):
+        return FindInSet(c[0], c[1])
+
+    @property
+    def dtype(self):
+        return T.INT32
+
+    def eval(self, batch, ctx=EvalContext()):
+        q = self.child.eval(batch, ctx)
+        s = self.set.eval(batch, ctx)
+        comma = ord(",")
+        n, mls = s.data.shape
+        mlq = q.data.shape[1]
+        dev = s.data.device
+        pos = torch.arange(mls, device=dev)[None, :]
+        in_set = pos < s.lengths[:, None]
+        is_comma = (s.data == comma) & in_set
+        # a needle per row: m[row, p] = set[p:p+qlen] == str (bytes past
+        # the set's end wrap around, and such a p fails the end test)
+        m = torch.ones((n, mls), dtype=torch.bool, device=dev)
+        for j in range(mlq):
+            shifted = torch.roll(s.data, -j, dims=1)
+            m = m & ((j >= q.lengths)[:, None]
+                     | (shifted == q.data[:, j:j + 1]))
+        # entries start at position 0 or right after a comma
+        start = torch.cat([torch.ones_like(in_set[:, :1]),
+                           is_comma[:, :-1]], dim=1) & in_set
+        # and must END exactly at p + qlen (a comma or the set's end)
+        endp = pos + q.lengths[:, None]
+        at_end = endp == s.lengths[:, None]
+        comma_at_end = is_comma.gather(1, endp.clamp(0, mls - 1).long()) \
+            & (endp < mls)
+        hit = start & m & (at_end | comma_at_end) & \
+            (endp <= s.lengths[:, None])
+        ci = is_comma.to(torch.int32)
+        entry_id = ci.cumsum(dim=1, dtype=torch.int32) - ci
+        found = hit.any(dim=1)
+        idx = entry_id.gather(1, _first_true(hit)[:, None])[:, 0] + 1
+        # the empty entry STARTING at position len(set) (an empty set, or
+        # a trailing comma) lies outside the position grid
+        n_entries = ci.sum(dim=1, dtype=torch.int32) + 1
+        last_ix = (s.lengths - 1).clamp(0, mls - 1)
+        end_empty = (s.lengths == 0) | is_comma.gather(
+            1, last_ix[:, None].long())[:, 0]
+        end_hit = (q.lengths == 0) & end_empty
+        zero = torch.zeros_like(idx)
+        idx = torch.where(found, idx, torch.where(end_hit, n_entries, zero))
+        found = found | end_hit
+        has_comma = ((q.data == comma) & (
+            torch.arange(mlq, device=dev)[None, :] < q.lengths[:, None])
+        ).any(dim=1)
+        r = torch.where(found & ~has_comma, idx, zero)
+        return numeric_column(r.to(torch.int32), q.validity & s.validity,
+                              T.INT32)
+
+
+@dataclass(frozen=True, eq=False)
+class Empty2Null(Expression):
+    """'' -> NULL (Spark inserts it around Hive text writes; reference:
+    GpuEmpty2Null)."""
+
+    child: Expression = None
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return Empty2Null(c[0])
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    @property
+    def nullable(self):
+        return True
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        return DeviceColumn(c.data, c.validity & (c.lengths > 0), c.dtype,
+                            c.lengths)
 
 
 # ---------------------------------------------------------------------------

@@ -27,11 +27,12 @@ false); ``Remainder`` and ``Pmod`` on integers are exact (the JAX handler
 goes through ``math.fmod``, which rounds int64 operands above 2^53:
 ``(2**62 + 1) % 7`` is 4 there and 5 in Java); ``Pmod`` by a negative
 divisor and ANSI overflow of ``div``, ``-`` and ``abs`` at MIN follow Java;
-``isnan(null)`` is null, as both device paths give; a percentile orders
-NaN last; ``Murmur3Hash`` hashes the SQL kinds (the JAX handler passes
-types its scalar hash does not know, and raises); ``XxHash64`` is a scalar
-Python XXH64, where the JAX handler calls its device kernel per value.
-``tests/test_torch_interpreter.py`` pins each with both outputs.
+a percentile orders NaN last; ``Murmur3Hash`` hashes the SQL kinds (the
+JAX handler passes types its scalar hash does not know, and raises);
+``XxHash64`` is a scalar Python XXH64, where the JAX handler calls its
+device kernel per value. ``tests/test_torch_interpreter.py`` pins each
+with both outputs. ``isnan(null)`` is false here, on the port's device,
+in the JAX interpreter and in Spark; only the JAX device gives null.
 
 The scalar handlers (conditionals, math, the cast, dates and times) follow
 the device the same way: ``least``/``greatest`` keep the first of two
@@ -49,6 +50,11 @@ to 1.01 here); a double cast to a decimal rounds half to even without the
 precision check. ``tests/test_torch_conditional_math.py`` and
 ``tests/test_torch_cast.py`` pin them. ``Rand`` draws the JAX
 interpreter's one value per seed, not the device's sequence.
+
+The string handlers follow the device the same way: ``initcap`` maps
+ASCII letters only, and ``conv`` trims nothing and wraps its
+accumulation mod 2^64 (the JAX handler maps every letter, trims, and
+keeps every digit); ``tests/test_torch_strings_rest.py`` pins each.
 
 Sample draws its rows with numpy from the seed, as the JAX interpreter
 does; the device's Bernoulli draw is another sequence, so a sampled query
@@ -553,8 +559,7 @@ class RowEvaluator:
 
     def _eval_IsNaN(self, e, row):
         v = self.eval(e.child, row)
-        return None if v is None else (isinstance(v, float)
-                                       and math.isnan(v))
+        return isinstance(v, float) and math.isnan(v)
 
     def _eval_In(self, e, row):
         v = self.eval(e.child, row)
@@ -1090,6 +1095,154 @@ class RowEvaluator:
         if v is None:
             return None
         return re.search(like_to_regex(e.pattern), v, re.DOTALL) is not None
+
+    def _eval_InitCap(self, e, row):
+        s = self.eval(e.child, row)
+        if s is None:
+            return None
+        # the device maps ASCII letters only (the JAX handler maps every
+        # letter Python can case)
+        out, prev_space = [], True
+        for ch in s:
+            if ch.isascii():
+                ch = ch.upper() if prev_space else ch.lower()
+            out.append(ch)
+            prev_space = ch == " "
+        return "".join(out)
+
+    def _eval_FormatNumber(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        d = e._d
+        if d < 0:
+            return None
+        dec = v if isinstance(v, _dec.Decimal) else \
+            _dec.Decimal(repr(v)) if isinstance(v, float) else \
+            _dec.Decimal(int(v))
+        q = dec.quantize(_dec.Decimal(1).scaleb(-d),
+                         rounding=_dec.ROUND_HALF_EVEN)
+        return f"{q:,.{d}f}"
+
+    def _eval_RegexpExtract(self, e, row):
+        s = self.eval(e.child, row)
+        if s is None:
+            return None
+        m = re.search(e.pattern, s)
+        if m is None:
+            return ""
+        g = m.group(e.idx)
+        return g if g is not None else ""
+
+    def _eval_RegexpReplace(self, e, row):
+        s = self.eval(e.child, row)
+        if s is None:
+            return None
+
+        def expand(m):
+            # Java appendReplacement: $N group refs (the longest valid
+            # group number wins), a backslash escapes the next char, a
+            # group that did not take part gives ""
+            out, i, r = [], 0, e.replacement
+            while i < len(r):
+                ch = r[i]
+                if ch == "\\" and i + 1 < len(r):
+                    out.append(r[i + 1])
+                    i += 2
+                    continue
+                if ch == "$" and i + 1 < len(r) and r[i + 1].isdigit():
+                    j, num, best, bj = i + 1, 0, None, i + 1
+                    while j < len(r) and r[j].isdigit():
+                        num = num * 10 + int(r[j])
+                        j += 1
+                        if num <= m.re.groups:
+                            best, bj = num, j
+                    if best is None:
+                        raise IndexError(f"No group {num} in replacement")
+                    out.append(m.group(best) or "")
+                    i = bj
+                    continue
+                out.append(ch)
+                i += 1
+            return "".join(out)
+
+        return re.sub(e.pattern, expand, s)
+
+    def _eval_ConcatWs(self, e, row):
+        sep = self.eval(e.sep, row)
+        if sep is None:
+            return None
+        parts = [self.eval(c, row) for c in e.exprs]
+        return sep.join(p for p in parts if p is not None)
+
+    def _eval_Hex(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        if isinstance(v, str):
+            return v.encode("utf-8").hex().upper()
+        return format(v & ((1 << 64) - 1), "X")
+
+    def _eval_Bin(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        return format(v & ((1 << 64) - 1), "b")
+
+    def _eval_Conv(self, e, row):
+        v = self.eval(e.child, row)
+        fb = self.eval(e.from_base, row)
+        tb = self.eval(e.to_base, row)
+        if v is None or fb is None or tb is None:
+            return None
+        if not (2 <= fb <= 36 and 2 <= abs(tb) <= 36):
+            return None
+        # as the device: no trimming (Spark trims), and the accumulation
+        # wraps mod 2^64 (Spark saturates); the JAX handler trims and
+        # wraps only a negative input
+        s = str(v)
+        neg = s.startswith("-")
+        if neg:
+            s = s[1:]
+        digits = "0123456789abcdefghijklmnopqrstuvwxyz"[:fb]
+        mask = (1 << 64) - 1
+        acc, any_d = 0, False
+        for ch in s:
+            k = digits.find(ch.lower()) if ch.isascii() else -1
+            if k < 0:
+                break
+            acc = (acc * fb + k) & mask
+            any_d = True
+        if not any_d:
+            return "0"
+        if neg:
+            acc = ((~acc) + 1) & mask
+        sign = ""
+        if tb < 0:
+            if acc >= 1 << 63:
+                acc = (1 << 64) - acc
+                sign = "-"
+            tb = -tb
+        out = ""
+        ds = "0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+        while acc:
+            out = ds[acc % tb] + out
+            acc //= tb
+        return sign + (out or "0")
+
+    def _eval_FindInSet(self, e, row):
+        q = self.eval(e.child, row)
+        s = self.eval(e.set, row)
+        if q is None or s is None:
+            return None
+        if "," in q:
+            return 0
+        parts = s.split(",")
+        return parts.index(q) + 1 if q in parts else 0
+
+    def _eval_Empty2Null(self, e, row):
+        v = self.eval(e.child, row)
+        return None if v == "" else v
 
     # ---- hashes ----
     def _hash_row(self, e, row, int_fn, long_fn, bytes_fn, to_signed):

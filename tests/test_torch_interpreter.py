@@ -186,8 +186,6 @@ JAX_DEPARTS = {
         r["x"] is not None and math.isinf(r["x"])),
     # the JAX's Remainder raises on an infinite dividend (math.fmod)
     "Remainder_double": lambda r: r["x"] is not None and math.isinf(r["x"]),
-    # JAX: isnan(null) is false; both device paths give null
-    "IsNaN": lambda r: r["x"] is None,
     # the JAX's In reads the expression's children: never true
     "In": None,
     # the JAX's scalar hash does not know SQL types, and raises
@@ -293,11 +291,18 @@ def test_in_reads_its_value_list():
     assert jax == [False, False, None]
 
 
-def test_isnan_of_null_is_null_as_on_both_devices():
-    port, device, jax = _both(lambda a: a.IsNaN(a.col("x")),
-                              x=pa.array([math.nan, None, 1.0]))
-    assert port == device == [True, None, False]
-    assert jax == [True, False, False]
+def test_isnan_of_null_is_false_as_in_spark():
+    """Spark's IsNaN is never null: isnan(null) is false on the port's
+    device, in its interpreter and in the JAX interpreter; the JAX device
+    alone gives null."""
+    x = pa.array([math.nan, None, 1.0])
+    port, device, jax = _both(lambda a: a.IsNaN(a.col("x")), x=x)
+    assert port == device == jax == [True, False, False]
+    from spark_rapids_tpu.plan import Session as JSession
+    jdevice = _values(JSession(CONF).collect(
+        JAX.table(pa.table({"x": x})).select(
+            JAX.IsNaN(JAX.col("x")).alias("r"))))
+    assert jdevice == [True, None, False]
 
 
 def test_integral_divide_of_doubles_truncates_the_operands():
@@ -516,7 +521,7 @@ def test_unported_expression_raises_naming_item_7():
     from spark_rapids_tpu_torch.expressions.base import Expression
 
     @dataclass(frozen=True, eq=False)
-    class InitCap(Expression):
+    class StringToMap(Expression):
         child: Expression
 
         @property
@@ -524,7 +529,7 @@ def test_unported_expression_raises_naming_item_7():
             return (self.child,)
 
         def with_children(self, c):
-            return InitCap(c[0])
+            return StringToMap(c[0])
 
         @property
         def dtype(self):
@@ -540,9 +545,10 @@ def test_unported_expression_raises_naming_item_7():
             return self.children[0].schema()
 
     t = PORT.table(D)
-    with pytest.raises(NotImplementedError, match="InitCap.*ROADMAP item 7"):
-        I.Interpreter().execute(t.select(InitCap(PORT.col("w")).alias("u"))
-                                .plan)
+    with pytest.raises(NotImplementedError,
+                       match="StringToMap.*ROADMAP item 7"):
+        I.Interpreter().execute(t.select(StringToMap(PORT.col("w")).alias(
+            "u")).plan)
     with pytest.raises(NotImplementedError,
                        match="CollectList.*ROADMAP item 7"):
         I.Interpreter().execute(t.group_by("k2").agg(
@@ -559,8 +565,13 @@ def test_row_evaluator_dispatch_is_the_jax_ones():
     assert port <= jax
     # 52 before the scalar slice, which adds the 22 handlers of
     # conditional.py, math.py and datetime.py, and Hypot, Logarithm,
-    # NaNvl, Rand, RaiseError and UTCTimestampConv
-    assert len(port) == 80
+    # NaNvl, Rand, RaiseError and UTCTimestampConv; the rest of
+    # strings.py and the span programs add 10
+    assert len(port) == 90
+    for name in ("InitCap", "FormatNumber", "RegexpExtract",
+                 "RegexpReplace", "ConcatWs", "Hex", "Bin", "Conv",
+                 "FindInSet", "Empty2Null"):
+        assert f"_eval_{name}" in port
     for name in ("If", "CaseWhen", "Coalesce", "LeastGreatest", "UnaryMath",
                  "Pow", "Atan2", "FloorCeil", "Round", "Signum",
                  "ExtractDatePart", "DateAddSub", "DateDiff", "AddMonths",
