@@ -47,7 +47,14 @@ fallen back, with its warm wall, rows/s, peak and idle share;
 ``window_match`` at its k = 15 part filter and murmur3 at its two
 p_size exchanges held against their plain versions, and the Like
 filter's DFA on the card against the CPU over every supplier batch, with
-its device time and launches a batch. Then the string phase: every
+its device time and launches a batch. Its second leg runs the same query
+over ``dictionary_encode_arrow`` of the same tables (``dictenc.py``):
+p_brand and p_type stay codes, s_comment falls back on the cardinality
+fraction, and ``dict_fallbacks()`` must name s_comment alone; its rows
+equal the plain leg's and the oracle's, both kernels launch and are held
+against their plain versions, and its walls, peak, idle share and the
+wire bytes (encoded, raw) of the part side's exchange input print beside
+the plain leg's. Then the string phase: every
 string expression of the port (53, each class at least once; hex, bin and
 conv at INT64_MIN, -1, 0 and INT64_MAX) over 2^16 rows of S_COMMENT,
 P_TYPE, an int64 and a decimal on the card against the port's row
@@ -59,15 +66,15 @@ phase: the part-catalogue roll-up (``entry.catalog_df``: regexp_extract,
 find_in_set, initcap over regexp_replace and regexp_replace over P_TYPE
 and P_BRAND, a group-by, then concat_ws, bin, format_number, hex, conv
 and empty2null over the groups) over the 20,000,000 SF100 part rows
-through the Session, cold and twice warm, equal to
+through the Session, cold, equal to
 ``entry.catalog_reference`` in all 3,750 groups in order, nothing fallen
-back, with its warm wall, rows/s, peak and idle share, murmur3 at its
-exchange against its plain version and each span expression's device
+back, with the warm wall and idle share of one profiled run, rows/s and
+peak, murmur3 at its exchange against its plain version and each span expression's device
 time and launches on one slice; and the comment leg
 (``entry.comment_spans_df``: regexp_extract and regexp_replace over the
 1,000,000 SF100 S_COMMENT rows at 128 bytes), 0 rows apart from
-pyarrow's RE2, with each expression's device time on one 125,000-row
-batch.
+pyarrow's RE2 in one run, with each expression's device time on one
+125,000-row batch.
 
 Then the scalar slice. TPC-H Q14 at SF10 (``entry.q14_df``: September
 1995's lines by ``add_months``, the join with 2,000,000 part rows, a CASE
@@ -79,8 +86,9 @@ within rel 1e-6), nothing fallen back, with cold and warm walls, rows/s,
 peak and idle share, ``window_match`` (k = 5) held against its plain
 version at every launch of one run, and murmur3 at Q9's o_year exchange;
 then every expression of ``conditional.py``, ``math.py``, ``cast.py`` and
-``datetime.py`` (107: every math function, cast pair, date part, format,
-level and zone the columns reach) over 2^14 rows of dates, timestamps,
+``datetime.py`` (110: every math function, cast pair, date part, format,
+level and zone the columns reach; decimal casts past their precision give
+null) over 2^14 rows of dates, timestamps,
 strings and doubles with NaN, the infinities, -0.0, MIN and MAX and nulls,
 on the card as one fused stage captured in a CUDA graph, against the row
 interpreter (0 rows apart, floats within rel 1e-12) and ``Rand`` against
@@ -92,8 +100,10 @@ slice, ``window_match`` at k = 5) and a join on two int32 keys (murmur3)
 each run as a fused stage captured in a CUDA graph and replayed, every run
 equal to the iterator path, the capture holding the kernel, the kernel
 equal to its plain version on the stage's own input; union, range, expand,
-sample (seeded) and every arithmetic expression over edge rows on the card
-against the CPU, and the ANSI errors raising on the card in a
+sample (seeded; over 2^20 ids the card keeps the CPU's rows, the JAX
+package's threefry draws, in three (fraction, seed, slices) cases) and every arithmetic
+expression over edge rows on the card against the CPU, and the ANSI
+errors raising on the card in a
 ``ProjectExec`` and in a fused stage. Last the bench's join+sort stage
 (``entry.join_sort_runner``) at 2^21 x 2^18 and at 59,986,052 x 15,000,000
 rows through the captured graph, the eager fused program and the iterator
@@ -131,7 +141,12 @@ wall, rows/s, the decode alone beside the upload alone, the row groups
 pruned and the peak; Q1 from those SF10 files, equal to the pyarrow oracle
 and to the in-memory ``run_q1``, with its idle share and murmur3 held
 against its plain version on every batch of its exchange; and Q16's part
-stage from the SF100 part table in 8 files, exact. Every row group of
+stage from the SF100 part table in 8 files, exact, its predicate kept
+above the scan so that p_brand and p_type arrive as RLE_DICTIONARY codes
+(the default; none do under a pushed-down predicate), with the pieces
+the exchange read merged and the decode and upload seconds beside a run
+under ``dictEncoding.enabled=false``, whose rows are equal. Every row
+group of
 those files must decode through the port's native decoder, and no scan of
 the runs may take the pyarrow fallback.
 
@@ -739,11 +754,17 @@ def run_path(name: str, make_table, reference, run, check, dev, counted,
         torch.cuda.synchronize(dev)
         warm.append(time.perf_counter() - t0)
         check(again, expected)
-    warm_s = statistics.median(warm)
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"{name}: cold {cold_s:.3f} s, warm median {warm_s:.3f} s of "
-          f"{[round(w, 4) for w in warm]}, {rows / warm_s:,.0f} rows/s;"
-          f" device memory peak {peak / 2**30:.2f} GiB")
+    if warm:
+        warm_s = statistics.median(warm)
+        print(f"{name}: cold {cold_s:.3f} s, warm median {warm_s:.3f} s of "
+              f"{[round(w, 4) for w in warm]}, {rows / warm_s:,.0f} rows/s;"
+              f" device memory peak {peak / 2**30:.2f} GiB")
+    else:
+        # no warm run here: the caller's profiled run gives the warm wall
+        warm_s = cold_s
+        print(f"{name}: cold {cold_s:.3f} s, {rows / cold_s:,.0f} rows/s "
+              f"cold; device memory peak {peak / 2**30:.2f} GiB")
     if stats is not None:
         stats.update(cold_s=cold_s, warm_s=warm_s, peak=peak, rows=rows)
     return launches
@@ -1503,19 +1524,22 @@ def check_like_at_q16(dev, ses, df) -> dict:
     return out
 
 
-def run_q16_phase(dev, counted, tables) -> dict:
+def run_q16_phase(dev, counted, tables) -> list:
     """TPC-H Q16 at SF100 through the port's Session (``entry.q16_df``
     under ``entry.session_conf``): equal to ``q16_reference``, nothing
     fallen back, window_match at its k = 15 prefix and murmur3 at the
     exchanges held against their plain versions, the Like filter's device
-    time and launches, and the idle share of one profiled warm run."""
+    time and launches, and the idle share of one profiled warm run. Then
+    the same query over ``dictionary_encode_arrow`` of the same tables
+    (``run_q16_dict_leg``). Returns each leg's launches."""
     from spark_rapids_tpu_torch import entry
     from spark_rapids_tpu_torch.plan import Session
     conf = entry.session_conf(Q16_SHUFFLE_PARTITIONS)
     ses = Session(conf, device=dev)
+    last = {}
 
     def run(t):
-        out = ses.collect(entry.q16_df(*t, Q16_SLICES))
+        out = last["rows"] = ses.collect(entry.q16_df(*t, Q16_SLICES))
         if ses.fell_back():
             raise AssertionError(f"q16 fell back: {ses.fell_back()}")
         return out
@@ -1533,13 +1557,18 @@ def run_q16_phase(dev, counted, tables) -> dict:
           f"slices, {Q16_SHUFFLE_PARTITIONS} shuffle partitions, supplier "
           f"strings at {entry.SUPPLIER_STRING_MAX_LEN} bytes; rows/s counts "
           f"partsupp")
-    stats = {}
+    stats, oracle = {}, {}
+
+    def reference(t):
+        oracle["rows"] = entry.q16_reference(*t)
+        return oracle["rows"]
     launches = run_path(
-        "q16", lambda: tables, lambda t: entry.q16_reference(*t), run, check,
-        dev, counted, rows_of=lambda t: t[2].num_rows, stats=stats)
+        "q16", lambda: tables, reference, run, check, dev, counted,
+        rows_of=lambda t: t[2].num_rows, stats=stats, warm_runs=2)
     print(f"q16: the Session's operators {ses.executed_exec_names()}")
     df = entry.q16_df(*tables, Q16_SLICES)
-    profiled_idle("q16", lambda: run(tables), dev, host=False)
+    stats["idle"] = profiled_idle("q16", lambda: run(tables), dev,
+                                  host=False)
     check_window_match_at_session_q16(dev, ses, df)
     like = check_like_at_q16(dev, ses, df)
     # its two aggregate exchanges hash p_size; the outer one reads the
@@ -1549,6 +1578,91 @@ def run_q16_phase(dev, counted, tables) -> dict:
         check_murmur3_at_exchanges(f"Q16 (hashed exchange {i})",
                                    ses.last_plan, dev, only=i)
     stats.update(like)
+    dict_launches = run_q16_dict_leg(dev, counted, tables, oracle["rows"],
+                                     last["rows"], stats)
+    return [launches, dict_launches]
+
+
+def exchange_wire_bytes(ses, df, column: str) -> tuple:
+    """``dictenc.dict_wire_bytes`` (encoded, raw) summed over the input
+    batches of the plan's first shuffle exchange whose input holds
+    ``column`` (the part side of Q16's join: scan, filter, exchange)."""
+    from spark_rapids_tpu_torch.dictenc import dict_wire_bytes
+    _, plan = ses.prepare(df)
+    enc = raw = 0
+    try:
+        ex = next(x for x in _execs(plan, "ShuffleExchangeExec")
+                  if column in x.child.output_schema.names)
+        for p in range(ex.child.num_partitions):
+            for b in ex.child.execute_partition(p):
+                e, r = dict_wire_bytes(b)
+                enc, raw = enc + e, raw + r
+    finally:
+        plan.close()
+    return enc, raw
+
+
+def run_q16_dict_leg(dev, counted, tables, expected, plain_rows,
+                     plain) -> dict:
+    """Q16 over ``dictionary_encode_arrow`` of the same SF100 tables,
+    through a Session under the same conf, the ``dictEncoding.*`` keys at
+    their defaults: p_brand (25 values) and p_type (150) stay codes, and
+    s_comment, nearly unique, falls back on the cardinality fraction. Its
+    rows equal the plain leg's and ``q16_reference``; ``dict_fallbacks()``
+    names s_comment alone; murmur3 and window_match launch and are held
+    against their plain versions; cold and warm walls, peak and idle share
+    beside the plain leg's (``plain``: its stats); the wire bytes of the
+    part side's exchange input. Returns the cold run's launches."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.dictenc import dictionary_encode_arrow
+    from spark_rapids_tpu_torch.plan import Session
+    t0 = time.perf_counter()
+    enc = [dictionary_encode_arrow(t) for t in tables]
+    coded = [c for t in enc for c in t.column_names
+             if pa.types.is_dictionary(t[c].type)]
+    print(f"q16 dict: the three tables dictionary-encoded in "
+          f"{time.perf_counter() - t0:.2f} s (string columns {coded})")
+    ses = Session(entry.session_conf(Q16_SHUFFLE_PARTITIONS), device=dev)
+
+    def run(t):
+        out = ses.collect(entry.q16_df(*t, Q16_SLICES))
+        if ses.fell_back():
+            raise AssertionError(f"q16 dict fell back: {ses.fell_back()}")
+        return out
+
+    def check(got, want):
+        if not (got.equals(want) and got.equals(plain_rows)):
+            raise AssertionError(f"Q16 over codes differs from the oracle "
+                                 f"or the plain leg:\n{got.slice(0, 3)}\n"
+                                 f"{want.slice(0, 3)}")
+        return (f"; all {got.num_rows} groups equal to the plain leg and "
+                f"the oracle in every column and position")
+
+    stats = {}
+    launches = run_path(
+        "q16 dict", lambda: enc, lambda _: expected, run, check, dev,
+        counted, rows_of=lambda t: t[2].num_rows, stats=stats, warm_runs=2)
+    reasons = ses.dict_fallbacks()
+    print(f"q16 dict: dict_fallbacks() {reasons}")
+    if not reasons or any("'s_comment'" not in r for r in reasons):
+        raise AssertionError(f"q16 dict: the fallbacks are not s_comment's "
+                             f"alone: {reasons}")
+    df = entry.q16_df(*enc, Q16_SLICES)
+    idle = profiled_idle("q16 dict", lambda: run(enc), dev, host=False)
+    check_window_match_at_session_q16(dev, ses, df)
+    # the first p_size exchange, where the seeds come from the per-entry
+    # hashes of the dictionary keys before it
+    ses.prepare(df)
+    check_murmur3_at_exchanges("Q16 dict (hashed exchange 0)",
+                               ses.last_plan, dev, only=0)
+    wire = exchange_wire_bytes(ses, df, "p_type")
+    print(f"q16 dict: against the plain leg, cold {stats['cold_s']:.3f} s "
+          f"vs {plain['cold_s']:.3f} s, warm {stats['warm_s']:.3f} s vs "
+          f"{plain['warm_s']:.3f} s, peak {stats['peak'] / 2**30:.2f} GiB "
+          f"vs {plain['peak'] / 2**30:.2f} GiB, idle share {idle:.1%} vs "
+          f"{plain['idle']:.1%}; wire bytes (encoded, raw) of the part "
+          f"side's exchange input {wire}")
     return launches
 
 
@@ -1811,16 +1925,15 @@ def span_expression_times(what: str, dev, table, width: int, exprs) -> dict:
 def run_catalog_phase(dev, counted, tables) -> dict:
     """The part-catalogue roll-up over the SF100 part table (20,000,000
     rows, ``entry.catalog_df`` through the port's Session, 8 slices): one
-    cold and two warm runs, each equal to ``entry.catalog_reference`` in
-    all 3,750 groups, in order, nothing fallen back; its warm wall, rows/s,
+    cold run, equal to ``entry.catalog_reference`` in all 3,750 groups, in
+    order, nothing fallen back; the warm wall of one profiled run, rows/s,
     peak and idle share; murmur3 at its exchange and every window_match
     launch held against their plain versions in every checked run; each
     per-row span expression's device time and launches on one slice. Then
     the comment leg (``entry.comment_spans_df`` over the SF100 S_COMMENT,
     1,000,000
-    rows at 128 bytes): one cold and one warm run, 0 rows apart from
-    pyarrow's RE2, and each expression's device time on one 125,000-row
-    batch."""
+    rows at 128 bytes): one run, 0 rows apart from pyarrow's RE2, and
+    each expression's device time on one 125,000-row batch."""
     import pyarrow.compute as pc
     import torch
     from spark_rapids_tpu_torch import entry
@@ -1863,7 +1976,7 @@ def run_catalog_phase(dev, counted, tables) -> dict:
           f"{CATALOG_SLICES} slices, {CATALOG_PARTITIONS} shuffle "
           f"partitions, strings at {entry.CATALOG_STRING_MAX_LEN} bytes")
     launches = run_path("catalog", lambda: part, entry.catalog_reference,
-                        run, check, dev, counted, warm_runs=2)
+                        run, check, dev, counted, warm_runs=0)
     print(f"catalog: the Session's operators {ses.executed_exec_names()}")
     profiled_idle("catalog", lambda: run(part, checked=False), dev,
                   host=False)
@@ -1893,26 +2006,22 @@ def run_catalog_phase(dev, counted, tables) -> dict:
     oracle_s = time.perf_counter() - t0
     cses = Session(conf, device=dev)
     df = entry.comment_spans_df(sup, COMMENT_SLICES)
-    walls = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        got = cses.collect(df)
-        torch.cuda.synchronize(dev)
-        walls.append(time.perf_counter() - t0)
-        if cses.fell_back():
-            raise AssertionError(f"comments fell back: {cses.fell_back()}")
-        apart = {k: rows_apart(got.column(k), want.column(k))
-                 for k in want.column_names}
-        if any(apart.values()):
-            raise AssertionError(f"comments: rows apart from pyarrow "
-                                 f"{apart}")
+    t0 = time.perf_counter()
+    got = cses.collect(df)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    if cses.fell_back():
+        raise AssertionError(f"comments fell back: {cses.fell_back()}")
+    apart = {k: rows_apart(got.column(k), want.column(k))
+             for k in want.column_names}
+    if any(apart.values()):
+        raise AssertionError(f"comments: rows apart from pyarrow {apart}")
     found = int(pc.sum(pc.greater(pc.utf8_length(got.column("complaint")),
                                   0)).as_py() or 0)
     print(f"comments: {sup.num_rows} S_COMMENT rows in {COMMENT_SLICES} "
           f"slices at {entry.SUPPLIER_STRING_MAX_LEN} bytes: 0 rows apart "
           f"from pyarrow (oracle {oracle_s:.2f} s; {found} rows extract a "
-          f"non-empty complaint); cold {walls[0]:.3f} s, warm "
-          f"{walls[1]:.3f} s")
+          f"non-empty complaint); cold {wall:.3f} s")
     c = col("s_comment")
     span_expression_times("comments", dev, sup,
                           entry.SUPPLIER_STRING_MAX_LEN, {
@@ -2178,6 +2287,10 @@ def scalar_exprs():
         Cast(n, T.TIMESTAMP), Cast(s, T.INT64), Cast(s, T.INT32),
         Cast(s, T.DATE), Cast(i, T.string(20)), Cast(d, T.string(10)),
         Cast(n, T.decimal(10, 2)),
+        # past the target's precision (and the rescale's int64 overflow):
+        # null, as Spark and the interpreter give
+        Cast(i, T.decimal(18, 2)), Cast(n, T.decimal(3, 0)),
+        Cast(Cast(n, T.decimal(10, 2)), T.decimal(5, 2)),
         year(d), month(t), dayofmonth(d), quarter(d), dayofweek(t),
         dayofyear(d), weekofyear(d), hour(t), minute(t), second(t),
         date_add(d, n), date_sub(d, 30), datediff(d, date_add(d, n)),
@@ -2645,17 +2758,32 @@ def check_new_operators(dev) -> None:
     print(f"new operators: union, range, expand and {len(plans) - 3} "
           f"arithmetic expressions over edge rows, card equal to the CPU")
 
-    def sample(d):
-        return SampleExec(0.3, 42, RangeExec(0, 4_000_000,
-                                             batch_rows=1 << 20, device=d))
+    def sample(d, fraction=0.3, seed=42, slices=1, n=4_000_000):
+        ids = RangeExec(0, n, batch_rows=1 << 20, device=d)
+        if slices > 1:
+            ids = scan(collect(ids), d, slices)
+        return SampleExec(fraction, seed, ids)
     s1, s2 = collect(sample(dev)), collect(sample(dev))
     ids = s1.column("id").to_numpy()
     if not (s1.equals(s2) and np.all(np.diff(ids) > 0)
             and 0.29 < len(ids) / 4_000_000 < 0.31):
         raise AssertionError("sample: not a seeded subset in input order")
-    print(f"sample 0.3 of 4,000,000 ids on the card: {len(ids)} rows, the "
-          f"same twice, increasing; the CPU's generator keeps "
-          f"{collect(sample('cpu')).num_rows}")
+    # the draws are the JAX package's threefry stream: the card keeps the
+    # CPU's rows exactly
+    kept = []
+    for fraction, seed, slices in ((0.1, 5, 3), (0.5, 123456, 1),
+                                   (0.01, 7, 4)):
+        on_card = collect(sample(dev, fraction, seed, slices, 1 << 20))
+        if not on_card.equals(collect(sample("cpu", fraction, seed, slices,
+                                             1 << 20))):
+            raise AssertionError(f"sample ({fraction}, {seed}, {slices} "
+                                 f"slices): the card keeps other rows than "
+                                 f"the CPU")
+        kept.append(on_card.num_rows)
+    print(f"sample 0.3 of 4,000,000 ids on the card: {len(ids)} rows, a "
+          f"seeded subset in input order; over 2^20 ids, (fraction, seed, "
+          f"slices) (0.1, 5, 3), (0.5, 123456, 1), (0.01, 7, 4) keep {kept} "
+          f"rows, each the CPU's rows exactly")
 
     t = pa.table({"a": pa.array([1, 2, 1 << 62], pa.int64()),
                   "z": pa.array([1, 0, 2], pa.int64())})
@@ -3791,6 +3919,7 @@ def check_window_match_at_session_q16(dev, ses, df) -> int:
     import torch
     from spark_rapids_tpu_torch import entry
     from spark_rapids_tpu_torch.batch import from_arrow, to_arrow
+    from spark_rapids_tpu_torch.dictenc import decode_column
     from spark_rapids_tpu_torch.exec import FilterExec
     from spark_rapids_tpu_torch.kernels.string_search import (
         window_match, window_match_plain)
@@ -3800,7 +3929,8 @@ def check_window_match_at_session_q16(dev, ses, df) -> int:
                     and "p_type" in e.child.output_schema.names)
         schema = filt.child.output_schema
         batch = next(iter(filt.child.execute_partition(0)))
-        ptype = batch.columns[schema.index_of("p_type")]
+        # the filter reads a dictionary p_type decoded (dictenc.py)
+        ptype = decode_column(batch.columns[schema.index_of("p_type")])
         pat = entry.Q16_TYPE_PREFIX.encode()
         got = window_match(ptype.data, ptype.lengths, pat)
         ref = window_match_plain(ptype.data, ptype.lengths, pat)
@@ -4350,10 +4480,19 @@ def run_q1_parquet_phase(dev, counted, table, paths) -> dict:
 
 def run_q16_parquet_phase(dev, counted, tmp) -> dict:
     """Q16's part stage over the SF100 part table written by
-    ``pq.write_table`` (dictionary-encoded string pages), exact against
-    the pyarrow oracle, its row groups decoded natively; with its wall,
-    idle share and window_match's launches."""
+    ``pq.write_table`` (dictionary-encoded string pages), its predicate
+    kept above the scan, so that the readers hand p_brand and p_type over
+    as RLE_DICTIONARY codes under the default conf (none do under a
+    pushed-down predicate) and the filter runs on the codes: exact against
+    the pyarrow oracle, its row groups decoded natively, with its wall,
+    idle share and window_match's launches; the columns that arrived as
+    codes, the pieces whose dictionaries the exchange read merged in one
+    run, and the decode and upload seconds beside a run under
+    ``dictEncoding.enabled=false``, whose rows are equal."""
+    import torch
     from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.batch import from_arrow
+    from spark_rapids_tpu_torch.dictenc import merged_pieces
     from spark_rapids_tpu_torch.exec import collect
     part = entry.part_table(SF100_PART_ROWS, PART_SEED)
     t0 = time.perf_counter()
@@ -4362,10 +4501,15 @@ def run_q16_parquet_phase(dev, counted, tmp) -> dict:
           f"{len(paths)} files in {time.perf_counter() - t0:.2f} s")
     check_native_decode("q16 parquet part files", paths)
     state = {}
+    off = {"spark.rapids.tpu.dictEncoding.enabled": False}
 
-    def run(paths):
-        state["plan"] = entry.q16_part_parquet_plan(
-            paths, PARQUET_SLICES, PARQUET_PARTITIONS, device=dev)
+    def plan_of(conf=None):
+        return entry.q16_part_parquet_plan(
+            paths, PARQUET_SLICES, PARQUET_PARTITIONS, device=dev,
+            pushdown=False, conf=conf)
+
+    def run(_):
+        state["plan"] = plan_of()
         return collect(state["plan"])
 
     def check(got, expected):
@@ -4374,8 +4518,49 @@ def run_q16_parquet_phase(dev, counted, tmp) -> dict:
 
     launches = run_path("q16 parquet", lambda: paths,
                         lambda _: entry.q16_part_reference(part), run, check,
-                        dev, counted, rows_of=lambda _: part.num_rows)
+                        dev, counted, rows_of=lambda _: part.num_rows,
+                        warm_runs=2)
+    merged = merged_pieces()
     profiled_idle("q16 parquet", lambda: run(paths), dev)
+    merged = merged_pieces() - merged
+    plan = plan_of()
+    scan = _execs(plan, "FileSourceScanExec[parquet]")[0]
+    coded = set()
+    try:
+        for b in scan.execute_partition(0):
+            coded |= {f.name for f, c in zip(scan.output_schema, b.columns)
+                      if c.is_dict}
+    finally:
+        plan.close()
+    t0 = time.perf_counter()
+    got_off = collect(plan_of(off))
+    torch.cuda.synchronize(dev)
+    off_s = time.perf_counter() - t0
+    if not got_off.equals(entry.q16_part_reference(part)):
+        raise AssertionError("q16 parquet: the dictEncoding.enabled=false "
+                             "run differs")
+    split = {}
+    for label, conf in (("codes", None), ("bytes", off)):
+        plan = plan_of(conf)
+        plan.close()
+        src = _execs(plan, "FileSourceScanExec[parquet]")[0]
+        t0 = time.perf_counter()
+        tables = list(src.source.read_split(src.source.files))
+        decode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for t in tables:
+            from_arrow(t, schema=src.output_schema, device=dev,
+                       dict_conf=src.source._dict_conf)
+        torch.cuda.synchronize(dev)
+        split[label] = (decode_s, time.perf_counter() - t0)
+    print(f"q16 parquet: columns that arrived as codes {sorted(coded)}; "
+          f"pieces whose dictionaries the exchange read merged in one run "
+          f"{merged}; host decode and upload seconds, codes "
+          f"{split['codes'][0]:.3f} + {split['codes'][1]:.3f}, under "
+          f"dictEncoding.enabled=false {split['bytes'][0]:.3f} + "
+          f"{split['bytes'][1]:.3f}; that run {off_s:.3f} s, its rows equal")
+    if sorted(coded) != ["p_brand", "p_type"]:
+        raise AssertionError(f"q16 parquet: codes for {sorted(coded)}")
     return launches
 
 
@@ -4417,10 +4602,10 @@ def run_fallback_path(name: str, dev, counted, table, expected, make_df,
     """One path through the port's Session with islands: one cold run
     (every counted kernel's launches from 0, its result checked, its
     ``fell_back()`` equal to ``fallen``, a CPU-topped plan interpreted on
-    the host where ``top_island``), one warm run (checked), and one
-    profiled warm run. Prints the warm wall, the islands' host time inside
+    the host where ``top_island``) and one profiled warm run (checked).
+    Prints the warm wall and idle share, the islands' host time inside
     ``CpuFallbackExec.interpret`` with their rows in and out
-    (``rows_out(plan, result)``), the allocator's peak and the idle share.
+    (``rows_out(plan, result)``) and the allocator's peak.
     Returns the cold run's launches."""
     import torch
     from spark_rapids_tpu_torch.plan import CpuFallbackExec, Session
@@ -4449,23 +4634,22 @@ def run_fallback_path(name: str, dev, counted, table, expected, make_df,
           f"{detail or ''}); fell_back() {ses.fell_back()}, executed "
           f"{ses.executed_exec_names()}; cold {cold_s:.3f} s; kernel "
           f"launches in the run: {launches}")
-    # one warm run, within the script's time limit
-    t0 = time.perf_counter()
-    again = ses.collect(make_df(table))
-    torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
-    check(again, expected)
+    # one warm run, profiled, within the script's time limit
+    warm = {}
+
+    def again():
+        warm["rows"] = ses.collect(make_df(table))
+    profiled_idle(f"fallback {name}", again, dev)
+    check(warm["rows"], expected)
     isl = island_stats(ses.last_plan)
     peak = torch.cuda.max_memory_allocated(dev)
     total = isl["collect_s"] + isl["interpret_s"]
-    print(f"fallback {name}: warm {wall:.3f} s; island host time in "
+    print(f"fallback {name}: the warm run's island host time in "
           f"CpuFallbackExec.interpret {total:.3f} s "
           f"(device children to Arrow {isl['collect_s']:.3f} s, row loop "
           f"{isl['interpret_s']:.3f} s), rows in {isl['rows_in']:,}, rows "
-          f"out {rows_out(ses.last_plan, again):,}; device memory peak "
-          f"{peak / 2**30:.2f} GiB")
-    profiled_idle(f"fallback {name}", lambda: ses.collect(make_df(table)),
-                  dev)
+          f"out {rows_out(ses.last_plan, warm['rows']):,}; device memory "
+          f"peak {peak / 2**30:.2f} GiB")
     return launches
 
 
@@ -4556,7 +4740,7 @@ def check_against_interpreter(dev, counted) -> list:
     return runs
 
 
-def run_fallback_phase(dev, args, q3_tables) -> list:
+def run_fallback_phase(dev, lineitem, q3_tables) -> list:
     """CPU fallback islands on the card, each path through the port's
     Session under ``entry.session_conf`` (incompatibleOps on, AQE off):
     Q1 at SF10 with ``sql.exec.Sort`` off (a CPU-topped plan: the final
@@ -4576,7 +4760,6 @@ def run_fallback_phase(dev, args, q3_tables) -> list:
     def q1_check(got, expected):
         return f"; float max rel err {check_q1_result(got, expected):.3g}"
 
-    lineitem = entry.lineitem_table(args.rows, DATA_SEED)
     q1_conf = entry.session_conf(Q1_SHUFFLE_PARTITIONS, **{
         "spark.rapids.tpu.sql.exec.Sort": False})
     runs.append(run_fallback_path(
@@ -4587,7 +4770,7 @@ def run_fallback_phase(dev, args, q3_tables) -> list:
     ses = Session(q1_conf, device=dev)
     ses.prepare(entry.q1_df(lineitem, Q1_SLICES))
     check_murmur3_at_exchanges("the Sort-off Q1", ses.last_plan, dev)
-    del lineitem, ses
+    del ses
 
     customer, orders, li = q3_tables
     expected = entry.q3_reference(customer, orders, li)
@@ -4682,15 +4865,14 @@ def main(argv=None) -> int:
     lineitem = entry.lineitem_table(args.rows, DATA_SEED)
     runs += timed("session", run_session_phase, dev, args, lineitem)
     runs += timed("mesh", run_mesh_phase, dev, lineitem)
-    del lineitem
     # Q3 with AQE off, then on (the JAX Session's default adaptive conf)
     q3_runs, q3_tables = timed("q3", run_q3_phase, dev, [murmur3_int32])
     runs += q3_runs
     timed("range sort", check_range_sort, dev, q3_tables[2])
-    # CPU fallback islands (Q1 and Q3 at SF10) and the port's differential
-    # against its row interpreter
-    runs += timed("fallback", run_fallback_phase, dev, args, q3_tables)
-    del q3_tables
+    # CPU fallback islands (Q1 over the same SF10 lineitem, Q3 at SF10)
+    # and the port's differential against its row interpreter
+    runs += timed("fallback", run_fallback_phase, dev, lineitem, q3_tables)
+    del q3_tables, lineitem
     # before Q18, whose spills would leave pinned buffers in the cache
     timed("spill rates", measure_spill_rates, dev)
     runs += timed("q18", run_q18_phase, dev, [murmur3_int32])
@@ -4718,8 +4900,8 @@ def main(argv=None) -> int:
     print(f"q16 tables at SF{Q16_SF}: "
           f"{[t.num_rows for t in q16_tables]} rows (part, supplier, "
           f"partsupp) made in {time.perf_counter() - t0:.2f} s")
-    runs.append(timed("q16", run_q16_phase, dev,
-                      [murmur3_int32, window_match], q16_tables))
+    runs += timed("q16", run_q16_phase, dev, [murmur3_int32, window_match],
+                  q16_tables)
     runs.append(timed("strings", run_strings_phase, dev, q16_tables))
     # the part-catalogue roll-up over the same SF100 part table (the span
     # programs and the rest of strings.py; murmur3 at its class_no key),

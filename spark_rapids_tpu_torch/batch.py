@@ -8,7 +8,9 @@ scalar tensor on the batch's device, and every row in
 ``[num_rows, capacity)`` is dead (invalid, zero payload). A string column's
 payload is ``uint8[capacity, max_len]``, zero past each value's end, with
 its byte lengths in ``int32[capacity]``; a null row has length 0 and no
-bytes.
+bytes. A dictionary-encoded string column (``dictenc.py``) holds int32
+codes in ``data``, no ``lengths``, and its sorted distinct entries in
+``dict_data``/``dict_lengths``.
 
 Host interchange is Arrow. ``from_arrow`` is the H2D boundary, ``to_arrow``
 the D2H one; ``batch_from_numpy`` rebuilds a batch from arrays taken out of
@@ -17,6 +19,7 @@ the JAX package, so a test can feed one of its intermediates to the port.
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple, Union
@@ -101,22 +104,39 @@ class Schema:
 @dataclass(frozen=True)
 class DeviceColumn:
     """One column on the device: payload + validity, both [capacity] rows
-    (+ byte lengths for strings, whose payload is [capacity, max_len])."""
+    (+ byte lengths for strings, whose payload is [capacity, max_len]). A
+    dictionary-encoded string column holds its codes in ``data`` and its
+    dictionary in ``dict_data``/``dict_lengths``, which every row gather
+    carries along untouched (their leading dimension is the card, not the
+    capacity)."""
 
     data: torch.Tensor
     validity: torch.Tensor          # bool; False beyond num_rows
     dtype: SqlType = T.INT32
     lengths: Optional[torch.Tensor] = None      # int32[capacity], strings
+    dict_data: Optional[torch.Tensor] = None    # uint8[card, max_len]
+    dict_lengths: Optional[torch.Tensor] = None  # int32[card]
 
     @property
     def capacity(self) -> int:
         return self.validity.shape[0]
+
+    @property
+    def is_dict(self) -> bool:
+        return self.dict_data is not None
+
+    def replace(self, **changes) -> "DeviceColumn":
+        """This column with some fields changed (the dictionary kept
+        unless changed)."""
+        return dataclasses.replace(self, **changes)
 
     def size_bytes(self) -> int:
         n = (self.data.numel() * self.data.element_size()
              + self.validity.numel())
         if self.lengths is not None:
             n += self.lengths.numel() * 4
+        if self.dict_data is not None:
+            n += self.dict_data.numel() + self.dict_lengths.numel() * 4
         return n
 
 
@@ -288,12 +308,20 @@ def _string_column(arr: pa.Array, dtype: SqlType, capacity: int,
 
 
 def column_from_arrow(arr, dtype: SqlType, capacity: int,
-                      device: torch.device) -> DeviceColumn:
+                      device: torch.device, name: str = "",
+                      dict_conf: Optional[tuple] = None) -> DeviceColumn:
     arr = arr.combine_chunks() if isinstance(arr, pa.ChunkedArray) else arr
     if pa.types.is_dictionary(arr.type):
-        raise NotImplementedError(
-            "dictionary-encoded arrays come with the dictionary-encoding "
-            "slice (dictenc); decode them first")
+        # the RLE_DICTIONARY hand-off: keep the codes and build the bytes
+        # once per distinct value (dictenc.py); a column over a threshold,
+        # or under dictEncoding.enabled=false, decodes with its reason
+        if dtype.kind is TypeKind.STRING:
+            from .dictenc import column_from_arrow_dictionary
+            col = column_from_arrow_dictionary(arr, dtype, capacity, device,
+                                               name, dict_conf)
+            if col is not None:
+                return col
+        arr = arr.cast(arr.type.value_type)
     if dtype.kind is TypeKind.STRING:
         return _string_column(arr, dtype, capacity, device)
     data = _padded(_scalar_storage(arr, dtype), dtype.storage_dtype,
@@ -309,13 +337,16 @@ def schema_from_arrow(schema: pa.Schema, string_max_len: int = 64) -> Schema:
 
 def from_arrow(table: pa.Table, capacity: Optional[int] = None,
                schema: Optional[Schema] = None, string_max_len: int = 64,
-               device: DeviceLike = None) -> Tuple[ColumnarBatch, Schema]:
+               device: DeviceLike = None,
+               dict_conf: Optional[tuple] = None
+               ) -> Tuple[ColumnarBatch, Schema]:
     """Build a device batch from an Arrow table.
 
     Without a schema, string columns get ``string_max_len`` bytes and
     nullability is tightened from the data: a null-free column becomes
     non-nullable, as in the JAX package, which lets the aggregate skip its
-    validity payload lane."""
+    validity payload lane. A dictionary string column stays codes under
+    ``dict_conf`` (``dictenc.dict_conf``; default: the registry's)."""
     dev = resolve_device(device)
     if schema is None:
         schema = schema_from_arrow(table.schema, string_max_len)
@@ -324,7 +355,8 @@ def from_arrow(table: pa.Table, capacity: Optional[int] = None,
                          for i, f in enumerate(schema)])
     n = table.num_rows
     cap = capacity or bucket_capacity(n)
-    cols = tuple(column_from_arrow(table.column(i), f.dtype, cap, dev)
+    cols = tuple(column_from_arrow(table.column(i), f.dtype, cap, dev,
+                                   f.name, dict_conf)
                  for i, f in enumerate(schema))
     return ColumnarBatch(cols, rows_scalar(n, dev)), schema
 
@@ -375,9 +407,18 @@ def _string_to_arrow(col: DeviceColumn, n: int,
                      validity: np.ndarray) -> pa.Array:
     """The live rows of a string column as an Arrow string array: offsets
     from the lengths, and the row-major bytes under each length, which are
-    Arrow's character buffer as they stand."""
-    lens = np.where(validity, col.lengths[:n].cpu().numpy(), 0)
-    mat = col.data[:n].cpu().numpy()
+    Arrow's character buffer as they stand. A dictionary column decodes
+    here, on the host: the codes and the small dictionary come down, and
+    per-row bytes never live on the device."""
+    if col.dict_data is not None:
+        dmat = col.dict_data.cpu().numpy()
+        dlens = col.dict_lengths.cpu().numpy()
+        codes = np.clip(col.data[:n].cpu().numpy(), 0, dmat.shape[0] - 1)
+        mat = dmat[codes]
+        lens = np.where(validity, dlens[codes], 0)
+    else:
+        lens = np.where(validity, col.lengths[:n].cpu().numpy(), 0)
+        mat = col.data[:n].cpu().numpy()
     chars = mat[np.arange(mat.shape[1])[None, :] < lens[:, None]]
     offsets = np.zeros(n + 1, np.int32)
     np.cumsum(lens, out=offsets[1:])
@@ -396,7 +437,15 @@ def _validity_buffer(validity: np.ndarray) -> Optional[pa.Buffer]:
 def _decimal_to_arrow(data: np.ndarray, dtype: SqlType,
                       validity: np.ndarray) -> pa.Array:
     """Unscaled int64 values as an Arrow decimal128 array, exactly: each
-    value sign-extended to 16 little-endian bytes, null slots zero."""
+    value sign-extended to 16 little-endian bytes, null slots zero. A
+    valid value of more digits than the type's precision raises, as
+    ``pa.array`` does, rather than build an invalid array."""
+    bound = 10 ** dtype.precision
+    over = validity & ((data <= -bound) | (data >= bound))
+    if over.any():
+        raise pa.ArrowInvalid(
+            f"{int(over.sum())} value(s) exceed the precision of {dtype}, "
+            f"e.g. unscaled {int(data[over][0])}")
     words = np.empty((data.shape[0], 2), np.int64)
     words[:, 0] = np.where(validity, data, 0)
     words[:, 1] = words[:, 0] >> 63

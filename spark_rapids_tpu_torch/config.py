@@ -275,8 +275,8 @@ PARQUET_NATIVE_DECODE = _entry(
     "pyarrow; row groups outside the native subset (nested columns, "
     "INT96, other codecs, legacy-rebase files) fall back to pyarrow one "
     "by one.", _bool)
-# recorded by the scan; until the dictionary-encoding slice the port
-# decodes every string to bytes, which gives the same rows
+# dictenc.py: string columns keep dictionary codes on the device, from
+# the Parquet readers' codes hand-off and from dictionary Arrow input
 DICT_ENCODING_ENABLED = _entry(
     "spark.rapids.tpu.dictEncoding.enabled", True,
     "Compressed execution for string columns (dictionary codes on the "

@@ -2094,18 +2094,20 @@ def parquet_files(table: pa.Table, directory: str, n_files: int,
     return paths
 
 
-def _file_scan(paths, columns: Sequence[str], predicate: Expression,
-               num_slices: int, device: DeviceLike,
-               reader_type=None) -> Exec:
+def _file_scan(paths, columns: Sequence[str],
+               predicate: Optional[Expression], num_slices: int,
+               device: DeviceLike, reader_type=None,
+               conf: Optional[Dict] = None) -> Exec:
     """A Parquet scan of ``paths`` with the projection and the predicate
-    pushed down, under the reader keys' defaults (the JAX planner applies
-    the Session's conf to the source, ``plan/overrides.py:961``)."""
+    pushed down, under the reader keys of ``conf`` (default: theirs; the
+    JAX planner applies the Session's conf to the source,
+    ``plan/overrides.py:961``)."""
     from .io.parquet import ParquetSource
     from .io.scan import FileSourceScanExec
     from .io.source import ReaderType
     source = ParquetSource(paths, columns=list(columns), predicate=predicate,
                            reader_type=reader_type or ReaderType.AUTO)
-    source.apply_conf({})
+    source.apply_conf(conf or {})
     return FileSourceScanExec(source, num_slices, device=device)
 
 
@@ -2145,14 +2147,18 @@ def run_q1_parquet(paths, num_slices: int = 8, shuffle_partitions: int = 8,
 
 def q16_part_parquet_plan(paths, num_slices: int = 8,
                           shuffle_partitions: int = 8,
-                          device: DeviceLike = None) -> Exec:
+                          device: DeviceLike = None, pushdown: bool = True,
+                          conf: Optional[Dict] = None) -> Exec:
     """The tree of Q16's part stage over the part files ``paths``, its
-    predicate pushed down (pyarrow takes none of it but ``p_size IN``, and
-    the row groups' statistics prune nothing) and kept in a
-    ``FilterExec``."""
+    predicate kept in a ``FilterExec`` and, with ``pushdown``, pushed down
+    too (pyarrow takes none of it but ``p_size IN``, and the row groups'
+    statistics prune nothing). Without it the readers hand the string
+    columns over as dictionary codes (none do under a pushed predicate),
+    and the filter runs on them. ``conf``: the scan's settings."""
     cond = q16_part_condition()
     return _grouped_stage(
-        _file_scan(paths, Q16_KEYS, cond, num_slices, device), cond,
+        _file_scan(paths, Q16_KEYS, cond if pushdown else None, num_slices,
+                   device, conf=conf), cond,
         Q16_KEYS, q16_part_aggregates, shuffle_partitions,
         [desc(col("part_cnt"))] + [asc(col(k)) for k in Q16_KEYS])
 

@@ -73,7 +73,7 @@ def _unalias(e: Expression) -> Tuple[AggregateFunction, str]:
 
 def _pad_column(c: DeviceColumn, cap: int) -> DeviceColumn:
     """Zero/False-pad a column up to ``cap`` rows (a string column's byte
-    matrix by whole rows, and its lengths)."""
+    matrix by whole rows, and its lengths; a dictionary column's codes)."""
     pad = cap - c.capacity
     if pad == 0:
         return c
@@ -82,17 +82,18 @@ def _pad_column(c: DeviceColumn, cap: int) -> DeviceColumn:
         return None if a is None else torch.cat(
             [a, a.new_zeros((pad,) + a.shape[1:])])
 
-    return DeviceColumn(pz(c.data), pz(c.validity), c.dtype, pz(c.lengths))
+    return c.replace(data=pz(c.data), validity=pz(c.validity),
+                     lengths=pz(c.lengths))
 
 
 def _dead_past(c: DeviceColumn, live: torch.Tensor) -> DeviceColumn:
     """``c`` with the rows outside ``live`` dead: invalid, zero payload."""
     row = live.view((-1,) + (1,) * (c.data.dim() - 1))
     zero = torch.zeros((), dtype=c.data.dtype, device=c.data.device)
-    return DeviceColumn(torch.where(row, c.data, zero), c.validity & live,
-                        c.dtype,
-                        None if c.lengths is None
-                        else torch.where(live, c.lengths, 0))
+    return c.replace(data=torch.where(row, c.data, zero),
+                     validity=c.validity & live,
+                     lengths=None if c.lengths is None
+                     else torch.where(live, c.lengths, 0))
 
 
 class HashAggregateExec(UnaryExec):

@@ -14,17 +14,15 @@ with a fresh error collector and raise ``ArithmeticException`` (or
 reported. The counts are read back to the host only when a report was
 made, which outside ANSI mode never happens.
 
-``SampleExec`` draws from an explicit ``torch.Generator`` on the batch's
-device, seeded from (seed, partition, batch ordinal), so a re-execution
-draws the same rows; torch's random stream is not JAX's, so the two
-packages keep different (seeded) subsets.
+``SampleExec`` draws the JAX package's threefry stream from (seed,
+partition, batch ordinal) with ``expressions/math.py``'s helpers, so a
+re-execution draws the same rows and both packages keep the same ones.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Iterator, List, Optional, Sequence
 
-import numpy as np
 import pyarrow as pa
 import torch
 
@@ -33,6 +31,7 @@ from ..batch import (CapacityError, ColumnarBatch, DeviceColumn, DeviceLike,
                      Field, Schema, bucket_capacity, from_arrow,
                      resolve_device, rows_scalar, schema_from_arrow)
 from ..expressions.base import Alias, EvalContext, Expression, raw_eval
+from ..expressions.math import _MASK32, threefry2x32, uniform_doubles
 from ..memory.catalog import BufferCatalog
 from ..memory.retry import maybe_inject, with_retry_no_split
 from ..types import TypeKind
@@ -59,15 +58,19 @@ class InMemoryScanExec(LeafExec):
     """Leaf over an Arrow table (uploaded chunk by chunk as partitions run)
     or over batches already on a device (``schema`` then required).
     ``catalog`` is the buffer catalog of the tree above it (default: the
-    device's process-wide one)."""
+    device's process-wide one). ``dict_conf`` (``dictenc.dict_conf``; the
+    planner passes the Session's) decides whether a dictionary string
+    column uploads as codes; None: the registry defaults."""
 
     def __init__(self, data, schema: Optional[Schema] = None,
                  batch_rows: Optional[int] = None, num_slices: int = 1,
                  device: DeviceLike = None,
                  ctx: EvalContext = EvalContext(),
-                 catalog: Optional[BufferCatalog] = None):
+                 catalog: Optional[BufferCatalog] = None,
+                 dict_conf: Optional[tuple] = None):
         super().__init__(ctx)
         self._catalog = catalog
+        self._dict_conf = dict_conf
         self._num_slices = num_slices
         self._batch_rows = batch_rows
         if isinstance(data, pa.Table):
@@ -112,7 +115,8 @@ class InMemoryScanExec(LeafExec):
     def _h2d(self, chunk: pa.Table) -> ColumnarBatch:
         maybe_inject("scan.h2d")
         batch, _ = from_arrow(chunk, schema=self._schema,
-                              device=self._device)
+                              device=self._device,
+                              dict_conf=self._dict_conf)
         return batch
 
 
@@ -293,16 +297,12 @@ class RangeExec(LeafExec):
                 return
 
 
-def _sample_seed(seed: int, p: int, i: int) -> int:
-    """The generator seed of batch ``i`` of partition ``p``: a fixed mix of
-    the three (numpy's SeedSequence), the same in every process."""
-    return int(np.random.SeedSequence([seed & (2**64 - 1), p, i])
-               .generate_state(1, np.uint64)[0] >> 1)
-
-
 class SampleExec(UnaryExec):
     """Bernoulli row sample: each row is kept with probability
-    ``fraction``, in input order."""
+    ``fraction``, in input order. Batch ``i`` of partition ``p`` draws
+    ``jax.random.uniform(fold_in(fold_in(PRNGKey(seed), p), i))`` as the
+    JAX package does, in threefry on torch ops, so the kept rows are the
+    JAX rows on the CPU and on the card alike."""
 
     def __init__(self, fraction: float, seed: int, child: Exec):
         super().__init__(child)
@@ -313,11 +313,12 @@ class SampleExec(UnaryExec):
         return self.child.output_schema
 
     def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        seed = self.seed
+        root = threefry2x32((seed >> 32) & _MASK32, seed & _MASK32, 0,
+                            p & _MASK32)
         for i, batch in enumerate(self.child.execute_partition(p)):
-            gen = torch.Generator(device=batch.device)
-            gen.manual_seed(_sample_seed(self.seed, p, i))
-            u = torch.rand(batch.capacity, generator=gen,
-                           dtype=torch.float64, device=batch.device)
+            key = threefry2x32(*root, 0, i & _MASK32)
+            u = uniform_doubles(key, batch.capacity, batch.device)
             yield compact(batch, u < self.fraction)
 
 

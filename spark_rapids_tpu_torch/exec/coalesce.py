@@ -14,6 +14,7 @@ from dataclasses import dataclass
 from typing import Iterator, List
 
 from ..batch import ColumnarBatch, Schema
+from ..dictenc import unify_dict_batches
 from .base import Exec, UnaryExec
 from .common import concat_all
 
@@ -63,12 +64,18 @@ class CoalesceBatchesExec(UnaryExec):
                     pending_bytes + b > target
                     or sum(q.capacity for q in pending) + batch.capacity
                     > self.max_rows):
-                yield concat_all(pending, self.output_schema, self.device)
+                yield self._flush(pending)
                 pending, pending_bytes = [], 0
             pending.append(batch)
             pending_bytes += b
         if pending:
-            yield concat_all(pending, self.output_schema, self.device)
+            yield self._flush(pending)
+
+    def _flush(self, pending: List[ColumnarBatch]) -> ColumnarBatch:
+        # per-batch string dictionaries unify onto one (a device code
+        # remap), so the concat keeps the codes instead of decoding
+        return concat_all(unify_dict_batches(pending), self.output_schema,
+                          self.device)
 
 
 class CoalesceGoalError(RuntimeError):

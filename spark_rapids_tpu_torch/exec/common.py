@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from ..batch import (ColumnarBatch, DeviceColumn, Schema, bucket_capacity,
                      empty_batch, rows_scalar)
+from ..dictenc import decode_column
 from ..types import TypeKind
 
 
@@ -32,13 +33,15 @@ from ..types import TypeKind
 
 def gather_column(col: DeviceColumn, indices: torch.Tensor,
                   row_valid: Optional[torch.Tensor] = None) -> DeviceColumn:
-    """Rows of ``col`` at ``indices``; slots outside ``row_valid`` are null."""
+    """Rows of ``col`` at ``indices``; slots outside ``row_valid`` are null.
+    A dictionary column gathers its codes; the dictionary rides along."""
     idx = indices.clamp(0, col.capacity - 1)
     validity = col.validity[idx]
     if row_valid is not None:
         validity = validity & row_valid
     lengths = None if col.lengths is None else col.lengths[idx]
-    return DeviceColumn(col.data[idx], validity, col.dtype, lengths)
+    return col.replace(data=col.data[idx], validity=validity,
+                       lengths=lengths)
 
 
 def gather_columns(cols: Sequence[DeviceColumn], indices: torch.Tensor,
@@ -73,8 +76,21 @@ def concat_columns(cols: Sequence[DeviceColumn], counts: Sequence[int],
     """One column of ``capacity`` rows on ``device`` (default: the first
     piece's): rows ``[0, counts[i])`` of piece i at offset
     ``sum(counts[:i])``, copied without a host wait (a peer copy for a
-    piece on another card)."""
+    piece on another card). Dictionary codes concatenate as they are where
+    every piece shares one dictionary object (one upstream batch, or
+    ``dictenc.unify_dict_batches`` before); otherwise the pieces decode."""
     first = cols[0]
+    if any(c.dict_data is not None for c in cols):
+        if first.dict_data is not None and all(
+                c.dict_data is first.dict_data for c in cols) and (
+                device is None or first.dict_data.device == device):
+            out = concat_columns([c.replace(dict_data=None,
+                                            dict_lengths=None)
+                                  for c in cols], counts, capacity, device)
+            return out.replace(dict_data=first.dict_data,
+                               dict_lengths=first.dict_lengths)
+        cols = [decode_column(c) for c in cols]
+        first = cols[0]
     dev = device or first.data.device
     data = torch.zeros((capacity,) + tuple(first.data.shape[1:]),
                        dtype=first.data.dtype, device=dev)
@@ -184,8 +200,12 @@ def orderable_words(col: DeviceColumn) -> List[torch.Tensor]:
     before "ab", then their length, which orders "a" before "a\x00".
     int8, int16 and NULL columns widen to int32; int32, date, int64,
     timestamp and decimal (unscaled, one scale per column) sort on their
-    signed value."""
+    signed value. A dictionary string column gives its int32 code: its
+    dictionary is sorted in this same string order (``dictenc.py``
+    invariant 2), so within one column code order is string order."""
     k = col.dtype.kind
+    if k is TypeKind.STRING and col.dict_data is not None:
+        return [col.data]
     if k is TypeKind.STRING:
         words = _string_words(col.data)
         return [words[:, i] for i in range(words.shape[1])] + [col.lengths]

@@ -150,9 +150,12 @@ _Run = Tuple[ColumnarBatch, torch.Tensor, _Flags]
 def _copy(batch: ColumnarBatch) -> ColumnarBatch:
     """A batch of fresh tensors, out of the graph's pool (the next replay
     overwrites the graph's own)."""
+    def clone(t):
+        return None if t is None else t.clone()
     return ColumnarBatch(tuple(
         DeviceColumn(c.data.clone(), c.validity.clone(), c.dtype,
-                     None if c.lengths is None else c.lengths.clone())
+                     clone(c.lengths), clone(c.dict_data),
+                     clone(c.dict_lengths))
         for c in batch.columns), batch.num_rows.clone())
 
 

@@ -92,6 +92,7 @@ from ..adaptive import record_decision
 from ..batch import (ColumnarBatch, DeviceColumn, Field, Schema,
                      bucket_capacity, empty_batch, rows_scalar)
 from ..config import JOIN_MAX_BUILD_ROWS
+from ..dictenc import decode_column
 from ..expressions.base import (BoundReference, EvalContext, Expression,
                                 string_equal)
 from ..expressions.hashing import murmur3_batch
@@ -197,6 +198,10 @@ def _append_rows(a: ColumnarBatch, b: ColumnarBatch,
     ib = (iota - na).clamp(0, b.capacity - 1)
     cols = []
     for ca, cb in zip(a.columns, b.columns):
+        if (ca.dict_data is not None or cb.dict_data is not None) and \
+                ca.dict_data is not cb.dict_data:
+            # codes of two dictionaries do not mix: append the bytes
+            ca, cb = decode_column(ca), decode_column(cb)
         ga, gb = gather_column(ca, ia), gather_column(cb, ib)
         row = from_a.view((-1,) + (1,) * (ga.data.dim() - 1))
         keep = live.view(row.shape)
@@ -208,7 +213,8 @@ def _append_rows(a: ColumnarBatch, b: ColumnarBatch,
         if ga.lengths is not None:
             lengths = torch.where(live, torch.where(
                 from_a, ga.lengths, gb.lengths), 0)
-        cols.append(DeviceColumn(data, validity, ca.dtype, lengths))
+        cols.append(ca.replace(data=data, validity=validity,
+                               lengths=lengths))
     return ColumnarBatch(tuple(cols), total.to(torch.int32))
 
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from .. import types as T
 from ..batch import (ColumnarBatch, DeviceColumn, Schema, StringOverflowError,
                      empty_column)
+from ..dictenc import decode_column
 from ..types import SqlType, TypeKind
 
 
@@ -204,18 +205,28 @@ def lit_if_needed(v: Any) -> Expression:
     return v if isinstance(v, Expression) else Literal.of(v)
 
 
-def raw_eval(expr: Expression, batch: ColumnarBatch,
-             ctx: EvalContext = EvalContext()) -> DeviceColumn:
-    """A (possibly aliased) bare column reference yields the stored column
-    as it is; anything else evaluates. The JAX package keeps dictionary
-    codes this way; here every stored column is plain, so the seam matters
-    again with the dictionary-encoding slice."""
+def resolve_stored_column(expr: Expression, batch: ColumnarBatch
+                          ) -> Optional[DeviceColumn]:
+    """The stored column a (possibly aliased) bare reference names, its
+    dictionary encoding intact, without evaluating anything; None for a
+    computed expression (a probe must not evaluate: that would run the
+    child twice and report its ANSI errors twice)."""
     e = expr
     while isinstance(e, Alias):
         e = e.child
     if isinstance(e, BoundReference):
         return batch.columns[e.ordinal]
-    return expr.eval(batch, ctx)
+    return None
+
+
+def raw_eval(expr: Expression, batch: ColumnarBatch,
+             ctx: EvalContext = EvalContext()) -> DeviceColumn:
+    """A (possibly aliased) bare column reference yields the stored column
+    as it is, dictionary codes included, for the consumers that work on
+    codes (group-by keys, hash partitioning, identity projections);
+    anything else evaluates, and so decodes."""
+    col = resolve_stored_column(expr, batch)
+    return col if col is not None else expr.eval(batch, ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +276,13 @@ class BoundReference(Expression):
         return self._nullable
 
     def eval(self, batch, ctx=EvalContext()):
-        return batch.columns[self.ordinal]
+        col = batch.columns[self.ordinal]
+        if col.dict_data is not None:
+            # the decode point: an expression that reads string bytes sees
+            # the padded matrix (one gather); consumers that work on codes
+            # use raw_eval instead
+            return decode_column(col)
+        return col
 
     def __repr__(self):
         return f"input[{self.ordinal}, {self._dtype}]"

@@ -128,6 +128,9 @@ class Cast(Expression):
                 mat = F.pad(mat, (0, ml - mat.shape[1]))
             return _string_column(mat, lengths, c.validity, ml)
         data, validity = _cast_data(c.data, c.validity, src, dst)
+        if dst.kind is TypeKind.DECIMAL and ctx.ansi:
+            # Spark raises for a value past the target's precision
+            ctx.report(c.validity & ~validity, "NUMERIC_VALUE_OUT_OF_RANGE")
         return numeric_column(data, validity, dst)
 
     def __repr__(self):
@@ -141,9 +144,10 @@ def _cast_data(x, validity, src: SqlType, dst: SqlType):
     if sk is TypeKind.DECIMAL:
         if dk is TypeKind.DECIMAL:
             shift = dst.scale - src.scale
-            y = x * (10 ** shift) if shift >= 0 else \
-                _div_half_up(x, 10 ** (-shift))
-            return y, validity
+            if shift >= 0:
+                return _scale_up(x, validity, shift, dst.precision)
+            y = _div_half_up(x, 10 ** (-shift))
+            return y, validity & _fits(y, dst.precision)
         as_f = x.to(_F64) / (10.0 ** src.scale)
         return _cast_data(as_f, validity, T.FLOAT64, dst)
 
@@ -151,8 +155,10 @@ def _cast_data(x, validity, src: SqlType, dst: SqlType):
         if src.is_fractional:
             # half to even, as jnp.round
             y = torch.round(x.to(_F64) * (10.0 ** dst.scale))
-            return float_to_int(y, _I64), validity & torch.isfinite(x)
-        return x.to(_I64) * (10 ** dst.scale), validity
+            ok = torch.isfinite(y) & (y.abs() < 10.0 ** dst.precision)
+            y = torch.where(ok, y, torch.zeros_like(y))
+            return float_to_int(y, _I64), validity & ok
+        return _scale_up(x.to(_I64), validity, dst.scale, dst.precision)
 
     if dk is TypeKind.BOOLEAN:
         return x != 0, validity
@@ -188,6 +194,23 @@ def _convert(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if x.dtype.is_floating_point and not dtype.is_floating_point:
         return float_to_int(x, dtype)
     return x.to(dtype)
+
+
+def _fits(y: torch.Tensor, precision: int) -> torch.Tensor:
+    """|y| has at most ``precision`` digits (``precision`` <= 18, so
+    ``10 ** precision`` is an int64)."""
+    return (y > -(10 ** precision)) & (y < 10 ** precision)
+
+
+def _scale_up(x: torch.Tensor, validity: torch.Tensor, shift: int,
+              precision: int):
+    """``x * 10 ** shift`` as a DECIMAL of ``precision`` digits: a row
+    whose product would pass int64 or whose value has more than
+    ``precision`` digits is null (Spark's ``changePrecision``)."""
+    limit = (2 ** 63 - 1) // 10 ** shift
+    ok = (x >= -limit) & (x <= limit)
+    y = torch.where(ok, x, torch.zeros_like(x)) * (10 ** shift)
+    return y, validity & ok & _fits(y, precision)
 
 
 def _div_half_up(x: torch.Tensor, divisor: int) -> torch.Tensor:

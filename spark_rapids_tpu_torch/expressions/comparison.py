@@ -10,22 +10,24 @@ null); the payload of null rows is False.
 Doubles compare in Spark's order: NaN equals NaN and is greater than every
 other value, and -0.0 equals 0.0. The JAX package compares them as IEEE
 floats (NaN unequal to everything), so the two differ on NaN rows only.
-The JAX package's ``_dict_pushdown`` (predicates over the distinct entries
-of a dictionary-encoded column) comes with the dictionary-encoding slice.
+A string column ``<op>`` literal, and ``In``, over a dictionary-encoded
+column evaluate once per distinct dictionary entry and gather the result
+through the codes (``_dict_pushdown``), as in the JAX package.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .. import types as T
-from ..batch import DeviceColumn
+from ..batch import ColumnarBatch, DeviceColumn, rows_scalar
+from ..dictenc import dict_entries_column, gather_entries
 from ..types import TypeKind
 from .base import (EvalContext, Expression, Literal, and_validity,
-                   string_compare_lt, string_equal)
+                   resolve_stored_column, string_compare_lt, string_equal)
 
 _OPS = {"eq": torch.eq, "lt": torch.lt, "le": torch.le,
         "gt": torch.gt, "ge": torch.ge}
@@ -64,6 +66,26 @@ def _float_compare(l: torch.Tensor, r: torch.Tensor, op: str
     return {"lt": lt, "le": lt | eq, "gt": gt, "ge": gt | eq}[op]
 
 
+def _dict_pushdown(child: Expression, batch, eval_entries
+                   ) -> Optional[DeviceColumn]:
+    """When ``child`` is a (possibly aliased) bare reference to a
+    dictionary-encoded string column: ``eval_entries(entries, ebatch)``
+    over the [card] distinct entries, gathered through the codes; the
+    predicate's cost drops from the rows to the entries. None otherwise
+    (a computed child is never dict-encoded, and the probe evaluates
+    nothing)."""
+    if child.dtype.kind is not TypeKind.STRING:
+        return None
+    col = resolve_stored_column(child, batch)
+    if col is None or col.dict_data is None:
+        return None
+    ents = dict_entries_column(col)
+    ebatch = ColumnarBatch((ents,), rows_scalar(ents.capacity,
+                                                ents.validity.device))
+    emask = eval_entries(ents, ebatch)            # bool[card]
+    return _bool_col(gather_entries(emask, col), col.validity)
+
+
 @dataclass(frozen=True, eq=False)
 class BinaryComparison(Expression):
     left: Expression
@@ -81,7 +103,27 @@ class BinaryComparison(Expression):
     def dtype(self):
         return T.BOOLEAN
 
+    def _dict_fast(self, batch, ctx):
+        """A dictionary string column ``<op>`` a non-null literal: compare
+        the entries, gather [card] booleans by code."""
+        def side(child, litexpr, op):
+            if not isinstance(litexpr, Literal) or litexpr.value is None:
+                return None
+            return _dict_pushdown(
+                child, batch, lambda ents, eb: _compare_data(
+                    ents, litexpr.eval(eb, ctx), op))
+
+        r = side(self.left, self.right, self.OP)
+        if r is not None:
+            return r
+        flipped = {"eq": "eq", "lt": "gt", "le": "ge",
+                   "gt": "lt", "ge": "le"}[self.OP]
+        return side(self.right, self.left, flipped)
+
     def eval(self, batch, ctx=EvalContext()):
+        fast = self._dict_fast(batch, ctx)
+        if fast is not None:
+            return fast
         lc = self.left.eval(batch, ctx)
         rc = self.right.eval(batch, ctx)
         return _bool_col(_compare_data(lc, rc, self.OP),
@@ -244,14 +286,24 @@ class In(Expression):
 
     def eval(self, batch, ctx=EvalContext()):
         non_null = [v for v in self.values if v is not None]
+        has_null_item = len(non_null) != len(self.values)
+
+        def found_in(c, b):
+            found = torch.zeros(b.capacity, dtype=torch.bool,
+                                device=b.device)
+            for v in non_null:
+                litc = Literal.of(v, self.child.dtype).eval(b, ctx)
+                found = found | _compare_data(c, litc, "eq")
+            return found
+
+        fast = _dict_pushdown(self.child, batch, found_in)
+        if fast is not None:
+            if has_null_item:
+                return _bool_col(fast.data, fast.validity & fast.data)
+            return fast
         c = self.child.eval(batch, ctx)
-        found = torch.zeros(batch.capacity, dtype=torch.bool,
-                            device=batch.device)
-        for v in non_null:
-            litc = Literal.of(v, self.child.dtype).eval(batch, ctx)
-            found = found | _compare_data(c, litc, "eq")
-        validity = (c.validity & found if len(non_null) != len(self.values)
-                    else c.validity)
+        found = found_in(c, batch)
+        validity = c.validity & found if has_null_item else c.validity
         return _bool_col(found, validity)
 
     def __repr__(self):

@@ -43,6 +43,7 @@ import torch
 
 from .. import types as T
 from ..batch import ColumnarBatch, DeviceColumn
+from ..dictenc import decode_column, dict_entries_column, gather_entries
 from ..kernels.murmur3 import fmix, mix_h1, murmur3_int32, to_int32, u32
 from ..types import TypeKind
 from .base import EvalContext, Expression
@@ -136,9 +137,14 @@ def int32_words(col: DeviceColumn) -> torch.Tensor:
 
 
 def hash_column(col: DeviceColumn, seed: Seed) -> torch.Tensor:
-    """Hash one column with the running per-row seed; nulls keep the seed."""
+    """Hash one column with the running per-row seed; nulls keep the seed.
+    A dictionary column decodes: the seed differs from row to row here,
+    so a per-entry hash does not apply (``murmur3_batch`` takes it at the
+    leading position)."""
     k = col.dtype.kind
     seed = _seeds(seed, col.validity)
+    if col.dict_data is not None:
+        col = decode_column(col)
     if k is TypeKind.NULL:
         return seed
     if k in INT32_HASHED_KINDS:
@@ -156,10 +162,19 @@ def hash_column(col: DeviceColumn, seed: Seed) -> torch.Tensor:
 
 def murmur3_batch(cols: Sequence[DeviceColumn],
                   seed: int = DEFAULT_SEED) -> torch.Tensor:
-    """Row hash across columns (Spark's Murmur3Hash expression), as int32."""
+    """Row hash across columns (Spark's Murmur3Hash expression), as int32.
+    A dictionary string column at the leading position hashes each entry
+    once under the constant seed and gathers by code: bit for bit the
+    hash of the decoded bytes, at card / n of the mixing."""
     h: Seed = seed
-    for c in cols:
-        h = hash_column(c, h)
+    for i, c in enumerate(cols):
+        if i == 0 and c.dict_data is not None:
+            ents = dict_entries_column(c)
+            eh = _hash_string(ents, _seeds(seed, ents.validity))
+            h = torch.where(c.validity, gather_entries(eh, c),
+                            _seeds(seed, c.validity))
+        else:
+            h = hash_column(c, h)
     return h
 
 
@@ -302,6 +317,8 @@ def xxhash64_column(col: DeviceColumn, seed: Seed) -> torch.Tensor:
     nulls keep the seed."""
     k = col.dtype.kind
     seed = _xx_seeds(seed, col.validity)
+    if col.dict_data is not None:
+        col = decode_column(col)
     if k is TypeKind.NULL:
         return seed
     if k is TypeKind.STRING:

@@ -322,12 +322,27 @@ class ParquetSource(FileSource):
         if any(c not in schema.names for c in cols):
             return None      # partition/virtual columns: pyarrow path
         try:
-            return nf.read_row_group(rg, cols, schema)
+            # _dict_read_columns is empty on a scan with a predicate or
+            # with the codes hand-off off: it owns those conditions
+            dict_cols = set(self._dict_read_columns(path)) or None
+            return nf.read_row_group(rg, cols, schema, dict_cols)
         except _Unsupported:
             return None      # outside the native subset: pyarrow fallback
 
     def infer_arrow_schema(self) -> pa.Schema:
         return pq.read_schema(self.files[0])
+
+    def _dict_read_columns(self, path: str) -> List[str]:
+        """The top-level string columns to read as dictionaries (their
+        RLE_DICTIONARY codes kept through the decode). Empty when the
+        session turns the hand-off off, or when the scan has a predicate:
+        the host predicate over dictionary arrays is not guaranteed across
+        pyarrow versions."""
+        if not self._dict_scan or self.predicate is not None:
+            return []
+        return [f.name for f in self._arrow_schema(path)
+                if pa.types.is_string(f.type)
+                or pa.types.is_large_string(f.type)]
 
     def read_file(self, path: str) -> pa.Table:
         t = self._native_read_file(path)
@@ -341,7 +356,8 @@ class ParquetSource(FileSource):
             dataset = ds.dataset(path, format="parquet")
             t = dataset.to_table(columns=self.columns, filter=filt)
         else:
-            t = pq.read_table(path, columns=self.columns)
+            t = pq.read_table(path, columns=self.columns,
+                              read_dictionary=self._dict_read_columns(path))
         return rebase_legacy_datetimes(t, self.rebase_mode, path)
 
     def _native_read_file(self, path: str) -> Optional[pa.Table]:

@@ -12,9 +12,10 @@ The library builds from the package's source at first use
 (``kernels/build.py``). A failed build or load raises: a missing decoder
 is an error, never a quiet pyarrow fallback for every file.
 
-The RLE_DICTIONARY codes hand-off of the JAX package
-(``_decode_column_codes``) waits for the dictionary-encoding slice: the
-port decodes every string to bytes, which gives the same rows.
+A string column the scan asks for as a dictionary keeps its RLE_DICTIONARY
+page codes (``_decode_column_codes``): per-row codes and the dictionary
+page's values become a ``pa.DictionaryArray`` with no per-row bytes, which
+the upload keeps as codes on the device (``dictenc.py``).
 """
 
 from __future__ import annotations
@@ -96,6 +97,12 @@ def _lib() -> ctypes.CDLL:
             u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
             ctypes.c_int64, ctypes.POINTER(ctypes.c_int32), u8p,
             ctypes.c_int64, u8p]
+        lib.rtpu_pq_decode_binary_codes.restype = ctypes.c_int64
+        lib.rtpu_pq_decode_binary_codes.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_int32), u8p,
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, u8p,
+            ctypes.c_int64, i64p]
         _CODECS = frozenset({0, 1} | ({_CODEC_ZSTD}
                                       if lib.rtpu_pq_has_zstd() else set()))
         _LIB = lib
@@ -263,8 +270,61 @@ class NativeParquetFile:
             raise _Unsupported(f"fixed decode ({rc})")
         return _fixed_array(arrow_type, rows, ptype, values, validity)
 
+    def _decode_column_codes(self, rg: int, c: int,
+                             rows: int) -> Optional[pa.DictionaryArray]:
+        """An RLE_DICTIONARY chunk decoded KEEPING its page codes: the
+        per-row codes and the dictionary page's values as a
+        ``pa.DictionaryArray``, with no per-row bytes. None when the chunk
+        is outside the codes subset (a PLAIN page after a dictionary
+        overflow, a codec not built): the caller decodes to bytes."""
+        lib = self._lib
+        ptype, max_def, flat, _ = self._col_info[c]
+        if not flat or ptype != _PT_BYTE_ARRAY:
+            return None
+        info = (ctypes.c_int64 * 5)()
+        lib.rtpu_pq_chunk_info(self._h, rg, c, info)
+        codec, start, clen, _nvals, total_un = (int(x) for x in info)
+        if codec not in _CODECS or start < 0 or \
+                start + clen > len(self._buf):
+            return None
+        chunk = self._buf[start:start + clen]
+        codes = np.empty(rows, np.int32)
+        validity = np.empty(rows, np.uint8)
+        # the entry capacity starts at the cardinality budget (4 bytes an
+        # entry): too small a guess costs a second decode of the chunk
+        ents_cap = int(min(1 << 16, max(rows, 1)))
+        bytes_cap = max(total_un, 1)
+        dinfo = (ctypes.c_int64 * 2)()
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        for _ in range(2):
+            offsets = np.empty(ents_cap + 1, np.int32)
+            dbytes = np.empty(bytes_cap, np.uint8)
+            rc = lib.rtpu_pq_decode_binary_codes(
+                _u8(chunk), clen, codec, max_def, rows,
+                codes.ctypes.data_as(i32p), _u8(validity),
+                offsets.ctypes.data_as(i32p), ents_cap, _u8(dbytes),
+                bytes_cap, dinfo)
+            if rc == -4:          # ERR_SPACE: retry at the real sizes
+                ents_cap = max(int(dinfo[0]), 1)
+                bytes_cap = max(int(dinfo[1]), 1)
+                continue
+            break
+        if rc < 0:
+            return None
+        card = int(dinfo[0])
+        values = pa.StringArray.from_buffers(
+            card, pa.py_buffer(np.ascontiguousarray(offsets[:card + 1])),
+            pa.py_buffer(np.ascontiguousarray(dbytes[:int(dinfo[1])])))
+        indices = pa.Array.from_buffers(
+            pa.int32(), rows, [_validity_buffer(validity),
+                               pa.py_buffer(codes)])
+        return pa.DictionaryArray.from_arrays(indices, values)
+
     def read_row_group(self, rg: int, columns: List[str],
-                       arrow_schema: pa.Schema) -> pa.Table:
+                       arrow_schema: pa.Schema,
+                       dict_columns: Optional[set] = None) -> pa.Table:
+        """One row group as an Arrow table; the string columns in
+        ``dict_columns`` as dictionaries where their chunks allow."""
         rows = self.rg_rows(rg)
         arrays, names = [], []
         for name in columns:
@@ -274,7 +334,12 @@ class NativeParquetFile:
             at = arrow_schema.field(name).type
             if not _arrow_type_supported(at):
                 raise _Unsupported(f"arrow type {at}")
-            arrays.append(self._decode_column(rg, c, rows, at))
+            arr = None
+            if dict_columns and name in dict_columns:
+                arr = self._decode_column_codes(rg, c, rows)
+            if arr is None:
+                arr = self._decode_column(rg, c, rows, at)
+            arrays.append(arr)
             names.append(name)
         return pa.table(arrays, names=names)
 

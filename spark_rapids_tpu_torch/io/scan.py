@@ -96,8 +96,12 @@ class FileSourceScanExec(LeafExec):
 
     def _h2d(self, table: pa.Table) -> ColumnarBatch:
         maybe_inject("scan.h2d")
+        # dictionary columns (the RLE_DICTIONARY hand-off) land as codes
+        # under the Session's dictEncoding.* thresholds
         batch, _ = from_arrow(table, schema=self._schema,
-                              device=self._device)
+                              device=self._device,
+                              dict_conf=getattr(self.source, "_dict_conf",
+                                                None))
         return batch
 
     def do_execute_partition(self, p: int) -> Iterator[ColumnarBatch]:

@@ -271,8 +271,9 @@ class FileSource:
         self._coalesce_par = int(conf.get(COALESCING_PARALLEL_FILES.key))
         self._prefetch_depth = int(conf.get(PREFETCH_DEPTH.key)) \
             if conf.get(PREFETCH_ENABLED.key) else 0
-        # (enabled, maxCardinality, maxCardinalityFraction), recorded for
-        # the dictionary-encoding slice; the port uploads decoded strings
+        # (enabled, maxCardinality, maxCardinalityFraction), threaded to
+        # the upload (batch.from_arrow) by the scan exec; _dict_scan asks
+        # the readers to keep string columns' dictionary codes
         self._dict_conf = (bool(conf.get(DICT_ENCODING_ENABLED.key)),
                            int(conf.get(DICT_MAX_CARDINALITY.key)),
                            float(conf.get(DICT_MAX_CARD_FRACTION.key)))

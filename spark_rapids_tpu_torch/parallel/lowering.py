@@ -46,6 +46,7 @@ from typing import Callable, Dict, Iterator, List, Optional
 import torch
 
 from ..batch import ColumnarBatch, Schema, bucket_capacity, empty_batch
+from ..dictenc import decode_batch
 from ..exec.aggregate import AggregateMode, HashAggregateExec
 from ..exec.base import Exec, LeafExec
 from ..exec.basic import FilterExec, InMemoryScanExec, ProjectExec
@@ -579,7 +580,7 @@ class MeshStageExec(LeafExec):
     def _stage_input(self, e: Exec) -> List[ColumnarBatch]:
         mesh = self.lowering.mesh
         n_dev = mesh.n_dev
-        batches = [b for p in range(e.num_partitions)
+        batches = [decode_batch(b) for p in range(e.num_partitions)
                    for b in e.execute_partition(p)]
         if not batches:
             return [empty_batch(e.output_schema, d) for d in mesh.devices]

@@ -47,6 +47,7 @@ import torch
 
 from ..batch import (ColumnarBatch, DeviceColumn, DeviceLike, Schema,
                      empty_batch, resolve_device, rows_scalar)
+from ..dictenc import decode_batch
 from ..exec.common import concat_columns
 from ..expressions.base import Expression
 from ..expressions.hashing import murmur3_batch
@@ -113,7 +114,10 @@ def on_device(device: torch.device):
 
 
 def batch_to(batch: ColumnarBatch, device: torch.device) -> ColumnarBatch:
-    """The batch on ``device`` (itself if it is there already)."""
+    """The batch on ``device`` (itself if it is there already), with its
+    dictionary columns decoded: shards carry no dictionary (each slice's
+    card would differ), as in the JAX package's staging."""
+    batch = decode_batch(batch)
     if batch.device == device:
         return batch
     cols = tuple(DeviceColumn(
@@ -154,7 +158,7 @@ def stack_batches(batches: Sequence[ColumnarBatch],
     """One batch per shard; with a mesh, each moved to its shard's device.
     The JAX package stacks them along a leading device axis; the port
     keeps the list."""
-    batches = list(batches)
+    batches = [decode_batch(b) for b in batches]
     if mesh is None:
         return batches
     if len(batches) != mesh.n_dev:
@@ -181,7 +185,9 @@ def route_order(batch: ColumnarBatch, pids: torch.Tensor, n: int
 
 def gather_live(batch: ColumnarBatch, order: torch.Tensor, live: int
                 ) -> List[DeviceColumn]:
-    """The batch's columns at the first ``live`` rows of ``order``."""
+    """The batch's columns at the first ``live`` rows of ``order``
+    (dictionary columns decoded)."""
+    batch = decode_batch(batch)
     idx = order[:live]
     return [DeviceColumn(c.data[idx], c.validity[idx], c.dtype,
                          None if c.lengths is None else c.lengths[idx])

@@ -813,11 +813,15 @@ class Overrides:
                 return FileSourceScanExec(n.source, n.num_slices,
                                           device=self.device,
                                           catalog=self.catalog)
+            # the Session's dictEncoding.* reach the in-memory upload
+            # too, not only the file scans
+            from ..dictenc import dict_conf
             return InMemoryScanExec(n.data, schema=n._schema,
                                     num_slices=n.num_slices,
                                     batch_rows=n.batch_rows,
                                     device=self.device,
-                                    catalog=self.catalog)
+                                    catalog=self.catalog,
+                                    dict_conf=dict_conf(self.conf))
         if isinstance(n, L.LogicalRange):
             return RangeExec(n.start, n.end, n.step, device=self.device)
         if isinstance(n, L.LogicalProject):

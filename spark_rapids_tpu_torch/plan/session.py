@@ -115,6 +115,10 @@ class Session:
         from .. import adaptive
         self._adaptive_mark0 = adaptive.reason_mark()
         self._retry0 = self._adaptive0 = self._catalog0 = None
+        from ..dictenc import fallback_mark
+        # dict_fallbacks() reports the reasons recorded on this Session's
+        # watch (the ring itself is process-wide)
+        self._dict_fb_mark = fallback_mark()
 
     def with_conf(self, **kv) -> "Session":
         settings = dict(self.conf._settings)
@@ -324,6 +328,14 @@ class Session:
         broadcast switch)."""
         from .. import adaptive
         return adaptive.reasons(since=self._adaptive_mark0)
+
+    def dict_fallbacks(self) -> List[str]:
+        """Why a dictionary string column took the padded byte-matrix path
+        (conf off, a cardinality over its threshold, null dictionary
+        entries, a merge past maxCardinality) since this Session was made:
+        the fallback is never silent."""
+        from ..dictenc import fallback_reasons
+        return fallback_reasons(since=self._dict_fb_mark)
 
 
 def _exec_children(e) -> List:

@@ -47,6 +47,7 @@ import torch
 from ..adaptive import record_decision
 from ..batch import ColumnarBatch, Schema, bucket_capacity
 from ..config import ADAPTIVE_TARGET_ROWS, BROADCAST_LIMIT
+from ..dictenc import unify_dict_batches
 from ..exec.base import Exec, Metric, UnaryExec
 from ..exec.common import (concat_all, concat_batches, gather_column,
                            lexsort, partition_pieces, sort_operands)
@@ -327,7 +328,10 @@ class ShuffleExchangeExec(UnaryExec):
                     pinned.append(sb)
                 if len(got) == 1:
                     return got[0]
-                return concat_batches(got, cap)
+                # per-batch dictionaries unify onto one merged dictionary
+                # (a device code remap between kernels), so the read keeps
+                # string columns encoded across the concat
+                return concat_batches(unify_dict_batches(got), cap)
             except BaseException:
                 for sb in pinned:
                     sb.done_with()

@@ -12,8 +12,9 @@ codecs, so a frame either package writes reads back on the other::
     i64 shape[ndim] | i64 raw_len | i64 payload_len | u8 codec | payload
 
 Array names encode the lane: ``v{i}`` validity, ``d{i}`` data and
-``l{i}`` string lengths of column i (the disk spill tier adds ``n``, the
-row count). Codecs: 0 none, 1 lz4, 2 zlib, 3 zstd. LZ4 and zstd run in the
+``l{i}`` string lengths of column i, and for a dictionary column ``d{i}``
+its codes with ``D{i}`` and ``e{i}`` its dictionary and entry lengths (the
+disk spill tier adds ``n``, the row count). Codecs: 0 none, 1 lz4, 2 zlib, 3 zstd. LZ4 and zstd run in the
 port's host codec (``csrc/host_codec.cpp``, a copy of the JAX package's);
 where it cannot be built a frame is written with zlib, as the JAX package
 falls back, and zstd needs the system's libzstd.
@@ -249,6 +250,11 @@ def _col_to_arrays(c: DeviceColumn, key: str,
     tensors[f"d{key}"] = c.data
     if c.lengths is not None:
         tensors[f"l{key}"] = c.lengths
+    if c.dict_data is not None:
+        # a dictionary column ships its dictionary beside the codes
+        # (``d{key}`` above), not a padded byte matrix
+        tensors[f"D{key}"] = c.dict_data
+        tensors[f"e{key}"] = c.dict_lengths
 
 
 def _lanes(batch: ColumnarBatch) -> Dict[str, torch.Tensor]:
@@ -272,6 +278,9 @@ def _col_from_arrays(dtype, key: str, arrays: Dict[str, object],
         a = arrays[k]
         t = a if isinstance(a, torch.Tensor) else _host_tensor(a)
         return t.to(device, non_blocking=True)
+    if f"D{key}" in arrays:
+        return DeviceColumn(lane(f"d{key}"), lane(f"v{key}"), dtype, None,
+                            lane(f"D{key}"), lane(f"e{key}"))
     lengths = lane(f"l{key}") if dtype.kind is TypeKind.STRING else None
     return DeviceColumn(lane(f"d{key}"), lane(f"v{key}"), dtype, lengths)
 

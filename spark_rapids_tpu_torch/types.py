@@ -227,9 +227,9 @@ def from_arrow(arrow_type: pa.DataType, max_len: int = 64) -> SqlType:
     if pa.types.is_timestamp(arrow_type):
         return TIMESTAMP
     if pa.types.is_dictionary(arrow_type):
-        raise NotImplementedError(
-            f"arrow type {arrow_type}: dictionary-encoded columns come with "
-            f"the dictionary-encoding slice (dictenc); decode them first")
+        # dictionary encoding is a property of a column (dictenc.py), not
+        # a type: dictionary<string> types as its value type
+        return from_arrow(arrow_type.value_type, max_len)
     for kind, at in _ARROW.items():
         if arrow_type == at:
             return SqlType(kind)

@@ -1,9 +1,9 @@
 """The port's ``UnionExec``, ``RangeExec`` and ``ExpandExec`` against the
 JAX package's on the same inputs (the cases of ``tests/test_exec_basic.py``),
 row for row and in order, and ``SampleExec`` held to what
-``test_sample_is_subset_and_seeded`` checks: a seeded subset in input
-order (torch's random stream is not JAX's, so the two keep different
-rows). The JAX side runs with ``jax_disable_jit``."""
+``test_sample_is_subset_and_seeded`` checks, a seeded subset in input
+order, and to the JAX package's rows: both draw threefry. The JAX side
+runs with ``jax_disable_jit``."""
 
 import jax
 import numpy as np
@@ -111,6 +111,19 @@ def test_sample_is_seeded_subset():
     # the JAX package's own sample is a subset of the same size range
     j = _rows(jexec.collect(jexec.SampleExec(0.3, 42, _jscan(t))))
     assert 100 < len(j) < 500 and _is_subsequence(j, src)
+
+
+@pytest.mark.parametrize("fraction,seed,slices", [(0.1, 5, 3),
+                                                  (0.5, 123456, 1),
+                                                  (0.01, 7, 4)])
+def test_sample_keeps_the_jax_rows(fraction, seed, slices):
+    t = gen_table([("a", IntegerGen(nullable=False))], n=5000, seed=9)
+    t = t.append_column("i", pa.array(np.arange(5000, dtype=np.int64)))
+    got = _rows(collect(SampleExec(fraction, seed,
+                                   _scan(t, slices, 1024))))
+    want = _rows(jexec.collect(jexec.SampleExec(fraction, seed,
+                                                _jscan(t, slices, 1024))))
+    assert got == want and len(got) > 0
 
 
 def test_sample_keeps_all_and_none():

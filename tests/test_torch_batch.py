@@ -86,6 +86,14 @@ def test_unported_types_raise():
                                 pa.decimal128(20, 2))})
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         tb.from_arrow(t, device="cpu")
-    t = pa.table({"s": pa.array(["a", "b"]).dictionary_encode()})
-    with pytest.raises(NotImplementedError, match="dictionary-encoding"):
-        tb.from_arrow(t, device="cpu")
+    # a dictionary string column uploads as codes (dictenc.py), as in the
+    # JAX package, and collects to the same rows
+    t = pa.table({"s": pa.array(["a", "b", "a", None]).dictionary_encode()})
+    got, schema = tb.from_arrow(t, device="cpu")
+    want, jschema = jax_from_arrow(t)
+    assert got.columns[0].is_dict and want.columns[0].is_dict
+    np.testing.assert_array_equal(got.columns[0].data.numpy(),
+                                  np.asarray(want.columns[0].data))
+    assert tb.to_arrow(got, schema).equals(jax_to_arrow(want, jschema))
+    assert tb.to_arrow(got, schema).column(0).to_pylist() == \
+        ["a", "b", "a", None]

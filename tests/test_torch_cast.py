@@ -379,3 +379,38 @@ def test_ansi_invalid_string_reports_in_both():
         with pytest.raises(Exception, match="CAST_INVALID_INPUT"):
             session(a, conf).collect(a.table(t).select(
                 a.Cast(a.col("s"), a.T.INT32).alias("i")))
+
+
+def test_decimal_cast_past_its_precision_is_null():
+    """A cast to DECIMAL(p, s) nulls a value of more than p digits (and
+    the int64 overflow of the rescale), as Spark and the port's
+    interpreter do; under ANSI the device raises
+    NUMERIC_VALUE_OUT_OF_RANGE. The rows that fit keep their values."""
+    t = pa.table({
+        "i": pa.array([2147483647, 5, None], pa.int32()),
+        "l": pa.array([10**18, 12, None], pa.int64()),
+        "d": pa.array([1e16, 1.5, None], pa.float64()),
+        "m": pa.array([decimal.Decimal("12345678.9012"),
+                       decimal.Decimal("1.2345"), None],
+                      pa.decimal128(12, 4))})
+    to = {"i": (5, 0), "l": (18, 2), "d": (18, 2), "m": (5, 2)}
+
+    def q(a, tab, names=tuple(to)):
+        return a.table(tab).select(*[
+            a.Cast(a.col(c), a.T.decimal(*to[c])).alias(c) for c in names])
+    ses = session(PORT, CONF)
+    got = ses.collect(q(PORT, t))
+    assert ses.fell_back() == []
+    D = decimal.Decimal
+    assert got.to_pydict() == {"i": [None, D("5"), None],
+                               "l": [None, D("12.00"), None],
+                               "d": [None, D("1.50"), None],
+                               "m": [None, D("1.23"), None]}
+    assert_tables_equal(session(PORT, ORACLE).collect(q(PORT, t)), got)
+    ansi = {**CONF, "spark.rapids.tpu.sql.ansi.enabled": True}
+    for c in to:
+        with pytest.raises(ArithmeticError,
+                           match="NUMERIC_VALUE_OUT_OF_RANGE"):
+            session(PORT, ansi).collect(q(PORT, t, (c,)))
+    assert session(PORT, ansi).collect(q(PORT, t.slice(1))).to_pydict() == \
+        {c: v[1:] for c, v in got.to_pydict().items()}
