@@ -20,7 +20,17 @@ grouped aggregate, sort and limit) under a 1 GiB device budget, so exchange
 pieces spill to pinned host memory. Each result is checked against an
 independent pyarrow oracle, and each path's kernel launch counts, set to 0
 just before its first run and read just after, show that it went through
-its kernels. Then the out-of-core operators (the windowed and the
+its kernels. Right after Q18 comes the DECIMAL128 phase: Q18 again over
+the same SF10 tables through the port's Session with AQE on, in the
+spec's DECIMAL types (decimal(15, 2) quantities and prices, decimal(25, 2)
+limb sums, the HAVING a limb comparison), with its four keys as
+decimal(38, 0) (limb keys sorted, grouped, joined and routed by
+``_hash_dec128``) and as float64, each exactly equal to its pyarrow
+oracle, nothing fallen back, with cold, warm and profiled walls, peaks
+and idle shares, murmur3 held against its plain version in each cold
+run, a sample of every ``_hash_dec128`` call and the hash's edge list
+against the scalar ``hash_decimal``, and the limb sum lanes' device ms.
+Then the out-of-core operators (the windowed and the
 sort-based aggregate merge, the out-of-core global sort, the grace join)
 run on the card and on the CPU at about 4M rows, 0 rows apart, and Q18 at
 SF1 runs under injected OOMs (every third allocation check fails) and must
@@ -56,7 +66,7 @@ against their plain versions, and its walls, peak, idle share and the
 wire bytes (encoded, raw) of the part side's exchange input print beside
 the plain leg's. Then the string phase: every
 string expression of the port (53, each class at least once; hex, bin and
-conv at INT64_MIN, -1, 0 and INT64_MAX) over 2^16 rows of S_COMMENT,
+conv at INT64_MIN, -1, 0 and INT64_MAX) over 2^14 rows of S_COMMENT,
 P_TYPE, an int64 and a decimal on the card against the port's row
 interpreter, 0 rows apart (a fused stage, captured), and StringLocate,
 StringReplace and SubstringIndex over the SF100 P_TYPE column in 8
@@ -68,13 +78,11 @@ and P_BRAND, a group-by, then concat_ws, bin, format_number, hex, conv
 and empty2null over the groups) over the 20,000,000 SF100 part rows
 through the Session, cold, equal to
 ``entry.catalog_reference`` in all 3,750 groups in order, nothing fallen
-back, with the warm wall and idle share of one profiled run, rows/s and
-peak, murmur3 at its exchange against its plain version and each span expression's device
-time and launches on one slice; and the comment leg
-(``entry.comment_spans_df``: regexp_extract and regexp_replace over the
-1,000,000 SF100 S_COMMENT rows at 128 bytes), 0 rows apart from
-pyarrow's RE2 in one run, with each expression's device time on one
-125,000-row batch.
+back, with its wall, rows/s and peak, murmur3 at its exchange against its
+plain version; and the
+comment leg (``entry.comment_spans_df``: regexp_extract and
+regexp_replace over the 1,000,000 SF100 S_COMMENT rows at 128 bytes), 0
+rows apart from pyarrow's RE2 in one run.
 
 Then the scalar slice. TPC-H Q14 at SF10 (``entry.q14_df``: September
 1995's lines by ``add_months``, the join with 2,000,000 part rows, a CASE
@@ -206,10 +214,11 @@ the Q16 part stage, the Session phase, the mesh phase, Q3 (AQE off, then
 on) with their times, the range sort, the fallback phase, the spill copy
 rate, Q18's checks (AQE off, then on) with their times, the catalog's
 tiers, spilled bytes, retry metrics, grace buckets and the allocator's
-peak, the skew legs, the types exchange, the out-of-core check, the
+peak, the three legs of Q18 in decimals, the skew legs, the types exchange, the out-of-core check, the
 injection run, the checks of Q2 and Q11 with their times, Q16 whole, the
 string phase and the catalog phase, Q14, Q9 and the scalar phase, the captured kernel checks, the
-hash_agg, operator, new-operator and Q1-stage checks, the join_sort modes
+hash_agg, operator, new-operator, limb (DECIMAL128 at 2^17 rows, card
+against the row interpreter) and Q1-stage checks, the join_sort modes
 and the overflow retry, the Parquet write, scans, Q1 and Q16 part stage,
 each phase's wall time, a ``{"kernels": [...]}`` JSON line (the
 window_match times are at Q2's shape; launches count a graph's replays),
@@ -711,7 +720,7 @@ def check_q16_part_result(got, expected) -> None:
 
 def run_path(name: str, make_table, reference, run, check, dev, counted,
              rows_of=lambda table: table.num_rows,
-             stats: dict = None, warm_runs: int = 3) -> dict:
+             stats: dict = None, warm_runs: int = 1) -> dict:
     """One path end to end: make its data and its oracle's answer, run it
     cold with every kernel's launch count set to 0 just before, check it and
     read the counts, then ``warm_runs`` warm runs. ``rows_of`` gives the
@@ -1035,12 +1044,12 @@ def q18_memory_report(plan, dev, retry0) -> dict:
             "buckets": buckets, "retry": retry}
 
 
-def check_murmur3_at_exchanges(what: str, plan, dev, only=None) -> list:
+def check_murmur3_at_exchanges(what: str, plan, dev) -> list:
     """murmur3 against its plain version, bit for bit, at the shapes a
     path gives it: for each hash exchange of a fresh, unrun ``plan`` with
-    a key the kernel hashes (the ``only``-th of them alone, where given:
-    an exchange reads its child's exchanges once, so a plan whose hashed
-    exchanges nest needs a fresh plan for each), the exchange's child runs
+    a key the kernel hashes (an exchange reads its child's exchanges once,
+    so a path whose hashed exchanges nest checks its launches in a run
+    instead, ``murmur3_checked``), the exchange's child runs
     over each of its partitions, and on each output batch the kernel and
     its plain version hash that key's int32 words seeded by the running
     hash of the keys before it (seed 42), as the exchange does. Closes the
@@ -1059,7 +1068,7 @@ def check_murmur3_at_exchanges(what: str, plan, dev, only=None) -> list:
                   if isinstance(x.partitioning, HashPartitioning) and any(
                       e.dtype.kind in INT32_HASHED_KINDS
                       for e in x.partitioning.exprs)]
-        for exchange in hashed if only is None else hashed[only:only + 1]:
+        for exchange in hashed:
             part = exchange.partitioning
             child = exchange.child
             for p in range(child.num_partitions):
@@ -1093,12 +1102,13 @@ def check_murmur3_at_exchanges(what: str, plan, dev, only=None) -> list:
     return compared
 
 
-def run_q18_phase(dev, counted) -> dict:
+def run_q18_phase(dev, counted, keep: dict) -> dict:
     """Q18 at SF10 over 2 partitions under a 1 GiB budget: equal to the
     pyarrow oracle, and it must spill, run the grace join in at least 2
     buckets, launch murmur3 and leave the catalog empty; then again with
     AQE on. Then murmur3 against its plain version at the shapes of both
-    trees' exchanges."""
+    trees' exchanges. ``keep`` gets the tables and the oracle's rows
+    (``tables``, ``expected``), which the decimal phase reuses."""
     from spark_rapids_tpu_torch import entry
     from spark_rapids_tpu_torch.exec import collect
     from spark_rapids_tpu_torch.memory.retry import metrics
@@ -1176,6 +1186,7 @@ def run_q18_phase(dev, counted) -> dict:
             entry.q18_plan(*tables, Q18_SLICES, Q18_SHUFFLE_PARTITIONS,
                            device_limit=Q18_BUDGET, device=dev,
                            adaptive=aqe), dev)
+    keep.update(tables=tables, expected=state["expected"])
     state.clear()
     return launches
 
@@ -1479,9 +1490,12 @@ Q16_LIKE_PATTERN = "%Customer%Complaints%"
 
 def check_like_at_q16(dev, ses, df) -> dict:
     """The Like filter over the Session's scanned supplier batches: on the
-    card against the same rows on the CPU, then its device time per batch
-    on CUDA events and its launches per batch (the device records of one
-    profiled call). Returns the figures."""
+    card against the same rows on the CPU over the first batch (cut from
+    every batch to make room for the DECIMAL128 phase; the CPU's DFA scan
+    of all 1,000,000 comments took most of the phase's checks), the rows
+    it keeps over every batch, then its device time per batch on CUDA
+    events and its launches per batch (the device records of one profiled
+    call). Returns the figures."""
     import torch
     from spark_rapids_tpu_torch.batch import from_arrow, to_arrow
     from spark_rapids_tpu_torch.exec import FilterExec
@@ -1492,18 +1506,18 @@ def check_like_at_q16(dev, ses, df) -> dict:
         schema = filt.child.output_schema
         batches = [b for p in range(filt.child.num_partitions)
                    for b in filt.child.execute_partition(p)]
-        bad, kept = 0, 0
+        kept = 0
         for b in batches:
             on_card = filt.condition.eval(b)
-            cpu_batch, _ = from_arrow(to_arrow(b, schema), schema=schema,
-                                      device="cpu")
-            on_cpu = filt.condition.eval(cpu_batch)
-            live = int(b.num_rows)
-            card = (on_card.data & on_card.validity).cpu()[:live]
-            cpu = (on_cpu.data & on_cpu.validity)[:live]
-            bad += int((card != cpu).sum())
-            kept += int(cpu.sum())
+            kept += int((on_card.data & on_card.validity).sum())
         first = batches[0]
+        on_card = filt.condition.eval(first)
+        cpu_batch, _ = from_arrow(to_arrow(first, schema), schema=schema,
+                                  device="cpu")
+        on_cpu = filt.condition.eval(cpu_batch)
+        live = int(first.num_rows)
+        bad = int(((on_card.data & on_card.validity).cpu()[:live]
+                   != (on_cpu.data & on_cpu.validity)[:live]).sum())
         ms = time_cuda_ms(lambda: filt.condition.eval(first), 5, 2)
         _, _, _, events = profiled(lambda: filt.condition.eval(first), dev,
                                    host=False)
@@ -1514,8 +1528,9 @@ def check_like_at_q16(dev, ses, df) -> dict:
     out = {"batches": len(batches), "ms_per_batch": ms,
            "launches_per_batch": len(events), "kept": kept, "bad": bad}
     print(f"q16 Like filter: {len(batches)} supplier batches of capacity {n}"
-          f", max_len {ml}; keeps {kept} rows, {bad} rows apart from the "
-          f"CPU; {ms:.3f} ms of device time a batch (CUDA events, "
+          f", max_len {ml}; keeps {kept} rows, {bad} rows of the first "
+          f"batch apart from the CPU; {ms:.3f} ms of device time a batch "
+          f"(CUDA events, "
           f"{ms * len(batches):.3f} ms a run), {len(events)} device "
           f"launches a batch")
     if bad:
@@ -1536,10 +1551,13 @@ def run_q16_phase(dev, counted, tables) -> list:
     from spark_rapids_tpu_torch.plan import Session
     conf = entry.session_conf(Q16_SHUFFLE_PARTITIONS)
     ses = Session(conf, device=dev)
-    last = {}
+    last, hashed = {}, []
 
     def run(t):
-        out = last["rows"] = ses.collect(entry.q16_df(*t, Q16_SLICES))
+        # the cold run holds each murmur3 launch against its plain version
+        collect = (lambda: ses.collect(entry.q16_df(*t, Q16_SLICES)))
+        out = last["rows"] = (collect() if hashed
+                              else murmur3_checked(collect, hashed))
         if ses.fell_back():
             raise AssertionError(f"q16 fell back: {ses.fell_back()}")
         return out
@@ -1564,19 +1582,14 @@ def run_q16_phase(dev, counted, tables) -> list:
         return oracle["rows"]
     launches = run_path(
         "q16", lambda: tables, reference, run, check, dev, counted,
-        rows_of=lambda t: t[2].num_rows, stats=stats, warm_runs=2)
+        rows_of=lambda t: t[2].num_rows, stats=stats, warm_runs=1)
     print(f"q16: the Session's operators {ses.executed_exec_names()}")
     df = entry.q16_df(*tables, Q16_SLICES)
     stats["idle"] = profiled_idle("q16", lambda: run(tables), dev,
                                   host=False)
     check_window_match_at_session_q16(dev, ses, df)
     like = check_like_at_q16(dev, ses, df)
-    # its two aggregate exchanges hash p_size; the outer one reads the
-    # inner one, so each is checked on a fresh plan
-    for i in range(2):
-        ses.prepare(df)
-        check_murmur3_at_exchanges(f"Q16 (hashed exchange {i})",
-                                   ses.last_plan, dev, only=i)
+    report_murmur3("q16", hashed, "p_size at its two aggregate exchanges")
     stats.update(like)
     dict_launches = run_q16_dict_leg(dev, counted, tables, oracle["rows"],
                                      last["rows"], stats)
@@ -1624,9 +1637,11 @@ def run_q16_dict_leg(dev, counted, tables, expected, plain_rows,
     print(f"q16 dict: the three tables dictionary-encoded in "
           f"{time.perf_counter() - t0:.2f} s (string columns {coded})")
     ses = Session(entry.session_conf(Q16_SHUFFLE_PARTITIONS), device=dev)
+    hashed = []
 
     def run(t):
-        out = ses.collect(entry.q16_df(*t, Q16_SLICES))
+        collect = (lambda: ses.collect(entry.q16_df(*t, Q16_SLICES)))
+        out = collect() if hashed else murmur3_checked(collect, hashed)
         if ses.fell_back():
             raise AssertionError(f"q16 dict fell back: {ses.fell_back()}")
         return out
@@ -1642,7 +1657,7 @@ def run_q16_dict_leg(dev, counted, tables, expected, plain_rows,
     stats = {}
     launches = run_path(
         "q16 dict", lambda: enc, lambda _: expected, run, check, dev,
-        counted, rows_of=lambda t: t[2].num_rows, stats=stats, warm_runs=2)
+        counted, rows_of=lambda t: t[2].num_rows, stats=stats, warm_runs=1)
     reasons = ses.dict_fallbacks()
     print(f"q16 dict: dict_fallbacks() {reasons}")
     if not reasons or any("'s_comment'" not in r for r in reasons):
@@ -1651,11 +1666,9 @@ def run_q16_dict_leg(dev, counted, tables, expected, plain_rows,
     df = entry.q16_df(*enc, Q16_SLICES)
     idle = profiled_idle("q16 dict", lambda: run(enc), dev, host=False)
     check_window_match_at_session_q16(dev, ses, df)
-    # the first p_size exchange, where the seeds come from the per-entry
-    # hashes of the dictionary keys before it
-    ses.prepare(df)
-    check_murmur3_at_exchanges("Q16 dict (hashed exchange 0)",
-                               ses.last_plan, dev, only=0)
+    # p_size, seeded by the per-entry hashes of the dictionary keys
+    report_murmur3("q16 dict", hashed, "p_size at its two aggregate "
+                   "exchanges, seeded by p_brand's and p_type's entries")
     wire = exchange_wire_bytes(ses, df, "p_type")
     print(f"q16 dict: against the plain leg, cold {stats['cold_s']:.3f} s "
           f"vs {plain['cold_s']:.3f} s, warm {stats['warm_s']:.3f} s vs "
@@ -1666,8 +1679,10 @@ def run_q16_dict_leg(dev, counted, tables, expected, plain_rows,
     return launches
 
 
-#: rows of the strings phase's card-against-interpreter check
-STRINGS_ROWS = 1 << 16
+#: rows of the strings phase's card-against-interpreter check: cut from
+#: 2^16 to make room for [phase q18 decimal] and [phase limbs]; every
+#: expression and edge row stays, only the random rows shrink
+STRINGS_ROWS = 1 << 14
 
 
 def rows_apart(a, b) -> int:
@@ -1782,7 +1797,7 @@ def checked_window_match(record):
 
 def run_strings_phase(dev, tables) -> dict:
     """Each string expression of the slice on the card against the port's
-    row interpreter at 2^16 rows, 0 rows apart; then StringLocate,
+    row interpreter at 2^14 rows, 0 rows apart; then StringLocate,
     StringReplace and SubstringIndex over the SF100 P_TYPE column (8
     slices of the part table) against pyarrow, each window_match launch
     held against its plain version on the same inputs, with each of the
@@ -1899,46 +1914,21 @@ CATALOG_PARTITIONS = 8
 COMMENT_SLICES = 8
 
 
-def span_expression_times(what: str, dev, table, width: int, exprs) -> dict:
-    """Each expression's device time on the first of ``CATALOG_SLICES``
-    slices of ``table`` scanned at ``width`` bytes a string (CUDA events,
-    median of 3) and its device launches (the records of one profiled
-    call)."""
-    from spark_rapids_tpu_torch.batch import from_arrow
-    rows = -(-table.num_rows // CATALOG_SLICES)
-    batch, schema = from_arrow(table.slice(0, rows), string_max_len=width,
-                               device=dev)
-    out = {}
-    for name, e in exprs.items():
-        bound = e.bind(schema)
-        ms = time_cuda_ms(lambda: bound.eval(batch), 3, 1)
-        _, _, _, events = profiled(lambda: bound.eval(batch), dev,
-                                   host=False)
-        out[name] = (ms, len(events))
-    print(f"{what}: device ms and launches per expression on one slice "
-          f"({rows} rows, capacity {batch.capacity}, {width} bytes a "
-          f"string; CUDA events): "
-          f"{ {k: (round(ms, 3), n) for k, (ms, n) in out.items()} }")
-    return out
-
-
 def run_catalog_phase(dev, counted, tables) -> dict:
     """The part-catalogue roll-up over the SF100 part table (20,000,000
     rows, ``entry.catalog_df`` through the port's Session, 8 slices): one
     cold run, equal to ``entry.catalog_reference`` in all 3,750 groups, in
-    order, nothing fallen back; the warm wall of one profiled run, rows/s,
-    peak and idle share; murmur3 at its exchange and every window_match
-    launch held against their plain versions in every checked run; each
-    per-row span expression's device time and launches on one slice. Then
+    order, nothing fallen back, with its wall, rows/s and peak; murmur3 at
+    its exchange and every window_match launch held against their plain
+    versions. (Its profiled warm run and the span expressions' device
+    times were cut to make room for the DECIMAL128 phase; PERF.md keeps
+    their last readings.) Then
     the comment leg (``entry.comment_spans_df`` over the SF100 S_COMMENT,
-    1,000,000
-    rows at 128 bytes): one run, 0 rows apart from pyarrow's RE2, and
-    each expression's device time on one 125,000-row batch."""
+    1,000,000 rows at 128 bytes): one run, 0 rows apart from pyarrow's
+    RE2."""
     import pyarrow.compute as pc
     import torch
     from spark_rapids_tpu_torch import entry
-    from spark_rapids_tpu_torch.expressions import (RegexpExtract,
-                                                    RegexpReplace, col)
     from spark_rapids_tpu_torch.plan import Session
     from spark_rapids_tpu_torch.expressions import hashing
     part, supplier, _ = tables
@@ -1946,12 +1936,9 @@ def run_catalog_phase(dev, counted, tables) -> dict:
     ses = Session(conf, device=dev)
     record, hashed = [], []
 
-    def run(p, checked=True):
-        # every launch of both kernels held against its plain version,
-        # but in the profiled run
+    def run(p):
+        # every launch of both kernels held against its plain version
         df = entry.catalog_df(p, CATALOG_SLICES)
-        if not checked:
-            return ses.collect(df)
         plain = hashing.murmur3_int32
         hashing.murmur3_int32 = checked_murmur3(hashed)
         try:
@@ -1978,11 +1965,9 @@ def run_catalog_phase(dev, counted, tables) -> dict:
     launches = run_path("catalog", lambda: part, entry.catalog_reference,
                         run, check, dev, counted, warm_runs=0)
     print(f"catalog: the Session's operators {ses.executed_exec_names()}")
-    profiled_idle("catalog", lambda: run(part, checked=False), dev,
-                  host=False)
     bad = sum(r[2] for r in record)
     worst = max((err for _, err in hashed), default=0)
-    print(f"catalog: over the checked runs, murmur3_int32 launched "
+    print(f"catalog: over the checked run, murmur3_int32 launched "
           f"{len(hashed)} times at rows "
           f"{sorted({n for n, _ in hashed})} (class_no at the group-by's "
           f"exchange), max_abs_err against its plain version {worst}; "
@@ -1991,13 +1976,6 @@ def run_catalog_phase(dev, counted, tables) -> dict:
     if bad or worst or not hashed:
         raise AssertionError("catalog: a kernel differs from its plain "
                              "version, or murmur3 was not launched")
-    p_type, p_brand = col("p_type"), col("p_brand")
-    span_expression_times("catalog", dev, part.select(
-        ["p_type", "p_brand"]), entry.CATALOG_STRING_MAX_LEN, {
-        "material": RegexpExtract(p_type, "^([A-Z]+) ([A-Z]+) ([A-Z]+)$", 3),
-        "class_word": RegexpExtract(p_type, "^([A-Z]+) ", 1),
-        "line": RegexpReplace(p_type, " [A-Z]+$", ""),
-        "brand_no": RegexpReplace(p_brand, "[^0-9]+", "")})
 
     # the comment leg: the span scans over 128-byte strings
     sup = supplier.select(["s_suppkey", "s_comment"])
@@ -2022,13 +2000,6 @@ def run_catalog_phase(dev, counted, tables) -> dict:
           f"slices at {entry.SUPPLIER_STRING_MAX_LEN} bytes: 0 rows apart "
           f"from pyarrow (oracle {oracle_s:.2f} s; {found} rows extract a "
           f"non-empty complaint); cold {wall:.3f} s")
-    c = col("s_comment")
-    span_expression_times("comments", dev, sup,
-                          entry.SUPPLIER_STRING_MAX_LEN, {
-                              "extract": RegexpExtract(
-                                  c, entry.COMMENT_EXTRACT, 1),
-                              "replace": RegexpReplace(
-                                  c, entry.COMMENT_REPLACE, "_")})
     return launches
 
 
@@ -2059,6 +2030,29 @@ def checked_murmur3(record):
                            int((got.long() - ref.long()).abs().max())))
         return got
     return checked
+
+
+def murmur3_checked(run, hashed):
+    """``run()`` with every ``murmur3_int32`` launch of the hash
+    expressions held against its plain version (``checked_murmur3``):
+    (rows, max_abs_err) appended to ``hashed``."""
+    from spark_rapids_tpu_torch.expressions import hashing
+    plain = hashing.murmur3_int32
+    hashing.murmur3_int32 = checked_murmur3(hashed)
+    try:
+        return run()
+    finally:
+        hashing.murmur3_int32 = plain
+
+
+def report_murmur3(what: str, hashed, where: str) -> None:
+    worst = max((err for _, err in hashed), default=0)
+    print(f"{what}: murmur3_int32 launched {len(hashed)} times in the "
+          f"checked run at rows {sorted({n for n, _ in hashed})} ({where}),"
+          f" max_abs_err against its plain version {worst}")
+    if worst or not hashed:
+        raise AssertionError(f"{what}: murmur3 differs from its plain "
+                             f"version, or was not launched")
 
 
 def checked_run(run, record):
@@ -2175,6 +2169,385 @@ def run_q9_phase(dev, counted, tables) -> dict:
     ses.prepare(entry.q9_df(*tables, SCALAR_Q_SLICES))
     check_murmur3_at_exchanges("Q9", ses.last_plan, dev)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# DECIMAL128: TPC-H Q18 in decimals at SF10, and the limb check
+# ---------------------------------------------------------------------------
+
+#: Q18 in decimals: scale factor, input slices, shuffle partitions, seed
+#: (the draws of Q3's and Q18's seed)
+Q18D_SF = 10
+Q18D_SLICES = 8
+Q18D_PARTITIONS = 8
+Q18D_SEED = 3
+#: rows of each leg's _hash_dec128 calls held against the scalar oracle,
+#: and the most sampled from one call
+HASH128_SAMPLE_ROWS = 1 << 16
+HASH128_CALL_SAMPLE = 1 << 13
+#: the byte-length edges of the DECIMAL128 hash (tests/test_decimal128.py)
+HASH128_EDGES = [0, 1, -1, 127, 128, -128, -129, 255, 256, -256,
+                 2**31 - 1, 2**31, -(2**31), 2**32 - 1, 2**32, -(2**32),
+                 2**63 - 1, 2**63, -(2**63), 10**37, -(10**37),
+                 3 * 10**37, -(3 * 10**37), 2**96 + 12345, -(2**96) - 99,
+                 10**38 - 1, -(2**127)]
+
+
+def checked_hash_dec128(record):
+    """``_hash_dec128`` with a sample of each call's rows recorded for the
+    scalar oracle: (limbs, seeds, hashes) of up to HASH128_CALL_SAMPLE
+    random valid rows, and the call's inputs for the largest call."""
+    import torch
+    from spark_rapids_tpu_torch.expressions import hashing
+    plain = hashing._hash_dec128
+
+    def checked(col, seed):
+        got = plain(col, seed)
+        valid = torch.nonzero(col.validity).squeeze(1)
+        if valid.numel():
+            pick = valid[torch.randperm(valid.numel(), device=valid.device)
+                         [:HASH128_CALL_SAMPLE]]
+            record["rows"].append((col.data[pick].cpu(),
+                                   seed[pick].cpu(), got[pick].cpu()))
+        record["calls"].append(col.capacity)
+        if col.capacity >= record.get("largest", (0,))[0]:
+            record["largest"] = (col.capacity, col, seed)
+        return got
+    return checked
+
+
+def check_hash_dec128_sample(what: str, record, dev) -> dict:
+    """The recorded rows (at most HASH128_SAMPLE_ROWS of them) and the
+    edge list hashed on the card, each against the scalar
+    ``hash_decimal`` with its row's running seed: 0 apart. Then the device
+    ms of the largest call (CUDA events)."""
+    import numpy as np
+    import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.batch import DeviceColumn
+    from spark_rapids_tpu_torch.expressions.decimal128 import (from_limbs_np,
+                                                               to_limbs_np)
+    from spark_rapids_tpu_torch.expressions.hashing import (_hash_dec128,
+                                                            _seeds)
+    from spark_rapids_tpu_torch.kernels.murmur3 import hash_decimal
+    if not record["rows"]:
+        raise AssertionError(f"{what}: _hash_dec128 was not called")
+    limbs = torch.cat([r[0] for r in record["rows"]]).numpy()
+    seeds = torch.cat([r[1] for r in record["rows"]]).numpy()
+    got = torch.cat([r[2] for r in record["rows"]]).numpy()
+    if len(got) > HASH128_SAMPLE_ROWS:
+        keep = np.random.default_rng(0).choice(len(got), HASH128_SAMPLE_ROWS,
+                                               replace=False)
+        limbs, seeds, got = limbs[keep], seeds[keep], got[keep]
+    edge = torch.from_numpy(to_limbs_np(HASH128_EDGES)).to(dev)
+    ecol = DeviceColumn(edge, torch.ones(len(HASH128_EDGES), dtype=torch.bool,
+                                         device=dev), T.decimal(38, 0))
+    egot = _hash_dec128(ecol, _seeds(42, ecol.validity)).cpu().numpy()
+    vals = from_limbs_np(limbs) + HASH128_EDGES
+    seeds = seeds.tolist() + [42] * len(HASH128_EDGES)
+    got = got.tolist() + egot.tolist()
+    apart = sum(int(g != hash_decimal(v, 38, s))
+                for v, s, g in zip(vals, seeds, got))
+    cap, col, seed = record["largest"]
+    ms = time_cuda_ms(lambda: _hash_dec128(col, seed), 5, 1)
+    print(f"{what}: _hash_dec128 called {len(record['calls'])} times at "
+          f"capacities {sorted(set(record['calls']))}; {len(vals)} rows "
+          f"({len(HASH128_EDGES)} of them the edge list) against the scalar "
+          f"hash_decimal: {apart} apart; device ms at capacity {cap}: "
+          f"{ms:.4f}")
+    if apart:
+        raise AssertionError(f"{what}: _hash_dec128 differs from "
+                             f"hash_decimal in {apart} rows")
+    return {"apart": apart, "ms": ms, "capacity": cap}
+
+
+def limb_sum_ms(dev, lineitem) -> None:
+    """Device ms of the limb sum lanes at the inner group-by's PARTIAL
+    shape: one slice's l_quantity (decimal(15, 2) widened to limbs) summed
+    into its l_orderkey groups (``decimal128.seg_sum128``: one
+    ``index_add_`` of [rows, 4] limbs, the negative count, the overflow
+    rule) and the precision test, beside the int64 ``index_add_`` of the
+    same values (CUDA events)."""
+    import torch
+    from spark_rapids_tpu_torch.batch import from_arrow
+    from spark_rapids_tpu_torch.expressions.decimal128 import (
+        exceeds_digits, lift64, seg_sum128)
+    rows = -(-lineitem.num_rows // Q18D_SLICES)
+    batch, _ = from_arrow(lineitem.slice(0, rows), device=dev)
+    keys, qty = batch.columns
+    live = batch.row_mask()
+    change = torch.ones_like(live)
+    change[1:] = keys.data[1:] != keys.data[:-1]
+    seg = torch.cumsum(change & live, 0) - 1
+    seg = seg.clamp(min=0)
+    groups = int(seg.max()) + 1
+    limbs = lift64(qty.data)
+
+    def limb_lanes():
+        s, ovf = seg_sum128(limbs, live, seg, groups)
+        return ovf | exceeds_digits(s, 25)
+
+    def int64_lane():
+        out = torch.zeros(groups, dtype=torch.int64, device=dev)
+        return out.index_add_(0, seg, torch.where(live, qty.data, 0))
+    ms = time_cuda_ms(limb_lanes, 5, 1)
+    ms64 = time_cuda_ms(int64_lane, 5, 1)
+    print(f"q18 decimal: the limb sum lanes over one slice ({rows} rows, "
+          f"capacity {batch.capacity}, {groups} l_orderkey groups): "
+          f"{ms:.4f} ms on the card, the int64 index_add_ of the same "
+          f"values {ms64:.4f} ms (CUDA events)")
+
+
+def run_q18_decimal_phase(dev, counted, base, float_expected) -> list:
+    """TPC-H Q18 at SF10 (59,986,052 lineitem rows, 8 slices) through the
+    port's Session with ``entry.session_conf`` and AQE at the JAX default
+    (on), in three legs over the Q18 phase's tables (``base``, from
+    ``entry.tpch_q18_tables``) and its oracle's rows (``float_expected``):
+    the spec's DECIMAL types (``entry.q18_decimal_of``: decimal(25, 2)
+    limb sums, the HAVING a limb comparison against a rescaled
+    decimal(3, 0) literal, o_totalprice decimal(15, 2) a group key and the
+    sort key), the keys as decimal(38, 0) (limb keys sorted, grouped,
+    joined and routed by ``_hash_dec128``), and the float64 Q18
+    (``entry.q18_df``) as the baseline. Each leg: its rows exactly equal
+    to its pyarrow oracle (100, ties as sets), ``fell_back()`` [] in the
+    decimal legs, a cold and a profiled warm run (walls, peak, idle
+    share). In the cold run every murmur3 launch is held against its plain
+    version on its inputs, and in the decimal legs every ``_hash_dec128``
+    call is sampled for the scalar ``hash_decimal``. Then the limb sum
+    lanes' device ms. Returns each leg's launches."""
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.expressions import hashing
+    from spark_rapids_tpu_torch.plan import Session
+    t0 = time.perf_counter()
+    legs = {"spec": entry.q18_decimal_of(*base),
+            "wide": entry.q18_decimal_of(*base, wide_keys=True),
+            "float": base}
+    print(f"q18 decimal: the SF{Q18D_SF} tables of the Q18 phase "
+          f"({[t.num_rows for t in base]} customer, orders, lineitem rows) "
+          f"in the decimal legs' types in {time.perf_counter() - t0:.2f} s")
+    conf = entry.session_conf(Q18D_PARTITIONS, **{
+        "spark.rapids.tpu.sql.adaptive.enabled": True})
+    runs, stats = [], {}
+
+    def check(got, expected):
+        order = [(c, "ascending") for c in got.column_names]
+        if got.schema != expected.schema or \
+                not got.sort_by(order).equals(expected.sort_by(order)):
+            raise AssertionError(f"Q18 differs from the pyarrow oracle:\n"
+                                 f"{got.slice(0, 3)}\n"
+                                 f"{expected.slice(0, 3)}")
+        if got.num_rows != entry.Q18_LIMIT or not got.column(
+                "o_totalprice").equals(expected.column("o_totalprice")):
+            raise AssertionError("Q18: not 100 rows in the spec's order")
+        return (f"; all {got.num_rows} rows exact, sum_qty "
+                f"{got.schema.field('sum_qty').type}")
+
+    for leg, tables in legs.items():
+        ses = Session(conf, device=dev)
+        if leg == "float":
+            make_df = lambda t: entry.q18_df(*t, Q18D_SLICES)   # noqa: E731
+            reference = lambda t: float_expected                # noqa: E731
+        else:
+            make_df = lambda t: entry.q18_decimal_df(  # noqa: E731
+                *t, Q18D_SLICES)
+            reference = lambda t: entry.q18_decimal_reference(*t)  # noqa
+        hashed, record = [], {"rows": [], "calls": []}
+
+        def run(t, ses=ses, make_df=make_df, leg=leg, hashed=hashed,
+                record=record):
+            collect = (lambda: ses.collect(make_df(t)))
+            if hashed:                          # checked in the cold run
+                out = collect()
+            else:
+                plain = hashing._hash_dec128
+                hashing._hash_dec128 = checked_hash_dec128(record)
+                try:
+                    out = murmur3_checked(collect, hashed)
+                finally:
+                    hashing._hash_dec128 = plain
+            if leg != "float" and ses.fell_back():
+                raise AssertionError(f"q18 {leg} fell back: "
+                                     f"{ses.fell_back()}")
+            return out
+        st = stats.setdefault(leg, {})
+        runs.append(run_path(f"q18 decimal {leg}", lambda: tables,
+                             reference, run, check, dev, counted,
+                             rows_of=lambda t: t[2].num_rows, stats=st,
+                             warm_runs=0))
+        print(f"q18 decimal {leg}: fell_back() {ses.fell_back()}; key types "
+              f"{[str(t.schema.field(0).type) for t in tables]}; the "
+              f"Session's operators {ses.executed_exec_names()}")
+        # the profiled run is the leg's warm run
+        _, wall_us, busy, _ = profiled(lambda: run(tables), dev, host=False)
+        st["warm_s"], st["idle"] = wall_us / 1e6, 1 - busy / wall_us
+        print(f"q18 decimal {leg}: profiled warm run {wall_us / 1e3:.1f} "
+              f"ms, {tables[2].num_rows / st['warm_s']:,.0f} rows/s, device "
+              f"busy {busy / 1e3:.1f} ms, idle share {st['idle']:.1%}")
+        report_murmur3(f"q18 decimal {leg}", hashed,
+                       "o_orderdate at the final group-by's exchange")
+        if leg == "wide":
+            check_hash_dec128_sample(f"q18 decimal {leg}", record, dev)
+        elif record["calls"]:
+            raise AssertionError(f"q18 {leg}: _hash_dec128 ran over keys "
+                                 f"that are not limbs")
+    for leg in ("spec", "wide"):
+        print(f"q18 decimal {leg}: warm {stats[leg]['warm_s']:.3f} s against "
+              f"the float64 leg's {stats['float']['warm_s']:.3f} s "
+              f"({stats[leg]['warm_s'] / stats['float']['warm_s']:.2f}x); "
+              f"peak {stats[leg]['peak'] / 2**30:.2f} GiB against "
+              f"{stats['float']['peak'] / 2**30:.2f} GiB; idle share "
+              f"{stats[leg]['idle']:.1%} against "
+              f"{stats['float']['idle']:.1%}")
+    limb_sum_ms(dev, legs["spec"][2])
+    return runs
+
+
+#: rows of the limb check, wide_table's distribution: 2^17, where 2^20
+#: took 124.7 s on the card's host (the row interpreter's sorts alone
+#: 56 s), past the script's time
+LIMB_ROWS = 1 << 17
+LIMB_SLICES = 3
+
+
+def limb_table(n: int, seed: int = 7):
+    """``tests/test_decimal128.py``'s ``wide_table`` distribution at ``n``
+    rows, drawn with numpy: k in 0..5, w decimal(38, 4) of 1 to 34 digits
+    (uniform below 10^digits), signs mixed, every 11th row null; and b,
+    decimal(25, 3), for the mixed-scale comparison. The limbs are built
+    digit by digit (Horner's rule in four 32-bit limbs), with no Python
+    int a row."""
+    import numpy as np
+    import pyarrow as pa
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expressions.decimal128 import (MASK32,
+                                                               limbs_to_arrow)
+
+    def number(digits, rng, width):
+        limbs = np.zeros((n, 4), np.int64)
+        for j in range(width):
+            dj = np.where(j >= width - digits, rng.integers(0, 10, n), 0)
+            limbs = limbs * 10
+            limbs[:, 0] += dj
+            for i in range(3):          # carry into the next limb
+                limbs[:, i + 1] += limbs[:, i] >> 32
+                limbs[:, i] &= MASK32
+            limbs[:, 3] &= MASK32
+        neg = rng.random(n) < 0.5
+        inv = (~limbs) & MASK32
+        inv[:, 0] += 1
+        for i in range(3):
+            inv[:, i + 1] += inv[:, i] >> 32
+            inv[:, i] &= MASK32
+        inv[:, 3] &= MASK32
+        return np.where(neg[:, None], inv, limbs)
+
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 6, n).astype(np.int32)
+    w = number(rng.integers(1, 35, n), rng, 34)
+    b = number(rng.integers(1, 23, n), rng, 22)
+    valid = np.arange(n) % 11 != 0
+    return pa.table({
+        "k": pa.array(k),
+        "w": limbs_to_arrow(w, T.decimal(38, 4), valid),
+        "b": limbs_to_arrow(b, T.decimal(25, 3), np.ones(n, bool))})
+
+
+def check_limbs(dev) -> None:
+    """DECIMAL128 on the card against the port's row interpreter
+    (``sql.enabled=false``), 0 rows apart, at LIMB_ROWS rows of
+    ``limb_table``: group-by Sum, Min, Max and Count on the int key; a
+    group-by on the limb key through a LIMB_SLICES-slice hash exchange;
+    the limb join key; ascending and descending sorts; ``w > 10^18 +
+    0.0001``; the mixed-scale comparison against decimal(25, 3); and Sum
+    into a null past 38 digits. Each on the card with nothing fallen
+    back. Then a fused filter and project over the limbs, captured in a
+    CUDA graph and replayed, against the iterator path."""
+    import decimal
+    import pyarrow as pa
+    import torch
+    from spark_rapids_tpu_torch import entry, types as T
+    from spark_rapids_tpu_torch.batch import to_arrow
+    from spark_rapids_tpu_torch.exec import (FilterExec, InMemoryScanExec,
+                                             JoinType, ProjectExec, asc,
+                                             collect, desc, try_fuse)
+    from spark_rapids_tpu_torch.expressions import col, lit
+    from spark_rapids_tpu_torch.expressions.aggregates import (Count, Max,
+                                                               Min, Sum)
+    from spark_rapids_tpu_torch.plan import Session, table
+    t_all = time.perf_counter()
+    t = limb_table(LIMB_ROWS)
+    big = pa.table({"k": pa.array([0, 0, 1, 1, 2], pa.int32()),
+                    "w": pa.array([decimal.Decimal(9 * 10**37)] * 2
+                                  + [decimal.Decimal(-(10**37)),
+                                     decimal.Decimal(7), None],
+                                  pa.decimal128(38, 0))})
+    bound = decimal.Decimal("1000000000000000000.0001")
+    paths = {
+        "group-by sum/min/max/count": lambda: table(t).group_by("k").agg(
+            Sum(col("w")).alias("s"), Min(col("w")).alias("mn"),
+            Max(col("w")).alias("mx"), Count(col("w")).alias("c")),
+        "limb key through the exchange": lambda: table(
+            t, num_slices=LIMB_SLICES).group_by("w").agg(
+            Count().alias("c"), Max(col("k")).alias("mk")),
+        "limb join key": lambda: table(t).join(
+            table(t.slice(0, LIMB_ROWS // 4)).group_by("w").agg(
+                Count().alias("n")).select(col("w").alias("w2"), "n"),
+            [col("w")], [col("w2")], JoinType.INNER),
+        "sort asc": lambda: table(t).order_by(asc(col("w"))),
+        "sort desc": lambda: table(t).order_by(desc(col("w"))),
+        "w > 10^18 + 0.0001": lambda: table(t).where(
+            col("w") > lit(bound, T.decimal(38, 4))),
+        "mixed scale vs decimal(25,3)": lambda: table(t).select(
+            col("k"), (col("w") > col("b")).alias("gt"),
+            (col("w") == col("b")).alias("eq"),
+            (col("w") <= col("b")).alias("le")),
+        "sum past 38 digits": lambda: table(big).group_by("k").agg(
+            Sum(col("w")).alias("s")),
+    }
+    for name, make in paths.items():
+        ses = Session(entry.session_conf(8), device=dev)
+        t0 = time.perf_counter()
+        got = ses.collect(make())
+        torch.cuda.synchronize(dev)
+        card_s = time.perf_counter() - t0
+        if ses.fell_back():
+            raise AssertionError(f"limbs {name}: fell back {ses.fell_back()}")
+        t0 = time.perf_counter()
+        want = Session(ORACLE_CONF, device=dev).collect(make())
+        oracle_s = time.perf_counter() - t0
+        ordered = name.startswith("sort")
+        bad = (rows_apart(got.column("w"), want.column("w")) if ordered
+               else differing_rows(got, want))
+        if ordered:
+            bad += differing_rows(got, want)
+        print(f"limbs {name}: {got.num_rows} rows on the card "
+              f"({card_s:.2f} s), {bad} apart from the interpreter "
+              f"({oracle_s:.2f} s)")
+        if bad or got.num_rows != want.num_rows:
+            raise AssertionError(f"limbs {name}: the card differs from the "
+                                 f"interpreter in {bad} rows")
+        if name == "sum past 38 digits" and \
+                got.sort_by("k").column("s").to_pylist()[0] is not None:
+            raise AssertionError("limbs: a sum past 38 digits is not null")
+
+    # limb lanes through a fused stage: planned eagerly, then captured in
+    # a CUDA graph and replayed, each run equal to the iterator path
+    def fused_plan():
+        return ProjectExec([col("w"), col("k")], FilterExec(
+            col("w") > lit(bound, T.decimal(38, 4)),
+            InMemoryScanExec(t, device=dev)))
+    stage = try_fuse(fused_plan())
+    outs = [to_arrow(stage.run(), stage.plan.output_schema)
+            for _ in range(3)]
+    want = collect(fused_plan())
+    same = all(o.equals(want) for o in outs)
+    print(f"limbs fused stage (filter, project): {want.num_rows} rows; "
+          f"{stage.captures} capture(s), {stage.replays} replay(s), every "
+          f"run equal to the iterator path: {same}")
+    if not same or stage.captures != (torch.device(dev).type == "cuda"):
+        raise AssertionError("limbs: the captured fused stage differs from "
+                             "the iterator path, or was not captured")
+    print(f"limb check: {time.perf_counter() - t_all:.1f} s")
 
 
 #: rows of the scalar phase's card-against-interpreter check: cut from
@@ -3307,9 +3680,9 @@ def run_skew_phase(dev, counted) -> list:
     legs: each leg's cold run (launch counts from 0) equal to pyarrow and
     bit for bit to the other legs, its decisions, the wall of one warm
     run, rows/s and allocator peak, and the device idle share of one
-    profiled warm run of the last leg; then murmur3 against its plain
-    version at each leg's aggregate exchange. Returns the launches of each
-    leg's cold run."""
+    profiled warm run of the last leg; in each cold run every murmur3
+    launch (the aggregate's exchange) is held against its plain version.
+    Returns the launches of each leg's cold run."""
     import torch
     from spark_rapids_tpu_torch import adaptive, entry
     t0 = time.perf_counter()
@@ -3333,8 +3706,9 @@ def run_skew_phase(dev, counted) -> list:
         for wrapper in counted:
             wrapper.launches = 0
         mark = adaptive.reason_mark()
+        hashed = []
         t0 = time.perf_counter()
-        got = run()
+        got = murmur3_checked(run, hashed)
         cold_s = time.perf_counter() - t0
         decisions = adaptive.reasons(since=mark)
         counts = {w.__name__: w.launches for w in counted}
@@ -3359,9 +3733,11 @@ def run_skew_phase(dev, counted) -> list:
         peak = torch.cuda.max_memory_allocated(dev)
         print(f"skew {leg}: equal to pyarrow and to the static leg, bit for "
               f"bit; kernel launches {counts}; decisions {decisions}")
-        print(f"skew {leg}: cold {cold_s:.3f} s, warm {wall:.3f} s, "
-              f"{SKEW_ROWS / wall:,.0f} fact rows/s; device memory peak "
-              f"{peak / 2**30:.2f} GiB")
+        print(f"skew {leg}: cold {cold_s:.3f} s (murmur3 checked), warm "
+              f"{wall:.3f} s, {SKEW_ROWS / wall:,.0f} fact rows/s; device "
+              f"memory peak {peak / 2**30:.2f} GiB")
+        if hashed or any(counts.values()):
+            report_murmur3(f"skew {leg}", hashed, "the aggregate's exchange")
         if leg == entry.SKEW_LEGS[-1]:
             _, prof_us, busy, events = profiled(run, dev, host=False)
             print(f"skew {leg}: profiled run: {len(events)} device kernels "
@@ -3370,11 +3746,6 @@ def run_skew_phase(dev, counted) -> list:
                   f" (against the warm wall "
                   f"{1 - busy / (wall * 1e6):.1%})")
         launches.append(counts)
-    for leg in entry.SKEW_LEGS:
-        check_murmur3_at_exchanges(
-            f"skew {leg}", entry.skew_plan(fact, dim, leg,
-                                           split_rows=SKEW_SPLIT_ROWS,
-                                           device=dev), dev)
     return launches
 
 
@@ -3876,7 +4247,8 @@ def run_session_path(name: str, dev, counted, table, reference, make_df,
                      make_hand, check, conf, rows_of=lambda t: t.num_rows,
                      reuse_plan: bool = False):
     """One path planned by ``plan.Session`` through ``run_path`` (its cold
-    run's launch counts, three warm runs, the oracle): after the cold run
+    run's launch counts, one warm run, three with ``reuse_plan``, the
+    oracle): after the cold run
     its tree is held against the hand-built ``make_hand(table)``. With
     ``reuse_plan`` one prepared plan is collected every time (a fused
     stage then plans, captures and replays); else each run plans afresh.
@@ -3903,7 +4275,8 @@ def run_session_path(name: str, dev, counted, table, reference, make_df,
         return out
 
     launches = run_path(f"session {name}", lambda: table, reference, run,
-                        check, dev, counted, rows_of=rows_of)
+                        check, dev, counted, rows_of=rows_of,
+                        warm_runs=3 if reuse_plan else 1)
     ms = state["prepare_ms"]
     print(f"session {name}: planning (prepare) {statistics.median(ms):.2f} "
           f"ms host median of {[round(m, 2) for m in ms]}")
@@ -4875,7 +5248,13 @@ def main(argv=None) -> int:
     del q3_tables, lineitem
     # before Q18, whose spills would leave pinned buffers in the cache
     timed("spill rates", measure_spill_rates, dev)
-    runs += timed("q18", run_q18_phase, dev, [murmur3_int32])
+    q18_keep = {}
+    runs += timed("q18", run_q18_phase, dev, [murmur3_int32], q18_keep)
+    # Q18 again over the same tables and oracle: in the spec's DECIMAL
+    # types, over decimal(38,0) keys and as float64 through the Session
+    runs += timed("q18 decimal", run_q18_decimal_phase, dev, [murmur3_int32],
+                  q18_keep["tables"], q18_keep["expected"])
+    del q18_keep
     # the skewed join's three legs (its aggregate exchange hashes the int32
     # group key), and the new kinds through the hash exchange
     runs += timed("skew", run_skew_phase, dev, [murmur3_int32])
@@ -4929,6 +5308,7 @@ def main(argv=None) -> int:
     timed("hash_agg", check_hash_agg, dev)
     timed("operators", check_operators, dev)
     timed("new operators", check_new_operators, dev)
+    timed("limbs", check_limbs, dev)
     timed("q1_stage", check_q1_stage, dev)
     # the bench's join+sort stage three ways (its int64 key is probed
     # exactly: no kernel), and the overflow retry

@@ -8,7 +8,9 @@ scalar tensor on the batch's device, and every row in
 ``[num_rows, capacity)`` is dead (invalid, zero payload). A string column's
 payload is ``uint8[capacity, max_len]``, zero past each value's end, with
 its byte lengths in ``int32[capacity]``; a null row has length 0 and no
-bytes. A dictionary-encoded string column (``dictenc.py``) holds int32
+bytes. A decimal of more than 18 digits holds four 32-bit limbs a row in
+``int64[capacity, 4]`` (``expressions/decimal128.py``); every gather,
+compaction, pad and concatenation keeps that trailing dimension. A dictionary-encoded string column (``dictenc.py``) holds int32
 codes in ``data``, no ``lengths``, and its sorted distinct entries in
 ``dict_data``/``dict_lengths``.
 
@@ -190,24 +192,29 @@ def _padded(values: np.ndarray, dtype: torch.dtype, capacity: int,
     n = values.shape[0]
     if n > capacity:
         raise ValueError(f"{n} rows exceed capacity {capacity}")
-    out = torch.zeros(capacity, dtype=dtype, device=device)
+    out = torch.zeros((capacity,) + values.shape[1:], dtype=dtype,
+                      device=device)
     if n:
         out[:n].copy_(_host_tensor(values))
     return out
+
+
+def _check_decimal(arr: pa.Array, dtype: SqlType) -> None:
+    if not pa.types.is_decimal128(arr.type):
+        raise NotImplementedError(
+            f"arrow type {arr.type}: only decimal128 uploads")
+    if arr.type.scale != dtype.scale:
+        raise ValueError(f"decimal scale {arr.type.scale} does not match "
+                         f"the column's {dtype}")
 
 
 def _decimal_storage(arr: pa.Array, dtype: SqlType) -> np.ndarray:
     """The unscaled int64 values of an Arrow decimal128 array of at most 18
     digits: the low 8 bytes of each 16-byte little-endian value, read from
     the buffer as they stand (no Python ``Decimal`` per row, no float).
-    Null slots, whose bytes Arrow leaves undefined, become 0."""
-    if not pa.types.is_decimal128(arr.type):
-        raise NotImplementedError(
-            f"arrow type {arr.type}: only decimal128 uploads")
-    T.decimal(arr.type.precision, arr.type.scale)   # raises past 18 digits
-    if arr.type.scale != dtype.scale:
-        raise ValueError(f"decimal scale {arr.type.scale} does not match "
-                         f"the column's {dtype}")
+    Null slots, whose bytes Arrow leaves undefined, become 0. (Past 18
+    digits ``column_from_arrow`` uploads the whole 16 bytes as limbs.)"""
+    _check_decimal(arr, dtype)
     n = len(arr)
     if n == 0:
         return np.zeros(0, np.int64)
@@ -324,9 +331,18 @@ def column_from_arrow(arr, dtype: SqlType, capacity: int,
         arr = arr.cast(arr.type.value_type)
     if dtype.kind is TypeKind.STRING:
         return _string_column(arr, dtype, capacity, device)
+    validity = _validity(arr, capacity, device)
+    if dtype.kind is TypeKind.DECIMAL and \
+            dtype.precision > T.MAX_LONG_DIGITS:
+        # DECIMAL128: the buffer's 16 bytes a row go up as they stand and
+        # widen to limbs on the device
+        from .expressions.decimal128 import arrow_words, widen_words
+        _check_decimal(arr, dtype)
+        words = _padded(arrow_words(arr), torch.int32, capacity, device)
+        return DeviceColumn(widen_words(words, validity), validity, dtype)
     data = _padded(_scalar_storage(arr, dtype), dtype.storage_dtype,
                    capacity, device)
-    return DeviceColumn(data, _validity(arr, capacity, device), dtype)
+    return DeviceColumn(data, validity, dtype)
 
 
 def schema_from_arrow(schema: pa.Schema, string_max_len: int = 64) -> Schema:
@@ -389,7 +405,10 @@ def empty_column(dtype: SqlType, device: torch.device,
             torch.zeros((capacity, dtype.max_len), dtype=torch.uint8,
                         device=device), validity, dtype,
             torch.zeros(capacity, dtype=torch.int32, device=device))
-    return DeviceColumn(torch.zeros(capacity, dtype=dtype.storage_dtype,
+    shape = (capacity, 4) if (dtype.kind is TypeKind.DECIMAL and
+                              dtype.precision > T.MAX_LONG_DIGITS) \
+        else (capacity,)
+    return DeviceColumn(torch.zeros(shape, dtype=dtype.storage_dtype,
                                     device=device), validity, dtype)
 
 
@@ -467,6 +486,10 @@ def to_arrow(batch: ColumnarBatch, schema: Schema) -> pa.Table:
             arrays.append(pa.nulls(n))
             continue
         data = col.data[:n].cpu().numpy()
+        if k is TypeKind.DECIMAL and data.ndim > 1:
+            from .expressions.decimal128 import limbs_to_arrow
+            arrays.append(limbs_to_arrow(data, f.dtype, validity))
+            continue
         if k is TypeKind.DECIMAL:
             arrays.append(_decimal_to_arrow(data, f.dtype, validity))
             continue

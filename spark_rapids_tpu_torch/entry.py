@@ -175,6 +175,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 
+from . import types as T
 from .batch import (ColumnarBatch, DeviceLike, Field, Schema, empty_batch,
                     from_arrow, resolve_device, schema_from_arrow, to_arrow)
 from .config import (ADAPTIVE_BROADCAST_MAX_BUILD_ROWS, ADAPTIVE_TARGET_ROWS,
@@ -1041,6 +1042,100 @@ def q18_reference(customer: pa.Table, orders: pa.Table,
     """Q18 computed by pyarrow alone, in ``run_q18``'s column order."""
     return q18_top(q18_groups_reference(customer, orders, lineitem,
                                         quantity))
+
+
+def decimal_from_int64(unscaled: np.ndarray, precision: int,
+                       scale: int) -> pa.Array:
+    """An Arrow decimal128(precision, scale) array of int64 unscaled
+    values, built from its buffer: each value sign-extended to 16
+    little-endian bytes (no ``Decimal`` per row)."""
+    v = np.asarray(unscaled).astype(np.int64)
+    words = np.empty((len(v), 2), np.int64)
+    words[:, 0] = v
+    np.right_shift(v, 63, out=words[:, 1])
+    return pa.Array.from_buffers(pa.decimal128(precision, scale), len(v),
+                                 [None, pa.py_buffer(words)])
+
+
+#: Q18's HAVING literal in the spec's types: 300 as decimal(3, 0)
+Q18_DECIMAL_QUANTITY = 300
+#: the type Spark's JDBC reader gives an Oracle NUMBER(38) identifier
+WIDE_KEY = (38, 0)
+
+
+def tpch_q18_decimal_tables(sf: float, seed: int = 3,
+                            wide_keys: bool = False
+                            ) -> Tuple[pa.Table, pa.Table, pa.Table]:
+    """``tpch_q18_tables`` in the spec's DECIMAL types, from the same
+    draws (``q18_decimal_of``)."""
+    return q18_decimal_of(*tpch_q18_tables(sf, seed), wide_keys=wide_keys)
+
+
+def q18_decimal_of(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
+                   wide_keys: bool = False
+                   ) -> Tuple[pa.Table, pa.Table, pa.Table]:
+    """``tpch_q18_tables``' tables in the spec's DECIMAL types:
+    L_QUANTITY and O_TOTALPRICE decimal(15, 2), O_TOTALPRICE the float64
+    total rounded half up to the cent. With ``wide_keys`` C_CUSTKEY,
+    O_CUSTKEY, O_ORDERKEY and L_ORDERKEY are decimal(38, 0), the type
+    Spark's JDBC reader gives NUMBER(38) identifier columns. Every array
+    is built from int64 cents or keys (``decimal_from_int64``)."""
+    def cents(t: pa.Table, name: str, rounded: bool) -> pa.Array:
+        x = t.column(name).to_numpy() * 100
+        return decimal_from_int64(np.floor(x + 0.5) if rounded else x,
+                                  15, 2)
+
+    def with_columns(t: pa.Table, cols: Dict[str, pa.Array]) -> pa.Table:
+        for name, arr in cols.items():
+            t = t.set_column(t.schema.get_field_index(name), name, arr)
+        return t
+
+    def key(t: pa.Table, name: str) -> Dict[str, pa.Array]:
+        return ({name: decimal_from_int64(t.column(name).to_numpy(),
+                                          *WIDE_KEY)} if wide_keys else {})
+
+    return (with_columns(customer, key(customer, "c_custkey")),
+            with_columns(orders, {
+                "o_totalprice": cents(orders, "o_totalprice", True),
+                **key(orders, "o_orderkey"), **key(orders, "o_custkey")}),
+            with_columns(lineitem, {
+                "l_quantity": cents(lineitem, "l_quantity", False),
+                **key(lineitem, "l_orderkey")}))
+
+
+def q18_decimal_reference(customer: pa.Table, orders: pa.Table,
+                          lineitem: pa.Table,
+                          quantity: int = Q18_DECIMAL_QUANTITY) -> pa.Table:
+    """Q18 over ``tpch_q18_decimal_tables`` by pyarrow alone: exact
+    decimal group sums typed as Spark types them (sum of decimal(15, 2)
+    is decimal(25, 2)), then the spec's sort and limit."""
+    import decimal
+    sum_type = pa.decimal128(min(lineitem.schema.field(
+        "l_quantity").type.precision + 10, 38), 2)
+
+    def summed(t: pa.Table, keys) -> pa.Table:
+        g = t.group_by(keys).aggregate([("l_quantity", "sum")])
+        return g.set_column(g.schema.get_field_index("l_quantity_sum"),
+                            "l_quantity_sum",
+                            g.column("l_quantity_sum").cast(sum_type))
+
+    sq = summed(lineitem, "l_orderkey")
+    big = sq.filter(pc.greater(sq.column("l_quantity_sum"), pa.scalar(
+        decimal.Decimal(quantity), sum_type)))
+    keys = big.column("l_orderkey")
+    o = orders.filter(pc.is_in(orders.column("o_orderkey"), value_set=keys))
+    li = lineitem.filter(pc.is_in(lineitem.column("l_orderkey"),
+                                  value_set=keys))
+    co = o.join(customer, keys="o_custkey", right_keys="c_custkey",
+                join_type="inner")
+    j = li.join(co, keys="l_orderkey", right_keys="o_orderkey",
+                join_type="inner")
+    g = summed(j, ["c_name", "o_custkey", "l_orderkey", "o_orderdate",
+                   "o_totalprice"])
+    return q18_top(pa.table(
+        [g.column("c_name"), g.column("o_custkey"), g.column("l_orderkey"),
+         g.column("o_orderdate"), g.column("o_totalprice"),
+         g.column("l_quantity_sum")], names=list(Q18_KEYS) + ["sum_qty"]))
 
 
 # ---------------------------------------------------------------------------
@@ -2280,6 +2375,28 @@ def q18_df(customer: pa.Table, orders: pa.Table, lineitem: pa.Table,
     big = (_df(lineitem, num_slices).group_by("l_orderkey")
            .agg(*q18_aggregates("sq"))
            .where(GreaterThan(col("sq"), lit(float(quantity)))))
+    return (_df(customer, num_slices)
+            .join(_df(orders, num_slices).join(
+                big, ["o_orderkey"], ["l_orderkey"], JoinType.LEFT_SEMI),
+                  ["c_custkey"], ["o_custkey"])
+            .join(_df(lineitem, num_slices), ["o_orderkey"], ["l_orderkey"])
+            .group_by(*Q18_KEYS)
+            .agg(*q18_aggregates())
+            .order_by(desc(col("o_totalprice")), asc(col("o_orderdate")))
+            .limit(Q18_LIMIT))
+
+
+def q18_decimal_df(customer: pa.Table, orders: pa.Table,
+                   lineitem: pa.Table, num_slices: int = 8,
+                   quantity: int = Q18_DECIMAL_QUANTITY):
+    """``q18_df``'s query over ``tpch_q18_decimal_tables``: the HAVING
+    literal is ``quantity`` as decimal(3, 0), compared with the
+    decimal(25, 2) limb sum after a rescale."""
+    import decimal
+    big = (_df(lineitem, num_slices).group_by("l_orderkey")
+           .agg(*q18_aggregates("sq"))
+           .where(GreaterThan(col("sq"), lit(decimal.Decimal(quantity),
+                                              T.decimal(3, 0)))))
     return (_df(customer, num_slices)
             .join(_df(orders, num_slices).join(
                 big, ["o_orderkey"], ["l_orderkey"], JoinType.LEFT_SEMI),

@@ -200,7 +200,9 @@ def orderable_words(col: DeviceColumn) -> List[torch.Tensor]:
     before "ab", then their length, which orders "a" before "a\x00".
     int8, int16 and NULL columns widen to int32; int32, date, int64,
     timestamp and decimal (unscaled, one scale per column) sort on their
-    signed value. A dictionary string column gives its int32 code: its
+    signed value; a DECIMAL128 column on its (hi, lo) limb words
+    (``decimal128.orderable_words128``), whose equality is the limb rows'
+    equality. A dictionary string column gives its int32 code: its
     dictionary is sorted in this same string order (``dictenc.py``
     invariant 2), so within one column code order is string order."""
     k = col.dtype.kind
@@ -216,6 +218,9 @@ def orderable_words(col: DeviceColumn) -> List[torch.Tensor]:
         return [nan.to(torch.uint8), torch.where(nan, 0.0, col.data)]
     if col.data.dtype in (torch.int8, torch.int16):
         return [col.data.to(torch.int32)]
+    if col.data.dim() > 1:
+        from ..expressions.decimal128 import orderable_words128
+        return orderable_words128(col.data)
     return [col.data]
 
 

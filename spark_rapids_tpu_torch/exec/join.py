@@ -163,6 +163,8 @@ def _keys_equal(a: Sequence[DeviceColumn],
         elif x.data.is_floating_point():
             e = (x.data == y.data) | (torch.isnan(x.data)
                                       & torch.isnan(y.data))
+        elif x.data.dim() > 1:          # DECIMAL128 limbs: whole rows
+            e = (x.data == y.data).all(dim=1)
         else:
             e = x.data == y.data
         e = e & x.validity & y.validity

@@ -19,6 +19,16 @@ over each group's mean, First/Last's row pick, the string Min/Max
 narrowing). The JAX package's row-buffer ``update``/``merge`` are not
 ported.
 
+A decimal sum whose type has more than 18 digits (Spark's decimal(p + 10,
+s) for p > 8, or any DECIMAL128 input) sums four 32-bit limbs a row
+(``expressions/decimal128.py``): a limb lane on ``FastLanes``, one
+``index_add_`` of ``[rows, 4]`` int64, beside the count of negative rows;
+the finisher normalizes once and nulls a group whose sum overflows 128 bits
+or passes the type's precision, as Spark's non-ANSI sum does. Its buffers
+are (sum, count, overflow), as in the JAX package. Min and Max over limbs
+take two reductions, the best hi word and then the best lo word among the
+rows at that hi.
+
 Where the JAX package rode int64 sums on three exact 22-bit float64 chunk
 lanes and int64 min/max off the lanes (a TPU emulates 64-bit integers), the
 card reduces int64 natively and exactly; the sum wraps mod 2^64, Spark's
@@ -53,6 +63,8 @@ from .. import types as T
 from ..batch import DeviceColumn
 from ..types import SqlType, TypeKind
 from .base import Expression
+from .decimal128 import (exceeds_digits, is_dec128, is_negative, lift64,
+                         seg_minmax128, sum_overflow)
 
 
 def group_sums(x: torch.Tensor, seg: torch.Tensor,
@@ -70,14 +82,15 @@ def _ones(n: int, like: torch.Tensor) -> torch.Tensor:
 
 class FastLanes:
     """Collects reduction lanes during the aggregate's planning pass:
-    float64 sum lanes, int64 sum lanes (integer sums and counts), and
-    min/max lanes, each a value in its own dtype with the mask of the rows
-    it reduces."""
+    float64 sum lanes, int64 sum lanes (integer sums and counts), DECIMAL128
+    limb lanes ([rows, 4] int64, summed raw), and min/max lanes, each a
+    value in its own dtype with the mask of the rows it reduces."""
 
     def __init__(self, live: torch.Tensor):
         self.live = live
         self.f64_lanes: List[torch.Tensor] = []
         self.i64_lanes: List[torch.Tensor] = []
+        self.limb_lanes: List[torch.Tensor] = []
         self.extreme_lanes: List[Tuple[torch.Tensor, torch.Tensor, str]] = []
         self._count_cache: List[Tuple[Optional[torch.Tensor], int]] = []
 
@@ -88,6 +101,12 @@ class FastLanes:
     def sum_int(self, x: torch.Tensor) -> int:
         self.i64_lanes.append(x.to(torch.int64))
         return len(self.i64_lanes) - 1
+
+    def sum_limbs(self, x: torch.Tensor) -> int:
+        """A lane of [rows, 4] limbs, summed limb by limb without carries
+        (``decimal128.sum_overflow`` finishes it)."""
+        self.limb_lanes.append(x)
+        return len(self.limb_lanes) - 1
 
     def count(self, ok: Optional[torch.Tensor]) -> int:
         """Count of true rows; ok=None counts live rows. Aggregates whose
@@ -127,6 +146,8 @@ class LaneResults:
 
         self._f64 = summed(lanes.f64_lanes)
         self._i64 = summed(lanes.i64_lanes)
+        self._limbs = (self.group_sum(torch.cat(lanes.limb_lanes, dim=1))
+                       if lanes.limb_lanes else None)
         self._extreme = [self.reduce(x, ok, how)
                          for x, ok, how in lanes.extreme_lanes]
 
@@ -135,6 +156,9 @@ class LaneResults:
 
     def sum_int(self, ref: int) -> torch.Tensor:
         return self._i64[:, ref]
+
+    def sum_limbs(self, ref: int) -> torch.Tensor:
+        return self._limbs[:, 4 * ref:4 * ref + 4]
 
     def extreme(self, ref: int) -> torch.Tensor:
         return self._extreme[ref]
@@ -207,31 +231,34 @@ def _view_ok(col: DeviceColumn, live: torch.Tensor) -> torch.Tensor:
 class Sum(AggregateFunction):
     """sum(x): null iff the group has no non-null input; integer sums wrap.
     A decimal(p, s) sums to Spark's decimal(min(p + 10, 38), s), the JAX
-    package's type: the device sums the unscaled int64 while that type has
-    at most 18 digits (p <= 8); past that tagging refuses the sum, which
-    then runs on the row interpreter (DECIMAL128 is ROADMAP item 7)."""
+    package's type: the unscaled int64 while that type has at most 18
+    digits (p <= 8), four limbs past that, where a group whose sum passes
+    the type's precision is null (Spark's non-ANSI overflow)."""
 
     @property
     def dtype(self) -> SqlType:
         d = self.child.dtype
         if d.kind is TypeKind.DECIMAL:
-            return T.host_decimal(min(d.precision + 10, 38), d.scale)
+            return T.decimal(min(d.precision + 10, 38), d.scale)
         return T.FLOAT64 if d.is_fractional else T.INT64
 
-    def device_unsupported_reason(self) -> Optional[str]:
-        d = self.dtype
-        if d.kind is TypeKind.DECIMAL and d.precision > T.MAX_LONG_DIGITS:
-            return (f"sum over {self.child.dtype} returns {d}, past "
-                    f"{T.MAX_LONG_DIGITS} digits: DECIMAL128 comes with "
-                    f"ROADMAP Queue 1 item 7 (decimal128.py)")
-        return None
+    @property
+    def _is_dec128(self) -> bool:
+        return is_dec128(self.dtype)
 
     def buffer_types(self):
+        if self._is_dec128:
+            # running limb sum, non-null count, overflow flag
+            return [self.dtype, T.INT64, T.BOOLEAN]
         return [self.dtype, T.INT64]       # running sum, non-null count
 
     def evaluate(self, buffers, group_live):
-        return DeviceColumn(buffers[0].data, buffers[0].validity & group_live,
-                            self.dtype)
+        valid = buffers[0].validity & group_live
+        if self._is_dec128:
+            valid = valid & ~buffers[2].data
+            return DeviceColumn(torch.where(valid[:, None], buffers[0].data,
+                                            0), valid, self.dtype)
+        return DeviceColumn(buffers[0].data, valid, self.dtype)
 
     @property
     def _is_f64(self) -> bool:
@@ -251,15 +278,45 @@ class Sum(AggregateFunction):
                     DeviceColumn(n, _ones(n.shape[0], n), T.INT64)]
         return finish
 
+    def _limb_lanes(self, data, ok, B: FastLanes) -> Tuple[int, int]:
+        """(limb lane, negative-row count lane) of the rows where ``ok``;
+        DECIMAL64 values widen to limbs first."""
+        if data.dim() == 1:
+            data = lift64(data)
+        return (B.sum_limbs(torch.where(ok[:, None], data, 0)),
+                B.sum_int(ok & is_negative(data)))
+
+    def _limb_finisher(self, lref, negref, nref, oref=None):
+        def finish(res: LaneResults):
+            s, ovf = sum_overflow(res.sum_limbs(lref), res.sum_int(negref))
+            # Spark's precision cap nulls before the 128-bit range does
+            ovf = ovf | exceeds_digits(s, self.dtype.precision)
+            if oref is not None:
+                ovf = ovf | (res.sum_int(oref) > 0)
+            n = res.sum_int(nref)
+            one = _ones(n.shape[0], n)
+            return [DeviceColumn(s, n > 0, self.dtype),
+                    DeviceColumn(n, one, T.INT64),
+                    DeviceColumn(ovf, one, T.BOOLEAN)]
+        return finish
+
     def fast_update(self, inputs, live, B):
         ok = _view_ok(inputs[0], live)
+        if self._is_dec128:
+            return self._limb_finisher(*self._limb_lanes(inputs[0].data, ok,
+                                                         B), B.count(ok))
         return self._finisher(self._lane(inputs[0].data, ok, B),
                               B.count(ok))
 
     def fast_merge(self, buffers, live, B):
-        ref = self._lane(buffers[0].data, buffers[0].validity & live, B)
+        ok = buffers[0].validity & live
         ncnt = B.sum_int(_masked(buffers[1], live)[0])
-        return self._finisher(ref, ncnt)
+        if self._is_dec128:
+            # the partials' limbs, counts and overflow flags
+            return self._limb_finisher(
+                *self._limb_lanes(buffers[0].data, ok, B), ncnt,
+                B.sum_int(live & buffers[2].data))
+        return self._finisher(self._lane(buffers[0].data, ok, B), ncnt)
 
 
 class Count(AggregateFunction):
@@ -310,7 +367,7 @@ class Average(AggregateFunction):
     def dtype(self):
         d = self.child.dtype
         if d.kind is TypeKind.DECIMAL:
-            return T.host_decimal(min(d.precision + 4, 38),
+            return T.decimal(min(d.precision + 4, 38),
                                   min(d.scale + 4, 38))
         return T.FLOAT64
 
@@ -387,11 +444,25 @@ class _MinMax(AggregateFunction):
                 self.dtype, torch.where(valid, col.lengths[pick], 0))]
         return finish
 
+    def _limbs(self, col: DeviceColumn, ok: torch.Tensor, nref: int):
+        """Each group's least (greatest) DECIMAL128 value: the best hi
+        word, then the best lo word among the rows at that hi."""
+        def finish(res: LaneResults):
+            n = res.n_live
+            m = seg_minmax128(col.data[:n], ok[:n], res.seg, res.num_groups,
+                              self._how == "amin", res.reduce)
+            valid = res.sum_int(nref) > 0
+            return [DeviceColumn(torch.where(valid[:, None], m, 0), valid,
+                                 self.dtype)]
+        return finish
+
     def _lanes(self, col: DeviceColumn, live, B: FastLanes):
         ok = _view_ok(col, live)
         nref = B.count(ok)
         if col.lengths is not None:
             return self._string(col, ok, nref)
+        if col.data.dim() > 1:
+            return self._limbs(col, ok, nref)
         kind = self.dtype.kind
         x = col.data.to(torch.int32) if kind is TypeKind.BOOLEAN else col.data
         nan = None

@@ -30,21 +30,40 @@ Where the JAX package departs from Spark, the port follows Spark:
 int8 and int16 operands wrap at their own width, as Java's narrowing of
 the int result does; ``pmod`` computes ``(r + n) % n`` in int, as Java
 promotes bytes and shorts. ``Shift`` promotes them to int.
-``Multiply`` of decimals gives DECIMAL(p1 + p2 + 1, s1 + s2) over the
-unscaled product (an integral operand counts as precision 0, scale 0, as in
-the JAX package); past 18 digits the type raises ``NotImplementedError``.
-Other arithmetic on decimals adds unscaled values as the JAX package does.
+``Multiply`` of decimals gives DECIMAL(min(p1 + p2 + 1, 38), s1 + s2) over
+the unscaled product (an integral operand counts as precision 0, scale 0,
+as in the JAX package). Other arithmetic on decimals adds unscaled values
+as the JAX package does. A result of more than 18 digits has no device
+arithmetic here, nor in the JAX package (its int64 product of two
+DECIMAL64 columns typed decimal(31, 4) wraps): ``device_unsupported_reason``
+refuses it, tagging makes the node an island, and the row interpreter
+gives Spark's exact answer, the intent the JAX module states.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from .. import types as T
 from ..types import SqlType, TypeKind
 from .base import EvalContext, Expression, and_validity, numeric_column
+
+
+def wide_decimal_reason(e: Expression) -> Optional[str]:
+    """Why ``e``'s result has no device arithmetic: a decimal of more than
+    18 digits (DECIMAL128 limbs compare, sort and sum on the card, but no
+    arithmetic operator computes them). None for every other result."""
+    if not all(c.resolved for c in e.children):
+        return None
+    d = e.dtype
+    if d.kind is TypeKind.DECIMAL and d.precision > T.MAX_LONG_DIGITS:
+        return (f"{type(e).__name__} returns {d}, past "
+                f"{T.MAX_LONG_DIGITS} digits: DECIMAL128 arithmetic runs "
+                f"on the row interpreter")
+    return None
 
 
 def _int_min(t: torch.Tensor) -> int:
@@ -96,6 +115,9 @@ class BinaryArithmetic(Expression):
     def dtype(self) -> SqlType:
         return T.common_numeric_type(self.left.dtype, self.right.dtype)
 
+    def device_unsupported_reason(self) -> Optional[str]:
+        return wide_decimal_reason(self)
+
     def _operands(self, batch, ctx):
         """(left, right) in the result's storage dtype, their joint
         validity and the result type."""
@@ -140,7 +162,7 @@ class Multiply(BinaryArithmetic):
         d = T.common_numeric_type(self.left.dtype, self.right.dtype)
         if d.kind is TypeKind.DECIMAL:
             ld, rd = self.left.dtype, self.right.dtype
-            return T.decimal(ld.precision + rd.precision + 1,
+            return T.decimal(min(ld.precision + rd.precision + 1, 38),
                              ld.scale + rd.scale)
         return d
 
@@ -255,6 +277,9 @@ class _Unary(Expression):
     @property
     def dtype(self):
         return self.child.dtype
+
+    def device_unsupported_reason(self) -> Optional[str]:
+        return wide_decimal_reason(self)
 
 
 class UnaryMinus(_Unary):

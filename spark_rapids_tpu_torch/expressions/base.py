@@ -11,6 +11,7 @@ against a schema with ``bind``.
 from __future__ import annotations
 
 import datetime
+import decimal
 import functools
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -328,6 +329,12 @@ class Literal(Expression):
         v = self.value
         if d.kind is TypeKind.DATE and isinstance(v, datetime.date):
             v = epoch_days(v)
+        if d.kind is TypeKind.DECIMAL:
+            v = unscaled(v, d.scale)
+            if d.precision > T.MAX_LONG_DIGITS:
+                # one row of limbs on the device, broadcast to every row
+                data = _device_limbs(v, dev).expand(cap, 4)
+                return DeviceColumn(data, batch.row_mask(), d)
         data = torch.full((cap,), v, dtype=d.storage_dtype, device=dev)
         return DeviceColumn(data, batch.row_mask(), d)
 
@@ -344,6 +351,23 @@ def _device_row(value: bytes, max_len: int,
     row = torch.zeros(max_len, dtype=torch.uint8)
     row[:len(value)] = torch.tensor(list(value), dtype=torch.uint8)
     return row.to(device)
+
+
+def unscaled(v: Any, scale: int) -> int:
+    """A decimal literal's unscaled int at ``scale``: its exact value (a
+    ``Decimal``, int or string) times 10^scale, in a context wide enough
+    not to round (the default one rounds at 28 digits)."""
+    with decimal.localcontext() as cx:
+        cx.prec = 80
+        return int(decimal.Decimal(str(v)).scaleb(scale))
+
+
+@functools.lru_cache(maxsize=256)
+def _device_limbs(value: int, device: torch.device) -> torch.Tensor:
+    """A DECIMAL128 literal's four limbs on the device, copied there once
+    per value and device (capture-safe, as ``_device_row``)."""
+    from .decimal128 import to_limbs_np
+    return torch.from_numpy(to_limbs_np([value])[0]).to(device)
 
 
 def _infer_literal_type(v: Any) -> SqlType:

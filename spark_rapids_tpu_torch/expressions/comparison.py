@@ -49,8 +49,52 @@ def _compare_data(lc: DeviceColumn, rc: DeviceColumn, op: str
     if lc.dtype.is_fractional or rc.dtype.is_fractional:
         return _float_compare(lc.data.to(torch.float64),
                               rc.data.to(torch.float64), op)
+    ls, rs = lc.dtype.scale, rc.dtype.scale
+    if lc.data.dim() > 1 or rc.data.dim() > 1:      # DECIMAL128 limbs
+        from .decimal128 import compare, lift64, rescale_up
+        ld = lc.data if lc.data.dim() > 1 else lift64(lc.data)
+        rd = rc.data if rc.data.dim() > 1 else lift64(rc.data)
+        # align the scales first; tagging refuses gaps past 10^9
+        # (decimal_cmp_unsupported_reason)
+        if ls < rs:
+            ld = rescale_up(ld, 10 ** (rs - ls))
+        elif rs < ls:
+            rd = rescale_up(rd, 10 ** (ls - rs))
+        lt, eq = compare(ld, rd)
+        return {"eq": eq, "lt": lt, "le": lt | eq,
+                "gt": ~(lt | eq), "ge": ~lt}[op]
+    if lc.dtype.kind is TypeKind.DECIMAL and \
+            rc.dtype.kind is TypeKind.DECIMAL and ls != rs:
+        # two DECIMAL64 of different scales align in int64; tagging
+        # refuses the pairs whose rescale could overflow
+        return _OPS[op](lc.data * 10 ** max(0, rs - ls),
+                        rc.data * 10 ** max(0, ls - rs))
     # torch promotes mixed widths (int32 date vs int64 literal) itself
     return _OPS[op](lc.data, rc.data)
+
+
+def decimal_cmp_unsupported_reason(lt, rt) -> Optional[str]:
+    """Why the device cannot compare decimals of these two types, or None:
+    different scales need a rescale of the narrower one, which must stay
+    inside int64 for two DECIMAL64 and inside 10^9 and 38 digits for
+    limbs (the JAX package's gate, word for word)."""
+    if lt.kind is not TypeKind.DECIMAL or rt.kind is not TypeKind.DECIMAL:
+        return None
+    if lt.scale == rt.scale:
+        return None
+    diff = abs(lt.scale - rt.scale)
+    small, big = (lt, rt) if lt.scale < rt.scale else (rt, lt)
+    if small.precision <= 18 and big.precision <= 18:
+        if small.precision + diff > 18:
+            return (f"comparing {small} to {big} rescales past the int64 "
+                    f"unscaled range")
+        return None
+    if diff > 9:
+        return (f"comparing {small} to {big}: scale gap {diff} exceeds the "
+                f"limb rescale budget (10^9)")
+    if small.precision + diff > 38:
+        return f"comparing {small} to {big} rescales past 38 digits"
+    return None
 
 
 def _float_compare(l: torch.Tensor, r: torch.Tensor, op: str
@@ -102,6 +146,12 @@ class BinaryComparison(Expression):
     @property
     def dtype(self):
         return T.BOOLEAN
+
+    def device_unsupported_reason(self) -> Optional[str]:
+        if self.left.resolved and self.right.resolved:
+            return decimal_cmp_unsupported_reason(self.left.dtype,
+                                                  self.right.dtype)
+        return None
 
     def _dict_fast(self, batch, ctx):
         """A dictionary string column ``<op>`` a non-null literal: compare

@@ -1,12 +1,16 @@
 """Spark-compatible Murmur3 x86_32 and XXH64 row hashing.
 
-Port of ``spark_rapids_tpu/expressions/hashing.py`` for every flat kind up
-to 18-digit decimals. HashPartitioning is only compatible with Spark if the
+Port of ``spark_rapids_tpu/expressions/hashing.py`` for every flat kind.
+HashPartitioning is only compatible with Spark if the
 murmur3 hash is bit-exact with ``org.apache.spark.unsafe.hash.Murmur3_x86_32``:
 
 - int8/int16/int32/boolean/date -> hashInt(v), the value widened to int
 - bigint/timestamp/decimal(<= 18) -> hashLong(v): low word, then high word
   (a decimal hashes its unscaled long, as Spark does up to 18 digits)
+- decimal(> 18) -> hashUnsafeBytes of ``BigInteger.toByteArray`` of the
+  unscaled value: its minimal big-endian two's-complement bytes, 1 to 16
+  of them (``_hash_dec128``, torch ops over the four limbs, as the JAX
+  package's are XLA ops)
 - float  -> hashInt(floatToIntBits(v)) with -0.0 taken as 0.0 and every
   NaN as the canonical 0x7FC00000
 - double -> hashLong(doubleToLongBits(v)) with -0.0 taken as 0.0 and every
@@ -122,6 +126,50 @@ def _hash_string(col: DeviceColumn, seed: torch.Tensor) -> torch.Tensor:
     return to_int32(fmix(h, lengths))
 
 
+def _be_bytes(limbs: torch.Tensor) -> torch.Tensor:
+    """int64[n, 16]: the 16 big-endian bytes of each row's four limbs
+    (column 0 the most significant)."""
+    cols = []
+    for j in range(16):
+        li, sh = (15 - j) // 4, 8 * ((15 - j) % 4)
+        cols.append((limbs[:, li] >> sh) & 0xFF)
+    return torch.stack(cols, dim=1)
+
+
+def _hash_dec128(col: DeviceColumn, seed: torch.Tensor) -> torch.Tensor:
+    """Spark's murmur3 of a DECIMAL128 value: hashUnsafeBytes over the
+    minimal big-endian two's-complement bytes of its unscaled value
+    (``BigInteger.toByteArray``), whose count is the row's own:
+    ``bitLength // 8 + 1``, one byte for 0 and -1. The bit length is that
+    of v, or of ~v (each limb xor 0xFFFFFFFF) when v is negative, read
+    from the highest nonzero limb's exponent as a double (exact below
+    2^53). The row's bytes are gathered to the front, then its 4-byte
+    words and at most three tail bytes mix predicated per row. Bit for
+    bit Spark's, as the JAX package's ``_hash_dec128``; the scalar oracle
+    is ``kernels.murmur3.hash_decimal``."""
+    limbs = col.data
+    neg = (limbs[:, 3] >> 31) == 1
+    w = torch.where(neg[:, None], limbs ^ 0xFFFFFFFF, limbs)
+    exp = torch.frexp(w.to(torch.float64)).exponent.to(torch.int64)
+    offset = torch.arange(4, device=limbs.device) * 32
+    bits = torch.where(w != 0, exp + offset, 0).amax(dim=1)
+    n = bits // 8 + 1                                # 1..16 bytes
+    idx = (16 - n)[:, None] + torch.arange(16, device=limbs.device)
+    seq = _be_bytes(limbs).gather(1, idx.clamp(max=15))
+    h = u32(seed)
+    nwords = n // 4
+    for wd in range(4):
+        k = (seq[:, 4 * wd] | (seq[:, 4 * wd + 1] << 8)
+             | (seq[:, 4 * wd + 2] << 16) | (seq[:, 4 * wd + 3] << 24))
+        h = torch.where(wd < nwords, mix_h1(h, k), h)
+    for t in range(3):                  # the tail: n % 4 < 4 bytes
+        pos = nwords * 4 + t
+        b = seq.gather(1, pos.clamp(max=15)[:, None])[:, 0]
+        signed = torch.where(b > 127, b - 256, b) & 0xFFFFFFFF
+        h = torch.where(pos < n, mix_h1(h, signed), h)
+    return to_int32(fmix(h, n))
+
+
 #: the kinds whose values Spark hashes with hashInt, through the
 #: ``murmur3_int32`` kernel
 INT32_HASHED_KINDS = (TypeKind.INT8, TypeKind.INT16, TypeKind.INT32,
@@ -150,6 +198,8 @@ def hash_column(col: DeviceColumn, seed: Seed) -> torch.Tensor:
     if k in INT32_HASHED_KINDS:
         return murmur3_int32(int32_words(col), col.validity.contiguous(),
                              seed)
+    if k is TypeKind.DECIMAL and col.data.dim() > 1:    # DECIMAL128
+        return torch.where(col.validity, _hash_dec128(col, seed), seed)
     if k in (TypeKind.INT64, TypeKind.TIMESTAMP, TypeKind.DECIMAL):
         return torch.where(col.validity, hash_long(col.data, seed), seed)
     if k is TypeKind.FLOAT64:
@@ -323,6 +373,11 @@ def xxhash64_column(col: DeviceColumn, seed: Seed) -> torch.Tensor:
         return seed
     if k is TypeKind.STRING:
         h = _xxhash64_string(col, seed)
+    elif k is TypeKind.DECIMAL and col.data.dim() > 1:
+        # tagging refuses XxHash64 over limbs (its rule is the JAX one,
+        # ALL_BASIC): the row interpreter answers, as in the JAX package
+        raise NotImplementedError(
+            f"xxhash64 of {col.dtype} runs on the row interpreter")
     elif k in (TypeKind.INT64, TypeKind.TIMESTAMP, TypeKind.DECIMAL):
         h = xxhash64_long(col.data, seed)
     elif k is TypeKind.FLOAT64:

@@ -130,3 +130,66 @@ def murmur3_int32(data: torch.Tensor, validity: torch.Tensor,
 
 #: kernel launches since the count was last set to 0
 murmur3_int32.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Scalar Murmur3 over Python ints: the row interpreter's hashes, and the
+# oracle of the DECIMAL128 hash
+# ---------------------------------------------------------------------------
+
+def _scalar_rotl(x: int, r: int) -> int:
+    return ((x << r) | (x >> (32 - r))) & M32
+
+
+def _scalar_mix(h1: int, k1: int) -> int:
+    k1 = (_scalar_rotl((k1 * C1) & M32, 15) * C2) & M32
+    h1 = _scalar_rotl(h1 ^ k1, 13)
+    return (h1 * 5 + N) & M32
+
+
+def _scalar_fmix(h1: int, length: int) -> int:
+    h1 ^= length
+    h1 = ((h1 ^ (h1 >> 16)) * 0x85EBCA6B) & M32
+    h1 = ((h1 ^ (h1 >> 13)) * 0xC2B2AE35) & M32
+    return h1 ^ (h1 >> 16)
+
+
+def _signed32(h: int) -> int:
+    return h - (1 << 32) if h >= 1 << 31 else h
+
+
+def murmur3_int(v: int, seed: int) -> int:
+    """Murmur3_x86_32.hashInt of one value (signed int32 result)."""
+    return _signed32(_scalar_fmix(_scalar_mix(seed & M32, v & M32), 4))
+
+
+def murmur3_long(v: int, seed: int) -> int:
+    """Murmur3_x86_32.hashLong of one value (signed int32 result)."""
+    v &= (1 << 64) - 1
+    h1 = _scalar_mix(_scalar_mix(seed & M32, v & M32), v >> 32)
+    return _signed32(_scalar_fmix(h1, 8))
+
+
+def murmur3_bytes(data: bytes, seed: int) -> int:
+    """hashUnsafeBytes: 4-byte little-endian words, then each tail byte
+    mixed as a signed int (signed int32 result)."""
+    h1 = seed & M32
+    n = len(data)
+    for i in range(0, n // 4 * 4, 4):
+        h1 = _scalar_mix(h1, int.from_bytes(data[i:i + 4], "little"))
+    for b in data[n // 4 * 4:]:
+        h1 = _scalar_mix(h1, (b - 256 if b >= 128 else b) & M32)
+    return _signed32(_scalar_fmix(h1, n))
+
+
+def hash_decimal(unscaled: int, precision: int, seed: int) -> int:
+    """Spark's Murmur3Hash of one decimal (the port's copy of
+    ``spark_rapids_tpu/utils/murmur3.py``'s): the unscaled long up to 18
+    digits, else hashUnsafeBytes over ``BigInteger.toByteArray()``, the
+    minimal big-endian two's-complement bytes."""
+    if precision <= 18:
+        return murmur3_long(unscaled, seed)
+    v = unscaled
+    bit_length = v.bit_length() if v >= 0 else (-v - 1).bit_length()
+    return murmur3_bytes(v.to_bytes(bit_length // 8 + 1, "big",
+                                    signed=True), seed)

@@ -33,6 +33,13 @@ JAX handler passes types its scalar hash does not know, and raises);
 device kernel per value. ``tests/test_torch_interpreter.py`` pins each
 with both outputs. ``isnan(null)`` is false here, on the port's device,
 in the JAX interpreter and in Spark; only the JAX device gives null.
+Decimal arithmetic is exact here, at the result type's scale and null past
+its precision, as in Spark: the JAX handlers compute in Python's default
+28-digit context, which rounds a wide sum or product
+(``tests/test_torch_decimal128.py`` pins both). A DECIMAL128 ``Murmur3Hash``
+hashes ``BigInteger.toByteArray``'s bytes (``kernels.murmur3.hash_decimal``,
+the oracle of the device's ``_hash_dec128``); ``XxHash64`` of a value past
+18 digits raises ``OverflowError``, as both JAX paths do.
 
 The scalar handlers (conditionals, math, the cast, dates and times) follow
 the device the same way: ``least``/``greatest`` keep the first of two
@@ -78,6 +85,8 @@ from .. import types as T
 from ..batch import Schema
 from ..exec.join import JoinType
 from ..expressions.base import Alias, Expression
+from ..kernels.murmur3 import (hash_decimal, murmur3_bytes, murmur3_int,
+                               murmur3_long)
 from ..types import TypeKind
 from . import logical as L
 
@@ -189,54 +198,12 @@ _NULL = object()     # the group and join key of a null value
 
 
 # ---------------------------------------------------------------------------
-# Scalar hashes: Spark's Murmur3_x86_32 and XXH64, over interpreter values
+# Scalar hashes: Spark's XXH64 over interpreter values (Murmur3_x86_32's
+# scalar twin is kernels/murmur3.py's)
 # ---------------------------------------------------------------------------
 
 _M32 = 0xFFFFFFFF
 _M64 = (1 << 64) - 1
-
-
-def _rotl32(x: int, r: int) -> int:
-    return ((x << r) | (x >> (32 - r))) & _M32
-
-
-def _mix_h1(h1: int, k1: int) -> int:
-    k1 = (k1 * 0xCC9E2D51) & _M32
-    k1 = (_rotl32(k1, 15) * 0x1B873593) & _M32
-    h1 = _rotl32(h1 ^ k1, 13)
-    return (h1 * 5 + 0xE6546B64) & _M32
-
-
-def _fmix32(h1: int, length: int) -> int:
-    h1 ^= length
-    h1 ^= h1 >> 16
-    h1 = (h1 * 0x85EBCA6B) & _M32
-    h1 ^= h1 >> 13
-    h1 = (h1 * 0xC2B2AE35) & _M32
-    return h1 ^ (h1 >> 16)
-
-
-def murmur3_int(v: int, seed: int) -> int:
-    return _wrap(_fmix32(_mix_h1(seed & _M32, v & _M32), 4), 32)
-
-
-def murmur3_long(v: int, seed: int) -> int:
-    v &= _M64
-    h1 = _mix_h1(_mix_h1(seed & _M32, v & _M32), v >> 32)
-    return _wrap(_fmix32(h1, 8), 32)
-
-
-def murmur3_bytes(data: bytes, seed: int) -> int:
-    """hashUnsafeBytes: 4-byte little-endian words, then each tail byte
-    mixed as a signed int."""
-    h1 = seed & _M32
-    n = len(data)
-    for i in range(0, n // 4 * 4, 4):
-        h1 = _mix_h1(h1, int.from_bytes(data[i:i + 4], "little"))
-    for b in data[n // 4 * 4:]:
-        h1 = _mix_h1(h1, (b - 256 if b >= 128 else b) & _M32)
-    return _wrap(_fmix32(h1, n), 32)
-
 
 _XP1 = 0x9E3779B185EBCA87
 _XP2 = 0xC2B2AE3D27D4EB4F
@@ -338,7 +305,18 @@ def _hash_value(v, dtype: T.SqlType, seed: int, int_fn, long_fn,
         return long_fn((v - _EPOCH_TS) // _dt.timedelta(microseconds=1),
                        seed)
     if k is TypeKind.DECIMAL:
-        return long_fn(int(v.scaleb(dtype.scale)), seed)
+        with _dec.localcontext() as cx:
+            cx.prec = 80        # the default context rounds at 28 digits
+            unscaled = int(v.scaleb(dtype.scale))
+        if dtype.precision <= T.MAX_LONG_DIGITS:
+            return long_fn(unscaled, seed)
+        if long_fn is murmur3_long:
+            # BigInteger.toByteArray's bytes (the device's _hash_dec128)
+            return hash_decimal(unscaled, dtype.precision, seed)
+        # the JAX package's interpreter and device both raise here
+        # (ROADMAP Queue 3, a cause shared by both packages)
+        raise OverflowError(f"xxhash64 of {dtype}: a value past 18 digits "
+                            f"does not fit the long XXH64 hashes")
     if k is TypeKind.FLOAT64:
         return long_fn(_double_bits(v), seed)
     if k is TypeKind.STRING:
@@ -392,8 +370,20 @@ class RowEvaluator:
 
     def _fit(self, v, e):
         """A result in the expression's type: integers checked under ANSI
-        and wrapped, floats rounded to float32 where the type is."""
+        and wrapped, floats rounded to float32 where the type is, decimals
+        at the type's scale and null past its precision (an overflow under
+        ANSI), as Spark's non-ANSI decimal arithmetic is."""
         k = e.dtype.kind
+        if k is TypeKind.DECIMAL and isinstance(v, _dec.Decimal):
+            d = e.dtype
+            with _dec.localcontext() as cx:
+                cx.prec = 80
+                q = v.quantize(_dec.Decimal(1).scaleb(-d.scale))
+            if abs(q) >= _dec.Decimal(10) ** (d.precision - d.scale):
+                if self.ansi:
+                    raise _overflow()
+                return None
+            return q
         if k in _INT_BITS:
             bits = _INT_BITS[k]
             v = int(v)
@@ -408,6 +398,12 @@ class RowEvaluator:
         l, r = self._two(e, row)
         if l is None or r is None:
             return None
+        if isinstance(l, _dec.Decimal) or isinstance(r, _dec.Decimal):
+            # exact: the default context rounds at 28 digits, and a
+            # product of two decimals may have 77
+            with _dec.localcontext() as cx:
+                cx.prec = 80
+                return self._fit(fn(l, r), e)
         return self._fit(fn(l, r), e)
 
     def _eval_Add(self, e, row):

@@ -113,9 +113,7 @@ ARRAY = NONE
 MAP = NONE
 STRUCT = NONE
 NESTED = NONE
-#: DECIMAL128 raises a rule's decimal ceiling to 38 digits in the JAX
-#: package. The port's device layout stops at 18 digits until ROADMAP item
-#: 7, so here its ceiling stays at 18: a node with a wider column (a
-#: decimal sum's result, ``types.host_decimal``) runs on the CPU
+#: DECIMAL128: four 32-bit limbs (``expressions/decimal128.py``). Adding
+#: this sig raises a rule's decimal ceiling from DECIMAL64 to 38 digits
 DECIMAL_128 = TypeSig(frozenset({TypeKind.DECIMAL}),
-                      max_decimal_precision=18)
+                      max_decimal_precision=38)

@@ -6,16 +6,14 @@ BOOLEAN, INT8, INT16, INT32, INT64, FLOAT32, FLOAT64, DECIMAL, STRING, DATE,
 TIMESTAMP and NULL. Nullability lives in a separate validity mask, never in
 the storage dtype. Dates are epoch days in int32, timestamps epoch
 microseconds in int64 (Arrow ``timestamp("us", tz="UTC")``), a decimal of
-up to 18 digits its unscaled value in int64, and NULL an int8 column that is
-always null. A string column is a fixed-width padded UTF-8 byte matrix
+up to 18 digits its unscaled value in int64, a decimal of 19 to 38 digits
+its unscaled value as four 32-bit limbs in ``int64[rows, 4]``
+(``expressions/decimal128.py``), and NULL an int8 column that is always
+null. A string column is a fixed-width padded UTF-8 byte matrix
 ``uint8[rows, max_len]`` plus int32 byte lengths; ``max_len`` is part of the
 type.
 
-Decimals of more than 18 digits (the JAX package's four 32-bit limbs) and
-the nested kinds (ARRAY, STRUCT, MAP) are later slices: a wide decimal
-raises ``NotImplementedError`` wherever a column of it would be made. Only
-the result type of a decimal sum or average may be wider
-(``host_decimal``); it lives on the host, in the row interpreter.
+The nested kinds (ARRAY, STRUCT, MAP) are a later slice.
 """
 
 from __future__ import annotations
@@ -46,8 +44,10 @@ class TypeKind(enum.Enum):
 _INTEGRALS = {TypeKind.INT8, TypeKind.INT16, TypeKind.INT32, TypeKind.INT64}
 _FRACTIONALS = {TypeKind.FLOAT32, TypeKind.FLOAT64}
 
-#: the most digits a decimal stored in int64 may have
+#: the most digits a decimal stored in int64 may have; past it, limbs
 MAX_LONG_DIGITS = 18
+#: the most digits of any decimal (Spark's DecimalType.MAX_PRECISION)
+MAX_DECIMAL_DIGITS = 38
 
 #: torch storage dtype per kind
 _STORAGE = {
@@ -93,12 +93,6 @@ _ARROW = {
     TypeKind.TIMESTAMP: pa.timestamp("us", tz="UTC"),
     TypeKind.NULL: pa.null(),
 }
-
-
-def _wide_decimal(precision: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"decimal({precision}) has more than {MAX_LONG_DIGITS} digits: "
-        f"DECIMAL128 comes with ROADMAP Queue 1 item 7 (decimal128.py)")
 
 
 @dataclass(frozen=True)
@@ -151,24 +145,9 @@ NULL = SqlType(TypeKind.NULL)
 
 
 def decimal(precision: int, scale: int) -> SqlType:
-    """DECIMAL(precision, scale), its unscaled value in int64. Raises
-    ``NotImplementedError`` past 18 digits."""
-    if precision > MAX_LONG_DIGITS:
-        raise _wide_decimal(precision)
-    if not 0 <= scale <= precision:
-        raise ValueError(f"decimal({precision},{scale}): scale out of range")
-    return SqlType(TypeKind.DECIMAL, precision=precision, scale=scale)
-
-
-def host_decimal(precision: int, scale: int) -> SqlType:
-    """DECIMAL(precision, scale) as a result type, up to 38 digits: the
-    type of a decimal sum or average (Spark's widening). Past 18 digits it
-    has no device layout, so every operator refuses a column of it
-    (``plan/typesig.py``) and the value lives on the host, in the row
-    interpreter's Arrow tables; the device upload raises for it."""
-    if precision <= MAX_LONG_DIGITS:
-        return decimal(precision, scale)
-    if not 0 <= scale <= precision <= 38:
+    """DECIMAL(precision, scale) of up to 38 digits: its unscaled value in
+    int64 up to 18 digits, in four 32-bit limbs past that."""
+    if not 0 <= scale <= precision <= MAX_DECIMAL_DIGITS:
         raise ValueError(f"decimal({precision},{scale}) out of range")
     return SqlType(TypeKind.DECIMAL, precision=precision, scale=scale)
 
@@ -191,7 +170,7 @@ def common_numeric_type(a: SqlType, b: SqlType) -> SqlType:
     int8 < int16 < int32 < int64 < float < double; two decimals keep the
     larger scale and the larger integer part; a decimal with an integral
     type takes that type's digits (``INTEGRAL_DIGITS``); a decimal with a
-    float or double gives double. Past 18 digits ``decimal`` raises."""
+    float or double gives double."""
     if a.kind is TypeKind.DECIMAL or b.kind is TypeKind.DECIMAL:
         if a.kind is TypeKind.DECIMAL and b.kind is TypeKind.DECIMAL:
             scale = max(a.scale, b.scale)
@@ -218,8 +197,8 @@ def numpy_dtype(t: SqlType) -> np.dtype:
 def from_arrow(arrow_type: pa.DataType, max_len: int = 64) -> SqlType:
     """Map a pyarrow DataType to a SqlType; strings (and large strings) get
     ``max_len`` bytes, every timestamp unit and zone maps to TIMESTAMP (the
-    upload converts to UTC microseconds), and a decimal to DECIMAL(p, s).
-    Nested types and decimals past 18 digits are later slices."""
+    upload converts to UTC microseconds), and a decimal128 to DECIMAL(p, s).
+    Nested types are a later slice."""
     if pa.types.is_string(arrow_type) or pa.types.is_large_string(arrow_type):
         return string(max_len)
     if pa.types.is_decimal(arrow_type):

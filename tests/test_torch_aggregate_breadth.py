@@ -519,8 +519,9 @@ def _decimal_table(precision):
 def test_decimal_sum_and_average_types_match_jax(precision, fn, grouped):
     """sum(decimal(p, s)) is decimal(p + 10, s) and avg(decimal(p, s))
     decimal(p + 4, s + 4), as in the JAX Session (the port typed both as
-    int64 and float64 before). A sum up to 18 digits runs on the device;
-    a wider one, and every decimal average, runs as a CPU island."""
+    int64 and float64 before). Every sum runs on the device (a wider one
+    over DECIMAL128 limbs, as in the JAX package); every decimal average
+    runs as a CPU island."""
     from spark_rapids_tpu.plan import Session as JSession
     from spark_rapids_tpu.plan import table as jtable
     from spark_rapids_tpu_torch.plan import Session, table
@@ -536,15 +537,9 @@ def test_decimal_sum_and_average_types_match_jax(precision, fn, grouped):
     got = ses.collect(q(table, col, tagg))
     assert got.schema.field("r").type == want.schema.field("r").type
     assert_tables_equal(got, want, ignore_order=True)
-    island = fn == "Average" or precision + 10 > 18
+    island = fn == "Average"
     assert ses.fell_back() == (["CpuFallback[Aggregate]"] if island else [])
-    if precision + 10 <= 18 or fn == "Average":
-        assert ses.fell_back() == jses.fell_back()
-    else:
-        # the JAX package sums DECIMAL128 limbs on its device; the port's
-        # device layout stops at 18 digits until ROADMAP item 7
-        assert jses.fell_back() == []
-        assert "ROADMAP Queue 1 item 7" in ses.explain(q(table, col, tagg))
+    assert ses.fell_back() == jses.fell_back()
 
 
 @pytest.mark.parametrize("fn", ["Sum", "Average"])

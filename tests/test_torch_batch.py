@@ -82,10 +82,18 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 def test_unported_types_raise():
     import decimal
-    t = pa.table({"d": pa.array([decimal.Decimal("1.25")],
-                                pa.decimal128(20, 2))})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tb.from_arrow(t, device="cpu")
+    # a decimal(20, 2) column uploads as four 32-bit limbs a row, the JAX
+    # package's layout, and collects to the same values
+    vals = [decimal.Decimal("1.25"), None, decimal.Decimal("-1.25"),
+            decimal.Decimal("-999999999999999999.99"),
+            decimal.Decimal("123456789012345678.90")]
+    t = pa.table({"d": pa.array(vals, pa.decimal128(20, 2))})
+    got, schema = tb.from_arrow(t, device="cpu")
+    want, jschema = jax_from_arrow(t)
+    assert tuple(got.columns[0].data.shape) == (got.capacity, 4)
+    _assert_same_arrays(got, want)
+    assert tb.to_arrow(got, schema).equals(jax_to_arrow(want, jschema))
+    assert tb.to_arrow(got, schema).column(0).to_pylist() == vals
     # a dictionary string column uploads as codes (dictenc.py), as in the
     # JAX package, and collects to the same rows
     t = pa.table({"s": pa.array(["a", "b", "a", None]).dictionary_encode()})

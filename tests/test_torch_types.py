@@ -88,13 +88,30 @@ def test_kinds_and_storage_match_jax():
 
 @pytest.mark.parametrize("precision", [19, 38])
 def test_wide_decimals_raise_naming_their_slice(precision):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        T.decimal(precision, 2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        T.from_arrow(pa.decimal128(precision, 2))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TA.Multiply(col("a"), col("b")).bind(
-            _schema(a=T.decimal(10, 2), b=T.decimal(9, 2))).dtype
+    """A decimal past 18 digits is a type of its own now (DECIMAL128,
+    four limbs): equal to the JAX type, from Arrow too; and a wide
+    ``Multiply`` result, which no device here computes, is refused by
+    tagging with its reason (an island on the row interpreter)."""
+    from spark_rapids_tpu_torch.batch import Field, Schema
+    from spark_rapids_tpu_torch.plan import Session, table
+    ours, theirs = T.decimal(precision, 2), JT.decimal(precision, 2)
+    assert (ours.kind.value, ours.precision, ours.scale) == \
+        (theirs.kind.value, theirs.precision, theirs.scale)
+    assert str(ours) == str(theirs) == f"decimal({precision},2)"
+    assert T.from_arrow(pa.decimal128(precision, 2)) == ours
+    assert T.to_arrow(ours) == pa.decimal128(precision, 2)
+    product = TA.Multiply(col("a"), col("b")).bind(
+        Schema([Field("a", T.decimal(10, 2)), Field("b", T.decimal(9, 2))]))
+    assert product.dtype == T.decimal(20, 4)
+    assert "decimal(20,4), past 18 digits" in \
+        product.device_unsupported_reason()
+    t = pa.table({"a": pa.array([D.Decimal("1.25")], pa.decimal128(10, 2)),
+                  "b": pa.array([D.Decimal("2.50")], pa.decimal128(9, 2))})
+    ses = Session(device="cpu")
+    df = table(t).select((col("a") * col("b")).alias("p"))
+    assert "decimal(20,4), past 18 digits" in ses.explain(df)
+    assert ses.collect(df).column("p").to_pylist() == [D.Decimal("3.1250")]
+    assert ses.fell_back() == ["CpuFallback[Project]"]
 
 
 def _schema(**kinds):
@@ -115,10 +132,7 @@ def _numeric(pkg, spec):
 def test_common_numeric_type_matches_jax(a):
     for b in _NUMERIC:
         theirs = JT.common_numeric_type(_numeric(JT, a), _numeric(JT, b))
-        if theirs.kind is JT.TypeKind.DECIMAL and theirs.precision > 18:
-            with pytest.raises(NotImplementedError, match="item 7"):
-                T.common_numeric_type(_numeric(T, a), _numeric(T, b))
-            continue
+        # past 18 digits too (DECIMAL128)
         ours = T.common_numeric_type(_numeric(T, a), _numeric(T, b))
         assert str(ours) == str(theirs), (a, b)
 
