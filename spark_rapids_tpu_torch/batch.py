@@ -10,9 +10,23 @@ payload is ``uint8[capacity, max_len]``, zero past each value's end, with
 its byte lengths in ``int32[capacity]``; a null row has length 0 and no
 bytes. A decimal of more than 18 digits holds four 32-bit limbs a row in
 ``int64[capacity, 4]`` (``expressions/decimal128.py``); every gather,
-compaction, pad and concatenation keeps that trailing dimension. A dictionary-encoded string column (``dictenc.py``) holds int32
-codes in ``data``, no ``lengths``, and its sorted distinct entries in
+compaction, pad and concatenation keeps that trailing dimension. A
+dictionary-encoded string column (``dictenc.py``) holds int32 codes in
+``data``, no ``lengths``, and its sorted distinct entries in
 ``dict_data``/``dict_lengths``.
+
+The nested kinds keep the JAX package's layouts. A STRUCT column holds a
+tuple of child columns in ``data`` beside its own validity lane; a field of
+a null struct is null, and a struct's leaves are never dictionary-encoded.
+An ARRAY of scalars is ``data[capacity, max_elems]`` with its element
+counts in ``lengths``; an ``array<string>`` is ``uint8[capacity, max_elems,
+max_len]`` with each element's byte length in ``data2``. A MAP of scalars
+keeps its keys in ``data`` and its values in ``data2``, sharing one
+``lengths``. Elements are never null at the upload (``TypeError``, which
+the planner turns into an island), a list past its budget raises
+``CapacityError``, and every row primitive (gather, pad, concatenation,
+the wire) carries ``data2`` and recurses into struct children
+(``map_lanes``).
 
 Host interchange is Arrow. ``from_arrow`` is the H2D boundary, ``to_arrow``
 the D2H one; ``batch_from_numpy`` rebuilds a batch from arrays taken out of
@@ -24,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import warnings
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import pyarrow as pa
@@ -110,14 +124,17 @@ class DeviceColumn:
     dictionary-encoded string column holds its codes in ``data`` and its
     dictionary in ``dict_data``/``dict_lengths``, which every row gather
     carries along untouched (their leading dimension is the card, not the
-    capacity)."""
+    capacity). A STRUCT column holds a tuple of child columns in ``data``;
+    ``data2`` is a map's values, an ``array<string>``'s element byte
+    lengths, or a scalar array's per-element validity (``PivotFirst``)."""
 
-    data: torch.Tensor
+    data: Union[torch.Tensor, Tuple["DeviceColumn", ...]]
     validity: torch.Tensor          # bool; False beyond num_rows
     dtype: SqlType = T.INT32
-    lengths: Optional[torch.Tensor] = None      # int32[capacity], strings
+    lengths: Optional[torch.Tensor] = None      # int32[capacity]
     dict_data: Optional[torch.Tensor] = None    # uint8[card, max_len]
     dict_lengths: Optional[torch.Tensor] = None  # int32[card]
+    data2: Optional[torch.Tensor] = None        # [capacity, max_elems, ...]
 
     @property
     def capacity(self) -> int:
@@ -127,19 +144,67 @@ class DeviceColumn:
     def is_dict(self) -> bool:
         return self.dict_data is not None
 
+    @property
+    def is_struct(self) -> bool:
+        return isinstance(self.data, tuple)
+
     def replace(self, **changes) -> "DeviceColumn":
         """This column with some fields changed (the dictionary kept
         unless changed)."""
         return dataclasses.replace(self, **changes)
 
     def size_bytes(self) -> int:
+        if self.is_struct:
+            return (sum(c.size_bytes() for c in self.data)
+                    + self.validity.numel())
         n = (self.data.numel() * self.data.element_size()
              + self.validity.numel())
         if self.lengths is not None:
             n += self.lengths.numel() * 4
+        if self.data2 is not None:
+            n += self.data2.numel() * self.data2.element_size()
         if self.dict_data is not None:
             n += self.dict_data.numel() + self.dict_lengths.numel() * 4
         return n
+
+
+def map_lanes(col: DeviceColumn,
+              fn: Callable[[torch.Tensor], torch.Tensor]) -> DeviceColumn:
+    """``col`` with ``fn`` applied to each of its row lanes (data,
+    validity, lengths, data2; a struct's children recursively). The
+    dictionary of a dictionary column rides along untouched."""
+    if col.is_struct:
+        return col.replace(data=tuple(map_lanes(c, fn) for c in col.data),
+                           validity=fn(col.validity))
+    return col.replace(
+        data=fn(col.data), validity=fn(col.validity),
+        lengths=None if col.lengths is None else fn(col.lengths),
+        data2=None if col.data2 is None else fn(col.data2))
+
+
+def mask_validity(col: DeviceColumn, mask: torch.Tensor) -> DeviceColumn:
+    """AND ``mask`` into a column's validity, struct children included, so
+    that a masked row reads as null at every level."""
+    if col.is_struct:
+        return col.replace(data=tuple(mask_validity(c, mask)
+                                      for c in col.data),
+                           validity=col.validity & mask)
+    return col.replace(validity=col.validity & mask)
+
+
+def zip_lanes(a: DeviceColumn, b: DeviceColumn,
+              fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+              ) -> DeviceColumn:
+    """A column of ``a``'s layout whose every row lane is ``fn`` of the
+    matching lanes of ``a`` and ``b`` (struct children recursively)."""
+    if a.is_struct:
+        return a.replace(data=tuple(zip_lanes(x, y, fn)
+                                    for x, y in zip(a.data, b.data)),
+                         validity=fn(a.validity, b.validity))
+    return a.replace(
+        data=fn(a.data, b.data), validity=fn(a.validity, b.validity),
+        lengths=None if a.lengths is None else fn(a.lengths, b.lengths),
+        data2=None if a.data2 is None else fn(a.data2, b.data2))
 
 
 @dataclass(frozen=True)
@@ -314,10 +379,112 @@ def _string_column(arr: pa.Array, dtype: SqlType, capacity: int,
     return DeviceColumn(data, _validity(arr, capacity, device), dtype, plen)
 
 
+def _list_layout(arr, dtype: SqlType, what: str
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """(validity bool[n], counts int32[n], mask bool[n, me], source index
+    of each kept slot into the child buffers) of a list or map array; a
+    list past the budget raises ``CapacityError``."""
+    n = len(arr)
+    validity = (np.asarray(arr.is_valid()) if arr.null_count
+                else np.ones(n, dtype=bool))
+    offsets = np.asarray(arr.offsets).astype(np.int64)
+    counts = np.where(validity, np.diff(offsets), 0).astype(np.int32)
+    me = dtype.max_len
+    if counts.size and int(counts.max()) > me:
+        raise CapacityError(
+            f"{what} of {int(counts.max())} elements exceeds the device "
+            f"budget of {me}; raise max_elems in the scan schema or fall "
+            f"back to CPU")
+    mask = np.arange(me)[None, :] < counts[:, None]
+    src = (offsets[:-1, None] + np.arange(me)[None, :])[mask]
+    return validity, counts, mask, src
+
+
+def _elements(values: pa.Array, elem_t: SqlType, mask: np.ndarray,
+              src: np.ndarray, n: int) -> Tuple[np.ndarray,
+                                                Optional[np.ndarray]]:
+    """The [n, me] (strings: [n, me, max_len] plus [n, me] byte lengths)
+    element matrix of a list's child buffer, elements at ``src`` scattered
+    into the ``mask`` slots, zero elsewhere."""
+    me = mask.shape[1]
+    if elem_t.kind is TypeKind.STRING:
+        starts, lens, chars = _string_offsets(values, elem_t.max_len)
+        mat = np.zeros((n, me, elem_t.max_len), np.uint8)
+        el_lens = np.zeros((n, me), np.int32)
+        if src.size:
+            k_lens = lens[src]
+            cols = np.arange(elem_t.max_len)[None, :]
+            bmask = cols < k_lens[:, None]
+            gather = np.minimum(starts[src].astype(np.int64)[:, None] + cols,
+                                max(chars.size - 1, 0))
+            mat[mask] = np.where(bmask, chars[gather] if chars.size else 0,
+                                 0).astype(np.uint8)
+            el_lens[mask] = k_lens
+        return mat, el_lens
+    flat = _scalar_storage(values, elem_t)
+    mat = np.zeros((n, me) + flat.shape[1:], dtype=flat.dtype)
+    mat[mask] = flat[src]
+    return mat, None
+
+
+def _list_column(arr, dtype: SqlType, capacity: int,
+                 device: torch.device) -> DeviceColumn:
+    """A list array as ``data[cap, me]`` (+ ``data2`` byte lengths for
+    string elements) and ``lengths``, or a map array as keys in ``data``
+    and values in ``data2``. Null and nested elements raise
+    ``TypeError``, a list past the budget ``CapacityError``: the upload
+    never truncates."""
+    n = len(arr)
+    if n > capacity:
+        raise ValueError(f"{n} rows exceed capacity {capacity}")
+    if dtype.kind is TypeKind.ARRAY:
+        elem_t = dtype.children[0]
+        if elem_t.is_nested:
+            raise TypeError(
+                f"array<{elem_t}> nested elements have no device layout; "
+                f"the planner must fall back to CPU")
+        validity, counts, mask, src = _list_layout(arr, dtype, "list")
+        values = arr.values
+        if values.null_count:
+            raise TypeError(
+                "arrays with null elements are outside the device subset "
+                "(fixed-budget arrays hold non-null elements; CPU fallback)")
+        if elem_t.kind is TypeKind.DECIMAL and \
+                elem_t.precision > T.MAX_LONG_DIGITS:
+            raise TypeError(f"array<{elem_t}> has no device layout")
+        mat, el_lens = _elements(values, elem_t, mask, src, n)
+        elem_dtype = elem_t.storage_dtype
+        data2 = (None if el_lens is None else
+                 _padded(el_lens, torch.int32, capacity, device))
+    else:
+        key_t, val_t = dtype.children
+        for t in (key_t, val_t):
+            if t.is_string or t.is_nested:
+                raise TypeError(
+                    f"map<{key_t},{val_t}> device layout is fixed-width "
+                    f"scalars only; the planner must fall back to CPU")
+        validity, counts, mask, src = _list_layout(arr, dtype, "map")
+        if arr.keys.null_count or arr.items.null_count:
+            raise TypeError(
+                "maps with null keys/values are outside the device subset "
+                "(fixed-budget matrices hold non-null entries; CPU fallback)")
+        mat, _ = _elements(arr.keys, key_t, mask, src, n)
+        vmat, _ = _elements(arr.items, val_t, mask, src, n)
+        elem_dtype = key_t.storage_dtype
+        data2 = _padded(vmat, val_t.storage_dtype, capacity, device)
+    return DeviceColumn(_padded(mat, elem_dtype, capacity, device),
+                        _padded(validity, torch.bool, capacity, device),
+                        dtype, _padded(counts, torch.int32, capacity, device),
+                        data2=data2)
+
+
 def column_from_arrow(arr, dtype: SqlType, capacity: int,
                       device: torch.device, name: str = "",
-                      dict_conf: Optional[tuple] = None) -> DeviceColumn:
+                      dict_conf: Optional[tuple] = None,
+                      allow_dict: bool = True) -> DeviceColumn:
     arr = arr.combine_chunks() if isinstance(arr, pa.ChunkedArray) else arr
+    if pa.types.is_dictionary(arr.type) and not allow_dict:
+        arr = arr.cast(arr.type.value_type)
     if pa.types.is_dictionary(arr.type):
         # the RLE_DICTIONARY hand-off: keep the codes and build the bytes
         # once per distinct value (dictenc.py); a column over a threshold,
@@ -329,6 +496,21 @@ def column_from_arrow(arr, dtype: SqlType, capacity: int,
             if col is not None:
                 return col
         arr = arr.cast(arr.type.value_type)
+    if dtype.kind is TypeKind.STRUCT:
+        # one set of lanes per field beside the struct's validity; a field
+        # of a null struct is null (one level down, as in the JAX
+        # package: a deeper field reads null through its own struct), and
+        # the leaves stay plain
+        validity = _validity(arr, capacity, device)
+        kids = []
+        for i, ct in enumerate(dtype.children):
+            # ``field`` gives the child as the struct's slice sees it
+            kid = column_from_arrow(arr.field(i), ct, capacity,
+                                    device, allow_dict=False)
+            kids.append(kid.replace(validity=kid.validity & validity))
+        return DeviceColumn(tuple(kids), validity, dtype)
+    if dtype.kind in (TypeKind.ARRAY, TypeKind.MAP):
+        return _list_column(arr, dtype, capacity, device)
     if dtype.kind is TypeKind.STRING:
         return _string_column(arr, dtype, capacity, device)
     validity = _validity(arr, capacity, device)
@@ -400,6 +582,29 @@ def batch_from_numpy(columns: Sequence[Tuple[np.ndarray, ...]],
 def empty_column(dtype: SqlType, device: torch.device,
                  capacity: int = MIN_CAPACITY) -> DeviceColumn:
     validity = torch.zeros(capacity, dtype=torch.bool, device=device)
+    if dtype.kind is TypeKind.STRUCT:
+        return DeviceColumn(tuple(empty_column(c, device, capacity)
+                                  for c in dtype.children), validity, dtype)
+    if dtype.kind in (TypeKind.ARRAY, TypeKind.MAP):
+        me = dtype.max_len
+        first = dtype.children[0]
+        lengths = torch.zeros(capacity, dtype=torch.int32, device=device)
+        if first.kind is TypeKind.STRING:
+            shape = (capacity, me, first.max_len)
+            data = torch.zeros(shape, dtype=torch.uint8, device=device)
+            data2 = (torch.zeros((capacity, me), dtype=torch.int32,
+                                 device=device)
+                     if dtype.kind is TypeKind.ARRAY else
+                     torch.zeros((capacity, me, dtype.children[1].max_len),
+                                 dtype=torch.uint8, device=device))
+        else:
+            data = torch.zeros((capacity, me), dtype=first.storage_dtype,
+                               device=device)
+            data2 = (None if dtype.kind is TypeKind.ARRAY else
+                     torch.zeros((capacity, me),
+                                 dtype=dtype.children[1].storage_dtype,
+                                 device=device))
+        return DeviceColumn(data, validity, dtype, lengths, data2=data2)
     if dtype.kind is TypeKind.STRING:
         return DeviceColumn(
             torch.zeros((capacity, dtype.max_len), dtype=torch.uint8,
@@ -473,30 +678,112 @@ def _decimal_to_arrow(data: np.ndarray, dtype: SqlType,
                                   pa.py_buffer(words.tobytes())])
 
 
+def _flat_to_arrow(data: np.ndarray, dtype: SqlType,
+                   validity: np.ndarray) -> pa.Array:
+    """Storage values of a flat kind (scalars, limbs) as an Arrow array."""
+    k = dtype.kind
+    if k is TypeKind.NULL:
+        return pa.nulls(data.shape[0])
+    if k is TypeKind.DECIMAL and data.ndim > 1:
+        from .expressions.decimal128 import limbs_to_arrow
+        return limbs_to_arrow(data, dtype, validity)
+    if k is TypeKind.DECIMAL:
+        return _decimal_to_arrow(data, dtype, validity)
+    if k is TypeKind.DATE:
+        data = data.astype("datetime64[D]")
+    elif k is TypeKind.TIMESTAMP:
+        data = data.astype("datetime64[us]")
+    return pa.array(data, type=T.to_arrow(dtype), mask=~validity)
+
+
+def _strings_from_matrix(mat: np.ndarray, lens: np.ndarray,
+                         validity: Optional[np.ndarray] = None) -> pa.Array:
+    """A padded byte matrix and its lengths as an Arrow string array."""
+    chars = mat[np.arange(mat.shape[1])[None, :] < lens[:, None]]
+    offsets = np.zeros(lens.shape[0] + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    return pa.StringArray.from_buffers(
+        lens.shape[0], pa.py_buffer(offsets.tobytes()),
+        pa.py_buffer(np.ascontiguousarray(chars).tobytes()),
+        None if validity is None else _validity_buffer(validity))
+
+
+def _list_offsets(counts: np.ndarray, validity: np.ndarray) -> pa.Array:
+    """Arrow list offsets of these counts, null where the row is null
+    (``from_arrays`` reads a null offset as a null list)."""
+    offsets = np.zeros(counts.shape[0] + 1, np.int32)
+    np.cumsum(counts, out=offsets[1:])
+    if validity.all():
+        return pa.array(offsets, pa.int32())
+    return pa.array(offsets, pa.int32(),
+                    mask=np.concatenate([~validity, [False]]))
+
+
+def _col_to_arrow(col: DeviceColumn, dtype: SqlType, name: str,
+                  n: int) -> pa.Array:
+    """One device column's first ``n`` rows as one Arrow array (struct
+    children, list elements and map entries recursively vectorized: no
+    loop over rows)."""
+    k = dtype.kind
+    validity = col.validity[:n].cpu().numpy()
+    if k is TypeKind.STRUCT:
+        names = dtype.names or tuple(
+            f"f{i}" for i in range(len(dtype.children)))
+        kids = [_col_to_arrow(c, ct, f"{name}.{nm}", n)
+                for c, ct, nm in zip(col.data, dtype.children, names)]
+        return pa.StructArray.from_arrays(
+            kids, names=list(names),
+            mask=None if validity.all() else pa.array(~validity))
+    if k is TypeKind.STRING:
+        return _string_to_arrow(col, n, validity)
+    if k in (TypeKind.ARRAY, TypeKind.MAP):
+        mat = col.data[:n].cpu().numpy()
+        counts = np.where(validity, col.lengths[:n].cpu().numpy(), 0)
+        if counts.size and int(counts.max()) > mat.shape[1]:
+            raise CapacityError(
+                f"{k.value} column '{name}' holds a list of "
+                f"{int(counts.max())} elements but the device budget is "
+                f"{mat.shape[1]}; raise max_elems (collect_list/set) or "
+                f"fall back to CPU")
+        mask = np.arange(mat.shape[1])[None, :] < counts[:, None]
+        offsets = _list_offsets(counts, validity)
+        first = dtype.children[0]
+        if k is TypeKind.MAP:
+            d2 = col.data2[:n].cpu().numpy()
+            keys = _elements_to_arrow(mat[mask], first, None)
+            vals = _elements_to_arrow(d2[mask], dtype.children[1], None)
+            return pa.MapArray.from_arrays(offsets, keys, vals)
+        d2 = None if col.data2 is None else col.data2[:n].cpu().numpy()
+        values = _elements_to_arrow(mat[mask], first,
+                                    None if d2 is None else d2[mask])
+        return pa.ListArray.from_arrays(offsets, values)
+    return _flat_to_arrow(col.data[:n].cpu().numpy(), dtype, validity)
+
+
+def _elements_to_arrow(flat: np.ndarray, elem_t: SqlType,
+                       extra: Optional[np.ndarray]) -> pa.Array:
+    """The live elements of a list (or a map's keys or values), one per
+    row of ``flat``: scalars, or padded string bytes whose lengths are
+    ``extra`` (the array layout) or their trailing zeros (the map layout
+    of ``StringToMap``, whose null value starts with 0xFF). A bool
+    ``extra`` is per-element validity (``PivotFirst``)."""
+    if elem_t.kind is TypeKind.STRING:
+        if extra is None:
+            from .expressions.strings import string_elem_lengths
+            null = flat[:, 0] == 0xFF if flat.shape[0] else \
+                np.zeros(0, bool)
+            lens = string_elem_lengths(torch.from_numpy(
+                np.where(null[:, None], 0, flat).astype(np.uint8))).numpy()
+            return _strings_from_matrix(flat, lens,
+                                        ~null if null.any() else None)
+        return _strings_from_matrix(flat, extra.astype(np.int32))
+    valid = (extra.astype(bool) if extra is not None
+             and extra.dtype == np.bool_ else np.ones(flat.shape[0], bool))
+    return _flat_to_arrow(flat, elem_t, valid)
+
+
 def to_arrow(batch: ColumnarBatch, schema: Schema) -> pa.Table:
     n = int(batch.num_rows)
-    arrays = []
-    for col, f in zip(batch.columns, schema):
-        k = f.dtype.kind
-        validity = col.validity[:n].cpu().numpy()
-        if k is TypeKind.STRING:
-            arrays.append(_string_to_arrow(col, n, validity))
-            continue
-        if k is TypeKind.NULL:
-            arrays.append(pa.nulls(n))
-            continue
-        data = col.data[:n].cpu().numpy()
-        if k is TypeKind.DECIMAL and data.ndim > 1:
-            from .expressions.decimal128 import limbs_to_arrow
-            arrays.append(limbs_to_arrow(data, f.dtype, validity))
-            continue
-        if k is TypeKind.DECIMAL:
-            arrays.append(_decimal_to_arrow(data, f.dtype, validity))
-            continue
-        if k is TypeKind.DATE:
-            data = data.astype("datetime64[D]")
-        elif k is TypeKind.TIMESTAMP:
-            data = data.astype("datetime64[us]")
-        arrays.append(pa.array(data, type=T.to_arrow(f.dtype),
-                               mask=~validity))
+    arrays = [_col_to_arrow(col, f.dtype, f.name, n)
+              for col, f in zip(batch.columns, schema)]
     return pa.table(arrays, names=schema.names)

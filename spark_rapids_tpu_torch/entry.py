@@ -1,5 +1,7 @@
 """TPC-H Q1, the part stage of TPC-H Q16 and Q16 whole, TPC-H Q3, Q18, Q2,
-Q11, Q14 and Q9 and the repo's skewed join through the port, end to end,
+Q11, Q14 and Q9, order baskets and P_NAME words over Q9's tables (the
+nested kinds, ``collect_set``, ``split`` and ``explode``) and the repo's
+skewed join through the port, end to end,
 Q1 and the Q16 part stage read from Parquet files, a bucketed Parquet
 write, and the bench's fused Q1 stage and its hash_agg, join_sort and
 parquet_scan shapes.
@@ -2648,3 +2650,251 @@ def dryrun_multigpu(n: int, device: DeviceLike = None) -> Dict:
                              f"from the interpreter's {want.num_rows}")
     return {"lowered": lowered, "exchanges": n_exchanges,
             "groups": got.num_rows, "shards": n}
+
+
+# ---------------------------------------------------------------------------
+# Order baskets and P_NAME words: arrays, structs, collect_set, split and
+# explode over Q9's tables
+# ---------------------------------------------------------------------------
+
+#: a basket's element budget: dbgen draws 1 to 7 lines an order (spec
+#: 4.2.3), so 8 holds every order's distinct parts
+BASKET_MAX_ITEMS = 8
+#: the baskets the first leg keeps, and how many of them it returns
+BASKET_MIN_ITEMS = 4
+BASKET_TOP = 10_000
+#: the support leg's top items
+SUPPORT_TOP = 100
+#: P_NAME's budget of words (it has five)
+WORDS_MAX_ELEMS = 8
+BASKET_SELECT = ("o_orderkey", "info", "items", "n_items", "has_probe",
+                 "min_item", "max_item", "top_item", "top_supp")
+SUPPORT_SELECT = ("item", "support")
+WORDS_SELECT = ("word", "n", "n_words", "n_first")
+
+
+def basket_probe(lineitem: pa.Table) -> int:
+    """The part key ``array_contains`` probes: lineitem's first one."""
+    return int(lineitem.column("l_partkey")[0].as_py())
+
+
+def _baskets_df(lineitem: pa.Table, num_slices: int):
+    """One basket per order, the input Spark MLlib's FPGrowth takes::
+
+        SELECT l_orderkey, collect_set(l_partkey) AS items,
+               count(*) AS n_lines, max(l_suppkey) AS top_supp
+        FROM lineitem GROUP BY l_orderkey
+
+    ``items`` in value order, at most ``BASKET_MAX_ITEMS`` a basket."""
+    from .expressions.aggregates import CollectSet, Max
+    return (_df(lineitem.select(["l_orderkey", "l_partkey", "l_suppkey"]),
+                num_slices)
+            .group_by("l_orderkey")
+            .agg(CollectSet(col("l_partkey"),
+                            max_elems=BASKET_MAX_ITEMS).alias("items"),
+                 Count().alias("n_lines"),
+                 Max(col("l_suppkey")).alias("top_supp")))
+
+
+def baskets_df(lineitem: pa.Table, orders: pa.Table, probe: int,
+               num_slices: int = 8):
+    """The baskets leg::
+
+        SELECT o_orderkey, named_struct('o_orderdate', o_orderdate,
+                                        'n_lines', n_lines) AS info,
+               items, size(items) AS n_items,
+               array_contains(items, probe) AS has_probe,
+               array_min(items) AS min_item, array_max(items) AS max_item,
+               element_at(sort_array(items, false), 1) AS top_item,
+               top_supp
+        FROM orders JOIN baskets ON o_orderkey = l_orderkey
+        WHERE size(items) >= 4
+        ORDER BY info.o_orderdate, o_orderkey LIMIT 10000
+
+    The arrays ride the join as payload and the struct the sort."""
+    from .expressions.collections import (ArrayContains, ArrayMax,
+                                          ArrayMin, CreateStruct, ElementAt,
+                                          GetStructField, Size, SortArray)
+    items = col("items")
+    return (_df(orders.select(["o_orderkey", "o_orderdate"]), num_slices)
+            .join(_baskets_df(lineitem, num_slices), ["o_orderkey"],
+                  ["l_orderkey"])
+            .select(col("o_orderkey"),
+                    CreateStruct((col("o_orderdate"), col("n_lines")),
+                                 ("o_orderdate", "n_lines")).alias("info"),
+                    items,
+                    Size(items).alias("n_items"),
+                    ArrayContains(items, lit(probe, T.INT64))
+                    .alias("has_probe"),
+                    ArrayMin(items).alias("min_item"),
+                    ArrayMax(items).alias("max_item"),
+                    ElementAt(SortArray(items, False), lit(1))
+                    .alias("top_item"),
+                    col("top_supp"))
+            .where(Size(items) >= lit(BASKET_MIN_ITEMS))
+            .order_by(asc(GetStructField(col("info"), 0)),
+                      asc(col("o_orderkey")))
+            .limit(BASKET_TOP))
+
+
+def support_df(lineitem: pa.Table, num_slices: int = 8):
+    """The support leg: each part's count of baskets::
+
+        SELECT item, count(*) AS support
+        FROM baskets LATERAL VIEW explode(items) AS item
+        GROUP BY item ORDER BY support DESC, item LIMIT 100"""
+    return (_baskets_df(lineitem, num_slices)
+            .explode("items", alias="item")
+            .group_by("item")
+            .agg(Count().alias("support"))
+            .order_by(desc(col("support")), asc(col("item")))
+            .limit(SUPPORT_TOP))
+
+
+def exploded_rows_df(lineitem: pa.Table, num_slices: int = 8):
+    """``count(*)`` of the exploded baskets: the number of distinct
+    (order, part) pairs."""
+    return (_baskets_df(lineitem, num_slices)
+            .explode("items", alias="item")
+            .agg(Count().alias("n")))
+
+
+def words_df(part: pa.Table, num_slices: int = 8):
+    """The P_NAME words leg::
+
+        SELECT word, count(*) AS n, sum(n_words) AS n_words,
+               sum(if(first_word = word, 1, 0)) AS n_first
+        FROM (SELECT words, size(words) AS n_words,
+                     element_at(words, 1) AS first_word
+              FROM (SELECT split(p_name, ' ') AS words FROM part))
+        LATERAL VIEW explode(words) AS word
+        GROUP BY word ORDER BY word
+
+    ``split`` gives ``array<string>`` in the 3D byte layout, at most
+    ``WORDS_MAX_ELEMS`` words a name; the explode carries it along."""
+    from .expressions import If
+    from .expressions.collections import ElementAt, Size
+    from .expressions.regex import StringSplit
+
+    words = col("words")
+    one, zero = lit(1, T.INT64), lit(0, T.INT64)
+    return (_df(part.select(["p_name"]), num_slices)
+            .select(StringSplit(col("p_name"), " ",
+                                max_elems=WORDS_MAX_ELEMS).alias("words"))
+            .select(words, Size(words).alias("n_words"),
+                    ElementAt(words, lit(1)).alias("first_word"))
+            .explode("words", alias="word")
+            .select("word", "n_words", "first_word")
+            .group_by("word")
+            .agg(Count().alias("n"), Sum(col("n_words")).alias("n_words"),
+                 Sum(If(EqualTo(col("first_word"), col("word")), one, zero))
+                 .alias("n_first"))
+            .order_by(asc(col("word"))))
+
+
+def _segments(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """The flat indices of consecutive runs ``[starts[i], starts[i] +
+    counts[i])``, run after run."""
+    total = int(counts.sum())
+    ends = np.cumsum(counts)
+    run_of = np.repeat(np.arange(counts.size), counts)
+    return starts[run_of] + np.arange(total) - (ends - counts)[run_of]
+
+
+def basket_pairs(lineitem: pa.Table):
+    """(the distinct (order, part) pairs as sorted order keys and part
+    keys, each order's key, first pair and pair count): numpy sorts of one
+    packed int64 key, no loop over rows. Both references take it, so a
+    caller that checks both legs sorts once."""
+    ok = lineitem.column("l_orderkey").to_numpy()
+    pk = lineitem.column("l_partkey").to_numpy()
+    bits = max(int(pk.max()).bit_length(), 1)
+    packed = np.sort((ok << bits) | pk)
+    packed = packed[np.concatenate([[True], packed[1:] != packed[:-1]])]
+    okd, pkd = packed >> bits, packed & ((1 << bits) - 1)
+    # okd is sorted: each order's run starts where the key changes
+    starts = np.flatnonzero(np.concatenate([[True], okd[1:] != okd[:-1]]))
+    counts = np.diff(np.append(starts, okd.size))
+    return okd, pkd, okd[starts], starts, counts
+
+
+def baskets_reference(lineitem: pa.Table, orders: pa.Table, probe: int,
+                      pairs=None) -> pa.Table:
+    """The baskets leg by numpy and pyarrow alone: distinct pairs from
+    one sort, per-order counts and max supplier from another, each
+    basket's reductions from its sorted run, the top rows by
+    ``np.lexsort``; in ``baskets_df``'s types and order."""
+    _, pkd, keys, starts, counts = pairs or basket_pairs(lineitem)
+    # every line's (order, supplier) in one sorted key: an order's lines
+    # are a run, its largest supplier the run's last
+    ok = lineitem.column("l_orderkey").to_numpy()
+    sk = lineitem.column("l_suppkey").to_numpy()
+    bits = max(int(sk.max()).bit_length(), 1)
+    lines = np.sort((ok << bits) | sk)
+    line_keys = lines >> bits
+    ends = np.flatnonzero(np.append(line_keys[1:] != line_keys[:-1], True))
+    n_lines = np.diff(np.append(-1, ends))          # orders in keys' order
+    top_supp = lines[ends] & ((1 << bits) - 1)
+    has = np.add.reduceat((pkd == probe).astype(np.int64), starts) > 0
+    o_keys = orders.column("o_orderkey").to_numpy()
+    o_days = orders.column("o_orderdate").cast(pa.int32()).to_numpy()
+    in_orders = np.searchsorted(keys, o_keys)
+    in_orders = np.clip(in_orders, 0, keys.size - 1)
+    joined = keys[in_orders] == o_keys
+    g = in_orders[joined]                       # the order's basket
+    ok_rows, days = o_keys[joined], o_days[joined]
+    keep = counts[g] >= BASKET_MIN_ITEMS
+    g, ok_rows, days = g[keep], ok_rows[keep], days[keep]
+    top = np.lexsort((ok_rows, days))[:BASKET_TOP]
+    g, ok_rows, days = g[top], ok_rows[top], days[top]
+    c = counts[g].astype(np.int32)
+    offsets = np.zeros(c.size + 1, np.int32)
+    np.cumsum(c, out=offsets[1:])
+    items = pa.ListArray.from_arrays(
+        pa.array(offsets), pa.array(pkd[_segments(starts[g], c)]))
+    first, last = pkd[starts[g]], pkd[starts[g] + c - 1]
+    info = pa.StructArray.from_arrays(
+        [pa.array(days.astype(np.int32)).cast(pa.date32()),
+         pa.array(n_lines[g])], names=["o_orderdate", "n_lines"])
+    return pa.table([pa.array(ok_rows), info, items, pa.array(c),
+                     pa.array(has[g]), pa.array(first), pa.array(last),
+                     pa.array(last), pa.array(top_supp[g])],
+                    names=list(BASKET_SELECT))
+
+
+def support_reference(lineitem: pa.Table,
+                      pairs=None) -> Tuple[pa.Table, int]:
+    """(the support leg's table, the count of distinct (order, part)
+    pairs) by numpy alone."""
+    _, pkd, _, _, _ = pairs or basket_pairs(lineitem)
+    per_item = np.bincount(pkd)
+    item = np.flatnonzero(per_item)
+    support = per_item[item]
+    top = np.lexsort((item, -support))[:SUPPORT_TOP]
+    return (pa.table([pa.array(item[top]), pa.array(support[top])],
+                     names=list(SUPPORT_SELECT)), int(pkd.size))
+
+
+def words_reference(part: pa.Table) -> pa.Table:
+    """The words leg by pyarrow alone: ``pc.split_pattern``, then
+    ``list_flatten`` and ``value_counts`` for ``n``, each word's name's
+    word count summed by a group-by, ``value_counts`` of the first words;
+    sorted by word."""
+    names = part.column("p_name").combine_chunks()
+    split = pc.split_pattern(names, " ")
+    flat = pc.list_flatten(split)
+    sizes = pc.list_value_length(split).cast(pa.int64())
+    per = pa.table({"word": flat,
+                    "n_words": sizes.take(pc.list_parent_indices(split))})
+    g = per.group_by("word").aggregate([("word", "count"),
+                                        ("n_words", "sum")])
+    first = pc.value_counts(pc.list_element(split, 0))
+    first_n = dict(zip(first.field("values").to_pylist(),
+                       first.field("counts").to_pylist()))
+    g = g.sort_by([("word", "ascending")])
+    words = g.column("word")
+    return pa.table([words, g.column("word_count"),
+                     g.column("n_words_sum"),
+                     pa.array([first_n.get(w, 0) for w in words.to_pylist()],
+                              pa.int64())],
+                    names=list(WORDS_SELECT))

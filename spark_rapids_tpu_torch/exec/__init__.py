@@ -8,6 +8,7 @@ from .basic import (ArithmeticException, ExpandExec,  # noqa: F401
                     UnionExec)
 from .coalesce import (CoalesceBatchesExec, RequireSingleBatch,  # noqa: F401
                        TargetSize)
+from .generate import GenerateExec  # noqa: F401
 from .join import (BroadcastNestedLoopJoinExec, HashJoinExec,  # noqa: F401
                    JoinType)
 from .sort import (SortExec, SortOrder, TakeOrderedAndProjectExec,  # noqa

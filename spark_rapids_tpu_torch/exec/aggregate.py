@@ -40,7 +40,8 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import torch
 
 from ..batch import (MIN_CAPACITY, ColumnarBatch, DeviceColumn, Field,
-                     Schema, bucket_capacity, empty_batch, rows_scalar)
+                     Schema, bucket_capacity, empty_batch, map_lanes,
+                     rows_scalar)
 from ..config import AGG_MAX_RESULT_ROWS
 from ..expressions.aggregates import AggregateFunction, FastLanes, LaneResults
 from ..expressions.base import (Alias, BoundReference, EvalContext,
@@ -77,23 +78,29 @@ def _pad_column(c: DeviceColumn, cap: int) -> DeviceColumn:
     pad = cap - c.capacity
     if pad == 0:
         return c
-
-    def pz(a):
-        return None if a is None else torch.cat(
-            [a, a.new_zeros((pad,) + a.shape[1:])])
-
-    return c.replace(data=pz(c.data), validity=pz(c.validity),
-                     lengths=pz(c.lengths))
+    return map_lanes(c, lambda a: torch.cat(
+        [a, a.new_zeros((pad,) + a.shape[1:])]))
 
 
 def _dead_past(c: DeviceColumn, live: torch.Tensor) -> DeviceColumn:
     """``c`` with the rows outside ``live`` dead: invalid, zero payload."""
-    row = live.view((-1,) + (1,) * (c.data.dim() - 1))
-    zero = torch.zeros((), dtype=c.data.dtype, device=c.data.device)
-    return c.replace(data=torch.where(row, c.data, zero),
-                     validity=c.validity & live,
-                     lengths=None if c.lengths is None
-                     else torch.where(live, c.lengths, 0))
+    def dead(a):
+        row = live.view((-1,) + (1,) * (a.dim() - 1))
+        return torch.where(row, a, torch.zeros((), dtype=a.dtype,
+                                               device=a.device))
+    return map_lanes(c, dead)
+
+
+def _sorted_view(c: DeviceColumn, perm: torch.Tensor,
+                 shared_validity: Optional[torch.Tensor]) -> DeviceColumn:
+    """``c`` permuted by the key sort; a provably non-null column takes
+    ``shared_validity`` as its validity object. The view carries no
+    dictionary: an aggregate's inputs arrive decoded."""
+    out = map_lanes(c, lambda a: a[perm]).replace(dict_data=None,
+                                                  dict_lengths=None)
+    if shared_validity is not None:
+        out = out.replace(validity=shared_validity)
+    return out
 
 
 class HashAggregateExec(UnaryExec):
@@ -240,10 +247,7 @@ class HashAggregateExec(UnaryExec):
         sorted_live = torch.arange(cap, device=dev) < live_rows
         # provably non-null columns share ONE validity object (sorted_live),
         # which also shares their non-null-count lane downstream
-        svals = [DeviceColumn(c.data[perm],
-                              c.validity[perm] if nl else sorted_live,
-                              c.dtype,
-                              None if c.lengths is None else c.lengths[perm])
+        svals = [_sorted_view(c, perm, None if nl else sorted_live)
                  for c, nl in zip(flat_vals, val_nullable)]
         # the dead-row operand is not needed once live rows come first;
         # without keys every live row joins group 0

@@ -21,8 +21,9 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import types as T
 from ..batch import (ColumnarBatch, DeviceColumn, Schema, bucket_capacity,
-                     empty_batch, rows_scalar)
+                     empty_batch, map_lanes, mask_validity, rows_scalar)
 from ..dictenc import decode_column
 from ..types import TypeKind
 
@@ -33,15 +34,14 @@ from ..types import TypeKind
 
 def gather_column(col: DeviceColumn, indices: torch.Tensor,
                   row_valid: Optional[torch.Tensor] = None) -> DeviceColumn:
-    """Rows of ``col`` at ``indices``; slots outside ``row_valid`` are null.
-    A dictionary column gathers its codes; the dictionary rides along."""
+    """Rows of ``col`` at ``indices``; slots outside ``row_valid`` are null
+    (at every level of a struct). A dictionary column gathers its codes;
+    the dictionary rides along. Every row lane is gathered: a map's
+    values and an array's element lengths (``data2``) and a struct's
+    children too."""
     idx = indices.clamp(0, col.capacity - 1)
-    validity = col.validity[idx]
-    if row_valid is not None:
-        validity = validity & row_valid
-    lengths = None if col.lengths is None else col.lengths[idx]
-    return col.replace(data=col.data[idx], validity=validity,
-                       lengths=lengths)
+    out = map_lanes(col, lambda a: a[idx])
+    return out if row_valid is None else mask_validity(out, row_valid)
 
 
 def gather_columns(cols: Sequence[DeviceColumn], indices: torch.Tensor,
@@ -80,6 +80,14 @@ def concat_columns(cols: Sequence[DeviceColumn], counts: Sequence[int],
     every piece shares one dictionary object (one upstream batch, or
     ``dictenc.unify_dict_batches`` before); otherwise the pieces decode."""
     first = cols[0]
+    if first.is_struct:
+        kids = tuple(concat_columns([c.data[j] for c in cols], counts,
+                                    capacity, device)
+                     for j in range(len(first.data)))
+        validity = concat_columns(
+            [DeviceColumn(c.validity, c.validity, T.BOOLEAN) for c in cols],
+            counts, capacity, device).data
+        return DeviceColumn(kids, validity, first.dtype)
     if any(c.dict_data is not None for c in cols):
         if first.dict_data is not None and all(
                 c.dict_data is first.dict_data for c in cols) and (
@@ -98,6 +106,9 @@ def concat_columns(cols: Sequence[DeviceColumn], counts: Sequence[int],
     lengths = (None if first.lengths is None
                else torch.zeros(capacity, dtype=first.lengths.dtype,
                                 device=dev))
+    data2 = (None if first.data2 is None
+             else torch.zeros((capacity,) + tuple(first.data2.shape[1:]),
+                              dtype=first.data2.dtype, device=dev))
     off = 0
     for c, n in zip(cols, counts):
         if n:
@@ -105,8 +116,10 @@ def concat_columns(cols: Sequence[DeviceColumn], counts: Sequence[int],
             validity[off:off + n].copy_(c.validity[:n], non_blocking=True)
             if lengths is not None:
                 lengths[off:off + n].copy_(c.lengths[:n], non_blocking=True)
+            if data2 is not None:
+                data2[off:off + n].copy_(c.data2[:n], non_blocking=True)
         off += n
-    return DeviceColumn(data, validity, first.dtype, lengths)
+    return DeviceColumn(data, validity, first.dtype, lengths, data2=data2)
 
 
 def concat_batches(batches: Sequence[ColumnarBatch],
@@ -206,6 +219,9 @@ def orderable_words(col: DeviceColumn) -> List[torch.Tensor]:
     dictionary is sorted in this same string order (``dictenc.py``
     invariant 2), so within one column code order is string order."""
     k = col.dtype.kind
+    if col.dtype.is_nested:
+        raise TypeError(f"{col.dtype} sort/partition keys have no device "
+                        f"order (planner tags them for CPU fallback)")
     if k is TypeKind.STRING and col.dict_data is not None:
         return [col.data]
     if k is TypeKind.STRING:

@@ -46,7 +46,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..batch import ColumnarBatch, DeviceColumn, Schema, bucket_capacity
+from ..batch import (ColumnarBatch, DeviceColumn, Schema, bucket_capacity,
+                     map_lanes)
 from ..expressions.base import EvalContext, raw_eval
 from ..kernels import launch_counts
 from .aggregate import AggregateMode, HashAggregateExec
@@ -153,9 +154,8 @@ def _copy(batch: ColumnarBatch) -> ColumnarBatch:
     def clone(t):
         return None if t is None else t.clone()
     return ColumnarBatch(tuple(
-        DeviceColumn(c.data.clone(), c.validity.clone(), c.dtype,
-                     clone(c.lengths), clone(c.dict_data),
-                     clone(c.dict_lengths))
+        map_lanes(c, clone).replace(dict_data=clone(c.dict_data),
+                                    dict_lengths=clone(c.dict_lengths))
         for c in batch.columns), batch.num_rows.clone())
 
 

@@ -90,7 +90,7 @@ import torch
 from .. import types as T
 from ..adaptive import record_decision
 from ..batch import (ColumnarBatch, DeviceColumn, Field, Schema,
-                     bucket_capacity, empty_batch, rows_scalar)
+                     bucket_capacity, empty_batch, rows_scalar, zip_lanes)
 from ..config import JOIN_MAX_BUILD_ROWS
 from ..dictenc import decode_column
 from ..expressions.base import (BoundReference, EvalContext, Expression,
@@ -205,18 +205,13 @@ def _append_rows(a: ColumnarBatch, b: ColumnarBatch,
             # codes of two dictionaries do not mix: append the bytes
             ca, cb = decode_column(ca), decode_column(cb)
         ga, gb = gather_column(ca, ia), gather_column(cb, ib)
-        row = from_a.view((-1,) + (1,) * (ga.data.dim() - 1))
-        keep = live.view(row.shape)
-        data = torch.where(keep, torch.where(row, ga.data, gb.data),
-                           torch.zeros((), dtype=ga.data.dtype,
-                                       device=a.device))
-        validity = torch.where(from_a, ga.validity, gb.validity) & live
-        lengths = None
-        if ga.lengths is not None:
-            lengths = torch.where(live, torch.where(
-                from_a, ga.lengths, gb.lengths), 0)
-        cols.append(ca.replace(data=data, validity=validity,
-                               lengths=lengths))
+
+        def pick(x, y):
+            row = from_a.view((-1,) + (1,) * (x.dim() - 1))
+            return torch.where(live.view(row.shape), torch.where(row, x, y),
+                               torch.zeros((), dtype=x.dtype,
+                                           device=x.device))
+        cols.append(zip_lanes(ga, gb, pick))
     return ColumnarBatch(tuple(cols), total.to(torch.int32))
 
 

@@ -8,6 +8,11 @@ from .base import (Alias, BoundReference, EvalContext, Expression,  # noqa: F401
                    Literal, col, lit)
 from .boolean import And, Or  # noqa: F401
 from .cast import Cast, cast_supported  # noqa: F401
+from .collections import (ArrayContains, ArrayMax, ArrayMin,  # noqa: F401
+                          CreateArray, CreateStruct, ElementAt,
+                          GetArrayItem, GetMapValue, GetStructField,
+                          MapContainsKey, MapFromArrays, MapKeys, MapValues,
+                          Size, SortArray)
 from .comparison import (EqualNullSafe, EqualTo, GreaterThan,  # noqa: F401
                          GreaterThanOrEqual, In, IsNaN, IsNotNull, IsNull,
                          LessThan, LessThanOrEqual, Not)
@@ -25,12 +30,12 @@ from .hashing import Murmur3Hash, XxHash64  # noqa: F401
 from .math import (Atan2, FloorCeil, Hypot, Logarithm, NaNvl,  # noqa: F401
                    Pow, RaiseError, Rand, Round, Signum, UnaryMath)
 from .regex import (Like, RegexpExtract, RegexpReplace,  # noqa: F401
-                    RegexUnsupported, RLike, rlike)
+                    RegexUnsupported, RLike, StringSplit, rlike)
 from .strings import (Ascii, Bin, Chr, Concat, ConcatWs,  # noqa: F401
                       Conv, Empty2Null, FindInSet, FormatNumber, Hex,
                       InitCap, Length, Levenshtein, Lower, OctetLength,
                       Reverse, Soundex, StringLocate, StringPad,
                       StringPredicate, StringRepeat, StringReplace,
-                      StringTrim, Substring, SubstringIndex, Translate,
+                      StringToMap, StringTrim, Substring, SubstringIndex, Translate,
                       Upper, concat, contains, endswith, length, lower,
                       startswith, substring, upper)

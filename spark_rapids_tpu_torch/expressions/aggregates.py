@@ -2,7 +2,8 @@
 
 Port of ``spark_rapids_tpu/expressions/aggregates.py``: Sum, Count,
 Average, Min, Max, the central moments (VarianceSamp, VariancePop,
-StddevSamp, StddevPop), First, Last, Percentile and ApproxPercentile. The
+StddevSamp, StddevPop), First, Last, Percentile, ApproxPercentile,
+CollectList, CollectSet and PivotFirst. The
 buffer model is Spark's: update turns input rows into per-group buffers,
 merge combines buffers that landed in the same group, ``evaluate`` finishes
 the result. Type widening follows Spark: sum(int) -> bigint, sum(double) ->
@@ -49,7 +50,17 @@ interpolated percentile reads the group's k-th valid value at
 accuracy argument. First and Last take the first or last live row of a
 group in the order the exec's stable key sort leaves, which is input order
 within a batch; across batches and merges it is as non-deterministic as
-Spark's.
+Spark's. They pick every row lane of the row (a string's lengths, an
+array's elements and ``data2``, a struct's children).
+
+CollectList and CollectSet are sort-sensitive too (COMPLETE only, one per
+exec, rows sorted by (keys, value)): each group's non-null values land in
+a fixed-budget array of ``max_elems`` slots in value order (CollectSet
+drops a value equal to the one before it), by one scatter to slot
+``group * max_elems + position`` with positions from a running count. A
+group of more values keeps its true length, and ``to_arrow`` refuses it
+rather than truncate. PivotFirst keeps a First per pivot value and builds
+the array with a per-element validity in ``data2``.
 """
 
 from __future__ import annotations
@@ -60,7 +71,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from .. import types as T
-from ..batch import DeviceColumn
+from ..batch import DeviceColumn, map_lanes
 from ..types import SqlType, TypeKind
 from .base import Expression
 from .decimal128 import (exceeds_digits, is_dec128, is_negative, lift64,
@@ -598,8 +609,7 @@ class First(AggregateFunction):
 
     def evaluate(self, buffers, group_live):
         val, has = buffers
-        return DeviceColumn(val.data, val.validity & has.data & group_live,
-                            self.dtype, val.lengths)
+        return val.replace(validity=val.validity & has.data & group_live)
 
     def _pick(self, col: DeviceColumn, present: torch.Tensor, B: FastLanes):
         rows = torch.arange(present.shape[0], device=present.device)
@@ -609,9 +619,10 @@ class First(AggregateFunction):
         def finish(res: LaneResults):
             has = res.sum_int(nref) > 0
             idx = res.extreme(ref)
-            lengths = None if col.lengths is None else col.lengths[idx]
-            return [DeviceColumn(col.data[idx], col.validity[idx] & has,
-                                 self.dtype, lengths),
+            # every row lane of the picked row: a string's lengths, an
+            # array's element lengths (data2), a struct's children
+            val = map_lanes(col, lambda a: a[idx])
+            return [val.replace(validity=val.validity & has),
                     DeviceColumn(has, _ones(has.shape[0], has), T.BOOLEAN)]
         return finish
 
@@ -696,3 +707,165 @@ class ApproxPercentile(Percentile):
     def with_children(self, c):
         return ApproxPercentile(c[0] if c else None, self.percentage,
                                 self.accuracy)
+
+
+class CollectList(AggregateFunction):
+    """collect_list(x): nulls skipped (Spark), each group's elements in
+    value order (Spark leaves the order undefined; sorted is
+    deterministic). The result is a fixed-budget array of ``max_elems``
+    elements a group; a group with more keeps its true length, and
+    ``to_arrow`` refuses it loudly instead of truncating. COMPLETE only,
+    over rows the exec sorts by (keys, value), like percentile."""
+
+    supports_partial = False
+    requires_sorted_input = True
+    _dedupe = False
+
+    def __init__(self, child: Optional[Expression] = None,
+                 max_elems: int = 256):
+        object.__setattr__(self, "child", child)
+        object.__setattr__(self, "max_elems", int(max_elems))
+
+    def with_children(self, c):
+        return type(self)(c[0] if c else None, self.max_elems)
+
+    @property
+    def dtype(self):
+        return T.array(self.child.dtype, self.max_elems)
+
+    def buffer_types(self):
+        return [self.dtype]
+
+    def evaluate(self, buffers, group_live):
+        b = buffers[0]
+        return DeviceColumn(b.data, b.validity & group_live, self.dtype,
+                            torch.where(group_live, b.lengths, 0),
+                            data2=b.data2)
+
+    def fast_update(self, inputs, live, B):
+        col = inputs[0]
+        ok_all = _view_ok(col, live)
+        me = self.max_elems
+
+        def finish(res: LaneResults):
+            n, groups = res.n_live, res.num_groups
+            seg = res.seg
+            ok = ok_all[:n]
+            if self._dedupe and n > 1:
+                # rows sorted by (keys, value): drop a value equal to the
+                # kept one before it in its group
+                from ..exec.common import adjacent_equal_ops, orderable_words
+                words = [w[:n] for w in orderable_words(
+                    DeviceColumn(col.data[:n], ok, col.dtype,
+                                 None if col.lengths is None
+                                 else col.lengths[:n]))]
+                dup = adjacent_equal_ops([seg] + words)
+                prev_ok = torch.cat([ok.new_zeros(1), ok[:-1]])
+                ok = ok & ~(dup & prev_ok)
+            # a value's slot: its rank among its group's kept values; the
+            # groups are consecutive runs, so the kept values of the
+            # groups before it are an exclusive sum of the counts
+            counts = res.group_sum(ok.to(torch.int32))
+            before = torch.cumsum(counts, 0) - counts
+            pos = torch.cumsum(ok, 0) - 1 - before[seg]
+            target = torch.where(ok & (pos < me), seg * me + pos,
+                                 groups * me)
+            valid = torch.ones(groups, dtype=torch.bool, device=seg.device)
+
+            def place(src, width):
+                out = src.new_zeros((groups * me + 1,) + width)
+                out[target] = src[:n]
+                return out[:groups * me].reshape((groups, me) + width)
+
+            data = place(col.data, tuple(col.data.shape[1:]))
+            data2 = (None if col.lengths is None
+                     else place(col.lengths, ()))
+            return [DeviceColumn(data, valid, self.dtype, counts,
+                                 data2=data2)]
+        return finish
+
+    def fast_merge(self, buffers, live, B):
+        raise NotImplementedError("collect_* is COMPLETE-only")
+
+
+class CollectSet(CollectList):
+    """collect_set(x): the distinct elements, in value order."""
+
+    _dedupe = True
+
+
+class PivotFirst(AggregateFunction):
+    """PivotFirst(value, pivot, pivot_values): per group, the first
+    ``value`` of each literal pivot key, as one array the pivot projection
+    indexes (reference: GpuPivotFirst). A missing combination is a null
+    element: the array carries a per-element validity in a bool
+    ``data2``, which element access reads."""
+
+    def __init__(self, child: Optional[Expression] = None,
+                 pivot: Optional[Expression] = None,
+                 pivot_values: Tuple = ()):
+        object.__setattr__(self, "child", child)
+        object.__setattr__(self, "pivot", pivot)
+        object.__setattr__(self, "pivot_values", tuple(pivot_values))
+
+    @property
+    def children(self):
+        return (self.child, self.pivot)
+
+    def with_children(self, c):
+        return PivotFirst(c[0], c[1], self.pivot_values)
+
+    @property
+    def dtype(self):
+        return T.array(self.child.dtype, max(len(self.pivot_values), 1))
+
+    def buffer_types(self):
+        return [self.child.dtype, T.BOOLEAN] * len(self.pivot_values)
+
+    def _masks(self, pv: DeviceColumn, live: torch.Tensor):
+        out = []
+        for v in self.pivot_values:
+            if v is None:
+                out.append(live & ~pv.validity)
+            elif pv.lengths is not None:
+                # string keys: zero padding makes whole-row byte equality
+                # string equality
+                b = str(v).encode("utf-8")
+                ml = pv.data.shape[1]
+                row = torch.tensor(list(b[:ml]) + [0] * max(ml - len(b), 0),
+                                   dtype=torch.uint8, device=pv.data.device)
+                eq = (pv.data == row[None, :]).all(dim=1) & (len(b) <= ml)
+                out.append(live & pv.validity & eq)
+            else:
+                out.append(live & pv.validity & (pv.data == v))
+        return out
+
+    def _picks(self, pairs, B: FastLanes):
+        first = First(self.child)
+        fins = [first._pick(val, present, B) for val, present in pairs]
+
+        def finish(res: LaneResults):
+            return [b for f in fins for b in f(res)]
+        return finish
+
+    def fast_update(self, inputs, live, B):
+        val, pv = inputs
+        return self._picks([(val, m) for m in self._masks(pv, live)], B)
+
+    def fast_merge(self, buffers, live, B):
+        k = len(self.pivot_values)
+        return self._picks([(buffers[2 * i], live & buffers[2 * i + 1].data)
+                            for i in range(k)], B)
+
+    def evaluate(self, buffers, group_live):
+        k = len(self.pivot_values)
+        vals = [buffers[2 * i] for i in range(k)]
+        has = [buffers[2 * i + 1] for i in range(k)]
+        data = torch.stack([v.data for v in vals], dim=1)
+        ev = torch.stack([v.validity & h.data for v, h in zip(vals, has)],
+                         dim=1)
+        zero = torch.zeros((), dtype=data.dtype, device=data.device)
+        return DeviceColumn(torch.where(ev, data, zero), group_live,
+                            self.dtype,
+                            torch.where(group_live, k, 0).to(torch.int32),
+                            data2=ev)

@@ -4,7 +4,8 @@ scan over byte positions.
 Port of ``RegexUnsupported``, the parser, ``CompiledRegex`` /
 ``compile_regex``, ``rlike_device``, ``RLike``, ``like_to_regex``,
 ``Like``, and the span programs (``compile_spans``, the span scans,
-``RegexpExtract``, ``RegexpReplace``) of
+``RegexpExtract``, ``RegexpReplace``, ``split_device`` and
+``StringSplit``) of
 ``spark_rapids_tpu/expressions/regex.py`` (reference:
 RegexParser.scala, which transpiles Java regex to cudf's dialect and falls
 back to the CPU for what it cannot). A supported SUBSET of Java regex is
@@ -27,8 +28,7 @@ Semantics: RLIKE = Java Matcher.find() (unanchored substring search) over
 UTF-8 BYTES. Positive matching units are ASCII, but '.' and negated classes
 match one full NON-ASCII character through a UTF-8 lead + continuation
 submachine, so counting characters holds over multi-byte text.
-``StringSplit`` waits for the ARRAY type (ROADMAP item 7,
-``collections.py``).
+``StringSplit`` gives an ``array<string>`` in the 3D byte layout.
 """
 
 from __future__ import annotations
@@ -1161,3 +1161,105 @@ class RegexpReplace(Expression):
                                            self.replacement.encode())
         return _string_column(data, lengths, c.validity,
                               self.dtype.max_len)
+
+
+def split_device(col: DeviceColumn, prog: SpanProgram, limit: int,
+                 max_elems: int):
+    """Java ``String.split`` on the span program: (pieces ``uint8[n, me,
+    ml]``, piece byte lengths ``int32[n, me]``, piece counts ``int32[n]``,
+    overflow ``bool[n]``: rows with more pieces than the budget, whose
+    count is clamped to it). Empty-matching patterns are refused when the
+    expression is built."""
+    n, ml = col.data.shape
+    me = max_elems
+    dev = col.data.device
+    sel, endq = all_match_spans(col, prog)           # [n, ml + 1]
+    isel = sel.to(torch.int32)
+    if limit > 0:
+        # only the first limit - 1 separators split
+        sel = sel & (torch.cumsum(isel, dim=1) <= limit - 1)
+        isel = sel.to(torch.int32)
+    rank = torch.cumsum(isel, dim=1, dtype=torch.int32) - isel
+    q_pos = torch.arange(ml + 1, dtype=torch.int32, device=dev)[None, :]
+    # separator k's (start, end) into [n, me] tables; rank past me - 2
+    # and unselected positions land in a dropped column
+    slot = torch.where(sel & (rank < me - 1), rank, me).to(torch.int64)
+
+    def table(values):
+        out = torch.full((n, me + 1), ml + 1, dtype=torch.int32,
+                         device=dev)
+        return out.scatter_(1, slot, torch.where(sel, values, 0)
+                            .to(torch.int32))[:, :me]
+
+    starts = table(q_pos.expand(n, -1))
+    ends = table(endq)
+    n_sep_true = isel.sum(dim=1, dtype=torch.int32)
+    n_sep = n_sep_true.clamp(max=me - 1)
+    counts = n_sep + 1
+    piece_start = torch.cat([torch.zeros((n, 1), dtype=torch.int32,
+                                         device=dev), ends[:, :me - 1]],
+                            dim=1)
+    elem = torch.arange(me, dtype=torch.int32, device=dev)[None, :]
+    piece_end = torch.where(elem < n_sep[:, None], starts,
+                            col.lengths[:, None])
+    plen = (piece_end - piece_start).clamp(min=0)
+    plen = torch.where(elem < counts[:, None], plen, 0)
+    byte = torch.arange(ml, dtype=torch.int64, device=dev)
+    src = (piece_start.to(torch.int64)[:, :, None]
+           + byte[None, None, :]).clamp(0, ml - 1)
+    pieces = col.data.gather(1, src.reshape(n, me * ml)).reshape(n, me, ml)
+    pieces = torch.where(byte[None, None, :] < plen[:, :, None], pieces, 0)
+    return pieces, plen, counts, n_sep_true > (me - 1)
+
+
+@dataclass(frozen=True, eq=False)
+class StringSplit(Expression):
+    """split(str, pattern, limit): ``array<string>``, on the device the
+    3D byte tensor ``[cap, max_elems, max_len]`` with element lengths in
+    ``data2``. ``limit == 0`` (trailing empties dropped) and
+    empty-matching patterns run on the CPU. A row of more pieces than
+    ``max_elems`` raises ``CAPACITY_split_max_elems`` in every mode: a
+    consumer would otherwise read a truncated array."""
+
+    child: Expression = None
+    pattern: str = ""
+    limit: int = -1
+    max_elems: int = 16
+
+    def __post_init__(self):
+        prog, reason = _try_compile_spans(self.pattern)
+        if prog is not None:
+            # empty-matching separators hit Java's zero-width corner cases
+            first = prog.suffixes[0]
+            if bool(first.accepting[first.start_state]):
+                prog, reason = None, "empty-matching split pattern"
+        if self.limit == 0:
+            prog, reason = None, "split limit 0 trims trailing empties"
+        object.__setattr__(self, "_prog", prog)
+        object.__setattr__(self, "_reason", reason)
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return StringSplit(c[0], self.pattern, self.limit, self.max_elems)
+
+    @property
+    def dtype(self):
+        return T.array(self.child.dtype, self.max_elems)
+
+    def device_unsupported_reason(self):
+        return self._reason and f"split: {self._reason}"
+
+    def eval(self, batch, ctx=EvalContext()):
+        if self._prog is None:
+            raise RegexUnsupported(self._reason)
+        c = self.child.eval(batch, ctx)
+        pieces, plen, counts, overflow = split_device(
+            c, self._prog, self.limit, self.max_elems)
+        ctx.report(overflow & c.validity, "CAPACITY_split_max_elems",
+                   always=True)
+        counts = torch.where(c.validity, counts, 0)
+        return DeviceColumn(pieces, c.validity, self.dtype, counts,
+                            data2=plen)

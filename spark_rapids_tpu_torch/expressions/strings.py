@@ -4,9 +4,9 @@ Port of ``spark_rapids_tpu/expressions/strings.py`` (reference:
 stringFunctions.scala): char length and octet length, simple case mapping,
 initcap, substring, concat, concat_ws, locate, trim, pad, repeat, replace,
 translate, format_number, reverse, ascii, chr, levenshtein, soundex,
-substring_index, hex, bin, conv, find_in_set, empty2null, and the string
-predicates contains / startswith / endswith with a literal pattern
-(``StringToMap`` waits for the MAP type). A
+substring_index, hex, bin, conv, find_in_set, empty2null, str_to_map, and
+the string predicates contains / startswith / endswith with a literal
+pattern. A
 string column is ``uint8[rows, max_len]`` plus int32 byte lengths, so every
 expression is a rectangular torch program:
 
@@ -1655,6 +1655,110 @@ class Empty2Null(Expression):
         c = self.child.eval(batch, ctx)
         return DeviceColumn(c.data, c.validity & (c.lengths > 0), c.dtype,
                             c.lengths)
+
+
+@dataclass(frozen=True, eq=False)
+class StringToMap(Expression):
+    """str_to_map(str, pair_delim, kv_delim) with literal single-byte
+    delimiters -> map<string,string> (reference: GpuStringToMap).
+
+    The JAX package's layout, bit for bit: keys in ``data`` and values in
+    ``data2``, each ``uint8[cap, max_entries, max_len]`` and zero-padded,
+    so an element's length is its last non-zero byte
+    (``string_elem_lengths``). An entry without the kv delimiter has the
+    whole entry as its key and a NULL value, marked by 0xFF in the value's
+    first byte (0xFF never occurs in valid UTF-8). A row of more entries
+    than ``max_entries`` raises ``CAPACITY_str_to_map_entries`` in every
+    mode."""
+
+    child: Expression = None
+    pair_delim: str = ","
+    kv_delim: str = ":"
+    max_entries: int = 16
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, c):
+        return StringToMap(c[0], self.pair_delim, self.kv_delim,
+                           self.max_entries)
+
+    def device_unsupported_reason(self):
+        if len(self.pair_delim.encode()) != 1 or \
+                len(self.kv_delim.encode()) != 1:
+            return "str_to_map: delimiters must be single-byte literals"
+        return None
+
+    @property
+    def dtype(self):
+        ml = self.child.dtype.max_len or 64
+        return T.map_(T.string(ml), T.string(ml), self.max_entries)
+
+    def eval(self, batch, ctx=EvalContext()):
+        c = self.child.eval(batch, ctx)
+        pd = self.pair_delim.encode()[0]
+        kd = self.kv_delim.encode()[0]
+        n, ml = c.data.shape
+        E = self.max_entries
+        dev = c.data.device
+        pos = torch.arange(ml, dtype=torch.int32, device=dev)[None, :]
+        in_str = pos < c.lengths[:, None]
+        is_pd = (c.data == pd) & in_str
+        # each byte's entry (a delimiter closes the entry before it)
+        ipd = is_pd.to(torch.int32)
+        entry_id = torch.cumsum(ipd, dim=1, dtype=torch.int32) - ipd
+        n_entries = torch.where(c.lengths > 0, entry_id[:, -1] + 1,
+                                torch.where(c.validity, 1, 0))
+        ctx.report((n_entries > E) & c.validity,
+                   "CAPACITY_str_to_map_entries", always=True)
+        # each byte's offset within its entry
+        starts = torch.where(is_pd, pos + 1, 0)
+        off = pos - torch.cummax(starts, dim=1).values
+        eid = entry_id.clamp(0, E - 1).to(torch.int64)
+        rows = torch.arange(n, device=dev)[:, None].expand(n, ml)
+        flat = rows * E + eid
+        # the first kv delimiter of each entry (ml + 1: none, a NULL value)
+        is_kd = (c.data == kd) & in_str & ~is_pd
+        kv_off = torch.full((n * E + 1,), ml + 1, dtype=torch.int32,
+                            device=dev).scatter_reduce_(
+            0, torch.where(is_kd, flat, n * E).reshape(-1),
+            off.reshape(-1).to(torch.int32), "amin")[:n * E].reshape(n, E)
+        kv_here = kv_off.gather(1, eid)
+        body = in_str & ~is_pd
+        is_key = body & (off < kv_here)
+        is_val = body & (off > kv_here)
+        voff = off - kv_here - 1
+        # every byte lands in its entry's key or value row, the rest in a
+        # dropped slot past the end
+        drop = n * E * ml
+
+        def place(member, at):
+            idx = torch.where(member, flat * ml + at, drop).reshape(-1)
+            out = torch.zeros(drop + 1, dtype=torch.uint8, device=dev)
+            out[idx] = c.data.reshape(-1)
+            return out[:drop].reshape(n, E, ml)
+
+        keys = place(is_key, off)
+        vals = place(is_val, voff)
+        slot = torch.arange(E, device=dev)[None, :]
+        no_kv = (kv_off > ml) & (slot < n_entries.clamp(max=E)[:, None])
+        vals[:, :, 0] = torch.where(no_kv, 0xFF, vals[:, :, 0]).to(
+            torch.uint8)
+        lengths = torch.where(c.validity, n_entries.clamp(max=E), 0).to(
+            torch.int32)
+        return DeviceColumn(keys, c.validity, self.dtype, lengths,
+                            data2=vals)
+
+
+def string_elem_lengths(b3: torch.Tensor) -> torch.Tensor:
+    """The byte lengths of the elements of a zero-padded ``[..., ml]``
+    string tensor (canonical padding; valid UTF-8 holds no NUL): one past
+    the last non-zero byte."""
+    ml = b3.shape[-1]
+    nz = b3 != 0
+    last = ml - 1 - nz.flip(-1).to(torch.uint8).argmax(dim=-1)
+    return torch.where(nz.any(dim=-1), last + 1, 0).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

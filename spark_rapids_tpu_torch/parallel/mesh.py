@@ -46,7 +46,7 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 import torch
 
 from ..batch import (ColumnarBatch, DeviceColumn, DeviceLike, Schema,
-                     empty_batch, resolve_device, rows_scalar)
+                     empty_batch, map_lanes, resolve_device, rows_scalar)
 from ..dictenc import decode_batch
 from ..exec.common import concat_columns
 from ..expressions.base import Expression
@@ -120,12 +120,8 @@ def batch_to(batch: ColumnarBatch, device: torch.device) -> ColumnarBatch:
     batch = decode_batch(batch)
     if batch.device == device:
         return batch
-    cols = tuple(DeviceColumn(
-        c.data.to(device, non_blocking=True),
-        c.validity.to(device, non_blocking=True), c.dtype,
-        None if c.lengths is None else c.lengths.to(device,
-                                                    non_blocking=True))
-        for c in batch.columns)
+    cols = tuple(map_lanes(c, lambda t: t.to(device, non_blocking=True))
+                 for c in batch.columns)
     return ColumnarBatch(cols, batch.num_rows.to(device))
 
 
@@ -189,17 +185,12 @@ def gather_live(batch: ColumnarBatch, order: torch.Tensor, live: int
     (dictionary columns decoded)."""
     batch = decode_batch(batch)
     idx = order[:live]
-    return [DeviceColumn(c.data[idx], c.validity[idx], c.dtype,
-                         None if c.lengths is None else c.lengths[idx])
-            for c in batch.columns]
+    return [map_lanes(c, lambda t: t[idx]) for c in batch.columns]
 
 
 def row_range(col: DeviceColumn, start: int, n: int) -> DeviceColumn:
     """Rows ``[start, start + n)`` of ``col`` (views)."""
-    return DeviceColumn(col.data[start:start + n],
-                        col.validity[start:start + n], col.dtype,
-                        None if col.lengths is None
-                        else col.lengths[start:start + n])
+    return map_lanes(col, lambda t: t[start:start + n])
 
 
 def assemble(pieces: Sequence[Sequence[DeviceColumn]], counts, cap: int,

@@ -16,8 +16,17 @@ dict group-bys and a dict-keyed hash join. Slow and plainly correct.
 
 ``RowEvaluator`` dispatches on ``_eval_<ExpressionClass>``. A class without
 a handler raises ``NotImplementedError`` naming ROADMAP item 7, which brings
-the rest of the expressions with their device side (windows, generators,
-collect_list/collect_set and pivot among them).
+the rest of the expressions with their device side (windows, the lambdas
+and the array set operations among them). Arrays are lists, structs dicts
+and maps lists of (key, value) pairs; ``ordkey`` orders and hashes the
+nested values, field by field and element by element.
+
+The collection handlers follow the port's device where the JAX interpreter
+departs from it: ``str_to_map`` keeps every entry, duplicate keys
+included (the JAX handler builds a dict, which keeps the last), and
+``sort_array``, ``array_min``/``array_max`` and ``array_contains`` order
+and compare through ``ordkey`` (NaN greatest, equal to itself), as Spark
+does.
 
 The interpreter agrees with the port's device path, row for row. Where the
 JAX interpreter departs from it, this one follows the port (and Spark
@@ -171,12 +180,27 @@ def _div_zero() -> AnsiError:
 def ordkey(v):
     """A total order over interpreter values: Spark's, with NaN above every
     double and equal to itself, -0.0 equal to 0.0, strings by their UTF-8
-    bytes."""
+    bytes; a struct field by field, an array element by element (both
+    hashable, so they group and join), a null inside them first."""
     if isinstance(v, float) and math.isnan(v):
         return (1, 0.0)
     if isinstance(v, str):
         return (0, v.encode("utf-8"))
+    if isinstance(v, dict):
+        return (0, tuple(_inner_key(x) for x in v.values()))
+    if isinstance(v, (list, tuple)):
+        return (0, tuple(_inner_key(x) for x in v))
     return (0, v)
+
+
+def _inner_key(v):
+    return (-1, 0) if v is None else ordkey(v)
+
+
+def _map_pairs(m) -> list:
+    """A map value's (key, value) pairs (Arrow gives maps as pair
+    lists)."""
+    return list(m.items()) if isinstance(m, dict) else list(m)
 
 
 class _NegKey:
@@ -1258,6 +1282,157 @@ class RowEvaluator:
         return self._hash_row(e, row, xxhash64_int, xxhash64_long,
                               xxhash64_bytes, lambda h: _wrap(h, 64))
 
+    # ---- split and str_to_map ----
+    def _eval_StringSplit(self, e, row):
+        s = self.eval(e.child, row)
+        if s is None:
+            return None
+        # Java Pattern.split (Spark's contract): a zero-width match at the
+        # start is skipped, limit > 0 caps the pieces, limit == 0 drops
+        # trailing empty strings
+        pieces, index, count = [], 0, 0
+        for m in re.finditer(e.pattern, s):
+            if e.limit > 0 and count >= e.limit - 1:
+                break
+            a, b = m.span()
+            if a == b and a == 0 and index == 0:
+                continue
+            pieces.append(s[index:a])
+            index = b
+            count += 1
+        pieces.append(s[index:])
+        if e.limit == 0:
+            while pieces and pieces[-1] == "":
+                pieces.pop()
+        return pieces
+
+    def _eval_StringToMap(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        # every entry in order, duplicate keys kept (the device's layout;
+        # a read takes the last); no kv delimiter: a NULL value
+        out = []
+        for entry in v.split(e.pair_delim):
+            if e.kv_delim in entry:
+                k, _, val = entry.partition(e.kv_delim)
+                out.append((k, val))
+            else:
+                out.append((entry, None))
+        return out
+
+    # ---- collections (arrays as lists, structs as dicts, maps as lists
+    # of (key, value) pairs) ----
+    def _eval_CreateArray(self, e, row):
+        return [self.eval(c, row) for c in e.elems]
+
+    def _eval_Size(self, e, row):
+        v = self.eval(e.child, row)
+        return -1 if v is None else len(v)
+
+    def _eval_ArrayContains(self, e, row):
+        a = self.eval(e.arr, row)
+        v = self.eval(e.value, row)
+        if a is None or v is None:
+            return None
+        k = ordkey(v)
+        if any(ordkey(x) == k for x in a if x is not None):
+            return True
+        # Spark's three-valued logic: not found with a null element: NULL
+        return None if any(x is None for x in a) else False
+
+    def _eval_ElementAt(self, e, row):
+        a = self.eval(e.arr, row)
+        i = self.eval(e.index, row)
+        if a is None or i is None:
+            return None
+        pos = i - 1 if i > 0 else len(a) + i
+        return a[pos] if 0 <= pos < len(a) else None
+
+    def _eval_GetArrayItem(self, e, row):
+        a = self.eval(e.arr, row)
+        i = self.eval(e.index, row)
+        if a is None or i is None:
+            return None
+        return a[i] if 0 <= i < len(a) else None
+
+    def _eval_SortArray(self, e, row):
+        a = self.eval(e.child, row)
+        if a is None:
+            return None
+        # Spark: nulls first ascending, last descending; NaN greatest
+        nulls = [x for x in a if x is None]
+        vals = sorted((x for x in a if x is not None), key=ordkey,
+                      reverse=not e.ascending)
+        return nulls + vals if e.ascending else vals + nulls
+
+    def _eval_ArrayMin(self, e, row):
+        a = self.eval(e.child, row)
+        if a is None:
+            return None
+        vals = [x for x in a if x is not None]
+        return min(vals, key=ordkey) if vals else None
+
+    def _eval_ArrayMax(self, e, row):
+        a = self.eval(e.child, row)
+        if a is None:
+            return None
+        vals = [x for x in a if x is not None]
+        return max(vals, key=ordkey) if vals else None
+
+    def _eval_CreateStruct(self, e, row):
+        names = e.names or tuple(f"col{i + 1}" for i in range(len(e.elems)))
+        return {n: self.eval(x, row) for n, x in zip(names, e.elems)}
+
+    def _eval_GetStructField(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        return list(v.values())[e.ordinal]
+
+    def _eval_MapKeys(self, e, row):
+        m = self.eval(e.child, row)
+        return None if m is None else [k for k, _ in _map_pairs(m)]
+
+    def _eval_MapValues(self, e, row):
+        m = self.eval(e.child, row)
+        if m is None:
+            return None
+        # a null string value reads as "", as on the device, whose array
+        # layout has no per-element validity
+        null = "" if e.dtype.children[0].kind is TypeKind.STRING else None
+        return [null if v is None else v for _, v in _map_pairs(m)]
+
+    def _eval_GetMapValue(self, e, row):
+        m = self.eval(e.map, row)
+        k = self.eval(e.key, row)
+        if m is None or k is None:
+            return None
+        out = None
+        for pk, pv in _map_pairs(m):     # the last match wins
+            if pk == k:
+                out = pv
+        return out
+
+    def _eval_MapContainsKey(self, e, row):
+        m = self.eval(e.map, row)
+        k = self.eval(e.key, row)
+        if m is None or k is None:
+            return None
+        return any(pk == k for pk, _ in _map_pairs(m))
+
+    def _eval_MapFromArrays(self, e, row):
+        ks = self.eval(e.keys, row)
+        vs = self.eval(e.values, row)
+        if ks is None or vs is None:
+            return None
+        if len(ks) != len(vs):
+            if self.ansi:
+                raise AnsiError("[MAP_KEY_VALUE_LENGTH_MISMATCH] "
+                                "map_from_arrays (ANSI mode)")
+            return None             # the device nulls the row
+        return list(zip(ks, vs))
+
 
 # ---------------------------------------------------------------------------
 # Scalar helpers of the cast, math and datetime handlers
@@ -1702,6 +1877,13 @@ def _agg_value(a, xs: List, n_rows: int):
         return xs[0] if xs else None
     if name == "Last":
         return xs[-1] if xs else None
+    if name in ("CollectList", "CollectSet"):
+        # the device's order: value-sorted, nulls skipped
+        s = sorted(nn, key=ordkey)
+        if name == "CollectSet":
+            s = [x for i, x in enumerate(s)
+                 if i == 0 or ordkey(s[i - 1]) != ordkey(x)]
+        return s
     if name in ("Percentile", "ApproxPercentile"):
         if not nn:
             return None
@@ -1720,6 +1902,21 @@ def _agg_value(a, xs: List, n_rows: int):
         var = sum((x - mean) ** 2 for x in vals) / (n - 1 if samp else n)
         return math.sqrt(var) if name.startswith("Stddev") else var
     raise _later(f"aggregate {name}")
+
+
+def _pivot_first(a, grp: List, ev) -> list:
+    """PivotFirst over one group: for each pivot value, the value of the
+    first row whose pivot equals it (a null pivot matches None)."""
+    out = []
+    for pv in a.pivot_values:
+        hit = None
+        for r in grp:
+            p = ev.eval(a.pivot, r)
+            if p == pv or (p is None and pv is None):
+                hit = ev.eval(a.child, r)
+                break
+        out.append(hit)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1855,12 +2052,35 @@ class Interpreter:
         for raw, grp in groups.values():
             vals = []
             for a in aggs:
+                if type(a).__name__ == "PivotFirst":
+                    vals.append(_pivot_first(a, grp, ev))
+                    continue
                 if not a.children:
                     xs = None
                 else:
                     xs = [ev.eval(a.child, r) for r in grp]
                 vals.append(_agg_value(a, xs, len(grp)))
             out.append(raw + tuple(vals))
+        return out
+
+    def _exec_LogicalGenerate(self, p):
+        rows, ev, bind = self._child(p)
+        g = bind(p.generator)
+        is_map = g.dtype.kind is TypeKind.MAP
+        pad = (None, None) if is_map else (None,)
+        out = []
+        for r in rows:
+            arr = ev.eval(g, r)
+            if arr is None or len(arr) == 0:
+                if p.outer:     # explode_outer: null pos, key and value
+                    out.append(r + (None,) + pad if p.pos else r + pad)
+                continue
+            if is_map:
+                for i, (k, v) in enumerate(_map_pairs(arr)):
+                    out.append(r + (i, k, v) if p.pos else r + (k, v))
+            else:
+                for i, v in enumerate(arr):
+                    out.append(r + (i, v) if p.pos else r + (v,))
         return out
 
     def _exec_LogicalJoin(self, p):

@@ -3,9 +3,8 @@
 Port of ``spark_rapids_tpu/plan/logical.py``: a tree of operator nodes
 carrying unbound expression trees, the point where the planner
 (``plan/overrides.py``) wraps, tags and converts them to the port's
-physical operators. ``LogicalWindow``, ``LogicalGenerate``,
-``DataFrame.window`` and ``DataFrame.explode`` come with their operators
-(ROADMAP item 7).
+physical operators. ``LogicalWindow`` and ``DataFrame.window`` come with
+their operator (ROADMAP item 7).
 
 A scan of an Arrow table declares the table's Arrow schema, string columns
 64 bytes wide, as the JAX package's ``table()`` does.
@@ -169,6 +168,40 @@ class LogicalSample(LogicalPlan):
         return self.children[0].schema()
 
 
+@dataclass
+class LogicalGenerate(LogicalPlan):
+    """Lateral view: explode/posexplode of an array or map expression.
+    Arrays yield one element column; maps yield Spark's (key, value)
+    column pair."""
+
+    generator: Expression = None
+    outer: bool = False
+    pos: bool = False
+    elem_name: str = "col"
+    pos_name: str = "pos"
+    value_name: str = "value"    # maps only
+
+    def schema(self) -> Schema:
+        from .. import types as T
+        from ..types import TypeKind
+        child_schema = self.children[0].schema()
+        g = self.generator.bind(child_schema)
+        if g.dtype.kind not in (TypeKind.ARRAY, TypeKind.MAP):
+            raise TypeError(f"explode expects an array or map generator, "
+                            f"got {g.dtype}")
+        fields = list(child_schema.fields)
+        if self.pos:
+            fields.append(SField(self.pos_name, T.INT32, self.outer))
+        if g.dtype.kind is TypeKind.MAP:
+            key_t, val_t = g.dtype.children
+            fields.append(SField(self.elem_name, key_t, self.outer))
+            fields.append(SField(self.value_name, val_t, self.outer))
+        else:
+            fields.append(SField(self.elem_name, g.dtype.children[0],
+                                 self.outer))
+        return Schema(fields)
+
+
 # ---------------------------------------------------------------------------
 # DataFrame builder (the pyspark.sql.DataFrame shape, minus Spark)
 # ---------------------------------------------------------------------------
@@ -215,6 +248,25 @@ class DataFrame:
 
     def sample(self, fraction: float, seed: int = 0) -> "DataFrame":
         return DataFrame(LogicalSample((self.plan,), fraction, seed))
+
+    def explode(self, expr, alias: str = "col", outer: bool = False,
+                pos: bool = False, pos_alias: str = "pos",
+                value_alias: str = "value") -> "DataFrame":
+        """LATERAL VIEW [OUTER] explode/posexplode(expr) AS alias. An
+        array generator yields one ``alias`` column; a map generator
+        yields (alias, value_alias), which Spark names (key, value)."""
+        e = col(expr) if isinstance(expr, str) else expr
+        if alias == "col":
+            from ..types import TypeKind
+            try:
+                if e.bind(self.plan.schema()).dtype.kind is TypeKind.MAP:
+                    alias = "key"
+            except Exception:
+                pass
+        df = DataFrame(LogicalGenerate((self.plan,), e, outer, pos,
+                                       alias, pos_alias, value_alias))
+        df.plan.schema()    # validate the generator type eagerly
+        return df
 
     def schema(self) -> Schema:
         return self.plan.schema()

@@ -21,10 +21,8 @@ or launch, an OOM past the retry loop, an ANSI error) raises and is never
 sent to the interpreter.
 
 Reason strings are the JAX package's word for word, so that explain output
-compares between the packages. Two tagging branches are left out with the
-operators they gate (ROADMAP item 7): the window and generator checks, and
-the check that a sort, join or group key is not a nested type (the port's
-types have no nested kinds).
+compares between the packages. The window checks are left out with the
+operator they gate (ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -381,6 +379,8 @@ class PlanMeta:
             return [o.child for o in n.orders]
         if isinstance(n, L.LogicalExpand):
             return [e for p in n.projections for e in p]
+        if isinstance(n, L.LogicalGenerate):
+            return [n.generator]
         return []
 
     def _tag_expressions(self) -> None:
@@ -416,9 +416,51 @@ class PlanMeta:
             key = {"parquet": PARQUET_ENABLED.key}.get(fmt)
             if key is not None and not self.conf.get(key):
                 self.will_not_work(f"{key} is false")
+        if isinstance(n, (L.LogicalSort, L.LogicalJoin, L.LogicalAggregate)):
+            # arrays, maps and structs ride through sort, join and
+            # aggregate as payload; as keys they have no orderable or
+            # hashable encoding on the device
+            if isinstance(n, L.LogicalSort):
+                keys = [o.child for o in n.orders]
+            elif isinstance(n, L.LogicalAggregate):
+                keys = list(n.group_exprs)
+            else:
+                keys = list(n.left_keys) + list(n.right_keys)
+            schemas = [c.schema() for c in n.children]
+            for k in keys:
+                for sch in schemas:
+                    try:
+                        kd = k.bind(sch).dtype
+                    except Exception:
+                        continue
+                    if kd.is_nested:
+                        self.will_not_work(
+                            f"{kd} cannot be a sort/join key on device "
+                            f"(no scalar ordering/hash encoding)")
+                    break
+        if isinstance(n, L.LogicalGenerate):
+            from ..types import TypeKind
+            try:
+                g = n.generator.bind(n.children[0].schema())
+                if g.dtype.kind not in (TypeKind.ARRAY, TypeKind.MAP):
+                    self.will_not_work(
+                        f"generator over {g.dtype} is not an array/map")
+                else:
+                    bad = any(c.is_nested for c in g.dtype.children)
+                    # map entries must be scalars; array elements may also
+                    # be strings (the 3D byte tensor layout)
+                    if g.dtype.kind is TypeKind.MAP:
+                        bad = bad or any(c.kind is TypeKind.STRING
+                                         for c in g.dtype.children)
+                    if bad:
+                        self.will_not_work(
+                            f"explode of {g.dtype}: no device layout for "
+                            f"its element type")
+            except Exception as ex:
+                self.will_not_work(f"generator does not bind: {ex}")
         if isinstance(n, L.LogicalAggregate):
-            # one sort-sensitive aggregate (percentile) per exec: each needs
-            # its own value-sorted layout
+            # one sort-sensitive aggregate (percentile/collect) per exec:
+            # each needs its own value-sorted layout
             raw = [e.child if isinstance(e, Alias) else e
                    for e in n.agg_exprs]
             sensitive = [a for a in raw
@@ -742,7 +784,8 @@ def estimate_rows(node: L.LogicalPlan) -> Optional[int]:
                 return None
             total += e
         return total
-    if isinstance(node, (L.LogicalJoin, L.LogicalExpand)):
+    if isinstance(node, (L.LogicalJoin, L.LogicalGenerate,
+                         L.LogicalExpand)):
         return None
     if len(node.children) == 1:
         return estimate_rows(node.children[0])
@@ -836,6 +879,12 @@ class Overrides:
             return SampleExec(n.fraction, n.seed, ch[0])
         if isinstance(n, L.LogicalExpand):
             return ExpandExec(n.projections, ch[0])
+        if isinstance(n, L.LogicalGenerate):
+            from ..exec.generate import GenerateExec
+            return GenerateExec(n.generator, ch[0], outer=n.outer,
+                                pos=n.pos, elem_name=n.elem_name,
+                                pos_name=n.pos_name,
+                                value_name=n.value_name, ctx=self._ctx())
         if isinstance(n, L.LogicalSort):
             return SortExec(n.orders, ch[0], global_sort=n.global_sort)
         if isinstance(n, L.LogicalAggregate):

@@ -3,12 +3,10 @@
 Port of ``spark_rapids_tpu/plan/typesig.py`` (reference: TypeChecks.scala's
 ``TypeSig`` algebra): each rule declares the SQL types it supports, and the
 planner refuses a node whose types do not fit, with the reason recorded,
-instead of failing at run time.
-
-The port's types have no nested kinds yet (ARRAY, STRUCT and MAP come with
-ROADMAP item 7), so ``ARRAY``, ``MAP``, ``STRUCT`` and ``NESTED`` admit
-nothing here; the rules name them as the JAX package's do, and admit them
-once the kinds exist.
+instead of failing at run time. The nested signatures are the JAX
+package's: an array of scalars or strings, a map of scalars (or of
+strings, ``StringToMap``'s layout), a struct of anything storable; a
+nested element or map entry has no device layout.
 """
 
 from __future__ import annotations
@@ -43,6 +41,24 @@ class TypeSig:
         if t.kind is TypeKind.STRING and t.max_len > self.max_string_bytes:
             return (f"string max_len {t.max_len} exceeds device budget "
                     f"{self.max_string_bytes}")
+        if t.kind is TypeKind.ARRAY:
+            # scalar elements: a 2D matrix; string elements: a 3D byte
+            # tensor (split()'s layout); nested elements have no layout
+            c = t.children[0]
+            if c.kind in (TypeKind.ARRAY, TypeKind.STRUCT, TypeKind.MAP):
+                return (f"{t} nested elements have no device layout")
+        if t.kind is TypeKind.MAP:
+            # string keys/values ride zero-padded [cap, E, ml] byte
+            # tensors (StringToMap's layout); nested entries have no layout
+            for c in t.children:
+                if c.kind in (TypeKind.ARRAY, TypeKind.STRUCT,
+                              TypeKind.MAP):
+                    return (f"{t} nested map entries have no device "
+                            f"layout")
+        for c in t.children:
+            r = self.supports(c)
+            if r:
+                return r
         return None
 
 
@@ -107,12 +123,14 @@ NULL = _sig(TypeKind.NULL)
 ALL_BASIC = NUMERIC + BOOLEAN + STRING + DATETIME + NULL
 ORDERABLE = ALL_BASIC       # everything basic sorts via key normalization
 GROUPABLE = ALL_BASIC
+#: fixed-budget arrays of scalar (or string) elements
+ARRAY = _sig(TypeKind.ARRAY)
+#: zipped key/value fixed-budget matrices
+MAP = _sig(TypeKind.MAP)
+#: one set of lanes per field plus a struct validity lane
+STRUCT = _sig(TypeKind.STRUCT)
+NESTED = _sig(TypeKind.ARRAY, TypeKind.STRUCT, TypeKind.MAP)
 NONE = TypeSig()
-#: the nested kinds: none in the port's types yet (ROADMAP item 7)
-ARRAY = NONE
-MAP = NONE
-STRUCT = NONE
-NESTED = NONE
 #: DECIMAL128: four 32-bit limbs (``expressions/decimal128.py``). Adding
 #: this sig raises a rule's decimal ceiling from DECIMAL64 to 38 digits
 DECIMAL_128 = TypeSig(frozenset({TypeKind.DECIMAL}),

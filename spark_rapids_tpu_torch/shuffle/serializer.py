@@ -11,10 +11,12 @@ codecs, so a frame either package writes reads back on the other::
     u32 name_len | name | u8 dtype_len | numpy dtype string | u8 ndim |
     i64 shape[ndim] | i64 raw_len | i64 payload_len | u8 codec | payload
 
-Array names encode the lane: ``v{i}`` validity, ``d{i}`` data and
-``l{i}`` string lengths of column i, and for a dictionary column ``d{i}``
-its codes with ``D{i}`` and ``e{i}`` its dictionary and entry lengths (the
-disk spill tier adds ``n``, the row count). Codecs: 0 none, 1 lz4, 2 zlib, 3 zstd. LZ4 and zstd run in the
+Array names encode the lane: ``v{i}`` validity, ``d{i}`` data, ``l{i}``
+string, array or map lengths and ``m{i}`` a map's values or an
+``array<string>``'s element lengths of column i, a struct's children under
+``{i}.{j}``, and for a dictionary column ``d{i}`` its codes with ``D{i}``
+and ``e{i}`` its dictionary and entry lengths (the disk spill tier adds
+``n``, the row count). Codecs: 0 none, 1 lz4, 2 zlib, 3 zstd. LZ4 and zstd run in the
 port's host codec (``csrc/host_codec.cpp``, a copy of the JAX package's);
 where it cannot be built a frame is written with zlib, as the JAX package
 falls back, and zstd needs the system's libzstd.
@@ -245,11 +247,19 @@ def deserialize_host(data: bytes) -> Tuple[Dict[str, np.ndarray], int]:
 
 def _col_to_arrays(c: DeviceColumn, key: str,
                    tensors: Dict[str, torch.Tensor]) -> None:
-    """One column's lanes under their keys."""
+    """One column's lanes under their keys; a struct's children recurse
+    as ``{key}.{j}`` (the schema drives the reassembly)."""
     tensors[f"v{key}"] = c.validity
+    if c.is_struct:
+        for j, kid in enumerate(c.data):
+            _col_to_arrays(kid, f"{key}.{j}", tensors)
+        return
     tensors[f"d{key}"] = c.data
     if c.lengths is not None:
         tensors[f"l{key}"] = c.lengths
+    if c.data2 is not None:
+        # a map's values, an array<string>'s element lengths
+        tensors[f"m{key}"] = c.data2
     if c.dict_data is not None:
         # a dictionary column ships its dictionary beside the codes
         # (``d{key}`` above), not a padded byte matrix
@@ -278,11 +288,17 @@ def _col_from_arrays(dtype, key: str, arrays: Dict[str, object],
         a = arrays[k]
         t = a if isinstance(a, torch.Tensor) else _host_tensor(a)
         return t.to(device, non_blocking=True)
+    if dtype.kind is TypeKind.STRUCT:
+        kids = tuple(_col_from_arrays(ct, f"{key}.{j}", arrays, device)
+                     for j, ct in enumerate(dtype.children))
+        return DeviceColumn(kids, lane(f"v{key}"), dtype)
     if f"D{key}" in arrays:
         return DeviceColumn(lane(f"d{key}"), lane(f"v{key}"), dtype, None,
                             lane(f"D{key}"), lane(f"e{key}"))
-    lengths = lane(f"l{key}") if dtype.kind is TypeKind.STRING else None
-    return DeviceColumn(lane(f"d{key}"), lane(f"v{key}"), dtype, lengths)
+    lengths = lane(f"l{key}") if f"l{key}" in arrays else None
+    data2 = lane(f"m{key}") if f"m{key}" in arrays else None
+    return DeviceColumn(lane(f"d{key}"), lane(f"v{key}"), dtype, lengths,
+                        data2=data2)
 
 
 @dataclass(frozen=True)

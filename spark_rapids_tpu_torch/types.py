@@ -13,13 +13,18 @@ null. A string column is a fixed-width padded UTF-8 byte matrix
 ``uint8[rows, max_len]`` plus int32 byte lengths; ``max_len`` is part of the
 type.
 
-The nested kinds (ARRAY, STRUCT, MAP) are a later slice.
+The nested kinds keep the JAX package's fixed budgets: ARRAY and MAP carry
+their element budget in ``max_len`` (``array(elem, max_elems)``,
+``map_(key, value, max_elems)``) and their element types in ``children``;
+a STRUCT carries its field types in ``children`` and their names in
+``names``. Their device layouts are ``batch.py``'s.
 """
 
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -39,6 +44,9 @@ class TypeKind(enum.Enum):
     DATE = "date"
     TIMESTAMP = "timestamp"
     NULL = "void"
+    ARRAY = "array"
+    STRUCT = "struct"
+    MAP = "map"
 
 
 _INTEGRALS = {TypeKind.INT8, TypeKind.INT16, TypeKind.INT32, TypeKind.INT64}
@@ -103,8 +111,14 @@ class SqlType:
     #: decimals: digits and digits after the point
     precision: int = 0
     scale: int = 0
-    #: strings: the most UTF-8 bytes a value may take on the device
+    #: strings: the most UTF-8 bytes a value may take on the device;
+    #: arrays and maps: the most elements (entries) a row may hold
     max_len: int = 0
+    #: nested kinds: the element types (array), key and value (map), or
+    #: field types (struct)
+    children: Tuple["SqlType", ...] = field(default_factory=tuple)
+    #: struct field names, parallel to ``children``
+    names: Tuple[str, ...] = field(default_factory=tuple)
 
     @property
     def is_integral(self) -> bool:
@@ -120,8 +134,18 @@ class SqlType:
                 or self.kind is TypeKind.DECIMAL)
 
     @property
+    def is_string(self) -> bool:
+        return self.kind is TypeKind.STRING
+
+    @property
+    def is_nested(self) -> bool:
+        return self.kind in (TypeKind.ARRAY, TypeKind.STRUCT, TypeKind.MAP)
+
+    @property
     def storage_dtype(self) -> torch.dtype:
         """Storage dtype of the payload (the byte matrix for strings)."""
+        if self.kind not in _STORAGE:
+            raise TypeError(f"no device storage for {self}")
         return _STORAGE[self.kind]
 
     def __str__(self) -> str:
@@ -129,6 +153,16 @@ class SqlType:
             return f"decimal({self.precision},{self.scale})"
         if self.kind is TypeKind.STRING and self.max_len:
             return f"string[{self.max_len}]"
+        if self.kind is TypeKind.ARRAY:
+            return f"array<{self.children[0]}>"
+        if self.kind is TypeKind.MAP:
+            return f"map<{self.children[0]},{self.children[1]}>"
+        if self.kind is TypeKind.STRUCT:
+            names = self.names or tuple(
+                f"f{i}" for i in range(len(self.children)))
+            inner = ", ".join(f"{n}: {c}"
+                              for n, c in zip(names, self.children))
+            return f"struct<{inner}>"
         return self.kind.value
 
 
@@ -154,6 +188,30 @@ def decimal(precision: int, scale: int) -> SqlType:
 
 def string(max_len: int = 64) -> SqlType:
     return SqlType(TypeKind.STRING, max_len=max_len)
+
+
+def array(elem: SqlType, max_elems: int = 256) -> SqlType:
+    """array<elem> with a fixed element budget a row (``max_len``), the
+    strategy strings take with their bytes."""
+    return SqlType(TypeKind.ARRAY, max_len=max_elems, children=(elem,))
+
+
+def struct(*fields: SqlType,
+           names: Optional[Tuple[str, ...]] = None) -> SqlType:
+    """struct<name: type, ...>: one set of lanes per field beside a struct
+    validity lane (a null struct nulls every field)."""
+    if names is None:
+        names = tuple(f"f{i}" for i in range(len(fields)))
+    if len(names) != len(fields):
+        raise ValueError("struct names/fields length mismatch")
+    return SqlType(TypeKind.STRUCT, children=tuple(fields),
+                   names=tuple(names))
+
+
+def map_(key: SqlType, value: SqlType, max_elems: int = 256) -> SqlType:
+    """map<key,value> with a fixed entry budget: two zipped fixed-budget
+    matrices (keys, values) sharing one lengths vector."""
+    return SqlType(TypeKind.MAP, max_len=max_elems, children=(key, value))
 
 
 _NUM_ORDER = [TypeKind.INT8, TypeKind.INT16, TypeKind.INT32, TypeKind.INT64,
@@ -191,14 +249,15 @@ def common_numeric_type(a: SqlType, b: SqlType) -> SqlType:
 
 
 def numpy_dtype(t: SqlType) -> np.dtype:
-    return _NUMPY[t.kind]
+    return _NUMPY.get(t.kind, np.dtype(np.uint8))
 
 
 def from_arrow(arrow_type: pa.DataType, max_len: int = 64) -> SqlType:
     """Map a pyarrow DataType to a SqlType; strings (and large strings) get
     ``max_len`` bytes, every timestamp unit and zone maps to TIMESTAMP (the
-    upload converts to UTC microseconds), and a decimal128 to DECIMAL(p, s).
-    Nested types are a later slice."""
+    upload converts to UTC microseconds), a decimal128 to DECIMAL(p, s),
+    and a list, struct or map to the nested kind of its children's types
+    (arrays and maps with the default budget of 256)."""
     if pa.types.is_string(arrow_type) or pa.types.is_large_string(arrow_type):
         return string(max_len)
     if pa.types.is_decimal(arrow_type):
@@ -209,15 +268,30 @@ def from_arrow(arrow_type: pa.DataType, max_len: int = 64) -> SqlType:
         # dictionary encoding is a property of a column (dictenc.py), not
         # a type: dictionary<string> types as its value type
         return from_arrow(arrow_type.value_type, max_len)
+    if pa.types.is_map(arrow_type):
+        return map_(from_arrow(arrow_type.key_type, max_len),
+                    from_arrow(arrow_type.item_type, max_len))
+    if pa.types.is_list(arrow_type):
+        return array(from_arrow(arrow_type.value_type, max_len))
+    if pa.types.is_struct(arrow_type):
+        return struct(*(from_arrow(f.type, max_len) for f in arrow_type),
+                      names=tuple(f.name for f in arrow_type))
     for kind, at in _ARROW.items():
         if arrow_type == at:
             return SqlType(kind)
     raise NotImplementedError(
-        f"arrow type {arrow_type} has no device layout in the port yet: "
-        f"nested types come with the collections slice")
+        f"arrow type {arrow_type} has no device layout in the port")
 
 
 def to_arrow(t: SqlType) -> pa.DataType:
     if t.kind is TypeKind.DECIMAL:
         return pa.decimal128(t.precision, t.scale)
+    if t.kind is TypeKind.ARRAY:
+        return pa.list_(to_arrow(t.children[0]))
+    if t.kind is TypeKind.MAP:
+        return pa.map_(to_arrow(t.children[0]), to_arrow(t.children[1]))
+    if t.kind is TypeKind.STRUCT:
+        names = t.names or tuple(f"f{i}" for i in range(len(t.children)))
+        return pa.struct([pa.field(n, to_arrow(c), nullable=True)
+                          for n, c in zip(names, t.children)])
     return _ARROW[t.kind]

@@ -143,6 +143,8 @@ SLICE_MODULES = ["spark_rapids_tpu_torch.kernels.string_search",
                  "spark_rapids_tpu_torch.expressions.comparison",
                  "spark_rapids_tpu_torch.plan.interpreter",
                  "spark_rapids_tpu_torch.expressions.decimal128",
+                 "spark_rapids_tpu_torch.expressions.collections",
+                 "spark_rapids_tpu_torch.exec.generate",
                  "spark_rapids_tpu_torch.entry"]
 
 

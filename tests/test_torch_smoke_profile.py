@@ -19,9 +19,11 @@ FILL = "void at::native::vectorized_elementwise_kernel<4, FillFunctor<int>>"
 
 
 def _event(name, start=0.0, end=1.0):
+    """A raw record of the profiler's results (times in us)."""
     return types.SimpleNamespace(
-        name=name, device_type=CUDA,
-        time_range=types.SimpleNamespace(start=start, end=end))
+        name=lambda: name, device_type=lambda: CUDA,
+        start_ns=lambda: int(start * 1000),
+        duration_ns=lambda: int((end - start) * 1000))
 
 
 class _FakeProfile:
@@ -42,8 +44,11 @@ class _FakeProfile:
     def __exit__(self, *exc):
         return False
 
-    def events(self):
-        return self._events
+    @property
+    def profiler(self):
+        events = self._events
+        return types.SimpleNamespace(kineto_results=types.SimpleNamespace(
+            events=lambda: events))
 
 
 @pytest.fixture
