@@ -66,7 +66,7 @@ against their plain versions, and its walls, peak, idle share and the
 wire bytes (encoded, raw) of the part side's exchange input print beside
 the plain leg's. Then the string phase: every
 string expression of the port (53, each class at least once; hex, bin and
-conv at INT64_MIN, -1, 0 and INT64_MAX) over 2^14 rows of S_COMMENT,
+conv at INT64_MIN, -1, 0 and INT64_MAX) over 2^12 rows of S_COMMENT,
 P_TYPE, an int64 and a decimal on the card against the port's row
 interpreter, 0 rows apart (a fused stage, captured), and StringLocate,
 StringReplace and SubstringIndex over the SF100 P_TYPE column in 8
@@ -117,13 +117,32 @@ each exact against its vectorized numpy/pyarrow reference, nothing fallen
 back, with a checked cold run, a checked warm run (wall, rows/s, peak)
 and a profiled run (idle share), beside the card's name and power
 limit; no
-kernel lies on these paths. Then ``[phase collections]``: every
-expression of ``collections.py``'s first half, split and str_to_map with
-their consumers, collect_list, collect_set, pivot_first, first/last over
-arrays and explode of an array, a map and a split with outer and pos,
-over 2^14 seeded rows (lists with empty and null rows, null structs, a
-map<int,bigint>, "k:v,k:v" strings) on the card against the row
-interpreter, 0 rows apart.
+kernel lies on these paths. Then the order lines as arrays
+(``[phase order lines]``, ``entry.order_lines_df`` over the same draw:
+each order's lines packed into one collect_list and unpacked by
+transforms, collect_set of its parts and of its deep-discount parts,
+three joins with orders, aggregate, zip_with, array_distinct, the four
+set operations, filter, exists, forall, a transform reading an outer
+column, slice, array_position, array_remove, transform_values,
+map_filter, transform_keys, sequence and flatten; the top 10,000 by
+quantity), exact against its vectorized reference, nothing fallen back,
+cold, warm and profiled as the baskets; and explode(replicaterows(
+n_lines)) under generate.maxRepeat 8, one row per line. Then
+``[phase collections]``: every expression of ``collections.py`` and
+``json.py``, split and str_to_map with their consumers, collect_list,
+collect_set, pivot_first, first/last over arrays and explode of an array,
+a map, a split and replicaterows with outer and pos, over 2^14 seeded rows
+(lists with empty and null rows and NaN, null structs, a
+map<int,bigint>, "k:v,k:v" strings, JSON documents with nesting, [i]
+paths, escapes, a \\u escape, blanks, null and garbage) on the card
+against the row interpreter (the map lambdas and zip_with, which no
+interpreter handles, against the port's CPU run), 0 rows apart, and slice
+from 0 and a sequence past its budget failing on both. Then
+``[phase json q1]``: TPC-H Q1 over 6,001,215 JSON Lines documents (SF1)
+through from_json's fields (get_json_object and a cast, the double parse
+on the card), within rel 1e-6 of pyarrow, nothing fallen back, every
+window_match launch (each field step, k = 7 to 17) against its plain
+version, and json_tuple's count by flag equal to Q1's count_order.
 
 Then whole-stage fusion (``exec/fuse.py``): Q2's part filter (one Q2 part
 slice, ``window_match`` at k = 5) and a join on two int32 keys (murmur3)
@@ -158,9 +177,10 @@ on the card and the CPU, murmur3 launched for the int8, int16 and float
 keys.
 
 Last the Parquet slice (``spark_rapids_tpu_torch/io``), over files written
-to a fresh temporary directory that is removed at the end: the SF10
-lineitem written through ``entry.write_lineitem_bucketed`` from an 8-slice
-scan into 16 buckets on l_shipdate (SNAPPY), whose ``WriteStats`` must count
+to a fresh temporary directory that is removed at the end: a 2^24-row
+prefix of the SF10 lineitem written through
+``entry.write_lineitem_bucketed`` from an 8-slice scan into 16 buckets on
+l_shipdate (SNAPPY), whose ``WriteStats`` must count
 every row in 8 x 16 files, whose files read back through the port's
 ``ParquetSource`` must hold only rows of their bucket (``murmur3_int32`` on
 the card, equal to its plain version) and together equal the input as a
@@ -1703,9 +1723,10 @@ def run_q16_dict_leg(dev, counted, tables, expected, plain_rows,
 
 
 #: rows of the strings phase's card-against-interpreter check: cut from
-#: 2^16 to make room for [phase q18 decimal] and [phase limbs]; every
-#: expression and edge row stays, only the random rows shrink
-STRINGS_ROWS = 1 << 14
+#: 2^16 to make room for [phase q18 decimal] and [phase limbs], and to
+#: 2^12 for [phase order lines] and [phase json q1]; every expression and
+#: edge row stays, only the random rows shrink
+STRINGS_ROWS = 1 << 12
 
 
 def rows_apart(a, b) -> int:
@@ -1820,7 +1841,7 @@ def checked_window_match(record):
 
 def run_strings_phase(dev, tables) -> dict:
     """Each string expression of the slice on the card against the port's
-    row interpreter at 2^14 rows, 0 rows apart; then StringLocate,
+    row interpreter at 2^12 rows, 0 rows apart; then StringLocate,
     StringReplace and SubstringIndex over the SF100 P_TYPE column (8
     slices of the part table) against pyarrow, each window_match launch
     held against its plain version on the same inputs, with each of the
@@ -2291,6 +2312,140 @@ def run_baskets_phase(dev, tables) -> dict:
     return {}
 
 
+def run_order_lines_phase(dev, tables) -> dict:
+    """The order lines kept as arrays at SF10 over Q9's draw, through the
+    port's Session (``entry.order_lines_df``: each order's lines packed
+    into one collect_list and unpacked by transforms, collect_set of its
+    parts and of its deep-discount parts, three joins with orders, then
+    aggregate, zip_with, array_distinct, the four set operations,
+    filter, exists, forall, a transform reading an outer column, slice of
+    sort_array, array_position, array_remove, transform_values,
+    map_filter, transform_keys, sequence and flatten; the top 10,000 by
+    quantity), exact against its vectorized reference with nothing fallen
+    back: a checked cold run and an unprofiled checked warm run (walls,
+    rows/s, peak), then a profiled run for the idle share. Then
+    ``explode(replicaterows(n_lines))`` under ``generate.maxRepeat`` = 8:
+    one row per line. No kernel lies on this path: its exchanges hash
+    int64 keys."""
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.plan import Session
+    _, _, _, lineitem, orders, _ = tables
+    t0 = time.perf_counter()
+    lines, orders = entry.order_lines_tables(lineitem, orders)
+    made_s = time.perf_counter() - t0
+    probe = entry.basket_probe(lines)
+    t0 = time.perf_counter()
+    expected = entry.order_lines_reference(lines, orders, probe)
+    ref_s = time.perf_counter() - t0
+    print(f"order lines: SF{SCALAR_Q_SF} ({lines.num_rows} lineitem, "
+          f"{orders.num_rows} orders rows), {NESTED_SLICES} slices, "
+          f"{NESTED_PARTITIONS} shuffle partitions, lists of at most "
+          f"{entry.ORDER_LINES_MAX}; l_linenumber on the host {made_s:.2f} "
+          f"s; reference {ref_s:.2f} s; probe part {probe}", flush=True)
+    ses = Session(entry.order_lines_conf(NESTED_PARTITIONS), device=dev)
+
+    def run():
+        out = ses.collect(entry.order_lines_df(lines, orders, probe,
+                                               NESTED_SLICES))
+        if ses.fell_back():
+            raise AssertionError(f"order lines fell back {ses.fell_back()}")
+        return out
+
+    stats = {}
+    run_path("order lines", lambda: None, lambda _: expected,
+             lambda _: run(), _exact("order lines"), dev, [],
+             rows_of=lambda _: lines.num_rows, stats=stats)
+    idle = profiled_idle("order lines", run, dev, host=False)
+    print(f"order lines: warm {stats['warm_s']:.3f} s, "
+          f"{lines.num_rows / stats['warm_s']:,.0f} rows/s, device memory "
+          f"peak {stats['peak'] / 2**30:.2f} GiB, idle share {idle:.1%}; "
+          f"{card_line()}", flush=True)
+    print(f"order lines: the Session's operators {ses.executed_exec_names()}")
+    t0 = time.perf_counter()
+    (copies,) = ses.collect(entry.order_line_copies_df(
+        lines, NESTED_SLICES)).column("n").to_pylist()
+    if ses.fell_back() or copies != lines.num_rows:
+        raise AssertionError(f"explode(replicaterows(n_lines)) gave "
+                             f"{copies} rows, not {lines.num_rows}, or fell "
+                             f"back {ses.fell_back()}")
+    print(f"order lines: explode(replicaterows(n_lines)) under maxRepeat "
+          f"{entry.ORDER_LINES_MAX} gave {copies} rows, the lineitem rows "
+          f"({time.perf_counter() - t0:.2f} s)")
+    return {}
+
+
+#: TPC-H Q1 over JSON Lines: the scale factor (SF1's 6,001,215 lineitem
+#: rows; at SF10 the [cap, 256] int32 scan masks of one slice's field step
+#: take tens of GiB), input slices and shuffle partitions
+JSON_ROWS = 6_001_215
+JSON_SLICES = 8
+JSON_PARTITIONS = 8
+
+
+def run_json_q1_phase(dev, counted) -> dict:
+    """TPC-H Q1 over SF1 JSON Lines (``entry.lineitem_json``: one ~200
+    byte document a lineitem row in a string(256) column) through the
+    port's Session (``entry.q1_json_df``: every field as
+    ``from_json(value, schema).field``, which binds to get_json_object and
+    a cast to BIGINT, DOUBLE or DATE, the double parse on the device under
+    ``castStringToFloat``): within rel 1e-6 of ``entry.q1_json_reference``
+    with nothing fallen back, cold and warm walls, rows/s, peak and idle
+    share, each ``window_match`` launch of the cold run (every field step,
+    k = 7 to 17) held against its plain version; then json_tuple's count
+    by both flags equal to Q1's count_order. Returns the cold run's
+    launches."""
+    import collections as pycollections
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.plan import Session
+    t0 = time.perf_counter()
+    source = entry.lineitem_table(JSON_ROWS, DATA_SEED)
+    docs = entry.lineitem_json(source)
+    import pyarrow.compute as pc
+    sizes = pc.binary_length(docs.column("value"))
+    print(f"json q1: {docs.num_rows} documents of "
+          f"{pc.min(sizes).as_py()}-{pc.max(sizes).as_py()} bytes (string("
+          f"{entry.JSON_MAX_LEN})) made by pyarrow in "
+          f"{time.perf_counter() - t0:.2f} s; {JSON_SLICES} slices, "
+          f"{JSON_PARTITIONS} shuffle partitions", flush=True)
+    ses = Session(entry.q1_json_conf(JSON_PARTITIONS), device=dev)
+
+    def run(d):
+        out = ses.collect(entry.q1_json_df(d, JSON_SLICES))
+        if ses.fell_back():
+            raise AssertionError(f"json q1 fell back {ses.fell_back()}")
+        return out
+
+    def check(got, expected):
+        return f"; float max rel err {check_q1_result(got, expected):.3g}"
+
+    stats, record = {}, []
+    expected = entry.q1_json_reference(source)
+    # the cold run with each window_match launch held against its plain
+    # version on the same inputs
+    launches = run_path("json q1", lambda: docs, lambda _: expected,
+                        lambda d: checked_run(lambda: run(d), record)
+                        if not record else run(d),
+                        check, dev, counted, stats=stats)
+    idle = profiled_idle("json q1", lambda: run(docs), dev, host=False)
+    print(f"json q1: warm {stats['warm_s']:.3f} s, "
+          f"{docs.num_rows / stats['warm_s']:,.0f} rows/s, device memory "
+          f"peak {stats['peak'] / 2**30:.2f} GiB, idle share {idle:.1%}; "
+          f"{card_line()}", flush=True)
+    print(f"json q1: the Session's operators {ses.executed_exec_names()}")
+    report_window_match("json q1", record)
+    by_k = pycollections.Counter(k for k, _, _ in record)
+    print(f"json q1: window_match launches per run by k {dict(by_k)}")
+    flags = ses.collect(entry.q1_json_flags_df(docs, JSON_SLICES))
+    if ses.fell_back() or flags.column("count_order").to_pylist() != \
+            expected.column("count_order").to_pylist():
+        raise AssertionError(f"json_tuple's counts {flags.to_pylist()} "
+                             f"differ from Q1's count_order")
+    print(f"json q1: json_tuple(value, 'l_returnflag', 'l_linestatus', "
+          f"'l_shipdate') counts {flags.column('count_order').to_pylist()}"
+          f" = Q1's count_order")
+    return launches
+
+
 #: rows of the collection phase's table, and its arrays' and maps' budget
 COLLECTIONS_ROWS = 1 << 14
 COLLECTIONS_BUDGET = 8
@@ -2335,11 +2490,17 @@ def collections_table(n: int, seed: int = 23):
         names=["a", "b"], mask=pa.array(i % 5 == 2))
     v = pa.array(rng.integers(-99, 99, n), pa.int64(),
                  mask=rng.random(n) < 0.05)
+    dvals = rng.normal(0, 5, total).round(2)
+    dvals[::97] = np.nan
+    lens_b = rng.integers(0, 7, n)
+    lens_b[null] = 0
+    off_b = np.zeros(n + 1, np.int32)
+    np.cumsum(lens_b, out=off_b[1:])
+    lo = rng.integers(-5, 5, n)
     return pa.table({
         "ia": pa.ListArray.from_arrays(off, pa.array(
             rng.integers(-9, 9, total), pa.int64())),
-        "da": pa.ListArray.from_arrays(off, pa.array(
-            rng.normal(0, 5, total).round(2))),
+        "da": pa.ListArray.from_arrays(off, pa.array(dvals)),
         "sa": pa.ListArray.from_arrays(off, word),
         "m": pa.MapArray.from_arrays(off, pa.array(
             rng.integers(0, 6, total), pa.int32()), pa.array(
@@ -2351,7 +2512,75 @@ def collections_table(n: int, seed: int = 23):
         "st": st,
         "kv": pa.array(kv),
         "k": pa.array(rng.integers(0, 100, n).astype(np.int32)),
-        "v": v})
+        "v": v,
+        "ib": pa.ListArray.from_arrays(pa.array(
+            off_b, mask=np.append(null, False)), pa.array(
+            rng.integers(-9, 9, int(off_b[-1])), pa.int64())),
+        "db": pa.ListArray.from_arrays(pa.array(
+            off_b, mask=np.append(null, False)), pa.array(
+            rng.integers(-8, 8, int(off_b[-1])) / 4)),
+        "n": pa.array(rng.integers(0, 8, n), pa.int64()),
+        "s": pa.array((rng.integers(1, 5, n)
+                       * rng.choice([-1, 1], n)).astype(np.int32)),
+        "l": pa.array(rng.integers(0, 4, n).astype(np.int32)),
+        "lo": pa.array(lo, pa.int64()),
+        "hi": pa.array(lo + rng.integers(-7, 8, n), pa.int64()),
+        "step": pa.array(rng.choice([-3, -2, -1, 1, 2, 3], n), pa.int64()),
+        "doc": pa.array(json_docs(rng, n))})
+
+
+#: the collection phase's documents: nested objects and arrays, escapes,
+#: a \u escape, blanks, null values, garbage and null rows
+JSON_DOC_SHAPES = (
+    '{{"a": {a}, "b": {b}, "s": "{w}"}}',
+    ' {{ "a" :{a} ,"n": {{"c":[{a},{{"d":"{w}"}}], "e":null}}, "s":"{w}"}} ',
+    '{{"arr": [{a}, "{w}", [1, 2], {{"k": {b}}}], "a": null}}',
+    '{{"s": "{w}", "a": "{a}", "b": true}}',
+    '{{"a.b": {a}, "a": {{"b": {b}}}, "s": "caf\\u00e9"}}',
+    '[{a}, {{"a": {b}}}, "{w}"]', "garbage", "")
+JSON_DOC_WORDS = ("x", 'q\\"t', "tab\\tx", "sl\\/a", "", "a,b}")
+JSON_PATHS = ("$", "$.a", "$.b", "$.s", "$.n", "$.n.c[1].d", "$.n.e",
+              "$.arr[1]", "$.arr[3].k", "$.arr[9]", "$['a.b']", "$.a.b",
+              "$[1].a", "$[2]")
+JSON_DOC_WIDTH = 128
+
+
+def json_docs(rng, n: int) -> list:
+    out = []
+    for j in range(n):
+        if j % 17 == 4:
+            out.append(None)
+            continue
+        shape = JSON_DOC_SHAPES[int(rng.integers(0, len(JSON_DOC_SHAPES)))]
+        out.append(shape.format(
+            a=int(rng.integers(-99, 99)), b=int(rng.integers(0, 400)) / 8,
+            w=JSON_DOC_WORDS[int(rng.integers(0, len(JSON_DOC_WORDS)))]))
+    return out
+
+
+def collections_scan(t):
+    """One batch of ``t``, arrays and maps at a budget of 8 elements."""
+    # one batch, arrays and maps at a budget of 8 elements (the data
+    # holds at most 6): an explode's output holds cap x budget rows
+    # and carries the array along, so the default 256 would make it
+    # 2 KiB a row
+    import dataclasses
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.batch import (Field, Schema,
+                                              schema_from_arrow)
+    from spark_rapids_tpu_torch.plan.logical import (DataFrame,
+                                                     LogicalScan)
+    # a column without nulls is declared so: a lambda body that reads
+    # a nullable column may give null elements, which the planner
+    # sends to the CPU
+    sch = Schema([Field(f.name, dataclasses.replace(
+        f.dtype, max_len=COLLECTIONS_BUDGET)
+        if f.dtype.kind in (T.TypeKind.ARRAY, T.TypeKind.MAP)
+        else T.string(JSON_DOC_WIDTH) if f.name == "doc" else f.dtype,
+        f.nullable and t.column(f.name).null_count > 0)
+        for f in schema_from_arrow(t.schema)])
+    return DataFrame(LogicalScan((), data=t, _schema=sch, num_slices=1,
+                                 batch_rows=t.num_rows))
 
 
 def collections_queries():
@@ -2368,6 +2597,8 @@ def collections_queries():
     split = StringSplit(col("kv"), ",", max_elems=8)
     # a class with a repeat: matches of more than one byte
     split_rx = StringSplit(col("kv"), "[:,]+", max_elems=8)
+    from spark_rapids_tpu_torch.expressions.json import json_tuple
+    scan = collections_scan
     exprs = [
         C.CreateArray((C.Size(ia), C.Size(sa), lit(3))),
         C.Size(ia), C.Size(sa), C.Size(m),
@@ -2389,23 +2620,6 @@ def collections_queries():
         s2m, C.GetMapValue(s2m, lit("k")), C.MapContainsKey(s2m, lit("a")),
         C.MapKeys(s2m), C.MapValues(s2m), C.Size(s2m)]
 
-    def scan(t):
-        # one batch, arrays and maps at a budget of 8 elements (the data
-        # holds at most 6): an explode's output holds cap x budget rows
-        # and carries the array along, so the default 256 would make it
-        # 2 KiB a row
-        import dataclasses
-        from spark_rapids_tpu_torch.batch import (Field, Schema,
-                                                  schema_from_arrow)
-        from spark_rapids_tpu_torch.plan.logical import (DataFrame,
-                                                         LogicalScan)
-        sch = Schema([Field(f.name, dataclasses.replace(
-            f.dtype, max_len=COLLECTIONS_BUDGET)
-            if f.dtype.kind in (T.TypeKind.ARRAY, T.TypeKind.MAP)
-            else f.dtype, f.nullable) for f in schema_from_arrow(t.schema)])
-        return DataFrame(LogicalScan((), data=t, _schema=sch, num_slices=1,
-                                     batch_rows=t.num_rows))
-
     return [
         ("expressions", lambda t: scan(t).select(
             *[e.alias(f"e{k}") for k, e in enumerate(exprs)]), False),
@@ -2422,7 +2636,103 @@ def collections_queries():
         ("explode map", lambda t: scan(t).select("k", "m").explode(
             "m", outer=True, pos=True), False),
         ("explode split", lambda t: scan(t).select("k", "kv").explode(
-            split, alias="w", outer=True), False)]
+            split, alias="w", outer=True), False),
+        ("lambdas and set operations", lambda t: scan(t).select(
+            *[e.alias(f"h{k}") for k, e in enumerate(hof_exprs())]), False),
+        ("json", lambda t: scan(t).select(
+            *[e.alias(f"j{k}") for k, e in enumerate(json_exprs())],
+            *json_tuple(col("doc"), "a", "s", "a.b")), False),
+        ("explode replicaterows", lambda t: scan(t).select("k", "n").explode(
+            C.ReplicateRows(col("n")), alias="r", pos=True), False),
+        ("map lambdas and zip_with", lambda t: scan(t).select(
+            *[e.alias(f"m{k}") for k, e in enumerate(map_hof_exprs())]),
+         False)]
+
+
+def hof_exprs():
+    """Every lambda, set operation and shaping expression of the second
+    half of ``collections.py`` that the row interpreter has, over
+    ``collections_table``'s columns."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expressions import col, lit
+    from spark_rapids_tpu_torch.expressions import collections as C
+    i64, f64 = T.INT64, T.FLOAT64
+    ia, ib, da, db = col("ia"), col("ib"), col("da"), col("db")
+
+    def hof(cls, arr, body, t=i64):
+        x = C.hof_var(t)
+        return cls(arr, x, body(x))
+
+    def agg(arr, zero, merge, t=i64):
+        acc, x = C.hof_var(t, "acc"), C.hof_var(t)
+        return C.AggregateArray(arr, zero, acc, x, merge(acc, x))
+    return [
+        hof(C.TransformArray, ia, lambda x: x * lit(3, i64) + col("p")),
+        hof(C.TransformArray, da, lambda x: x * lit(2.0), f64),
+        hof(C.FilterArray, ia, lambda x: x > col("p")),
+        hof(C.FilterArray, da, lambda x: x < lit(0.5), f64),
+        hof(C.ExistsArray, ia, lambda x: x == col("p")),
+        hof(C.ForallArray, da, lambda x: x < lit(4.0), f64),
+        agg(ia, lit(0, i64), lambda s_, x: s_ + x),
+        agg(da, lit(0.5), lambda s_, x: s_ + x * x, f64),
+        agg(hof(C.TransformArray, ib, lambda x: x + col("n")), lit(0, i64),
+            lambda s_, x: s_ * lit(2, i64) + x),
+        C.ArrayDistinct(ia), C.ArrayDistinct(da),
+        C.ArrayUnion(ia, ib), C.ArrayUnion(da, db),
+        C.ArrayIntersect(ia, ib), C.ArrayIntersect(da, db),
+        C.ArrayExcept(ia, ib), C.ArrayExcept(da, db),
+        C.ArraysOverlap(ia, ib), C.ArraysOverlap(da, db),
+        C.ArrayRemove(ia, col("p")), C.ArrayRemove(col("sa"), col("pw")),
+        C.ArrayRemove(da, lit(float("nan"))),
+        C.ArrayPosition(ia, col("p")), C.ArrayPosition(col("sa"), col("pw")),
+        C.ArrayPosition(da, lit(float("nan"))),
+        C.ArrayRepeat(col("p"), lit(3)),
+        C.ArraySlice(ia, col("s"), col("l")),
+        C.Sequence(col("lo"), col("hi"), max_elems=16),
+        C.Sequence(col("lo"), col("hi"), col("step"), max_elems=16),
+        C.Flatten(C.CreateArray((ia, ib))),
+        C.Size(C.ArrayDistinct(C.Flatten(C.CreateArray((ia, ib)))))]
+
+
+def map_hof_exprs():
+    """The map lambdas and zip_with (no interpreter handler in either
+    package: the card is held against the port's own CPU run)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expressions import Coalesce, col, lit
+    from spark_rapids_tpu_torch.expressions import collections as C
+    i32, i64 = T.INT32, T.INT64
+    m = col("m")
+
+    def map_hof(cls, body):
+        k, v = C.hof_var(i32, "k"), C.hof_var(i64, "v")
+        return cls(m, k, v, body(k, v))
+
+    def zipped(a, b, body):
+        x, y = C.hof_var(i64, "x"), C.hof_var(i64, "y")
+        return C.ZipWith(a, b, x, y, body(x, y))
+    return [
+        map_hof(C.TransformKeys, lambda k, v: k + lit(1)),
+        map_hof(C.TransformValues, lambda k, v: v * col("p")),
+        map_hof(C.MapFilter, lambda k, v: v > col("p")),
+        zipped(col("ia"), col("ib"), lambda x, y: Coalesce(
+            (x, lit(0, i64))) + Coalesce((y, lit(0, i64)))),
+        zipped(col("ia"), C.TransformArray(
+            col("ia"), C.hof_var(i64), lit(1, i64)),
+            lambda x, y: x * y)]
+
+
+def json_exprs():
+    """get_json_object over ``JSON_PATHS`` and from_json's fields (bound to
+    get_json_object and a cast) over the phase's documents."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expressions import col, lit
+    from spark_rapids_tpu_torch.expressions import collections as C
+    from spark_rapids_tpu_torch.expressions.json import (GetJsonObject,
+                                                         JsonToStructs)
+    js = JsonToStructs(col("doc"), T.struct(T.INT64, T.string(32), T.DATE),
+                       ("a", "s", "d"))
+    return [GetJsonObject(col("doc"), lit(p)) for p in JSON_PATHS] + [
+        C.GetStructField(js, i) for i in range(3)]
 
 
 def nested_rows_apart(got, want, unordered: bool) -> dict:
@@ -2443,21 +2753,36 @@ def nested_rows_apart(got, want, unordered: bool) -> dict:
     return apart
 
 
+#: the queries held against the port's own CPU run, which the
+#: interpreter cannot run (no handler in either package)
+COLLECTIONS_ON_CPU = ("map lambdas and zip_with",)
+
+
 def run_collections_phase(dev) -> dict:
-    """Every expression of ``collections.py``'s first half, split and
+    """Every expression of ``collections.py`` and ``json.py``, split and
     str_to_map with their consumers, collect_list, collect_set,
     pivot_first, first/last over arrays, count of a struct, and explode
-    of an array, a map and a split with ``outer`` and ``pos``, over
-    ``COLLECTIONS_ROWS`` rows of ``collections_table`` on the card through
-    the Session, against the port's row interpreter: 0 rows apart, nothing
-    fallen back."""
+    of an array, a map, a split and ``replicaterows`` with ``outer`` and
+    ``pos``, over ``COLLECTIONS_ROWS`` rows of ``collections_table`` (NaN
+    among the doubles; empty and null arrays; documents with nesting,
+    ``[i]`` paths, escapes, a ``\\u`` escape, blanks, null and garbage) on
+    the card through the Session, against the port's row interpreter (the
+    map lambdas and zip_with against the port's CPU run): 0 rows apart,
+    nothing fallen back. Then slice with start 0 and a sequence past its
+    budget fail on the card and on the interpreter."""
     import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.batch import CapacityError
+    from spark_rapids_tpu_torch.expressions import col, lit
+    from spark_rapids_tpu_torch.expressions import collections as C
     from spark_rapids_tpu_torch.plan import Session
+    conf = {"spark.rapids.tpu.sql.generate.maxRepeat": COLLECTIONS_BUDGET}
     t = collections_table(COLLECTIONS_ROWS)
     card_s = interp_s = 0.0
     report = []
-    for name, q, unordered in collections_queries():
-        ses = Session({}, device=dev)
+    queries = collections_queries()
+    for name, q, unordered in queries:
+        ses = Session(conf, device=dev)
         t0 = time.perf_counter()
         got = ses.collect(q(t))
         torch.cuda.synchronize(dev)
@@ -2466,7 +2791,9 @@ def run_collections_phase(dev) -> dict:
             raise AssertionError(f"collections {name}: fell back "
                                  f"{ses.fell_back()}")
         t0 = time.perf_counter()
-        want = Session(ORACLE_CONF, device=dev).collect(q(t))
+        against = ({**conf, **ORACLE_CONF}, dev) \
+            if name not in COLLECTIONS_ON_CPU else (conf, "cpu")
+        want = Session(*against).collect(q(t))
         interp_s += time.perf_counter() - t0
         apart = nested_rows_apart(got, want, unordered)
         if apart:
@@ -2475,8 +2802,27 @@ def run_collections_phase(dev) -> dict:
         report.append(f"{name} {got.num_columns} columns x {got.num_rows}"
                       f" rows")
     print(f"collections: {t.num_rows} rows; {'; '.join(report)}: 0 rows "
-          f"apart from the interpreter (card {card_s:.2f} s, interpreter "
+          f"apart from the interpreter ({', '.join(COLLECTIONS_ON_CPU)}: "
+          f"from the port's CPU run) (card {card_s:.2f} s, interpreter "
           f"{interp_s:.2f} s)")
+    edges = {"slice start 0": (C.ArraySlice(col("ia"), lit(0), lit(1)),
+                               ArithmeticError, "SLICE_START_ZERO"),
+             "sequence past its budget": (
+                 C.Sequence(col("lo"), col("hi") + lit(40, T.INT64),
+                            max_elems=16),
+                 CapacityError, "CAPACITY_sequence_max_elems")}
+    for what, (e, err, kind) in edges.items():
+        for where in (conf, {**conf, **ORACLE_CONF}):
+            try:
+                Session(where, device=dev).collect(
+                    collections_scan(t).select(e.alias("x")))
+            except err as ex:
+                if kind not in str(ex):
+                    raise
+            else:
+                raise AssertionError(f"collections: {what} did not fail")
+    print(f"collections: {' and '.join(edges)} fail on the card and on "
+          f"the interpreter ({', '.join(k for *_, k in edges.values())})")
     return {}
 
 
@@ -4244,10 +4590,14 @@ def check_range_sort(dev, lineitem) -> None:
 # stage read from files
 # ---------------------------------------------------------------------------
 
-#: the bucketed write: SF10 lineitem from an 8-slice scan into 16 buckets
-#: on l_shipdate, SNAPPY (8 tasks x 16 bucket files)
+#: the bucketed write: lineitem from an 8-slice scan into 16 buckets on
+#: l_shipdate, SNAPPY (8 tasks x 16 bucket files)
 PARQUET_WRITE_SLICES = 8
 PARQUET_BUCKETS = 16
+#: the bucketed write's rows: a 2^24-row prefix of the SF10 lineitem (cut
+#: from all 59,986,052 to make room for [phase order lines] and
+#: [phase json q1]; the scans below read their own files)
+PARQUET_WRITE_ROWS = 1 << 24
 #: bench.bench_parquet_scan's size and file count, and the SF10 files
 PARQUET_BENCH_ROWS = 1 << 21
 PARQUET_FILES = 8
@@ -4326,7 +4676,8 @@ def no_fallback(what: str, plan) -> None:
 
 
 def run_parquet_write_phase(dev, counted, table, out) -> dict:
-    """The bucketed write of ``table`` (SF10 lineitem) under ``out``:
+    """The bucketed write of ``table`` (a prefix of the SF10 lineitem,
+    ``PARQUET_WRITE_ROWS``) under ``out``:
     ``WriteStats`` must count every row in 8 x 16 files; every file read
     back through the port's ``ParquetSource`` must hold only rows whose
     bucket id, from ``murmur3_int32`` on the card, equals the plain
@@ -5087,8 +5438,10 @@ def run_mesh_phase(dev, lineitem) -> list:
     runs.append(q1["launches"])
     print(f"mesh q1: warm {q1['warm_s']:.3f} s on the mesh against "
           f"{statistics.median(host_walls[1:]):.3f} s without ICI")
+    # device records only: the host's events of a mesh run took 11 s to
+    # read back
     profiled_idle("mesh q1", lambda: ses.collect(
-        entry.q1_df(lineitem, Q1_SLICES)), dev)
+        entry.q1_df(lineitem, Q1_SLICES)), dev, host=False)
     del ses, q1
 
     fact, dim = entry.ici_exchange_tables(ICI_FACT_ROWS)
@@ -5346,7 +5699,7 @@ def run_fallback_path(name: str, dev, counted, table, expected, make_df,
 
     def again():
         warm["rows"] = ses.collect(make_df(table))
-    profiled_idle(f"fallback {name}", again, dev)
+    profiled_idle(f"fallback {name}", again, dev, host=False)
     check(warm["rows"], expected)
     isl = island_stats(ses.last_plan)
     peak = torch.cuda.max_memory_allocated(dev)
@@ -5640,8 +5993,13 @@ def main(argv=None) -> int:
     # item support and the P_NAME words (no kernel on their paths), then
     # every collection expression against the row interpreter
     timed("baskets", run_baskets_phase, dev, q9_tables)
+    # the order lines as arrays over the same draw: the lambdas, the set
+    # operations and the shaping at SF10 (no kernel on its path)
+    timed("order lines", run_order_lines_phase, dev, q9_tables)
     del q9_tables
     timed("collections", run_collections_phase, dev)
+    # Q1 over SF1 JSON Lines: window_match at every field step
+    runs.append(timed("json q1", run_json_q1_phase, dev, [window_match]))
     timed("scalar", run_scalar_phase, dev)
     runs.append(timed("captured murmur3", check_captured_murmur3, dev))
     timed("hash_agg", check_hash_agg, dev)
@@ -5662,7 +6020,9 @@ def main(argv=None) -> int:
     try:
         lineitem = entry.lineitem_table(args.rows, DATA_SEED)
         runs.append(timed("parquet write", run_parquet_write_phase, dev,
-                          [murmur3_int32], lineitem, f"{tmp}/bucketed"))
+                          [murmur3_int32],
+                          lineitem.slice(0, PARQUET_WRITE_ROWS),
+                          f"{tmp}/bucketed"))
         shutil.rmtree(f"{tmp}/bucketed")
         paths = timed("parquet scan", run_parquet_scan_phase, dev,
                       lineitem, tmp)

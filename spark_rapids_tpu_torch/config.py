@@ -294,6 +294,21 @@ DICT_SCAN_ENABLED = _entry(
     "columns. Only meaningful while dictEncoding.enabled is true.", _bool)
 
 
+# the port's own key (the JAX package has no device parse of a float):
+# named after the reference's spark.rapids.sql.castStringToFloat.enabled
+CAST_STRING_TO_FLOAT = _entry(
+    "spark.rapids.tpu.sql.castStringToFloat.enabled", False,
+    "Run a string to float or double cast on the device "
+    "(expressions/cast.py string_to_double): the nearest double for at "
+    "most 18 significant digits and a decimal exponent within 22 (but "
+    "within about 2^-100 of a tie), possibly an ulp off past that. Off, "
+    "the cast runs on the row interpreter, as in the JAX package.", _bool)
+GENERATE_MAX_REPEAT = _entry(
+    "spark.rapids.tpu.sql.generate.maxRepeat", 64,
+    "Static per-row budget for ReplicateRows/explode fan-out on device.",
+    int)
+
+
 # ---- the JAX package's other keys ----
 # Registered under the JAX names and defaults, so a conf written for the
 # JAX Session reads whole here; each names the ROADMAP item that brings its
@@ -325,7 +340,7 @@ _ITEM8_NET = "ROADMAP item 8 (the shuffle network plane)"
 _ITEM8_IO = "ROADMAP item 8 (I/O breadth)"
 _ITEM8_SERVE = "ROADMAP item 8 (serving, tracing and the bridge)"
 _later(_ITEM7, int, ("sql.batchRowCapacity", 1 << 20),
-       ("python.worker.processes", 4), ("sql.generate.maxRepeat", 64),
+       ("python.worker.processes", 4),
        ("sql.window.batchRows", 1 << 20))
 _later(_ITEM7, _bool, ("sql.udfCompiler.enabled", False))
 _later(_ITEM8_PLUGIN, int, ("sql.concurrentTpuTasks", 2))

@@ -2898,3 +2898,388 @@ def words_reference(part: pa.Table) -> pa.Table:
                      pa.array([first_n.get(w, 0) for w in words.to_pylist()],
                               pa.int64())],
                     names=list(WORDS_SELECT))
+
+
+# ---------------------------------------------------------------------------
+# Order lines as arrays (the lambdas, the set operations and the shaping
+# of collections.py) and TPC-H Q1 over JSON Lines (json.py)
+# ---------------------------------------------------------------------------
+
+#: lines an order holds at most (dbgen draws 1 to 7): every list's budget
+ORDER_LINES_MAX = 8
+#: the orders the order-lines leg keeps (Q18's HAVING shape: about 0.5%
+#: of them), and how many it returns, by quantity
+ORDER_LINES_MIN_QTY = 250
+ORDER_LINES_TOP = 10_000
+#: a line at this discount or more puts its part among the deep items
+DEEP_DISCOUNT = 0.05
+#: each packed line's fields as (lowest bit, width): the line number, the
+#: quantity, the discount in points, the price in cents, the supplier
+LINE_FIELDS = {"lno": (58, 3), "qty": (52, 6), "pct": (48, 4),
+               "cents": (24, 24), "supp": (0, 24)}
+ORDER_LINES_SELECT = (
+    "o_orderkey", "o_orderdate", "qty", "revenue", "n_supp", "all_items",
+    "common", "shallow", "overlap", "big_qtys", "deep_disc", "all_small",
+    "scaled", "top3", "probe_at", "no_probe", "doubled", "big_lines",
+    "shifted", "seq", "flat")
+
+
+def order_lines_tables(lineitem: pa.Table, orders: pa.Table):
+    """(lineitem with ``l_linenumber``, orders), both with non-nullable
+    columns. ``l_linenumber`` is each line's 1-based place in its order,
+    made on the host from the draw, whose lines of an order are
+    consecutive; no other column changes."""
+    ok = lineitem.column("l_orderkey").to_numpy()
+    if ok.size and not np.all(ok[1:] >= ok[:-1]):
+        raise ValueError("an order's lines must be consecutive")
+    start = np.flatnonzero(np.concatenate([[True], ok[1:] != ok[:-1]]))
+    run = np.repeat(np.arange(start.size),
+                    np.diff(np.append(start, ok.size)))
+    lno = (np.arange(ok.size) - start[run] + 1).astype(np.int32)
+    lineitem = lineitem.append_column("l_linenumber", pa.array(lno))
+
+    def required(t):
+        return t.cast(pa.schema([pa.field(f.name, f.type, nullable=False)
+                                 for f in t.schema]))
+    return required(lineitem), required(orders)
+
+
+def _packed_line() -> Expression:
+    """A line's fields in one bigint, the line number on top, so that an
+    order's values sorted (as collect_list gives them in both packages)
+    are its lines in order."""
+    from .expressions import BitwiseOp, Cast, Round, Shift
+    fields = {
+        "lno": Cast(col("l_linenumber"), T.INT64),
+        "qty": Cast(col("l_quantity"), T.INT64),
+        "pct": Cast(Round(col("l_discount") * lit(100.0)), T.INT64),
+        "cents": Cast(Round(col("l_extendedprice") * lit(100.0)), T.INT64),
+        "supp": col("l_suppkey")}
+    out = None
+    for name, e in fields.items():
+        low = LINE_FIELDS[name][0]
+        e = Shift(e, lit(low), "left") if low else e
+        out = e if out is None else BitwiseOp(out, e, "or")
+    return out
+
+
+def _order_lines(lineitem: pa.Table, num_slices: int):
+    """``SELECT l_orderkey, collect_list(packed line) AS packed,
+    count(*) AS n_lines FROM lineitem GROUP BY l_orderkey``."""
+    from .expressions.aggregates import CollectList
+    return (_df(lineitem, num_slices)
+            .select(col("l_orderkey"), _packed_line().alias("line"))
+            .group_by("l_orderkey")
+            .agg(CollectList(col("line"), max_elems=ORDER_LINES_MAX)
+                 .alias("packed"), Count().alias("n_lines")))
+
+
+def _order_items(lineitem: pa.Table, num_slices: int, key: str, name: str,
+                 deep: bool = False):
+    """An order's distinct parts (with ``deep``, of its lines discounted
+    by ``DEEP_DISCOUNT`` or more), keyed by ``key``."""
+    from .expressions.aggregates import CollectSet
+    df = _df(lineitem.select(["l_orderkey", "l_partkey", "l_discount"]),
+             num_slices)
+    if deep:
+        df = df.where(col("l_discount") >= lit(DEEP_DISCOUNT))
+    return (df.select(col("l_orderkey").alias(key), col("l_partkey"))
+            .group_by(key)
+            .agg(CollectSet(col("l_partkey"), max_elems=ORDER_LINES_MAX)
+                 .alias(name)))
+
+
+def order_lines_df(lineitem: pa.Table, orders: pa.Table, probe: int,
+                   num_slices: int = 8):
+    """Order lines kept as arrays and worked on with higher-order
+    functions, over ``order_lines_tables``::
+
+        lines = SELECT l_orderkey, collect_list(line) packed, count(*) n_lines
+                FROM lineitem GROUP BY l_orderkey
+        items = SELECT l_orderkey, collect_set(l_partkey) items ...
+        deep  = ... WHERE l_discount >= 0.05 ... collect_set(...) deep_items
+        SELECT o_orderkey, o_orderdate,
+               aggregate(qtys, 0L, (acc, q) -> acc + q) qty,
+               aggregate(zip_with(cents, pcts, (p, d) -> p * (100 - d)),
+                         0L, (a, r) -> a + r) revenue,
+               size(array_distinct(supps)) n_supp,
+               array_union(deep_items, items), array_intersect(items,
+               deep_items), array_except(items, deep_items),
+               arrays_overlap(items, deep_items), filter(qtys, q -> q > 25),
+               exists(pcts, d -> d >= 9), forall(qtys, q -> q <= 50),
+               transform(cents, p -> p * n_lines),          -- outer column
+               slice(sort_array(cents, false), 1, 3),
+               array_position(items, probe), array_remove(items, probe),
+               transform_values(map_from_arrays(lnos, qtys), (k, v) -> v * 2),
+               map_filter(map_from_arrays(lnos, qtys), (k, v) -> v > 25),
+               transform_keys(map_from_arrays(lnos, qtys), (k, v) -> k + 100),
+               sequence(1, n_lines), flatten(array(items, deep_items))
+        FROM orders JOIN lines JOIN items JOIN deep (on the order key)
+        WHERE qty > 250 ORDER BY qty DESC, o_orderkey LIMIT 10000
+
+    ``lnos``, ``qtys``, ``pcts`` (the discount in points), ``cents`` (the
+    price) and ``supps`` are ``transform``s of ``packed``, which holds each
+    line's fields in one bigint (``LINE_FIELDS``): collect_list gives an
+    order's values sorted in both packages, and a line number on top
+    sorts them by line, so the lists line up element by element. Money
+    is in integers, so every column is exact. ``/`` may give null (a zero
+    divisor), which a lambda body may not, as in the JAX tagging: hence
+    ``p * n_lines``. Each collect has its aggregate: one exec holds one
+    value-sorted layout."""
+    from .expressions import BitwiseOp, Shift
+    from .expressions import collections as C
+
+    def i64(v):
+        return lit(v, T.INT64)
+
+    def unpacked(name):
+        low, width = LINE_FIELDS[name]
+        x = C.hof_var(T.INT64)
+        v = Shift(x, lit(low), "right") if low else x
+        return C.TransformArray(col("packed"), x, BitwiseOp(
+            v, i64((1 << width) - 1), "and")).alias(
+            "cents" if name == "cents" else name + "s")
+
+    def var(name="x"):
+        return C.hof_var(T.INT64, name)
+
+    items, deep = col("items"), col("deep_items")
+    qtys, pcts, cents = col("qtys"), col("pcts"), col("cents")
+
+    def qty_map():
+        return C.MapFromArrays(col("lnos"), qtys)
+
+    acc, q, a, r, p, d = (var(n) for n in ("acc", "q", "a", "r", "p", "d"))
+    fq, eq_, aq, sp = var("q"), var("d"), var("q"), var("p")
+    k1, v1, k2, v2, k3, v3 = (var(n) for n in ("k", "v") * 3)
+    return (_df(orders.select(["o_orderkey", "o_orderdate"]), num_slices)
+            .join(_order_lines(lineitem, num_slices), ["o_orderkey"],
+                  ["l_orderkey"])
+            .join(_order_items(lineitem, num_slices, "i_orderkey", "items"),
+                  ["o_orderkey"], ["i_orderkey"])
+            .join(_order_items(lineitem, num_slices, "d_orderkey",
+                               "deep_items", deep=True),
+                  ["o_orderkey"], ["d_orderkey"])
+            .select(col("o_orderkey"), col("o_orderdate"), col("n_lines"),
+                    items, deep, *[unpacked(n) for n in LINE_FIELDS])
+            .select(
+                col("o_orderkey"), col("o_orderdate"),
+                C.AggregateArray(qtys, i64(0), acc, q, acc + q).alias("qty"),
+                C.AggregateArray(
+                    C.ZipWith(cents, pcts, p, d, p * (i64(100) - d)),
+                    i64(0), a, r, a + r).alias("revenue"),
+                C.Size(C.ArrayDistinct(col("supps"))).alias("n_supp"),
+                C.ArrayUnion(deep, items).alias("all_items"),
+                C.ArrayIntersect(items, deep).alias("common"),
+                C.ArrayExcept(items, deep).alias("shallow"),
+                C.ArraysOverlap(items, deep).alias("overlap"),
+                C.FilterArray(qtys, fq, fq > i64(25)).alias("big_qtys"),
+                C.ExistsArray(pcts, eq_, eq_ >= i64(9)).alias("deep_disc"),
+                C.ForallArray(qtys, aq, aq <= i64(50)).alias("all_small"),
+                C.TransformArray(cents, sp, sp * col("n_lines"))
+                .alias("scaled"),
+                C.ArraySlice(C.SortArray(cents, False), lit(1), lit(3))
+                .alias("top3"),
+                C.ArrayPosition(items, i64(probe)).alias("probe_at"),
+                C.ArrayRemove(items, i64(probe)).alias("no_probe"),
+                C.TransformValues(qty_map(), k1, v1, v1 * i64(2))
+                .alias("doubled"),
+                C.MapFilter(qty_map(), k2, v2, v2 > i64(25))
+                .alias("big_lines"),
+                C.TransformKeys(qty_map(), k3, v3, k3 + i64(100))
+                .alias("shifted"),
+                C.Sequence(i64(1), col("n_lines"),
+                           max_elems=ORDER_LINES_MAX).alias("seq"),
+                C.Flatten(C.CreateArray((items, deep))).alias("flat"))
+            .where(col("qty") > i64(ORDER_LINES_MIN_QTY))
+            .order_by(desc(col("qty")), asc(col("o_orderkey")))
+            .limit(ORDER_LINES_TOP))
+
+
+def order_line_copies_df(lineitem: pa.Table, num_slices: int = 8):
+    """``SELECT count(*) FROM lines LATERAL VIEW
+    explode(replicaterows(n_lines))``: one row per line, under
+    ``spark.rapids.tpu.sql.generate.maxRepeat`` = ``ORDER_LINES_MAX``
+    (``order_lines_conf``); at the default 64 the explode's output would
+    hold cap x 64 slots."""
+    from .expressions.collections import ReplicateRows
+    return (_order_lines(lineitem, num_slices)
+            .explode(ReplicateRows(col("n_lines")), alias="copy")
+            .agg(Count().alias("n")))
+
+
+def order_lines_conf(shuffle_partitions: int = 8) -> Dict:
+    return session_conf(shuffle_partitions, **{
+        "spark.rapids.tpu.sql.generate.maxRepeat": ORDER_LINES_MAX})
+
+
+def _runs(keys: np.ndarray):
+    """(run starts, run lengths) of the equal consecutive ``keys``."""
+    start = np.flatnonzero(np.concatenate([[True], keys[1:] != keys[:-1]]))
+    return start, np.diff(np.append(start, keys.size))
+
+
+def order_lines_reference(lineitem: pa.Table, orders: pa.Table,
+                          probe: int) -> pa.Table:
+    """``order_lines_df`` by numpy and pyarrow alone: an order's lines are
+    a run of the draw, so its quantity and whether it has a deep line are
+    ``reduceat``s, the joins ``np.searchsorted`` and the top rows
+    ``np.lexsort``; then each kept order's lists from its run. In
+    ``order_lines_df``'s types and order."""
+    ok = lineitem.column("l_orderkey").to_numpy()
+    qty = lineitem.column("l_quantity").to_numpy().astype(np.int64)
+    pct = np.round(lineitem.column("l_discount").to_numpy() * 100.0
+                   ).astype(np.int64)
+    deep_pct = int(round(DEEP_DISCOUNT * 100))
+    lstart, n_lines = _runs(ok)
+    lkeys = ok[lstart]
+    qty_sum = np.add.reduceat(qty, lstart)
+    has_deep = np.maximum.reduceat((pct >= deep_pct).astype(np.int8),
+                                   lstart) > 0
+    o_keys = orders.column("o_orderkey").to_numpy()
+    o_days = orders.column("o_orderdate").cast(pa.int32()).to_numpy()
+    li = np.clip(np.searchsorted(lkeys, o_keys), 0, lkeys.size - 1)
+    keep = (lkeys[li] == o_keys) & has_deep[li] & \
+        (qty_sum[li] > ORDER_LINES_MIN_QTY)
+    rows = np.flatnonzero(keep)
+    top = rows[np.lexsort((o_keys[rows], -qty_sum[li[rows]]))][
+        :ORDER_LINES_TOP]
+    cents = np.round(lineitem.column("l_extendedprice").to_numpy() * 100.0
+                     ).astype(np.int64)
+    supp = lineitem.column("l_suppkey").to_numpy()
+    pk = lineitem.column("l_partkey").to_numpy()
+    out = {name: [] for name in ORDER_LINES_SELECT}
+    for r in top:
+        g = li[r]
+        s0, n = int(lstart[g]), int(n_lines[g])
+        q_, p_, c_, sp_, pk_ = (x[s0:s0 + n].tolist()
+                                for x in (qty, pct, cents, supp, pk))
+        its = sorted(set(pk_))
+        dps = sorted({k for k, d in zip(pk_, p_) if d >= deep_pct})
+        lnos = list(range(1, n + 1))
+        both = set(dps)
+        out["o_orderkey"].append(int(o_keys[r]))
+        out["o_orderdate"].append(int(o_days[r]))
+        out["qty"].append(sum(q_))
+        out["revenue"].append(sum(c * (100 - d) for c, d in zip(c_, p_)))
+        out["n_supp"].append(len(set(sp_)))
+        out["all_items"].append(dps + [x for x in its if x not in both])
+        out["common"].append([x for x in its if x in both])
+        out["shallow"].append([x for x in its if x not in both])
+        out["overlap"].append(any(x in both for x in its))
+        out["big_qtys"].append([x for x in q_ if x > 25])
+        out["deep_disc"].append(any(x >= 9 for x in p_))
+        out["all_small"].append(all(x <= 50 for x in q_))
+        out["scaled"].append([x * n for x in c_])
+        out["top3"].append(sorted(c_, reverse=True)[:3])
+        out["probe_at"].append(its.index(probe) + 1 if probe in its else 0)
+        out["no_probe"].append([x for x in its if x != probe])
+        out["doubled"].append([(k, v * 2) for k, v in zip(lnos, q_)])
+        out["big_lines"].append([(k, v) for k, v in zip(lnos, q_)
+                                 if v > 25])
+        out["shifted"].append([(k + 100, v) for k, v in zip(lnos, q_)])
+        out["seq"].append(lnos)
+        out["flat"].append(its + dps)
+    i64 = pa.int64()
+    lst, mp = pa.list_(i64), pa.map_(i64, i64)
+    types = {"o_orderkey": i64, "o_orderdate": pa.int32(), "qty": i64,
+             "revenue": i64, "n_supp": pa.int32(), "overlap": pa.bool_(),
+             "deep_disc": pa.bool_(), "all_small": pa.bool_(),
+             "probe_at": i64, "doubled": mp, "big_lines": mp, "shifted": mp}
+    cols = [pa.array(out[n], types.get(n, lst)) for n in ORDER_LINES_SELECT]
+    cols[1] = cols[1].cast(pa.date32())
+    return pa.table(cols, names=list(ORDER_LINES_SELECT))
+
+
+#: the JSON Lines leg: the documents' width, the field names of Q1's
+#: seven columns in the documents, and the letters of the two flags
+JSON_MAX_LEN = 256
+Q1_JSON_FIELDS = ("l_returnflag", "l_linestatus", "l_quantity",
+                  "l_extendedprice", "l_discount", "l_shipdate", "l_tax")
+RETURN_FLAGS = ("A", "N", "R")
+LINE_STATUSES = ("F", "O")
+
+
+def lineitem_json(table: pa.Table) -> pa.Table:
+    """``table`` (``lineitem_table``'s columns) as one JSON document a
+    row, a ``value`` column as ``spark.read.text`` of a JSON Lines file
+    or a Kafka value gives it: the flags as their letters, numbers in
+    their shortest round-trip form (Arrow's cast), the ship date ISO;
+    about 200 bytes a document, made by pyarrow compute."""
+    def letters(name, alphabet):
+        return pa.array(alphabet).take(table.column(name))
+
+    def text(name, to=None):
+        c = table.column(name)
+        return pc.cast(c.cast(to) if to else c, pa.string())
+
+    values = {"l_returnflag": letters("l_returnflag", RETURN_FLAGS),
+              "l_linestatus": letters("l_linestatus", LINE_STATUSES),
+              "l_quantity": text("l_quantity"),
+              "l_extendedprice": text("l_extendedprice"),
+              "l_discount": text("l_discount"),
+              "l_shipdate": text("l_shipdate", pa.date32()),
+              "l_tax": text("l_tax")}
+    quoted = {"l_returnflag", "l_linestatus", "l_shipdate"}
+    parts = []
+    for i, name in enumerate(Q1_JSON_FIELDS):
+        q = '"' if name in quoted else ""
+        parts += [("{" if i == 0 else ", ") + f'"{name}": {q}',
+                  values[name], q]
+    parts.append("}")
+    return pa.table({"value": pc.binary_join_element_wise(*parts, "")})
+
+
+def q1_json_conf(shuffle_partitions: int = 8) -> Dict:
+    """``session_conf`` with the port's device parse of a double
+    (``spark.rapids.tpu.sql.castStringToFloat.enabled``; the JAX package
+    runs that cast on its row interpreter)."""
+    return session_conf(shuffle_partitions, **{
+        "spark.rapids.tpu.sql.castStringToFloat.enabled": True})
+
+
+def q1_json_df(docs: pa.Table, num_slices: int = 8):
+    """TPC-H Q1 over JSON Lines: every field read as
+    ``from_json(value, schema).field``, which binds to
+    ``get_json_object(value, '$.field')`` and a cast (BIGINT, DOUBLE or
+    DATE; the flags stay strings)."""
+    from .expressions.collections import GetStructField
+    from .expressions.json import JsonToStructs
+    kinds = (T.string(1), T.string(1), T.INT64, T.FLOAT64, T.FLOAT64,
+             T.DATE, T.FLOAT64)
+    js = JsonToStructs(col("value"), T.struct(*kinds, names=Q1_JSON_FIELDS),
+                       Q1_JSON_FIELDS)
+    last = datetime.date(1970, 1, 1) + datetime.timedelta(Q1_SHIPDATE_MAX)
+    return (_df(docs, num_slices, JSON_MAX_LEN)
+            .select(*[GetStructField(js, i).alias(n)
+                      for i, n in enumerate(Q1_JSON_FIELDS)])
+            .where(col("l_shipdate") <= lit(last))
+            .group_by(*Q1_KEYS)
+            .agg(*q1_aggregates())
+            .order_by(*[asc(col(k)) for k in Q1_KEYS]))
+
+
+def q1_json_flags_df(docs: pa.Table, num_slices: int = 8):
+    """``json_tuple(value, 'l_returnflag', 'l_linestatus', 'l_shipdate')``
+    grouped by both flags with ``count(*)`` over Q1's ship dates (an ISO
+    date compares as its string): Q1's ``count_order``."""
+    from .expressions.json import json_tuple
+    last = (datetime.date(1970, 1, 1)
+            + datetime.timedelta(Q1_SHIPDATE_MAX)).isoformat()
+    return (_df(docs, num_slices, JSON_MAX_LEN)
+            .select(*json_tuple(col("value"), *Q1_JSON_FIELDS[:2],
+                                "l_shipdate"))
+            .where(col("c2") <= lit(last))
+            .group_by("c0", "c1")
+            .agg(Count().alias("count_order"))
+            .order_by(asc(col("c0")), asc(col("c1"))))
+
+
+def q1_json_reference(table: pa.Table) -> pa.Table:
+    """``q1_reference`` over the source table, its flags as the
+    documents' letters (an order-keeping map, so the rows' order holds)."""
+    ref = q1_reference(table)
+    flags = pa.array(RETURN_FLAGS).take(ref.column("l_returnflag"))
+    status = pa.array(LINE_STATUSES).take(ref.column("l_linestatus"))
+    return ref.set_column(0, "l_returnflag", flags).set_column(
+        1, "l_linestatus", status)

@@ -8,15 +8,22 @@ from .base import (Alias, BoundReference, EvalContext, Expression,  # noqa: F401
                    Literal, col, lit)
 from .boolean import And, Or  # noqa: F401
 from .cast import Cast, cast_supported  # noqa: F401
-from .collections import (ArrayContains, ArrayMax, ArrayMin,  # noqa: F401
-                          CreateArray, CreateStruct, ElementAt,
-                          GetArrayItem, GetMapValue, GetStructField,
-                          MapContainsKey, MapFromArrays, MapKeys, MapValues,
-                          Size, SortArray)
+from .collections import (AggregateArray, ArrayContains,  # noqa: F401
+                          ArrayDistinct, ArrayExcept, ArrayIntersect,
+                          ArrayMax, ArrayMin, ArrayPosition, ArrayRemove,
+                          ArrayRepeat, ArraySlice, ArrayUnion, ArraysOverlap,
+                          CreateArray, CreateStruct, ElementAt, ExistsArray,
+                          FilterArray, Flatten, ForallArray, GetArrayItem,
+                          GetMapValue, GetStructField, LambdaVariable,
+                          MapContainsKey, MapFilter, MapFromArrays, MapKeys,
+                          MapValues, ReplicateRows, Sequence, Size,
+                          SortArray, TransformArray, TransformKeys,
+                          TransformValues, ZipWith, hof_var)
 from .comparison import (EqualNullSafe, EqualTo, GreaterThan,  # noqa: F401
                          GreaterThanOrEqual, In, IsNaN, IsNotNull, IsNull,
                          LessThan, LessThanOrEqual, Not)
 from .conditional import CaseWhen, Coalesce, If, LeastGreatest  # noqa: F401
+from .json import GetJsonObject, JsonToStructs, json_tuple  # noqa: F401
 from .datetime import (AddMonths, DateAddSub, DateDiff,  # noqa: F401
                        DateFormat, DateTimeFormatUnsupported, ExtractDatePart,
                        FromUnixtime, LastDay, MonthsBetween, NextDay,

@@ -19,8 +19,13 @@ Port of ``spark_rapids_tpu/expressions/cast.py`` (reference: GpuCast.scala):
 ``cast_supported`` names the pairs the device runs; any other pair (string
 to double, double to string, ...) gets the JAX package's reason from
 ``device_unsupported_reason``, and tagging runs the cast on the row
-interpreter. Under ANSI a string that does not parse reports
-``CAST_INVALID_INPUT`` on the error channel.
+interpreter. A string to float or double parse has a device kernel
+(``string_to_double``) that the JAX package lacks; tagging runs it only
+under the port's ``spark.rapids.tpu.sql.castStringToFloat.enabled`` (off by
+default, as the reference's key of that name), since past 18 significant
+digits or a decimal exponent beyond 22 it can be an ulp off. Under ANSI a
+string that does not parse reports ``CAST_INVALID_INPUT`` on the error
+channel.
 """
 
 from __future__ import annotations
@@ -89,6 +94,15 @@ class Cast(Expression):
         # declared statically, as the JAX package does
         return True
 
+    @property
+    def parses_float(self) -> bool:
+        """A string to float or double parse: a device kernel that the
+        planner runs only under
+        ``spark.rapids.tpu.sql.castStringToFloat.enabled``
+        (``string_to_double``)."""
+        return self.child.resolved and \
+            self.child.dtype.kind is TypeKind.STRING and self.to.is_fractional
+
     def device_unsupported_reason(self):
         if not self.child.resolved:
             return None
@@ -103,6 +117,11 @@ class Cast(Expression):
         if src.kind == dst.kind and src.kind is not TypeKind.DECIMAL:
             return c
         if src.kind is TypeKind.STRING:
+            if dst.is_fractional:
+                v, ok = string_to_double(c.data, c.lengths, c.validity)
+                if ctx.ansi:
+                    ctx.report(c.validity & ~ok, "CAST_INVALID_INPUT")
+                return numeric_column(v.to(dst.storage_dtype), ok, dst)
             if dst.kind is TypeKind.DATE:
                 days, ok = string_to_date(c.data, c.lengths, c.validity)
                 if ctx.ansi:
@@ -297,6 +316,139 @@ def string_to_long(data, lengths, validity):
     ok = ok & ((v >= 0) | (neg & (v == i64_min)))
     v = torch.where(neg, -v, v)
     return v, ok & validity
+
+
+#: significant digits a double parse keeps exactly (10^18 < 2^63)
+_MAX_FLOAT_DIGITS = 18
+#: exponent digits read (a longer exponent clamps: inf or 0)
+_MAX_EXP_DIGITS = 5
+_P10_F64 = np.asarray([10.0 ** i for i in range(23)], np.float64)
+
+
+def _split(a: torch.Tensor):
+    """Dekker's split of a double into two halves of 26 bits."""
+    c = 134217729.0 * a
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _two_prod(a: torch.Tensor, b: torch.Tensor):
+    """(a * b rounded, its exact error): the product as a double-double."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _scaled_by_ten(m: torch.Tensor, q: torch.Tensor, device
+                   ) -> torch.Tensor:
+    """m * 10^q as a double, for an int64 m. For |q| <= 22 (10^|q| an
+    exact double) in double-double arithmetic: m is split exactly into
+    two doubles, the product or the quotient carries its error term, and
+    one final rounding gives the nearest double unless the exact value
+    lies within about 2^-100 (relative) of a tie. Past that, one product
+    or quotient by a power of ten."""
+    mh = m.to(_F64)
+    ml = (m - mh.to(_I64)).to(_F64)         # m == mh + ml exactly
+    p10 = _table(_P10_F64, device)
+    pw = p10[q.abs().clamp(0, 22)]
+    # m * 10^q
+    p, e = _two_prod(mh, pw)
+    up = p + (e + ml * pw)
+    # m / 10^-q: the quotient, then the remainder's share
+    hi = mh / pw
+    hp, he = _two_prod(hi, pw)
+    down = hi + (((mh - hp) - he) + ml) / pw
+    ten = torch.full_like(mh, 10.0)
+    far = torch.where(q >= 0, mh * torch.pow(ten, q.to(_F64)),
+                      mh / torch.pow(ten, (-q).to(_F64)))
+    return torch.where(q.abs() > 22, far, torch.where(q >= 0, up, down))
+
+
+def _word_at(b, start, last, word: bytes) -> torch.Tensor:
+    """Whether b[start:last + 1] is ``word``, ignoring ASCII case."""
+    ok = (last - start + 1) == len(word)
+    for i, ch in enumerate(word):
+        ok = ok & ((_byte_at(b, start + i) | 0x20) == ch)
+    return ok
+
+
+def string_to_double(data, lengths, validity):
+    """Parse ``[+-]?(digits[.digits]|.digits)([eE][+-]?digits)?`` and
+    ``[+-]?(nan|inf|infinity)`` (any case; blanks around trimmed) from byte
+    rows to float64; anything else is null. The significand's first 18
+    digits make an exact int64 m, the rest and the exponent a decimal
+    exponent q; for |q| <= 22 m * 10^q is rounded once from double-double
+    arithmetic (``_scaled_by_ten``), which gives the nearest double, as
+    Python's ``float`` does, but within about 2^-100 of a tie. Past 18
+    digits or |q| > 22 the value can be an ulp or more off: hence the
+    cast's own switch, as the reference's
+    ``spark.rapids.sql.castStringToFloat.enabled``. Returns (values,
+    ok)."""
+    first, last, any_content, is_space, b, pos, in_str = \
+        _trim_bounds(data, lengths)
+    interior = (pos >= first[:, None]) & (pos <= last[:, None])
+    ok = any_content & ~(interior & is_space).any(dim=1)
+    first_b = _byte_at(b, first)
+    has_sign = (first_b == ord("+")) | (first_b == ord("-"))
+    neg = first_b == ord("-")
+    start = first + has_sign.to(_I32)
+    body = (pos >= start[:, None]) & (pos <= last[:, None])
+    is_digit = (b >= ord("0")) & (b <= ord("9"))
+    is_e = body & ((b == ord("e")) | (b == ord("E")))
+    n_e = is_e.sum(dim=1, dtype=_I32)
+    e_pos = torch.where(n_e > 0, _argmax_first(is_e), last + 1)
+    mant = body & (pos < e_pos[:, None])
+    expo = body & (pos > e_pos[:, None])
+    is_dot = mant & (b == ord("."))
+    n_dots = is_dot.sum(dim=1, dtype=_I32)
+    dot = torch.where(n_dots > 0, _argmax_first(is_dot), e_pos)
+    mdig = mant & is_digit
+    # the exponent: an optional sign, then at least one digit
+    e_first = e_pos + 1
+    e_first_b = _byte_at(b, e_first)
+    e_sign = (e_first_b == ord("+")) | (e_first_b == ord("-"))
+    e_digits = expo & (pos >= (e_first + e_sign.to(_I32))[:, None])
+    num_ok = (n_e <= 1) & (n_dots <= 1) & mdig.any(dim=1) \
+        & ~(mant & ~is_digit & ~is_dot).any(dim=1) \
+        & ((n_e == 0) | (e_digits.any(dim=1)
+                         & ~(e_digits & ~is_digit).any(dim=1)))
+    # the exponent's value from its last _MAX_EXP_DIGITS digits, clamped
+    # where it has more
+    e_rank = last[:, None] - pos
+    e_w = _table(_P10_I64, data.device)[
+        e_rank.clamp(0, _MAX_EXP_DIGITS - 1).to(_I64)]
+    dig = b.to(_I64) - ord("0")
+    e_in = e_digits & (e_rank < _MAX_EXP_DIGITS)
+    ev = torch.where(e_in, dig * e_w, 0).sum(dim=1)
+    e_first_nz = _argmax_first(e_digits & (b != ord("0")))
+    e_long = (e_digits & (b != ord("0"))).any(dim=1) \
+        & (last - e_first_nz + 1 > _MAX_EXP_DIGITS)
+    ev = torch.where(e_long, 10 ** _MAX_EXP_DIGITS, ev)
+    ev = torch.where(e_first_b == ord("-"), -ev, ev)
+    # the significand: its first _MAX_FLOAT_DIGITS digits from the first
+    # non-zero one, as an int64, and the place of the last kept digit
+    sig = mdig & (pos >= _argmax_first(mdig & (b != ord("0")))[:, None]) \
+        & (mdig & (b != ord("0"))).any(dim=1)[:, None]
+    rank = sig.to(_I32).cumsum(dim=1, dtype=_I32)
+    n_sig = rank[:, -1]
+    kept = sig & (rank <= _MAX_FLOAT_DIGITS)
+    n_kept = torch.clamp(n_sig, max=_MAX_FLOAT_DIGITS)
+    w = _table(_P10_I64, data.device)[
+        (n_kept[:, None] - rank).clamp(0, _MAX_INT_DIGITS - 1).to(_I64)]
+    m = torch.where(kept, dig * w, 0).sum(dim=1)
+    last_kept = torch.where(kept, pos, -1).amax(dim=1)
+    place = torch.where(last_kept < dot, dot - last_kept - 1,
+                        dot - last_kept).to(_I64)
+    q = (place + ev).clamp(-400, 400)
+    v = _scaled_by_ten(m, q, data.device)
+    nan = _word_at(b, start, last, b"nan")
+    inf = _word_at(b, start, last, b"inf") | \
+        _word_at(b, start, last, b"infinity")
+    v = torch.where(nan, float("nan"), torch.where(inf, float("inf"), v))
+    v = torch.where(neg, -v, v)
+    ok = ok & (num_ok | nan | inf) & validity
+    return torch.where(ok, v, torch.zeros_like(v)), ok
 
 
 def long_to_string(x, validity, max_len: int = 20):

@@ -16,10 +16,12 @@ dict group-bys and a dict-keyed hash join. Slow and plainly correct.
 
 ``RowEvaluator`` dispatches on ``_eval_<ExpressionClass>``. A class without
 a handler raises ``NotImplementedError`` naming ROADMAP item 7, which brings
-the rest of the expressions with their device side (windows, the lambdas
-and the array set operations among them). Arrays are lists, structs dicts
-and maps lists of (key, value) pairs; ``ordkey`` orders and hashes the
-nested values, field by field and element by element.
+the rest of the expressions with their device side (windows and
+``zorder.py`` among them). The map lambdas, ``zip_with`` and a standalone
+``from_json`` have no handler here, as in the JAX package: tagging never
+sends them to the CPU, and one that it refuses raises. Arrays are lists,
+structs dicts and maps lists of (key, value) pairs; ``ordkey`` orders and
+hashes the nested values, field by field and element by element.
 
 The collection handlers follow the port's device where the JAX interpreter
 departs from it: ``str_to_map`` keeps every entry, duplicate keys
@@ -71,6 +73,19 @@ The string handlers follow the device the same way: ``initcap`` maps
 ASCII letters only, and ``conv`` trims nothing and wraps its
 accumulation mod 2^64 (the JAX handler maps every letter, trims, and
 keeps every digit); ``tests/test_torch_strings_rest.py`` pins each.
+
+The lambdas bind their variables by identity, as the JAX handlers do.
+The set operations, ``array_remove`` and ``array_position`` compare
+through ``ordkey`` (NaN one value, as on the device and in Spark; the JAX
+handlers compare with ``==``). ``sequence`` with a step of 0 is null and
+against its direction empty, as on both devices (Spark raises), and past
+its budget raises, as the device does; ``array_repeat`` of a null value
+is null, as on the device (Spark and the JAX handler give n nulls).
+``get_json_object`` scans the document a byte at a time with the device's
+rules, so a nested value comes back as its input span, blanks included,
+and a string with a ``\\uXXXX`` escape is null, where the JAX handler
+goes through ``json.loads`` and gives Jackson's compact JSON and the
+decoded string, as Spark does.
 
 Sample draws its rows with numpy from the seed, as the JAX interpreter
 does; the device's Bernoulli draw is another sequence, so a sampled query
@@ -360,6 +375,8 @@ class RowEvaluator:
         self.ansi = ansi
         #: the handler of each expression class met so far
         self._handlers: Dict[type, Any] = {}
+        #: id(LambdaVariable) -> its value, while a lambda's body runs
+        self._lambda_bindings: Dict[int, Any] = {}
 
     def eval(self, e: Expression, row: tuple) -> Any:
         m = self._handlers.get(type(e))
@@ -376,6 +393,12 @@ class RowEvaluator:
 
     def _eval_Literal(self, e, row):
         v = e.value
+        if isinstance(v, np.generic):
+            # a numpy scalar (lit(np.int64(3))) as the Python value a scan's
+            # rows hold: its comparisons give numpy bools, which a filter's
+            # ``is True`` drops (the JAX handler keeps it, and its filter
+            # passes no row)
+            v = v.item()
         if isinstance(v, int) and not isinstance(v, bool):
             # epoch days or microseconds re-hydrate to the values a scan's
             # rows hold
@@ -1432,6 +1455,285 @@ class RowEvaluator:
                                 "map_from_arrays (ANSI mode)")
             return None             # the device nulls the row
         return list(zip(ks, vs))
+
+    # ---- lambdas (a variable reads its binding by identity) ----
+    def _eval_LambdaVariable(self, e, row):
+        return self._lambda_bindings[id(e)]
+
+    def _with_bindings(self, bindings, expr, row):
+        old = self._lambda_bindings
+        self._lambda_bindings = {**old, **bindings}
+        try:
+            return self.eval(expr, row)
+        finally:
+            self._lambda_bindings = old
+
+    def _over_elems(self, e, row):
+        a = self.eval(e.arr, row)
+        if a is None:
+            return None, None
+        return a, [self._with_bindings({id(e.var): x}, e.body, row)
+                   for x in a]
+
+    def _eval_TransformArray(self, e, row):
+        return self._over_elems(e, row)[1]
+
+    def _eval_FilterArray(self, e, row):
+        a, keep = self._over_elems(e, row)
+        return None if a is None else [x for x, k in zip(a, keep) if k]
+
+    def _eval_ExistsArray(self, e, row):
+        a, hits = self._over_elems(e, row)
+        return None if a is None else any(bool(h) for h in hits)
+
+    def _eval_ForallArray(self, e, row):
+        a, hits = self._over_elems(e, row)
+        return None if a is None else all(bool(h) for h in hits)
+
+    def _eval_AggregateArray(self, e, row):
+        a = self.eval(e.arr, row)
+        acc = self.eval(e.zero, row)
+        if a is None:
+            return None
+        for x in a:
+            acc = self._with_bindings(
+                {id(e.acc_var): acc, id(e.elem_var): x}, e.merge, row)
+        return acc
+
+    # ---- set operations and shaping (equality through ``ordkey``: NaN
+    # is one value, as on the device and in Spark) ----
+    def _two_arrays(self, e, row):
+        a, b = self.eval(e.left, row), self.eval(e.right, row)
+        return (None, None) if a is None or b is None else (a, b)
+
+    def _eval_ArrayDistinct(self, e, row):
+        a = self.eval(e.child, row)
+        return None if a is None else _distinct(a)
+
+    def _eval_ArrayUnion(self, e, row):
+        a, b = self._two_arrays(e, row)
+        return None if a is None else _distinct(list(a) + list(b))
+
+    def _eval_ArrayIntersect(self, e, row):
+        a, b = self._two_arrays(e, row)
+        if a is None:
+            return None
+        keys = {ordkey(x) for x in b}
+        return [x for x in _distinct(a) if ordkey(x) in keys]
+
+    def _eval_ArrayExcept(self, e, row):
+        a, b = self._two_arrays(e, row)
+        if a is None:
+            return None
+        keys = {ordkey(x) for x in b}
+        return [x for x in _distinct(a) if ordkey(x) not in keys]
+
+    def _eval_ArraysOverlap(self, e, row):
+        a, b = self._two_arrays(e, row)
+        if a is None:
+            return None
+        keys = {ordkey(x) for x in b}
+        return any(ordkey(x) in keys for x in a)
+
+    def _eval_ArrayRemove(self, e, row):
+        a = self.eval(e.child, row)
+        v = self.eval(e.value, row)
+        if a is None or v is None:
+            return None
+        return [x for x in a if ordkey(x) != ordkey(v)]
+
+    def _eval_ArrayPosition(self, e, row):
+        a = self.eval(e.child, row)
+        v = self.eval(e.value, row)
+        if a is None or v is None:
+            return None
+        keys = [ordkey(x) for x in a]
+        return keys.index(ordkey(v)) + 1 if ordkey(v) in keys else 0
+
+    def _eval_ArrayRepeat(self, e, row):
+        v = self.eval(e.value, row)
+        n = self.eval(e.count, row)
+        if n is None or v is None:
+            # a null value: a null array, as on the device (which holds
+            # no null element; Spark gives n nulls)
+            return None
+        return [v] * max(n, 0)
+
+    def _eval_ArraySlice(self, e, row):
+        a = self.eval(e.child, row)
+        s = self.eval(e.start, row)
+        ln = self.eval(e.length, row)
+        if a is None or s is None or ln is None:
+            return None
+        if s == 0:
+            raise AnsiError("[SLICE_START_ZERO] slice start is 0")
+        if ln < 0:
+            raise AnsiError("[SLICE_NEGATIVE_LENGTH] slice length < 0")
+        begin = s - 1 if s > 0 else len(a) + s
+        return [] if begin < 0 else list(a[begin:begin + ln])
+
+    def _eval_Sequence(self, e, row):
+        lo = self.eval(e.start, row)
+        hi = self.eval(e.stop, row)
+        st = self.eval(e.step, row) if e.step is not None else \
+            (1 if lo is not None and hi is not None and hi >= lo else -1)
+        if lo is None or hi is None or st is None or st == 0:
+            return None     # a step of 0: null, as on the device
+        if (st > 0 and hi < lo) or (st < 0 and hi > lo):
+            return []       # against the direction: empty, as there
+        count = (hi - lo) // st + 1
+        if count > e.max_elems:
+            from ..batch import CapacityError
+            raise CapacityError(
+                f"[CAPACITY_sequence_max_elems] a sequence of {count} "
+                f"elements exceeds the budget of {e.max_elems}")
+        return [lo + i * st for i in range(count)]
+
+    def _eval_Flatten(self, e, row):
+        v = self.eval(e.child, row)
+        if v is None:
+            return None
+        out = []
+        for sub in v:
+            if sub is None:
+                return None
+            out.extend(sub)
+        return out
+
+    def _eval_ReplicateRows(self, e, row):
+        n = self.eval(e.n, row)
+        return None if n is None else list(range(max(int(n), 0)))
+
+    def _eval_GetJsonObject(self, e, row):
+        from ..expressions.json import JsonPathUnsupported, parse_json_path
+        v = self.eval(e.child, row)
+        p = self.eval(e.path, row)
+        if v is None or p is None:
+            return None
+        try:
+            steps = parse_json_path(p)
+        except JsonPathUnsupported:
+            return None
+        return _json_extract(v.encode("utf-8"), steps)
+
+
+def _distinct(a) -> list:
+    """First occurrences in order, equal through ``ordkey``."""
+    seen, out = set(), []
+    for x in a:
+        k = ordkey(x)
+        if k not in seen:
+            seen.add(k)
+            out.append(x)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# get_json_object, a byte at a time, with the device's semantics: a nested
+# value is its input span, blanks included, and a string holding a \uXXXX
+# escape is null (the JAX handler goes through json.loads and gives
+# Jackson's compact output and the decoded string, as Spark does)
+# ---------------------------------------------------------------------------
+
+_JSON_WS = b" \t\n\r"
+_JSON_ESC = {ord("n"): ord("\n"), ord("t"): ord("\t"), ord("r"): ord("\r"),
+             ord("b"): ord("\b"), ord("f"): ord("\f")}
+
+
+def _json_marks(b: bytes):
+    """(unescaped quote, outside a string, depth) per byte."""
+    quote, outside, depth = [], [], []
+    run = quotes = d = 0
+    for ch in b:
+        q = ch == 0x22 and run % 2 == 0
+        out = quotes % 2 == 0
+        quote.append(q)
+        outside.append(out)
+        if out and not q:
+            d += (ch in b"{[") - (ch in b"}]")
+        depth.append(d)
+        quotes += q
+        run = run + 1 if ch == 0x5C else 0
+    return quote, outside, depth
+
+
+def _json_trim(b: bytes) -> bytes:
+    return b.strip(_JSON_WS)
+
+
+def _json_step(b: bytes, step):
+    """(value, is_string) of one path step, or None."""
+    quote, outside, depth = _json_marks(b)
+    n = len(b)
+    if isinstance(step, int):
+        if not b or b[0] != 0x5B:
+            return None
+        elem, picked = 0, []
+        for j in range(n):
+            comma = (b[j] == 0x2C and outside[j] and not quote[j]
+                     and depth[j] == 1)
+            if 1 <= j < n - 1 and elem == step and not comma:
+                picked.append(j)
+            elem += comma
+        if not picked:
+            return None
+        return _json_trim(b[picked[0]:picked[-1] + 1]), False
+
+    def nonblank(i):
+        while i < n and b[i] in _JSON_WS:
+            i += 1
+        return i
+
+    pat = b'"' + step.encode("utf-8") + b'"'
+    for s in range(n):
+        if b.startswith(pat, s) and quote[s] and outside[s] \
+                and depth[s] == 1:
+            p = nonblank(s + len(pat))
+            if p < n and b[p] == 0x3A:
+                break
+    else:
+        return None
+    vs = nonblank(p + 1)
+    if vs >= n:
+        return None
+    vd = depth[vs]
+    if b[vs] == 0x22:
+        ends = [j for j in range(vs + 1, n) if quote[j]]
+        return (b[vs + 1:ends[0]], True) if ends else None
+    after = range(vs + 1, n)
+    if b[vs] in b"{[":
+        ends = [j for j in after if outside[j] and not quote[j]
+                and b[j] in b"}]" and depth[j] == vd - 1]
+        return (_json_trim(b[vs:ends[0] + 1]) if ends else b""), False
+    ends = [j for j in after if outside[j] and not quote[j] and (
+        (b[j] == 0x2C and depth[j] == vd)
+        or (b[j] in b"}]" and depth[j] == vd - 1))]
+    return _json_trim(b[vs:ends[0] if ends else n]), False
+
+
+def _json_extract(doc: bytes, steps):
+    if not steps:
+        return _json_trim(doc).decode("utf-8", "replace")
+    cur, is_str = doc, False
+    for step in steps:
+        got = _json_step(cur, step)
+        if got is None:
+            return None
+        cur, is_str = got
+        if cur == b"null" and not is_str:
+            return None
+    if is_str:
+        out, run = bytearray(), 0
+        for ch in cur:
+            if run % 2 == 1:                # an escaped byte
+                if ch == 0x75:
+                    return None             # \uXXXX: no device decoder
+                out.append(_JSON_ESC.get(ch, ch))
+            elif ch != 0x5C:
+                out.append(ch)
+            run = run + 1 if ch == 0x5C else 0
+        cur = bytes(out)
+    return cur.decode("utf-8", "replace")
 
 
 # ---------------------------------------------------------------------------

@@ -38,9 +38,10 @@ import torch
 
 from ..batch import Schema, empty_batch, from_arrow
 from ..config import (AGG_MAX_RESULT_ROWS, BROADCAST_LIMIT,
-                      BROADCAST_THRESHOLD, CBO_ENABLED, COALESCE_MAX_ROWS,
-                      DPP_ENABLED, JOIN_MAX_BUILD_ROWS, PARQUET_ENABLED,
-                      REGEXP_ENABLED, SHUFFLE_PARTITIONS, RapidsTpuConf)
+                      BROADCAST_THRESHOLD, CAST_STRING_TO_FLOAT, CBO_ENABLED,
+                      COALESCE_MAX_ROWS, DPP_ENABLED, JOIN_MAX_BUILD_ROWS,
+                      PARQUET_ENABLED, REGEXP_ENABLED, SHUFFLE_PARTITIONS,
+                      RapidsTpuConf)
 from ..exec import (BroadcastNestedLoopJoinExec, ExpandExec, FilterExec,
                     GlobalLimitExec, HashAggregateExec, HashJoinExec,
                     InMemoryScanExec, ProjectExec, RangeExec, SampleExec,
@@ -268,7 +269,10 @@ def _expr_rules() -> Dict[str, ExprRule]:
     r("Sequence", TS.INTEGRAL + TS.ARRAY,
       note="rows beyond the element budget fail loud (CAPACITY_sequence)",
       params=TS.params(repeat=TS.p("bound", TS.INTEGRAL)))
-    r("Flatten", TS.ARRAY,
+    # (TS.ARRAY alone in the JAX rule, whose check types the array of
+    # arrays: the port's Flatten over array(...) has the arrays as its
+    # children)
+    r("Flatten", TS.ALL_BASIC + TS.ARRAY,
       note="flatten(array(...)) only; nested-array columns fall back")
     for n in ("TransformKeys", "TransformValues", "MapFilter"):
         r(n, TS.ALL_BASIC + TS.ARRAY + TS.MAP)
@@ -504,6 +508,9 @@ class PlanMeta:
         name = type(e).__name__
         unsupported = getattr(e, "device_unsupported_reason", None)
         reason = unsupported() if unsupported is not None else None
+        if reason and getattr(e, "parses_float", False) and \
+                self.conf.get(CAST_STRING_TO_FLOAT.key):
+            reason = None       # the port's device parse, switched on
         if reason:
             self.will_not_work(reason)
         if name in self._REGEX_EXPRS:
@@ -880,8 +887,14 @@ class Overrides:
         if isinstance(n, L.LogicalExpand):
             return ExpandExec(n.projections, ch[0])
         if isinstance(n, L.LogicalGenerate):
+            from ..config import GENERATE_MAX_REPEAT
             from ..exec.generate import GenerateExec
-            return GenerateExec(n.generator, ch[0], outer=n.outer,
+            from ..expressions.collections import ReplicateRows
+            gen = n.generator
+            if isinstance(gen, ReplicateRows):
+                gen = ReplicateRows(
+                    gen.n, int(self.conf.get(GENERATE_MAX_REPEAT.key)))
+            return GenerateExec(gen, ch[0], outer=n.outer,
                                 pos=n.pos, elem_name=n.elem_name,
                                 pos_name=n.pos_name,
                                 value_name=n.value_name, ctx=self._ctx())

@@ -515,15 +515,16 @@ def test_file_scan_reads_the_source(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_unported_expression_raises_naming_item_7():
-    """Second-slice collection expressions (a lambda, a set operation) and
-    the window operator have no handler yet: each raises naming item 7,
-    from a projection and from an aggregate's input."""
+    """Expressions of modules still to come (zorder.py's interleave_bits,
+    a window function) and the window operator have no handler yet: each
+    raises naming item 7, from a projection and from an aggregate's
+    input."""
     from dataclasses import dataclass
     from spark_rapids_tpu_torch.expressions.aggregates import Count
     from spark_rapids_tpu_torch.expressions.base import Expression
 
     @dataclass(frozen=True, eq=False)
-    class TransformArray(Expression):
+    class InterleaveBits(Expression):
         child: Expression
 
         @property
@@ -531,16 +532,16 @@ def test_unported_expression_raises_naming_item_7():
             return (self.child,)
 
         def with_children(self, c):
-            return TransformArray(c[0])
+            return InterleaveBits(c[0])
 
         @property
         def dtype(self):
             return PORT.T.array(PORT.T.INT64)
 
     @dataclass(frozen=True, eq=False)
-    class ArrayUnion(TransformArray):
+    class NthValue(InterleaveBits):
         def with_children(self, c):
-            return ArrayUnion(c[0])
+            return NthValue(c[0])
 
     class LogicalWindow(L.LogicalPlan):
         def schema(self):
@@ -548,13 +549,13 @@ def test_unported_expression_raises_naming_item_7():
 
     t = PORT.table(D)
     with pytest.raises(NotImplementedError,
-                       match="TransformArray.*ROADMAP item 7"):
-        I.Interpreter().execute(t.select(TransformArray(
+                       match="InterleaveBits.*ROADMAP item 7"):
+        I.Interpreter().execute(t.select(InterleaveBits(
             PORT.col("w")).alias("u")).plan)
     with pytest.raises(NotImplementedError,
-                       match="ArrayUnion.*ROADMAP item 7"):
+                       match="NthValue.*ROADMAP item 7"):
         I.Interpreter().execute(t.group_by("k2").agg(
-            Count(ArrayUnion(PORT.col("w"))).alias("c")).plan)
+            Count(NthValue(PORT.col("w"))).alias("c")).plan)
     with pytest.raises(NotImplementedError, match="Window.*ROADMAP item 7"):
         I.Interpreter().execute(LogicalWindow((t.plan,)))
 
@@ -569,8 +570,17 @@ def test_row_evaluator_dispatch_is_the_jax_ones():
     # conditional.py, math.py and datetime.py, and Hypot, Logarithm,
     # NaNvl, Rand, RaiseError and UTCTimestampConv; the rest of
     # strings.py and the span programs add 10; the first collections
-    # slice adds 15 and StringSplit and StringToMap
-    assert len(port) == 107
+    # slice adds 15 and StringSplit and StringToMap; the second adds the
+    # lambdas, the set operations, the shaping, ReplicateRows and
+    # GetJsonObject (19)
+    assert len(port) == 126
+    for name in ("LambdaVariable", "TransformArray", "FilterArray",
+                 "ExistsArray", "ForallArray", "AggregateArray",
+                 "ArrayDistinct", "ArrayUnion", "ArrayIntersect",
+                 "ArrayExcept", "ArraysOverlap", "ArrayRemove",
+                 "ArrayPosition", "ArrayRepeat", "ArraySlice", "Sequence",
+                 "Flatten", "GetJsonObject", "ReplicateRows"):
+        assert f"_eval_{name}" in port
     for name in ("CreateArray", "Size", "ArrayContains", "ElementAt",
                  "GetArrayItem", "SortArray", "ArrayMin", "ArrayMax",
                  "CreateStruct", "GetStructField", "MapKeys", "MapValues",
