@@ -103,7 +103,31 @@ interpreter (0 rows apart, floats within rel 1e-12) and ``Rand`` against
 the same Session on the CPU, bit for bit; and raise_error failing a query
 on the card and on the interpreter.
 
-Right after Q9, over the same SF10 draw, the nested kinds
+Right after Q9, over the same SF10 draw, the windows
+(``[phase windows]``): customer history over the 15,000,000 orders
+(``entry.customer_history_df``: three window specs per o_custkey, row
+number, a ROWS running sum and lag over (date, key), a 90-day RANGE sum
+over the date, the rank by price descending, then rank <= 3) and supplier
+months over the 59,986,052 lines (``entry.supplier_months_df``: monthly
+sales per supplier by year and month, their yearly average over the full
+frame, rank, lag, lead and a three-month average, q47's filter and top
+100), each through the Session with nothing fallen back, equal to its
+numpy reference (integers and dates exactly, floats within rel 1e-6),
+with cold, warm and profiled walls, rows/s, peak and idle share, and
+supplier months' murmur3 launches (its int32 year and month at the
+aggregate's exchange and the year at the yearly window's) each held
+against the plain version in the cold run; then every window function
+over 2^14 rows on the card against the row interpreter, 0 rows apart: the
+ROWS and RANGE frame matrices ascending and descending with nulls first
+and last, int, double (NaN and nulls), date and string order keys, the
+ranking functions, nth_value, lag and lead of strings with defaults, a
+window without PARTITION BY, and key batching at batchRows 64. Then
+``[phase zorder]``: OPTIMIZE ZORDER BY's sort (``entry.zorder_df``) of
+the SF10 lineitem by zorder_key(l_partkey, l_suppkey, l_shipdate), every
+key equal to numpy's magic-mask Morton key (``entry.zorder3_reference``)
+and the keys in order.
+
+Then, over the same SF10 draw, the nested kinds
 (``[phase baskets]``): the order baskets (``entry.baskets_df``:
 collect_set of each order's part keys into array<bigint> of at most 8,
 count and max beside it, the arrays riding the join with the 15,000,000
@@ -154,9 +178,10 @@ package's threefry draws, in three (fraction, seed, slices) cases) and every ari
 expression over edge rows on the card against the CPU, and the ANSI
 errors raising on the card in a
 ``ProjectExec`` and in a fused stage. Last the bench's join+sort stage
-(``entry.join_sort_runner``) at 2^21 x 2^18 and at 59,986,052 x 15,000,000
-rows through the captured graph, the eager fused program and the iterator
-path, every row equal to pyarrow, with each mode's warm wall, rows/s, peak,
+(``entry.join_sort_runner``) at 2^21 x 2^18 through the captured graph,
+the eager fused program and the iterator path, every row equal to pyarrow,
+and at 59,986,052 x 15,000,000 rows through the graph and the eager
+program, equal to each other, with each mode's warm wall, rows/s, peak,
 and the device busy time and idle share of one profiled run; and the 8x
 overflow retry at 1M stream rows, which must re-plan and capture at the
 needed factor.
@@ -1587,7 +1612,7 @@ def run_q16_phase(dev, counted, tables) -> list:
     under ``entry.session_conf``): equal to ``q16_reference``, nothing
     fallen back, window_match at its k = 15 prefix and murmur3 at the
     exchanges held against their plain versions, the Like filter's device
-    time and launches, and the idle share of one profiled warm run. Then
+    time and launches. Then
     the same query over ``dictionary_encode_arrow`` of the same tables
     (``run_q16_dict_leg``). Returns each leg's launches."""
     from spark_rapids_tpu_torch import entry
@@ -1627,9 +1652,9 @@ def run_q16_phase(dev, counted, tables) -> list:
         "q16", lambda: tables, reference, run, check, dev, counted,
         rows_of=lambda t: t[2].num_rows, stats=stats, warm_runs=1)
     print(f"q16: the Session's operators {ses.executed_exec_names()}")
+    # no profiled run (cut to make room for [phase windows]): the walls
+    # and the Like filter's device time stand for the path
     df = entry.q16_df(*tables, Q16_SLICES)
-    stats["idle"] = profiled_idle("q16", lambda: run(tables), dev,
-                                  host=False)
     check_window_match_at_session_q16(dev, ses, df)
     like = check_like_at_q16(dev, ses, df)
     report_murmur3("q16", hashed, "p_size at its two aggregate exchanges")
@@ -1666,8 +1691,8 @@ def run_q16_dict_leg(dev, counted, tables, expected, plain_rows,
     s_comment, nearly unique, falls back on the cardinality fraction. Its
     rows equal the plain leg's and ``q16_reference``; ``dict_fallbacks()``
     names s_comment alone; murmur3 and window_match launch and are held
-    against their plain versions; cold and warm walls, peak and idle share
-    beside the plain leg's (``plain``: its stats); the wire bytes of the
+    against their plain versions; cold and warm walls and peak beside the
+    plain leg's (``plain``: its stats); the wire bytes of the
     part side's exchange input. Returns the cold run's launches."""
     import pyarrow as pa
     from spark_rapids_tpu_torch import entry
@@ -1707,7 +1732,6 @@ def run_q16_dict_leg(dev, counted, tables, expected, plain_rows,
         raise AssertionError(f"q16 dict: the fallbacks are not s_comment's "
                              f"alone: {reasons}")
     df = entry.q16_df(*enc, Q16_SLICES)
-    idle = profiled_idle("q16 dict", lambda: run(enc), dev, host=False)
     check_window_match_at_session_q16(dev, ses, df)
     # p_size, seeded by the per-entry hashes of the dictionary keys
     report_murmur3("q16 dict", hashed, "p_size at its two aggregate "
@@ -1716,9 +1740,8 @@ def run_q16_dict_leg(dev, counted, tables, expected, plain_rows,
     print(f"q16 dict: against the plain leg, cold {stats['cold_s']:.3f} s "
           f"vs {plain['cold_s']:.3f} s, warm {stats['warm_s']:.3f} s vs "
           f"{plain['warm_s']:.3f} s, peak {stats['peak'] / 2**30:.2f} GiB "
-          f"vs {plain['peak'] / 2**30:.2f} GiB, idle share {idle:.1%} vs "
-          f"{plain['idle']:.1%}; wire bytes (encoded, raw) of the part "
-          f"side's exchange input {wire}")
+          f"vs {plain['peak'] / 2**30:.2f} GiB; wire bytes (encoded, raw) "
+          f"of the part side's exchange input {wire}")
     return launches
 
 
@@ -2213,6 +2236,286 @@ def run_q9_phase(dev, counted, tables) -> dict:
     ses.prepare(entry.q9_df(*tables, SCALAR_Q_SLICES))
     check_murmur3_at_exchanges("Q9", ses.last_plan, dev)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Windows and Z-order over the SF10 orders and lineitem of Q9's draw
+# ---------------------------------------------------------------------------
+
+#: the window legs: input slices and shuffle partitions
+WINDOW_SLICES = 8
+WINDOW_PARTITIONS = 8
+#: rows of the window matrix's card-against-interpreter check, in
+#: partitions of about 16 rows (the interpreter's value-bounded RANGE
+#: frames scan their partition for every row)
+WINDOW_MATRIX_ROWS = 1 << 14
+WINDOW_MATRIX_KEYS = 1 << 10
+
+
+def run_windows_phase(dev, counted, tables) -> list:
+    """Both window legs at SF10 through the port's Session, then the
+    window matrix (``check_window_matrix``). Each leg: nothing fallen back,
+    equal to its numpy reference (``entry.check_customer_history``,
+    ``check_supplier_months``), cold and warm walls, rows/s, peak, and a
+    profiled run's wall and idle share; supplier months' murmur3 launches
+    in its cold run each against the plain version. Returns each leg's
+    launches."""
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.plan import Session
+    orders, lineitem = tables
+    runs = []
+    legs = (("customer history", orders, entry.customer_history_df,
+             entry.customer_history_reference,
+             entry.check_customer_history, []),
+            ("supplier months", lineitem, entry.supplier_months_df,
+             entry.supplier_months_reference, entry.check_supplier_months,
+             counted))
+    for name, table, make_df, reference, check, kernels in legs:
+        ses = Session(entry.session_conf(WINDOW_PARTITIONS), device=dev)
+        hashed = []
+
+        def run(t, ses=ses, make_df=make_df, hashed=hashed, name=name):
+            # the cold run holds each murmur3 launch against its plain
+            # version
+            collect = (lambda: ses.collect(make_df(t, WINDOW_SLICES)))
+            out = collect() if hashed else murmur3_checked(collect, hashed)
+            if ses.fell_back():
+                raise AssertionError(f"{name} fell back: {ses.fell_back()}")
+            return out
+
+        print(f"{name}: {table.num_rows} rows of {table.column_names}, "
+              f"{WINDOW_SLICES} slices, {WINDOW_PARTITIONS} shuffle "
+              f"partitions")
+        launches = run_path(name, lambda t=table: t, reference, run,
+                            lambda got, want, check=check: "; " +
+                            check(got, want), dev, kernels)
+        print(f"{name}: the Session's operators {ses.executed_exec_names()}")
+        profiled_idle(name, lambda t=table, run=run: run(t), dev,
+                      host=False)
+        if kernels:
+            report_murmur3(name, hashed, "y and m at the aggregate's "
+                           "exchange, y at the (l_suppkey, y) window's")
+        elif hashed:
+            raise AssertionError(f"{name}: murmur3 launched on int64 keys")
+        runs.append(launches)
+    check_window_matrix(dev)
+    return runs
+
+
+def window_matrix_table(n: int, keys: int, seed: int = 29):
+    """``n`` seeded rows: a partition key of ``keys`` values with nulls, an
+    int order key of ties and nulls, a double order key with NaN, -0.0
+    and nulls, a date, a string with nulls and empty strings, int64 and
+    double values with nulls (NaN among the doubles) and a unique row
+    number ``u`` that breaks ties."""
+    import numpy as np
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+
+    def nulls(p):
+        return rng.random(n) < p
+    f = rng.normal(0, 10, n).round(1)
+    f[rng.random(n) < 0.03] = np.nan
+    f[rng.random(n) < 0.03] = -0.0
+    # quarters: every sum is exact in any order
+    d = rng.integers(-400, 400, n) / 4
+    d[rng.random(n) < 0.02] = np.nan
+    words = np.array(["", "a", "ab", "b", "ba", "pear", "apple", "zz"])
+    return pa.table({
+        "k": pa.array(rng.integers(0, keys, n).astype(np.int32),
+                      mask=nulls(0.01)),
+        "o": pa.array(rng.integers(0, 12, n).astype(np.int32),
+                      mask=nulls(0.05)),
+        "f": pa.array(f, mask=nulls(0.05)),
+        "dt": pa.array(rng.integers(18000, 18040, n).astype(np.int32),
+                       mask=nulls(0.05)).view(pa.date32()),
+        "s": pa.array(words[rng.integers(0, len(words), n)],
+                      mask=nulls(0.1)),
+        "v": pa.array(rng.integers(-100, 100, n), mask=nulls(0.1)),
+        "d": pa.array(d, mask=nulls(0.1)),
+        "u": np.arange(n, dtype=np.int64),
+    })
+
+
+def window_matrix_queries():
+    """(name, DataFrame maker over the matrix table, conf) of the window
+    matrix: ``tests/test_window.py``'s ROWS and RANGE frame matrices
+    (:116-158) ascending and descending with nulls first and last, the
+    ranking functions, nth_value and lag/lead (strings with defaults) over
+    int, double, date and string order keys, a window without PARTITION
+    BY, and key batching at batchRows 64."""
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.exec.sort import SortOrder
+    from spark_rapids_tpu_torch.expressions import col, lit
+    from spark_rapids_tpu_torch.expressions.aggregates import (
+        Average, Count, Max, Min, Sum)
+    from spark_rapids_tpu_torch.expressions.window import (
+        CumeDist, LagLead, NthValue, NTile, PercentRank, Rank, RowNumber,
+        WindowAgg, WindowFrame, over)
+    rows_frames = [(-2, None), (1, None), (None, -1), (None, 2), (-3, -1),
+                   (1, 3), (-2, 2), (-100, 50), (None, None)]
+    range_asc = [(-5, 5), (None, 3), (-4, None), (-5, -1), (2, 6), (0, 4),
+                 (-3, 0)]
+    range_desc = [(-5, 5), (-4, None), (None, 3), (1, 4)]
+    part = [col("k")]
+    out = []
+
+    def df(t, *ws):
+        return entry._df(t, 1).window(*ws)
+    for desc in (False, True):
+        for nf in (True, False):
+            tag = f"{'desc' if desc else 'asc'} nulls " \
+                  f"{'first' if nf else 'last'}"
+            # every frame of a matrix in one query: one spec, a frame each;
+            # Spark's default null orders take the test's four aggregates,
+            # the other two sum and count (the interpreter's row loop is
+            # most of the phase)
+            by = [SortOrder(col("o"), desc, nf), SortOrder(col("u"), desc)]
+            aggs = (("s", Sum), ("c", Count)) + (
+                (("mn", Min), ("mx", Max)) if nf != desc else ())
+            out.append((f"rows matrix {tag}", lambda t, by=by, aggs=aggs:
+                        df(t, *[
+                            over(WindowAgg(a(col("d" if n == "mx"
+                                                 else "v"))),
+                                 part, by, WindowFrame(is_rows=True,
+                                                       start=lo, end=hi))
+                            .alias(f"{n}{j}")
+                            for j, (lo, hi) in enumerate(rows_frames)
+                            for n, a in aggs]), {}))
+            o = [SortOrder(col("o"), desc, nf)]
+            frames = range_desc if desc else range_asc
+            fns = (("s", lambda: WindowAgg(Sum(col("v")))),
+                   ("c", lambda: WindowAgg(Count(col("v"))))) + ((
+                       ("mn", lambda: WindowAgg(Min(col("v")))),
+                       ("mx", lambda: WindowAgg(Max(col("d")))),
+                       ("nv", lambda: NthValue(col("v"), 2)))
+                       if nf != desc else ())
+            out.append((f"range matrix {tag}",
+                        lambda t, o=o, frames=frames, fns=fns: df(t, *[
+                            over(fn(), part, o,
+                                 WindowFrame(is_rows=False, start=lo,
+                                             end=hi)).alias(f"{n}{j}")
+                            for j, (lo, hi) in enumerate(frames)
+                            for n, fn in fns]), {}))
+    for key in ("o", "f", "dt", "s"):
+        for desc in (False, True):
+            by = [SortOrder(col(key), desc, not desc)]
+            out.append((f"ranking by {key} {'desc' if desc else 'asc'}",
+                        lambda t, by=by: df(t, *[
+                            over(fn, part, by).alias(n) for n, fn in (
+                                ("rn", RowNumber()), ("r", Rank()),
+                                ("dr", Rank(dense=True)), ("nt", NTile(3)),
+                                ("pr", PercentRank()), ("cd", CumeDist()),
+                                ("nv", NthValue(col("s"), 2)),
+                                ("lag", LagLead(col("s"), 1, lit("none"))),
+                                ("lead", LagLead(col("s"), 2, lit("?"),
+                                                 False)),
+                                ("lv", LagLead(col("v"), 1)),
+                                ("mn", WindowAgg(Min(col("s")))),
+                                ("run", WindowAgg(Sum(col("d")))))]), {}))
+        fr = WindowFrame(is_rows=False, start=-2, end=1)
+        if key in ("o", "f", "dt"):
+            by = [SortOrder(col(key), False, False)]
+            out.append((f"range -2,1 by {key}", lambda t, by=by, fr=fr: df(
+                t, over(WindowAgg(Sum(col("v"))), part, by, fr)
+                .alias("sum_v"),
+                over(WindowAgg(Max(col("s"))), part, by, fr).alias("max_s")),
+                {}))
+    by = [SortOrder(col("o")), SortOrder(col("u"))]
+    # (no unbounded frame: the interpreter sums each row's frame, and one
+    # partition of 2^14 rows would make that quadratic)
+    out.append(("unpartitioned", lambda t: df(
+        t, over(RowNumber(), [], by).alias("rn"),
+        over(WindowAgg(Sum(col("v"))), [], by,
+             WindowFrame(is_rows=True, start=-2, end=2)).alias("sum_v"),
+        over(LagLead(col("s"), 3, lit("-")), [], by).alias("lag")), {}))
+    out.append(("key batching at batchRows 64", lambda t: df(
+        t, over(RowNumber(), part, by).alias("rn"),
+        over(WindowAgg(Sum(col("v"))), part, by).alias("sum_v"),
+        over(WindowAgg(Min(col("s"))), part, by,
+             WindowFrame(is_rows=True, start=-1, end=1)).alias("mn")),
+        {"spark.rapids.tpu.sql.window.batchRows": 64}))
+    return out
+
+
+def check_window_matrix(dev) -> None:
+    """Every window query of ``window_matrix_queries`` over
+    ``WINDOW_MATRIX_ROWS`` rows on the card against the port's row
+    interpreter: nothing fallen back, 0 rows apart (floats within rel
+    1e-6), the rows sorted by ``u``; key batching splits."""
+    from spark_rapids_tpu_torch.plan import Session
+    t = window_matrix_table(WINDOW_MATRIX_ROWS, WINDOW_MATRIX_KEYS)
+    card_s = interp_s = 0.0
+    apart, n = {}, 0
+    for name, make, conf in window_matrix_queries():
+        ses = Session(conf, device=dev)
+        t0 = time.perf_counter()
+        got = ses.collect(make(t)).sort_by("u")
+        card_s += time.perf_counter() - t0
+        if ses.fell_back():
+            raise AssertionError(f"window matrix {name}: fell back "
+                                 f"{ses.fell_back()}")
+        if conf and "KeyBatchingExec" not in ses.executed_exec_names():
+            raise AssertionError(f"window matrix {name}: no key batching")
+        t0 = time.perf_counter()
+        want = Session({**conf, **ORACLE_CONF}, device=dev).collect(
+            make(t)).sort_by("u")
+        interp_s += time.perf_counter() - t0
+        bad = sum(float_rows_apart(got.column(c), want.column(c),
+                                   FLOAT_REL_TOL)
+                  for c in got.column_names)
+        n += got.num_columns - t.num_columns
+        if bad:
+            apart[name] = bad
+    print(f"windows: {n} window columns in "
+          f"{len(window_matrix_queries())} queries over {t.num_rows} rows "
+          f"on the card ({card_s:.2f} s) against the interpreter "
+          f"({interp_s:.2f} s): rows apart {apart or 0}")
+    if apart:
+        raise AssertionError(f"window matrix: the card differs {apart}")
+
+
+def run_zorder_phase(dev, lineitem) -> None:
+    """OPTIMIZE ZORDER BY (l_partkey, l_suppkey, l_shipdate) over the SF10
+    lineitem through the Session (``entry.zorder_df``: the key and the
+    global sort by it): every output row's key equal to numpy's
+    magic-mask Morton key of its columns, the keys equal to numpy's
+    sorted keys of the input; the run's wall and peak."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.plan import Session
+    t0 = time.perf_counter()
+    want = np.sort(entry.zorder3_reference(
+        lineitem.column("l_partkey").to_numpy(),
+        lineitem.column("l_suppkey").to_numpy(),
+        lineitem.column("l_shipdate").cast(pa.int32()).to_numpy()))
+    oracle_s = time.perf_counter() - t0
+    ses = Session(entry.session_conf(WINDOW_PARTITIONS), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    got = ses.collect(entry.zorder_df(lineitem, WINDOW_SLICES))
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    if ses.fell_back():
+        raise AssertionError(f"zorder fell back: {ses.fell_back()}")
+    z = got.column("z").to_numpy()
+    mine = entry.zorder3_reference(
+        got.column("l_partkey").to_numpy(), got.column("l_suppkey")
+        .to_numpy(), got.column("l_shipdate").cast(pa.int32()).to_numpy())
+    bad_rows = int((z != mine).sum())
+    bad_sorted = int((z != want).sum()) if len(z) == len(want) else -1
+    print(f"zorder: {lineitem.num_rows} rows sorted by zorder_key("
+          f"l_partkey, l_suppkey, l_shipdate) in {wall:.3f} s (one cold "
+          f"run, {lineitem.num_rows / wall:,.0f} rows/s, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+          f"operators {ses.executed_exec_names()}); numpy's Morton key "
+          f"and sort {oracle_s:.2f} s; keys apart from numpy's of their "
+          f"row {bad_rows}, from numpy's sorted keys {bad_sorted}")
+    if bad_rows or bad_sorted:
+        raise AssertionError("zorder: the keys or their order differ from "
+                             "numpy's")
 
 
 # ---------------------------------------------------------------------------
@@ -4038,9 +4341,13 @@ def profiled(fn, dev, host: bool = True):
 #: (stream rows, build rows) of the join_sort runs: bench.bench_join_sort's
 #: size, and TPC-H SF10's lineitem probing its orders (the Q3/Q10 shape)
 JOIN_SORT_SIZES = ((1 << 21, 1 << 18), (SF10_LINEITEM_ROWS, 15_000_000))
-#: above this many stream rows the iterator path runs once (its grace join
-#: and out-of-core sort take seconds a run), without warm runs or a profile
-ITERATOR_WARM_MAX_ROWS = 1 << 21
+#: up to this many stream rows the three modes run and the graph's rows are
+#: held against pyarrow; above it (SF10) the graph and the eager program
+#: run and hold each other, without the oracle (13.8 s) and the iterator's
+#: grace join (cut to make room for [phase windows] and [phase zorder]):
+#: the smaller size holds the same program against pyarrow
+JOIN_SORT_ORACLE_MAX_ROWS = 1 << 21
+JOIN_SORT_BIG_MODES = ("graph", "eager")
 
 
 def check_join_sort_result(got, want) -> int:
@@ -4093,8 +4400,10 @@ def _same_batch(a, b) -> bool:
 def run_join_sort_phase(dev, n_stream: int, n_build: int) -> dict:
     """The bench's join+sort stage at one size, three ways: the fused stage
     captured in a CUDA graph, the eager fused program and the iterator
-    path. The graph's first (cold) result is checked against pyarrow, every
-    other result against it on the device; prints each mode's warm
+    path (above ``JOIN_SORT_ORACLE_MAX_ROWS`` the first two alone). The
+    graph's first (cold) result is checked against pyarrow (above that
+    size: not), every other result against it on the device; prints each
+    mode's warm
     median wall (three warm calls after the cold one), stream rows/s, the
     CUDA-event time of one graph replay, the allocator's peak, and, from
     one warm run profiled on the device, the device kernels and copies per
@@ -4107,18 +4416,22 @@ def run_join_sort_phase(dev, n_stream: int, n_build: int) -> dict:
     t0 = time.perf_counter()
     stream, build = entry.join_sort_tables(n_stream, n_build)
     gen_s = time.perf_counter() - t0
+    full = n_stream <= JOIN_SORT_ORACLE_MAX_ROWS
     t0 = time.perf_counter()
-    want = entry.join_sort_reference(stream, build)
+    want = entry.join_sort_reference(stream, build) if full else None
     oracle_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     plan = entry.join_sort_plan(stream, build, dev)
     torch.cuda.synchronize(dev)
-    print(f"{name}: tables made in {gen_s:.2f} s, pyarrow oracle "
-          f"{oracle_s:.2f} s ({want.num_rows} rows), uploaded once in "
-          f"{time.perf_counter() - t0:.2f} s")
+    oracle = (f"pyarrow oracle {oracle_s:.2f} s ({want.num_rows} rows)"
+              if full else "no oracle (the graph's rows against the eager "
+              "program's)")
+    print(f"{name}: tables made in {gen_s:.2f} s, {oracle}, uploaded once "
+          f"in {time.perf_counter() - t0:.2f} s")
     del stream, build
     walls, checked = {}, None
-    for mode in entry.JOIN_SORT_MODES:
+    modes = entry.JOIN_SORT_MODES if full else JOIN_SORT_BIG_MODES
+    for mode in modes:
         run = entry.join_sort_runner(plan, mode)
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -4127,23 +4440,17 @@ def run_join_sort_phase(dev, n_stream: int, n_build: int) -> dict:
         torch.cuda.synchronize(dev)
         cold_s = time.perf_counter() - t0
         if checked is None:
-            ties = check_join_sort_result(
-                to_arrow(cold, plan.output_schema), want)
+            verdict = "equal to the eager program's rows"
+            if full:
+                ties = check_join_sort_result(
+                    to_arrow(cold, plan.output_schema), want)
+                verdict = (f"equal to pyarrow ({ties} rows in revenue "
+                           f"ties, compared as sets)")
             checked = cold
             del want
         elif not _same_batch(cold, checked):
             raise AssertionError(f"{name} {mode}: differs from the graph's "
-                                 f"rows, which equal pyarrow's")
-        if mode == "iterator" and n_stream > ITERATOR_WARM_MAX_ROWS:
-            # the grace join and the out-of-core sort at SF10: the cold run
-            # is checked and timed, and stands for the wall
-            print(f"{name} {mode}: equal to the graph's rows; one run, "
-                  f"{cold_s:.3f} s, {n_stream / cold_s:,.0f} stream rows/s;"
-                  f" device memory peak "
-                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
-            walls[mode] = cold_s
-            del run, cold
-            continue
+                                 f"rows")
         warm = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -4157,8 +4464,7 @@ def run_join_sort_phase(dev, n_stream: int, n_build: int) -> dict:
         peak = torch.cuda.max_memory_allocated(dev)
         wall = statistics.median(warm)
         walls[mode] = wall
-        line = (f"{name} {mode}: equal to pyarrow ({ties} rows in revenue "
-                f"ties, compared as sets); cold {cold_s * 1e3:.3f} ms, warm "
+        line = (f"{name} {mode}: {verdict}; cold {cold_s * 1e3:.3f} ms, warm "
                 f"median {wall * 1e3:.3f} ms of "
                 f"{[round(w * 1e3, 3) for w in warm]}, "
                 f"{n_stream / wall:,.0f} stream rows/s; device memory peak "
@@ -5391,9 +5697,8 @@ def run_mesh_phase(dev, lineitem) -> list:
     """The mesh (``shuffle.mode=ICI``, ``parallel/``), MESH_SHARDS shards
     over the visible cards: TPC-H Q1 at SF10 through the Session as one
     ``MeshStageExec`` (its lowered list the JAX Session's, equal to
-    pyarrow; walls, peak, the split of a warm wall and the idle share of
-    one profiled warm run, beside Session Q1 without ICI in the same
-    call), the bench's ici_exchange shape (a broadcast join and a group-by,
+    pyarrow; walls, peak and the split of a warm wall, beside Session Q1
+    without ICI in the same call), the bench's ici_exchange shape (a broadcast join and a group-by,
     with the stage's program timed alone as the bench times it), the
     dryrun's chain at 2^24 x 2^20 (four exchanges, exact order against
     pyarrow), the two-process exchange and ``entry.dryrun_multigpu``;
@@ -5438,10 +5743,6 @@ def run_mesh_phase(dev, lineitem) -> list:
     runs.append(q1["launches"])
     print(f"mesh q1: warm {q1['warm_s']:.3f} s on the mesh against "
           f"{statistics.median(host_walls[1:]):.3f} s without ICI")
-    # device records only: the host's events of a mesh run took 11 s to
-    # read back
-    profiled_idle("mesh q1", lambda: ses.collect(
-        entry.q1_df(lineitem, Q1_SLICES)), dev, host=False)
     del ses, q1
 
     fact, dim = entry.ici_exchange_tables(ICI_FACT_ROWS)
@@ -5980,8 +6281,8 @@ def main(argv=None) -> int:
     # exchange), then every scalar expression on the card against the
     # row interpreter
     t0 = time.perf_counter()
-    q14_tables, q9_tables = entry.tpch_q14_q9_tables(SCALAR_Q_SF,
-                                                     SCALAR_Q_SEED)
+    q14_tables, q9_tables, window_tables = entry.tpch_q14_q9_window_tables(
+        SCALAR_Q_SF, SCALAR_Q_SEED)
     print(f"q14/q9 tables at SF{SCALAR_Q_SF} made in "
           f"{time.perf_counter() - t0:.2f} s")
     runs.append(timed("q14", run_q14_phase, dev, [window_match],
@@ -5989,6 +6290,13 @@ def main(argv=None) -> int:
     del q14_tables
     runs.append(timed("q9", run_q9_phase, dev, [murmur3_int32, window_match],
                       q9_tables))
+    # the windows over the same draw's orders and lineitem (murmur3 at
+    # supplier months' int32 year and month), every window function
+    # against the interpreter, then OPTIMIZE ZORDER BY's sort
+    runs += timed("windows", run_windows_phase, dev, [murmur3_int32],
+                  window_tables)
+    timed("zorder", run_zorder_phase, dev, window_tables[1])
+    del window_tables
     # the nested kinds over the same SF10 draw: the order baskets, the
     # item support and the P_NAME words (no kernel on their paths), then
     # every collection expression against the row interpreter

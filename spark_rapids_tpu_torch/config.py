@@ -94,6 +94,16 @@ BATCH_SIZE_BYTES = _entry(
     "spark.rapids.tpu.sql.batchSizeBytes", 512 << 20,
     "Target device batch size; the coalesce pass concatenates operator "
     "output batches up to this size.", parse_bytes)
+BATCH_ROW_CAPACITY = _entry(
+    "spark.rapids.tpu.sql.batchRowCapacity", 1 << 20,
+    "Maximum rows per device batch. The planner reads it where a window "
+    "without PARTITION BY needs its whole input in one batch: over more "
+    "rows the window is an island.", int)
+WINDOW_BATCH_ROWS = _entry(
+    "spark.rapids.tpu.sql.window.batchRows", 1 << 20,
+    "Row target for key-complete window batches: a window partition's "
+    "rows are re-chunked on group-key boundaries so one batch never holds "
+    "more than ~this many rows (reference: GpuKeyBatchingIterator).", int)
 COALESCE_MAX_ROWS = _entry(
     "spark.rapids.tpu.sql.coalesce.maxRows", 1 << 22,
     "Row cap per coalesced output batch in CoalesceBatchesExec.", int)
@@ -334,14 +344,12 @@ for _key, _default, _conv in (
            "Registered as in the JAX package; changes no result.", _conv)
 del _key, _default, _conv
 
-_ITEM7 = "ROADMAP item 7 (windows, generators, Python and UDFs)"
+_ITEM7 = "ROADMAP item 7 (Python workers and UDFs)"
 _ITEM8_PLUGIN = "ROADMAP item 8 (plugin.py and the metric levels)"
 _ITEM8_NET = "ROADMAP item 8 (the shuffle network plane)"
 _ITEM8_IO = "ROADMAP item 8 (I/O breadth)"
 _ITEM8_SERVE = "ROADMAP item 8 (serving, tracing and the bridge)"
-_later(_ITEM7, int, ("sql.batchRowCapacity", 1 << 20),
-       ("python.worker.processes", 4),
-       ("sql.window.batchRows", 1 << 20))
+_later(_ITEM7, int, ("python.worker.processes", 4))
 _later(_ITEM7, _bool, ("sql.udfCompiler.enabled", False))
 _later(_ITEM8_PLUGIN, int, ("sql.concurrentTpuTasks", 2))
 _later(_ITEM8_PLUGIN, float, ("memory.hbm.poolFraction", 0.85))
@@ -429,6 +437,10 @@ class RapidsTpuConf:
     @property
     def sql_enabled(self) -> bool:
         return self.get(SQL_ENABLED.key)
+
+    @property
+    def batch_row_capacity(self) -> int:
+        return self.get(BATCH_ROW_CAPACITY.key)
 
     @property
     def batch_size_bytes(self) -> int:

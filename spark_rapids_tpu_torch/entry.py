@@ -160,6 +160,16 @@ columns and formats the groups with ``concat_ws``, ``bin``,
 ``catalog_reference`` and ``comment_spans_reference`` compute the same
 with pyarrow and Python.
 
+Two TPC-DS-shaped window paths run over TPC-H's orders and lineitem
+(``tpch_window_tables``): ``customer_history_df`` is TPC-DS q51's running
+sum and q67/q70's ``rank() <= N`` per customer (three window specs:
+row_number, a ROWS running sum and lag; a 90-day RANGE sum; the rank by
+price), and ``supplier_months_df`` is q47's shape (monthly sales per
+supplier, their yearly average over the full frame, rank, lag, lead and a
+three-month moving average, the 10% deviation filter, its top 100).
+``customer_history_reference`` and ``supplier_months_reference`` compute
+the same with numpy and pyarrow.
+
 ``q1_reference``, ``q16_part_reference``, ``q16_reference``,
 ``q3_reference``,
 ``q18_reference``, ``q2_reference``, ``q11_reference``,
@@ -3283,3 +3293,315 @@ def q1_json_reference(table: pa.Table) -> pa.Table:
     status = pa.array(LINE_STATUSES).take(ref.column("l_linestatus"))
     return ref.set_column(0, "l_returnflag", flags).set_column(
         1, "l_linestatus", status)
+
+
+
+# ---------------------------------------------------------------------------
+# Windows: TPC-DS-shaped paths over TPC-H's orders and lineitem
+# ---------------------------------------------------------------------------
+
+CUSTOMER_HISTORY_COLUMNS = ("o_orderkey", "o_custkey", "o_orderdate",
+                            "o_totalprice", "rn", "running", "prev_date",
+                            "last90", "price_rank")
+SUPPLIER_MONTHS_COLUMNS = ("l_suppkey", "y", "m", "sum_sales",
+                           "avg_monthly", "rn", "prev_sales", "next_sales",
+                           "avg3")
+#: customer history keeps each customer's orders of these price ranks
+PRICE_RANKS = 3
+#: supplier months: the year q47 filters and the rows it keeps
+Q47_YEAR = 1996
+Q47_TOP = 100
+
+
+def tpch_window_tables(sf: float, seed: int = 3
+                       ) -> Tuple[pa.Table, pa.Table]:
+    """``(orders, lineitem)`` of one ``_tpch_columns(sf, seed,
+    part_keys=True)`` draw: orders with O_ORDERKEY, O_CUSTKEY, O_ORDERDATE
+    and O_TOTALPRICE; lineitem with L_PARTKEY, L_SUPPKEY, L_SHIPDATE and
+    L_EXTENDEDPRICE. Keys are int64, money float64, dates DATE."""
+    return _window_tables(_tpch_columns(sf, seed, part_keys=True))
+
+
+def tpch_q14_q9_window_tables(sf: float, seed: int = 3):
+    """``(tpch_q14_tables, tpch_q9_tables, tpch_window_tables)`` at
+    ``(sf, seed)`` from one draw of ``_tpch_columns``."""
+    c = _tpch_columns(sf, seed, part_keys=True)
+    return _q14_tables(c, sf, seed), _q9_tables(c, sf, seed), \
+        _window_tables(c)
+
+
+def _window_tables(c: Dict[str, object]):
+    return (_tpch_table(c, ("o_orderkey", "o_custkey", "o_orderdate",
+                            "o_totalprice")),
+            _tpch_table(c, ("l_partkey", "l_suppkey", "l_shipdate",
+                            "l_extendedprice")))
+
+
+def customer_history_df(orders: pa.Table, num_slices: int = 8):
+    """Each customer's orders (TPC-DS q51's running sum, q67/q70's top N):
+    over (o_custkey; o_orderdate, o_orderkey) the row number, the running
+    sum of o_totalprice (ROWS UNBOUNDED PRECEDING to CURRENT ROW) and the
+    previous order's date; over (o_custkey; o_orderdate) the sum of
+    o_totalprice RANGE BETWEEN 90 PRECEDING AND CURRENT ROW; over
+    (o_custkey; o_totalprice DESC) the rank; then the orders of rank at
+    most ``PRICE_RANKS``."""
+    from .expressions.window import (LagLead, Rank, RowNumber, WindowAgg,
+                                     WindowFrame, over)
+    cust = [col("o_custkey")]
+    by_date = [asc(col("o_orderdate")), asc(col("o_orderkey"))]
+    price = Sum(col("o_totalprice"))
+    return (_df(orders, num_slices)
+            .window(over(RowNumber(), cust, by_date).alias("rn"),
+                    over(WindowAgg(price), cust, by_date,
+                         WindowFrame(is_rows=True, start=None, end=0))
+                    .alias("running"),
+                    over(LagLead(col("o_orderdate"), 1), cust, by_date)
+                    .alias("prev_date"))
+            .window(over(WindowAgg(price), cust, [asc(col("o_orderdate"))],
+                         WindowFrame(is_rows=False, start=-90, end=0))
+                    .alias("last90"))
+            .window(over(Rank(), cust, [desc(col("o_totalprice"))])
+                    .alias("price_rank"))
+            .where(col("price_rank") <= lit(PRICE_RANKS)))
+
+
+def _sort_order(keys: Sequence[np.ndarray]) -> np.ndarray:
+    """The order of rows sorted by the integer ``keys`` (most significant
+    first): one argsort of the keys packed into an int64 when their
+    ranges fit 63 bits, else ``np.lexsort``."""
+    lows = [int(k.min()) for k in keys]
+    bits = [max(int(k.max()) - lo, 1).bit_length()
+            for k, lo in zip(keys, lows)]
+    if sum(bits) > 63:
+        return np.lexsort(tuple(reversed(keys)))
+    packed = np.zeros(len(keys[0]), np.int64)
+    for k, lo, b in zip(keys, lows, bits):
+        packed = (packed << b) | (k.astype(np.int64) - lo)
+    return np.argsort(packed, kind="stable")
+
+
+def _group_starts(sorted_key: np.ndarray) -> np.ndarray:
+    """The index of each row's group's first row, over a sorted key."""
+    n = len(sorted_key)
+    new = np.ones(n, bool)
+    new[1:] = sorted_key[1:] != sorted_key[:-1]
+    return np.maximum.accumulate(np.where(new, np.arange(n), 0))
+
+
+def _segment_sums(values: np.ndarray, lo: np.ndarray, hi: np.ndarray
+                  ) -> np.ndarray:
+    """sum(values[lo:hi + 1]) per row, from one long-double prefix sum."""
+    cs = np.concatenate([[0], np.cumsum(values, dtype=np.longdouble)])
+    return (cs[hi + 1] - cs[lo]).astype(np.float64)
+
+
+def customer_history_reference(orders: pa.Table) -> pa.Table:
+    """``customer_history_df``'s rows with numpy (one sort per spec,
+    binary searches for the 90-day frame), sorted by o_orderkey."""
+    key = orders.column("o_orderkey").to_numpy()
+    cust = orders.column("o_custkey").to_numpy()
+    date = orders.column("o_orderdate").cast(pa.int32()).to_numpy()
+    price = orders.column("o_totalprice").to_numpy()
+    n = len(key)
+    iota = np.arange(n)
+    o = _sort_order((cust, date, key))
+    c, d = cust[o], date[o]
+    start = _group_starts(c)
+    rn = np.empty(n, np.int32)
+    rn[o] = iota - start + 1
+    running = np.empty(n)
+    running[o] = _segment_sums(price[o], start, iota)
+    prev = np.empty(n, np.int32)
+    prev[o] = np.where(start == iota, 0, np.roll(d, 1))
+    first = np.empty(n, bool)
+    first[o] = start == iota
+    # the 90-day RANGE frame: every order of the customer dated d-90..d,
+    # ties on the date included
+    ck = (c.astype(np.int64) << 20) + d
+    lo = np.searchsorted(ck, ck - 90, "left")
+    hi = np.searchsorted(ck, ck, "right") - 1
+    last90 = np.empty(n)
+    last90[o] = _segment_sums(price[o], lo, hi)
+    by_price = np.argsort(-price, kind="stable")
+    o2 = by_price[np.argsort(cust[by_price], kind="stable")]
+    c2, p2 = cust[o2], price[o2]
+    peer = np.ones(n, bool)
+    peer[1:] = (c2[1:] != c2[:-1]) | (p2[1:] != p2[:-1])
+    peer_start = np.maximum.accumulate(np.where(peer, iota, 0))
+    rank = np.empty(n, np.int32)
+    rank[o2] = peer_start - _group_starts(c2) + 1
+    keep = np.flatnonzero(rank <= PRICE_RANKS)
+    keep = keep[np.argsort(key[keep], kind="stable")]
+    return pa.table({
+        "o_orderkey": key[keep], "o_custkey": cust[keep],
+        "o_orderdate": orders.column("o_orderdate").take(keep),
+        "o_totalprice": price[keep], "rn": rn[keep],
+        "running": running[keep],
+        "prev_date": pa.array(prev[keep], pa.int32(),
+                              mask=first[keep]).view(pa.date32()),
+        "last90": last90[keep], "price_rank": rank[keep]})
+
+
+def _check_window_rows(got: pa.Table, want: pa.Table, keys: Sequence[str],
+                       floats: Sequence[str], what: str) -> str:
+    """``got`` sorted by ``keys`` against ``want`` (sorted so): the same
+    columns, integers, dates and nulls exactly, ``floats`` within rel
+    1e-6. Returns a line that says so; raises on a difference."""
+    got = got.sort_by([(k, "ascending") for k in keys])
+    want = want.sort_by([(k, "ascending") for k in keys])
+    if got.column_names != want.column_names or \
+            got.num_rows != want.num_rows:
+        raise AssertionError(f"{what}: {got.num_rows} rows of "
+                             f"{got.column_names}, the reference "
+                             f"{want.num_rows} of {want.column_names}")
+    worst = 0.0
+    for name in got.column_names:
+        g, w = got.column(name), want.column(name)
+        if name not in floats:
+            if not g.cast(w.type).equals(w):
+                raise AssertionError(f"{what}: column {name} differs")
+            continue
+        if not pc.equal(g.is_null(), w.is_null()).to_numpy().all():
+            raise AssertionError(f"{what}: column {name}'s nulls differ")
+        gv = g.fill_null(0.0).to_numpy()
+        wv = w.fill_null(0.0).to_numpy()
+        rel = np.abs(gv - wv) / np.maximum(np.abs(wv), 1e-300)
+        err = float(rel.max()) if len(rel) else 0.0
+        if not err <= 1e-6:
+            raise AssertionError(f"{what}: column {name} max rel err {err}")
+        worst = max(worst, err)
+    return f"all {got.num_rows} rows, floats max rel err {worst:.3g}"
+
+
+def check_customer_history(got: pa.Table, want: pa.Table) -> str:
+    return _check_window_rows(got, want, ["o_orderkey"],
+                              ("o_totalprice", "running", "last90"),
+                              "customer history")
+
+
+def supplier_months_df(lineitem: pa.Table, num_slices: int = 8):
+    """TPC-DS q47's shape over lineitem: monthly sales per supplier (a sum
+    grouped by l_suppkey, year and month of l_shipdate), their average
+    over (l_suppkey, year) in the full frame; over (l_suppkey; year,
+    month) the rank, the previous and next month's sales and the average
+    over ROWS BETWEEN 1 PRECEDING AND 1 FOLLOWING; q47's filter (year
+    ``Q47_YEAR``, a positive average, more than 10% away from it) and its
+    first ``Q47_TOP`` rows by the deviation, then supplier and month."""
+    from .expressions import Abs, month
+    from .expressions.window import (LagLead, Rank, WindowAgg, WindowFrame,
+                                     over)
+    supp, ym = [col("l_suppkey")], [asc(col("y")), asc(col("m"))]
+    sales = col("sum_sales")
+    dev = Abs(sales - col("avg_monthly")) / col("avg_monthly")
+    return (_df(lineitem, num_slices)
+            .select(col("l_suppkey"), year(col("l_shipdate")).alias("y"),
+                    month(col("l_shipdate")).alias("m"),
+                    col("l_extendedprice"))
+            .group_by("l_suppkey", "y", "m")
+            .agg(Sum(col("l_extendedprice")).alias("sum_sales"))
+            .window(over(WindowAgg(Average(sales)),
+                         [col("l_suppkey"), col("y")]).alias("avg_monthly"))
+            .window(over(Rank(), supp, ym).alias("rn"),
+                    over(LagLead(sales, 1), supp, ym).alias("prev_sales"),
+                    over(LagLead(sales, 1, None, False), supp, ym)
+                    .alias("next_sales"),
+                    over(WindowAgg(Average(sales)), supp, ym,
+                         WindowFrame(is_rows=True, start=-1, end=1))
+                    .alias("avg3"))
+            .where(And(And(EqualTo(col("y"), lit(Q47_YEAR)),
+                           GreaterThan(col("avg_monthly"), lit(0.0))),
+                       GreaterThan(dev, lit(0.1))))
+            .order_by(asc(sales - col("avg_monthly")), asc(col("l_suppkey")),
+                      asc(col("m")))
+            .limit(Q47_TOP))
+
+
+def supplier_months_reference(lineitem: pa.Table) -> pa.Table:
+    """``supplier_months_df``'s rows with numpy: the monthly sums by one
+    bincount over dense (supplier, month) numbers, the windows over the
+    groups in that order."""
+    days = lineitem.column("l_shipdate").to_numpy().astype("datetime64[D]")
+    months = days.astype("datetime64[M]").astype(np.int64)   # since 1970
+    supp = lineitem.column("l_suppkey").to_numpy()
+    # one dense group number a (supplier, month), in their order: the
+    # groups' sums are one bincount, the groups present its nonzero counts
+    m0, s0 = int(months.min()), int(supp.min())
+    span = int(months.max()) - m0 + 1
+    gid = (supp - s0) * span + (months - m0)
+    size = int(gid.max()) + 1
+    present = np.flatnonzero(np.bincount(gid, minlength=size))
+    sales = np.bincount(gid, weights=lineitem.column("l_extendedprice")
+                        .to_numpy(), minlength=size)[present]
+    s, mo = present // span + s0, present % span + m0
+    y, m = (mo // 12 + 1970).astype(np.int32), (mo % 12 + 1).astype(np.int32)
+    n = len(present)
+    iota = np.arange(n)
+    sy = _group_starts(s * 16384 + y)
+    sy_end = np.empty(n, np.int64)
+    sy_end[::-1] = np.minimum.accumulate(
+        np.where(np.r_[sy[1:] != sy[:-1], True], iota, n)[::-1])
+    avg = _segment_sums(sales, sy, sy_end) / (sy_end - sy + 1)
+    start = _group_starts(s)
+    end = np.empty(n, np.int64)
+    end[::-1] = np.minimum.accumulate(
+        np.where(np.r_[start[1:] != start[:-1], True], iota, n)[::-1])
+    first, last = start == iota, end == iota
+    lo, hi = np.maximum(iota - 1, start), np.minimum(iota + 1, end)
+    avg3 = _segment_sums(sales, lo, hi) / (hi - lo + 1)
+    keep = np.flatnonzero((y == Q47_YEAR) & (avg > 0)
+                          & (np.abs(sales - avg) / np.where(avg > 0, avg, 1)
+                             > 0.1))
+    keep = keep[np.lexsort((m[keep], s[keep], sales[keep] - avg[keep]))]
+    keep = keep[:Q47_TOP]
+    return pa.table({
+        "l_suppkey": s[keep], "y": y[keep], "m": m[keep],
+        "sum_sales": sales[keep], "avg_monthly": avg[keep],
+        "rn": (iota - start + 1).astype(np.int32)[keep],
+        "prev_sales": pa.array(np.roll(sales, 1)[keep],
+                               mask=first[keep]),
+        "next_sales": pa.array(np.roll(sales, -1)[keep], mask=last[keep]),
+        "avg3": avg3[keep]})
+
+
+def check_supplier_months(got: pa.Table, want: pa.Table) -> str:
+    return _check_window_rows(got, want, ["l_suppkey", "y", "m"],
+                              ("sum_sales", "avg_monthly", "prev_sales",
+                               "next_sales", "avg3"), "supplier months")
+
+
+def _spread3(v: np.ndarray) -> np.ndarray:
+    """The low 21 bits of each value spaced three apart (magic masks)."""
+    x = v.astype(np.uint64) & np.uint64(0x1FFFFF)
+    for shift, mask in ((32, 0x1F00000000FFFF), (16, 0x1F0000FF0000FF),
+                        (8, 0x100F00F00F00F00F), (4, 0x10C30C30C30C30C3),
+                        (2, 0x1249249249249249)):
+        x = (x | (x << np.uint64(shift))) & np.uint64(mask)
+    return x
+
+
+def zorder3_reference(a: np.ndarray, b: np.ndarray, c: np.ndarray
+                      ) -> np.ndarray:
+    """``zorder_key`` of three non-null integer or date columns with
+    numpy's magic-mask bit spread (not the port's bit loop): each value
+    saturated into int32 and offset by 2^31 (at least 1), its top 21 bits
+    spread three apart, column ``a`` the most significant of each group,
+    the top bit flipped; int64."""
+    def top21(v):
+        w = np.clip(v.astype(np.int64), -(1 << 31), (1 << 31) - 1) \
+            + (1 << 31)
+        return np.maximum(w, 1) >> 11
+    z = (_spread3(top21(a)) << np.uint64(2)) | \
+        (_spread3(top21(b)) << np.uint64(1)) | _spread3(top21(c))
+    return (z ^ np.uint64(1 << 63)).view(np.int64)
+
+
+def zorder_df(lineitem: pa.Table, num_slices: int = 8):
+    """Delta's OPTIMIZE ZORDER BY (l_partkey, l_suppkey, l_shipdate) as the
+    JAX ``io/delta.py`` runs it: the rows sorted by their Morton key,
+    which the query keeps as ``z``."""
+    from .expressions.zorder import zorder_key
+    z = zorder_key(col("l_partkey"), col("l_suppkey"), col("l_shipdate"))
+    return (_df(lineitem, num_slices)
+            .select(col("l_partkey"), col("l_suppkey"), col("l_shipdate"),
+                    z.alias("z"))
+            .order_by(asc(col("z"))))

@@ -16,8 +16,12 @@ dict group-bys and a dict-keyed hash join. Slow and plainly correct.
 
 ``RowEvaluator`` dispatches on ``_eval_<ExpressionClass>``. A class without
 a handler raises ``NotImplementedError`` naming ROADMAP item 7, which brings
-the rest of the expressions with their device side (windows and
-``zorder.py`` among them). The map lambdas, ``zip_with`` and a standalone
+the rest of the expressions with their device side (the Python UDFs);
+``InterleaveBits`` and the window functions have no handler here, as in
+the JAX package, and raise its message (``NO_HANDLER``): the window
+operator computes the functions (``_window_values``, Spark's definitions
+partition by partition, a value-bounded RANGE frame by a positional
+scan). The map lambdas, ``zip_with`` and a standalone
 ``from_json`` have no handler here, as in the JAX package: tagging never
 sends them to the CPU, and one that it refuses raises. Arrays are lists,
 structs dicts and maps lists of (key, value) pairs; ``ordkey`` orders and
@@ -94,6 +98,7 @@ compares on its shape, not its rows.
 
 from __future__ import annotations
 
+import bisect
 import calendar
 import datetime as _dt
 import decimal as _dec
@@ -130,7 +135,18 @@ _SOUNDEX_CODES = {ch: code for letters, code in (
     ("R", "6"), ("HW", "7")) for ch in letters}
 
 
+#: expressions the port has whose rows no handler computes, as in the JAX
+#: interpreter (a window function is the window operator's to evaluate;
+#: ``InterleaveBits`` runs on the device alone): they raise the JAX
+#: interpreter's message
+NO_HANDLER = frozenset({
+    "InterleaveBits", "WindowExpression", "RowNumber", "Rank", "NTile",
+    "PercentRank", "CumeDist", "NthValue", "LagLead", "WindowAgg"})
+
+
 def _later(what: str) -> NotImplementedError:
+    if what in NO_HANDLER:
+        return NotImplementedError(f"CPU interpreter: {what}")
     return NotImplementedError(
         f"CPU interpreter: {what} is not in the port yet ({LATER_ITEM})")
 
@@ -2384,6 +2400,167 @@ class Interpreter:
                 for i, v in enumerate(arr):
                     out.append(r + (i, v) if p.pos else r + (v,))
         return out
+
+    def _exec_LogicalWindow(self, p):
+        rows, ev, bind = self._child(p)
+        cols, layouts = [], {}
+        for e in p.window_exprs:
+            w = bind(e.child if isinstance(e, Alias) else e)
+            cols.append(self._window_values(w, rows, ev, layouts))
+        return [r + tuple(c[i] for c in cols) for i, r in enumerate(rows)]
+
+    @staticmethod
+    def _window_layout(spec, rows, ev):
+        """The rows' indices cut into partitions, each in the spec's order,
+        and every row's order key."""
+
+        def okey(r):
+            parts = []
+            for o in spec.orders:
+                v = ev.eval(o.child, r)
+                if v is None:
+                    parts.append((0 if o.effective_nulls_first else 2, ()))
+                else:
+                    k = ordkey(v)
+                    parts.append((1, _NegKey(k)) if o.descending else (1, k))
+            return tuple(parts)
+
+        def pkey(r):
+            return tuple((0, ()) if v is None else (1, ordkey(v))
+                         for v in (ev.eval(e, r) for e in spec.partition_keys))
+
+        pk = [pkey(r) for r in rows]
+        ok = [okey(r) for r in rows]
+        order = sorted(range(len(rows)), key=lambda i: (pk[i], ok[i]))
+        parts: List[List[int]] = []
+        for i in order:
+            if parts and pk[parts[-1][0]] == pk[i]:
+                parts[-1].append(i)
+            else:
+                parts.append([i])
+        return parts, ok
+
+    def _window_values(self, w, rows, ev, layouts: dict) -> list:
+        """One window expression's value for every row, in row order: the
+        rows sorted by (partition, order) keys and cut into partitions
+        (once a spec, kept in ``layouts``), and the function computed over
+        each partition as Spark defines it."""
+        spec = w.spec
+        key = (repr(spec.partition_keys), repr(spec.orders))
+        if key not in layouts:
+            layouts[key] = self._window_layout(spec, rows, ev)
+        parts, ok = layouts[key]
+        out: List[Any] = [None] * len(rows)
+        fn = w.function
+        name = type(fn).__name__
+        frame = spec.frame
+        # a value-bounded RANGE frame reads the order values: once a
+        # partition
+        by_value = (not frame.is_rows and not frame.is_full_partition
+                    and not frame.is_running and len(spec.orders) == 1)
+        for part in parts:
+            m = len(part)
+            okeys = [ok[i] for i in part]
+            ovals = ([ev.eval(spec.orders[0].child, rows[x]) for x in part]
+                     if by_value and name in ("NthValue", "WindowAgg")
+                     else None)
+            if name == "RowNumber":
+                for j, i in enumerate(part):
+                    out[i] = j + 1
+            elif name in ("Rank", "PercentRank"):
+                rank = dense = 0
+                for j, i in enumerate(part):
+                    if j == 0 or okeys[j] != okeys[j - 1]:
+                        rank = j + 1
+                        dense += 1
+                    if name == "PercentRank":
+                        out[i] = 0.0 if m <= 1 else (rank - 1) / (m - 1)
+                    else:
+                        out[i] = dense if fn.dense else rank
+            elif name == "NTile":
+                base, rem = m // fn.buckets, m % fn.buckets
+                cut = rem * (base + 1)
+                for j, i in enumerate(part):
+                    out[i] = (j // (base + 1) if j < cut
+                              else rem + (j - cut) // max(base, 1)) + 1
+            elif name == "CumeDist":
+                last = m - 1
+                for j in range(m - 1, -1, -1):
+                    if j < m - 1 and okeys[j] != okeys[j + 1]:
+                        last = j
+                    out[part[j]] = (last + 1) / m
+            elif name == "NthValue":
+                for j, i in enumerate(part):
+                    lo, hi = self._frame_lo_hi(frame, spec, j, m, okeys,
+                                               ovals)
+                    ix = lo + fn.n - 1
+                    out[i] = ev.eval(fn.child, rows[part[ix]]) \
+                        if lo <= ix <= hi else None
+            elif name == "LagLead":
+                for j, i in enumerate(part):
+                    src = j - fn.offset if fn.is_lag else j + fn.offset
+                    if 0 <= src < m:
+                        out[i] = ev.eval(fn.child, rows[part[src]])
+                    elif fn.default is not None:
+                        out[i] = ev.eval(fn.default, rows[i])
+            elif name == "WindowAgg":
+                a = fn.agg
+                xs = ([ev.eval(a.children[0], rows[i]) for i in part]
+                      if a.children else None)
+                for j, i in enumerate(part):
+                    lo, hi = self._frame_lo_hi(frame, spec, j, m, okeys,
+                                               ovals)
+                    if lo > hi:
+                        lo, hi = 0, -1
+                    out[i] = _agg_value(
+                        a, None if xs is None else xs[lo:hi + 1],
+                        max(hi - lo + 1, 0))
+            else:
+                raise _later(name)
+        return out
+
+    @staticmethod
+    def _frame_lo_hi(frame, spec, j, m, okeys, ovals):
+        """[lo, hi]: row j's frame as positions in its sorted partition. A
+        value-bounded RANGE frame compares the shifted value (``ovals``:
+        the partition's order values) with the partition's sort keys
+        (``okeys``): a null takes its nulls-first or -last rank and a null
+        row's bound is null, as in Spark's RangeBoundOrdering frame scan,
+        which makes null rows positional members of an unbounded side."""
+        if frame.is_full_partition:
+            return 0, m - 1
+        if frame.is_running and not frame.is_rows:
+            hi = j
+            while hi + 1 < m and okeys[hi + 1] == okeys[j]:
+                hi += 1
+            return 0, hi
+        if frame.is_rows:
+            lo = 0 if frame.start is None else j + frame.start
+            hi = m - 1 if frame.end is None else j + frame.end
+            return max(lo, 0), min(hi, m - 1)
+        if len(spec.orders) != 1:
+            raise ValueError(
+                "value-bounded RANGE frames need exactly one order key")
+        o0 = spec.orders[0]
+        k = ovals[j]
+
+        def bound_key(delta):
+            """The sort key of the row's value shifted by ``delta``: the
+            partition's keys are sorted, so the frame is a binary search."""
+            if k is None:
+                return ((0 if o0.effective_nulls_first else 2, ()),)
+            if isinstance(k, _dt.datetime):     # offsets in microseconds
+                delta = _dt.timedelta(microseconds=delta)
+            elif isinstance(k, _dt.date):       # offsets in days
+                delta = _dt.timedelta(days=delta)
+            b = ordkey(k - delta if o0.descending else k + delta)
+            return ((1, _NegKey(b) if o0.descending else b),)
+
+        lo = 0 if frame.start is None else \
+            bisect.bisect_left(okeys, bound_key(frame.start))
+        hi = m - 1 if frame.end is None else \
+            bisect.bisect_right(okeys, bound_key(frame.end)) - 1
+        return lo, hi
 
     def _exec_LogicalJoin(self, p):
         lc, rc = p.children

@@ -3,8 +3,7 @@
 Port of ``spark_rapids_tpu/plan/logical.py``: a tree of operator nodes
 carrying unbound expression trees, the point where the planner
 (``plan/overrides.py``) wraps, tags and converts them to the port's
-physical operators. ``LogicalWindow`` and ``DataFrame.window`` come with
-their operator (ROADMAP item 7).
+physical operators.
 
 A scan of an Arrow table declares the table's Arrow schema, string columns
 64 bytes wide, as the JAX package's ``table()`` does.
@@ -160,6 +159,21 @@ class LogicalExpand(LogicalPlan):
 
 
 @dataclass
+class LogicalWindow(LogicalPlan):
+    window_exprs: Sequence[Expression] = ()   # WindowExpression or Alias
+
+    def schema(self) -> Schema:
+        child_schema = self.children[0].schema()
+        fields = list(child_schema.fields)
+        for i, e in enumerate(self.window_exprs):
+            w = e.child if isinstance(e, Alias) else e
+            name = e.name if isinstance(e, Alias) else f"window{i}"
+            b = w.bind(child_schema)
+            fields.append(SField(name, b.dtype, b.nullable))
+        return Schema(fields)
+
+
+@dataclass
 class LogicalSample(LogicalPlan):
     fraction: float = 0.1
     seed: int = 0
@@ -267,6 +281,11 @@ class DataFrame:
                                        alias, pos_alias, value_alias))
         df.plan.schema()    # validate the generator type eagerly
         return df
+
+    def window(self, *window_exprs) -> "DataFrame":
+        """Append window-function columns (``select(fn.over(...))``);
+        the expressions of one call share one partition and order spec."""
+        return DataFrame(LogicalWindow((self.plan,), list(window_exprs)))
 
     def schema(self) -> Schema:
         return self.plan.schema()

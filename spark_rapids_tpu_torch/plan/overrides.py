@@ -21,8 +21,11 @@ or launch, an OOM past the retry loop, an ANSI error) raises and is never
 sent to the interpreter.
 
 Reason strings are the JAX package's word for word, so that explain output
-compares between the packages. The window checks are left out with the
-operator they gate (ROADMAP item 7).
+compares between the packages. A window average over a decimal
+(``exec/window.py`` ``window_agg_unsupported_reason``) is an island with
+the JAX aggregate's reason, where the JAX planner, whose tagging walks
+past a window's aggregate node, lets it through to a device double read
+as a decimal.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from ..config import (AGG_MAX_RESULT_ROWS, BROADCAST_LIMIT,
                       BROADCAST_THRESHOLD, CAST_STRING_TO_FLOAT, CBO_ENABLED,
                       COALESCE_MAX_ROWS, DPP_ENABLED, JOIN_MAX_BUILD_ROWS,
                       PARQUET_ENABLED, REGEXP_ENABLED, SHUFFLE_PARTITIONS,
-                      RapidsTpuConf)
+                      WINDOW_BATCH_ROWS, RapidsTpuConf)
 from ..exec import (BroadcastNestedLoopJoinExec, ExpandExec, FilterExec,
                     GlobalLimitExec, HashAggregateExec, HashJoinExec,
                     InMemoryScanExec, ProjectExec, RangeExec, SampleExec,
@@ -52,6 +55,8 @@ from ..exec.base import collect as collect_exec
 from ..exec.join import JoinType
 from ..expressions import base as EB
 from ..expressions.base import Alias, EvalContext, Expression
+from ..expressions.window import (WindowAgg, WindowExpression,
+                                  unsupported_frame_reason)
 from ..memory.catalog import BufferCatalog
 from ..shuffle import (BroadcastExchangeExec, HashPartitioning,
                        SinglePartitioning)
@@ -385,6 +390,8 @@ class PlanMeta:
             return [e for p in n.projections for e in p]
         if isinstance(n, L.LogicalGenerate):
             return [n.generator]
+        if isinstance(n, L.LogicalWindow):
+            return list(n.window_exprs)
         return []
 
     def _tag_expressions(self) -> None:
@@ -420,14 +427,22 @@ class PlanMeta:
             key = {"parquet": PARQUET_ENABLED.key}.get(fmt)
             if key is not None and not self.conf.get(key):
                 self.will_not_work(f"{key} is false")
-        if isinstance(n, (L.LogicalSort, L.LogicalJoin, L.LogicalAggregate)):
-            # arrays, maps and structs ride through sort, join and
-            # aggregate as payload; as keys they have no orderable or
+        if isinstance(n, (L.LogicalSort, L.LogicalJoin, L.LogicalAggregate,
+                          L.LogicalWindow)):
+            # arrays, maps and structs ride through sort, join, aggregate
+            # and window as payload; as keys they have no orderable or
             # hashable encoding on the device
             if isinstance(n, L.LogicalSort):
                 keys = [o.child for o in n.orders]
             elif isinstance(n, L.LogicalAggregate):
                 keys = list(n.group_exprs)
+            elif isinstance(n, L.LogicalWindow):
+                keys = []
+                for e in n.window_exprs:
+                    w = e.child if isinstance(e, Alias) else e
+                    if isinstance(w, WindowExpression):
+                        keys.extend(w.spec.partition_keys)
+                        keys.extend(o.child for o in w.spec.orders)
             else:
                 keys = list(n.left_keys) + list(n.right_keys)
             schemas = [c.schema() for c in n.children]
@@ -474,7 +489,46 @@ class PlanMeta:
                     f"{len(sensitive)} sort-sensitive aggregates "
                     f"(percentile/collect) in one aggregation; the device "
                     f"exec supports one value-sorted layout")
+        if isinstance(n, L.LogicalWindow):
+            self._tag_window(n)
         self._tag_dtype_hazards()
+
+    def _tag_window(self, n: "L.LogicalWindow") -> None:
+        """The frame check, the port's window-aggregate check, and the
+        capacity gate: the device window needs a whole window partition in
+        one batch, so a window without PARTITION BY over more rows than
+        the largest batch has no device path (no streaming window, the
+        reference's GpuWindowExec.scala:1534,1846): an island with the
+        reason, not a cliff at run time."""
+        from ..exec.window import window_agg_unsupported_reason
+        unpartitioned = False
+        schema = n.children[0].schema()
+        for e in n.window_exprs:
+            w = e.child if isinstance(e, Alias) else e
+            if not isinstance(w, WindowExpression):
+                continue
+            if not w.spec.partition_keys:
+                unpartitioned = True
+            if isinstance(w.function, WindowAgg):
+                reason = unsupported_frame_reason(w.spec.frame, w.spec)
+                if reason:
+                    self.will_not_work(reason)
+                try:
+                    agg = w.function.agg.bind(schema)
+                except Exception:
+                    continue
+                reason = window_agg_unsupported_reason(agg)
+                if reason:
+                    self.will_not_work(reason)
+        if unpartitioned:
+            est = estimate_rows(n.children[0])
+            cap = self.conf.batch_row_capacity
+            if est is not None and est > cap:
+                self.will_not_work(
+                    f"window without PARTITION BY over ~{est} rows "
+                    f"needs the whole input in one device batch, "
+                    f"above batchRowCapacity={cap}; streaming "
+                    f"windows are not implemented")
 
     # aggregates whose float64 accumulation the JAX package gates behind
     # incompatibleOps (its backend emulates f64 with f32 pairs). The card
@@ -900,6 +954,8 @@ class Overrides:
                                 value_name=n.value_name, ctx=self._ctx())
         if isinstance(n, L.LogicalSort):
             return SortExec(n.orders, ch[0], global_sort=n.global_sort)
+        if isinstance(n, L.LogicalWindow):
+            return self._convert_window(n, ch[0])
         if isinstance(n, L.LogicalAggregate):
             return self._convert_aggregate(n, ch[0])
         if isinstance(n, L.LogicalJoin):
@@ -938,6 +994,27 @@ class Overrides:
         return HashAggregateExec(n.group_exprs, n.agg_exprs, ex,
                                  AggregateMode.FINAL,
                                  max_result_rows=agg_rows)
+
+    def _convert_window(self, n: L.LogicalWindow, child: Exec) -> Exec:
+        """A hash exchange on the partition keys (or one partition, for a
+        window without them), then, with keys, a ``KeyBatchingExec`` that
+        bounds the window's batches to whole key groups (reference:
+        GpuKeyBatchingIterator feeding GpuWindowExec), under the
+        ``WindowExec``."""
+        from ..exec.key_batching import KeyBatchingExec
+        from ..exec.window import WindowExec
+        first = n.window_exprs[0]
+        w = first.child if isinstance(first, Alias) else first
+        pkeys = list(w.spec.partition_keys)
+        if pkeys and child.num_partitions > 1:
+            child = self._exchange(
+                HashPartitioning(pkeys, self._shuffle_partitions()), child)
+        elif child.num_partitions > 1:
+            child = self._exchange(SinglePartitioning(), child)
+        if pkeys:
+            child = KeyBatchingExec(pkeys, child,
+                                    self.conf.get(WINDOW_BATCH_ROWS.key))
+        return WindowExec(n.window_exprs, child)
 
     def _maybe_dpp(self, stream: Exec, build: Exec, left_keys, right_keys,
                    join_type: JoinType) -> Optional[Exec]:

@@ -515,16 +515,22 @@ def test_file_scan_reads_the_source(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_unported_expression_raises_naming_item_7():
-    """Expressions of modules still to come (zorder.py's interleave_bits,
-    a window function) and the window operator have no handler yet: each
-    raises naming item 7, from a projection and from an aggregate's
-    input."""
+    """An expression of a module still to come (a scalar pandas UDF of
+    ``python_exec.py``) has no handler yet and raises naming item 7, from
+    a projection and from an aggregate's input, and so does an operator
+    still to come. The window functions and ``LogicalWindow`` run;
+    ``InterleaveBits`` and a window function outside a window raise the
+    JAX interpreter's message (no handler there either)."""
     from dataclasses import dataclass
+    from spark_rapids_tpu_torch.exec.sort import asc
     from spark_rapids_tpu_torch.expressions.aggregates import Count
     from spark_rapids_tpu_torch.expressions.base import Expression
+    from spark_rapids_tpu_torch.expressions.window import (NthValue,
+                                                           RowNumber, over)
+    from spark_rapids_tpu_torch.expressions.zorder import zorder_key
 
     @dataclass(frozen=True, eq=False)
-    class InterleaveBits(Expression):
+    class PandasUDF(Expression):
         child: Expression
 
         @property
@@ -532,32 +538,41 @@ def test_unported_expression_raises_naming_item_7():
             return (self.child,)
 
         def with_children(self, c):
-            return InterleaveBits(c[0])
+            return PandasUDF(c[0])
 
         @property
         def dtype(self):
-            return PORT.T.array(PORT.T.INT64)
+            return PORT.T.INT64
 
-    @dataclass(frozen=True, eq=False)
-    class NthValue(InterleaveBits):
-        def with_children(self, c):
-            return NthValue(c[0])
-
-    class LogicalWindow(L.LogicalPlan):
+    class LogicalArrowEvalPython(L.LogicalPlan):
         def schema(self):
             return self.children[0].schema()
 
     t = PORT.table(D)
     with pytest.raises(NotImplementedError,
-                       match="InterleaveBits.*ROADMAP item 7"):
-        I.Interpreter().execute(t.select(InterleaveBits(
+                       match="PandasUDF.*ROADMAP item 7"):
+        I.Interpreter().execute(t.select(PandasUDF(
             PORT.col("w")).alias("u")).plan)
     with pytest.raises(NotImplementedError,
-                       match="NthValue.*ROADMAP item 7"):
+                       match="PandasUDF.*ROADMAP item 7"):
+        I.Interpreter().execute(t.group_by("k2").agg(
+            Count(PandasUDF(PORT.col("w"))).alias("c")).plan)
+    with pytest.raises(NotImplementedError,
+                       match="ArrowEvalPython.*ROADMAP item 7"):
+        I.Interpreter().execute(LogicalArrowEvalPython((t.plan,)))
+    with pytest.raises(NotImplementedError,
+                       match=r"^CPU interpreter: InterleaveBits$"):
+        I.Interpreter().execute(t.select(zorder_key(
+            PORT.col("w"), PORT.col("k2")).alias("z")).plan)
+    with pytest.raises(NotImplementedError,
+                       match=r"^CPU interpreter: NthValue$"):
         I.Interpreter().execute(t.group_by("k2").agg(
             Count(NthValue(PORT.col("w"))).alias("c")).plan)
-    with pytest.raises(NotImplementedError, match="Window.*ROADMAP item 7"):
-        I.Interpreter().execute(LogicalWindow((t.plan,)))
+    out = I.Interpreter().execute(t.window(
+        over(RowNumber(), [PORT.col("k2")], [asc(PORT.col("w"))])
+        .alias("rn")).plan)
+    assert out.num_rows == D.num_rows
+    assert out.column_names == D.column_names + ["rn"]
 
 
 def test_row_evaluator_dispatch_is_the_jax_ones():
